@@ -1,0 +1,32 @@
+"""Architecture registry: ``--arch <id>`` resolves here.
+
+Slice 1 of the port carries the dense GQA decoder only; every other
+architecture of ``repro`` arrives with the slice that ports its layers
+(ROADMAP.md, queue A).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_MODULES = {"granite-8b": "granite_8b"}
+
+#: Architectures of the reference that later slices of the port add.
+LATER_SLICES = (
+    "deepseek-v2-lite-16b", "arctic-480b", "whisper-base", "gemma3-27b",
+    "gemma2-2b", "gemma3-4b", "xlstm-1.3b", "internvl2-26b",
+    "jamba-1.5-large-398b",
+)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id in LATER_SLICES:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP.md queue A: its "
+            f"layer kinds arrive in a later slice); ported: "
+            f"{sorted(_MODULES)}")
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.CONFIG

@@ -1,0 +1,25 @@
+"""Static schedule table of the port's kernels, keyed ``(op, param)``.
+
+The counterpart of ``repro.core.tuning`` without targets or the
+autotuner (ROADMAP.md queue A, item 14): one card, one table.  The
+flash kernel's tile sizes are compiled in (``csrc/flash_attention.cu``
+refuses others); the decode kernels take ``block_kv`` at run time, up
+to 64 tokens.
+"""
+from __future__ import annotations
+
+TABLE = {
+    ("flash_attention", "block_q"): 64,
+    ("flash_attention", "block_kv"): 64,
+    ("decode_attention", "block_kv"): 64,
+    ("paged_decode_attention", "page_size"): 64,
+    ("paged_decode_attention", "block_kv"): 64,
+}
+
+
+def block_size(op: str, param: str) -> int:
+    try:
+        return TABLE[(op, param)]
+    except KeyError:
+        raise KeyError(f"no tuning entry for ({op!r}, {param!r}); known: "
+                       f"{sorted(TABLE)}") from None

@@ -1,0 +1,89 @@
+// Shared helpers of the port's CUDA kernels: element conversion, the
+// large-negative mask value of the reference kernels, and the error
+// string entry point every library exports for its ctypes wrapper.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+// Masked scores use -1e30 rather than -inf, as the reference does, so a
+// fully masked row never produces inf - inf = NaN.
+constexpr float NEG_INF = -1e30f;
+
+// dtype codes passed by the Python wrappers
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch does
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Stage the first `rows` rows of a row-major ROWS x D tile of T into
+// shared memory as f32 (row stride `ld`, times `scale`); rows past
+// `rows` become 0.  Each thread issues all its 16-byte loads before it
+// converts and stores any, so the tile costs about one memory latency,
+// not one per element: with one small CTA per SM nothing else would
+// hide it.  `src` must be 16-byte aligned (the Python wrappers check).
+template <typename T, int ROWS, int D, int NT>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
+                                           float* dst, int ld, int rows,
+                                           float scale = 1.f) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int PER_ROW = D / VEC;
+  constexpr int ITERS = ROWS * PER_ROW / NT;
+  static_assert(D % VEC == 0 && ROWS * PER_ROW % NT == 0, "tile shape");
+  uint4 buf[ITERS];
+#pragma unroll
+  for (int i = 0; i < ITERS; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    buf[i] = idx / PER_ROW < rows
+                 ? __ldg(reinterpret_cast<const uint4*>(src) + idx)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int i = 0; i < ITERS; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / PER_ROW, c = idx % PER_ROW * VEC;
+    const T* e = reinterpret_cast<const T*>(&buf[i]);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dst[r * ld + c + j] = to_f32(e[j]) * scale;
+  }
+}
+
+// Raise a kernel's dynamic shared-memory cap once per instantiation;
+// above 48 KB a launch without it is refused.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace repro
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,95 @@
+// Dense flash decode: one new query token per batch row against a
+// dense KV cache (B, Hkv, S, D); returns the unnormalized residuals
+// (acc, m, l) in f32.
+//
+// Replaces the TPU kernel src/repro/kernels/decode_attention/
+// decode_attention.py (decode_attention_fwd, body _decode_kernel +
+// flash_decode_step).
+//
+// Bound on the H100: bytes.  Every live K/V row is read once and used
+// for G = Hq / Hkv dot products (about 1 flop per byte in bf16).
+// Design: one CTA per (batch row, kv head) walks its cache in 64-token
+// blocks up to lengths[b] (decode_common.cuh), so all G query heads of
+// a group share each K/V read.  B x Hkv CTAs under-fill the card at
+// small batch (8 slots x 8 heads = 64 CTAs on 132 SMs); splitting the
+// sequence across CTAs with an LSE combine is a later PR's design.
+#include "decode_common.cuh"
+
+namespace {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+              const T* __restrict__ vc, const int* __restrict__ lengths,
+              float* acc_out, float* m_out, float* l_out, int hq, int hkv,
+              int s, int bk, float scale, int window, float softcap) {
+  extern __shared__ float smem[];
+  const repro::DecodeSmem<D> sm(smem);
+  const int h = blockIdx.x, b = blockIdx.y, g = hq / hkv;
+  const size_t row0 = static_cast<size_t>(b) * hq + h * g;
+  float acc[repro::G_MAX];
+  repro::decode_init<T, D>(sm, q + row0 * D, g, scale, acc);
+  const int length = min(lengths[b], s);
+  const size_t base = static_cast<size_t>(b * hkv + h) * s * D;
+  for (int k0 = 0; k0 < length; k0 += bk)
+    repro::decode_block<T, D>(sm, kc + base + static_cast<size_t>(k0) * D,
+                              vc + base + static_cast<size_t>(k0) * D,
+                              min(bk, s - k0), k0, length, g, window, softcap,
+                              acc);
+  repro::decode_store<D>(sm, acc, g, row0, acc_out, m_out, l_out);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* kc, const void* vc,
+                   const int* lengths, float* acc, float* m, float* l,
+                   int b, int hq, int hkv, int s, int bk, float scale,
+                   int window, float softcap, cudaStream_t stream) {
+  const size_t bytes = repro::decode_smem_floats<D>() * sizeof(float);
+  static const cudaError_t attr = repro::allow_smem(decode_kernel<T, D>, bytes);
+  if (attr != cudaSuccess) return attr;
+  decode_kernel<T, D><<<dim3(hkv, b), D, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), lengths, acc, m, l, hq, hkv, s, bk, scale,
+      window, softcap);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(int d, const void* q, const void* kc, const void* vc,
+                       const int* lengths, float* acc, float* m, float* l,
+                       int b, int hq, int hkv, int s, int bk, float scale,
+                       int window, float softcap, cudaStream_t stream) {
+  if (d == 64)
+    return launch<T, 64>(q, kc, vc, lengths, acc, m, l, b, hq, hkv, s, bk,
+                         scale, window, softcap, stream);
+  if (d == 128)
+    return launch<T, 128>(q, kc, vc, lengths, acc, m, l, b, hq, hkv, s, bk,
+                          scale, window, softcap, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int decode_attention_fwd(const void* q, const void* kc,
+                                    const void* vc, const void* lengths,
+                                    void* acc, void* m, void* l, int b,
+                                    int hq, int hkv, int s, int d, int bk,
+                                    float scale, int window, float softcap,
+                                    int dtype, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::G_MAX || bk < 1 ||
+      bk > repro::BK_MAX)
+    return cudaErrorInvalidValue;
+  if (b == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* len = static_cast<const int*>(lengths);
+  float* a = static_cast<float*>(acc);
+  float* mm = static_cast<float*>(m);
+  float* ll = static_cast<float*>(l);
+  if (dtype == repro::DTYPE_F32)
+    return dispatch_d<float>(d, q, kc, vc, len, a, mm, ll, b, hq, hkv, s, bk,
+                             scale, window, softcap, st);
+  if (dtype == repro::DTYPE_BF16)
+    return dispatch_d<__nv_bfloat16>(d, q, kc, vc, len, a, mm, ll, b, hq, hkv,
+                                     s, bk, scale, window, softcap, st);
+  return cudaErrorInvalidValue;
+}

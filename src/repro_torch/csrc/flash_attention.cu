@@ -1,0 +1,237 @@
+// Flash attention forward (prefill): online-softmax blocked attention
+// with GQA, causal / sliding-window / tanh-softcap masks, a static q
+// offset, ragged lengths, and fully masked rows written as 0.
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention/
+// flash_attention.py (flash_attention_fwd, body _fa_kernel).
+//
+// Bound on the H100: bytes for prompts up to about 740 tokens, then
+// operations (causal, 32/8 heads of 128: 0.4 S flops per byte moved,
+// 205 at S = 512, against the card's bf16 ridge of 295).  This
+// first kernel is far from either: it runs the math as f32 FMA on the
+// CUDA cores, not on the tensor cores; mma.sync, then wgmma and TMA, are
+// later PRs' work.
+// Design: one 256-thread CTA per (batch, q head, 64-row q tile); the
+// TPU's sequential kv grid axis becomes a loop inside the CTA, carrying
+// (m, l, acc) in shared memory and registers.  Q, K and V tiles are
+// staged in shared memory as f32 by stage_tile (16-byte loads, all in
+// flight together; K and Q rows padded to d + 1 floats so the 16
+// threads of a half-warp hit 16 banks); each thread owns a 4 x 4 block
+// of the score tile and a 4 x (d/16) block of the output.  KV tiles that lie
+// wholly after the causal bound or before the window are skipped, as
+// the reference's `needed` predicate does.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BQ = 64;   // q rows per CTA
+constexpr int BK = 64;   // kv rows per loop step
+constexpr int NT = 256;  // threads per CTA: a 16 x 16 grid
+constexpr int LDS = BK + 1;
+
+template <int D>
+constexpr size_t smem_floats() {
+  return static_cast<size_t>(BQ) * (D + 1) + BK * (D + 1) + BK * D +
+         BQ * LDS + 3 * BQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int hq,
+                 int hkv, int sq, int skv, float scale, int causal,
+                 int window, float softcap, int q_offset) {
+  constexpr int LD = D + 1;
+  constexpr int DC = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;             // BQ x LD, pre-scaled
+  float* sK = sQ + BQ * LD;     // BK x LD
+  float* sV = sK + BK * LD;     // BK x D
+  float* sS = sV + BK * D;      // BQ x LDS: scores, then probabilities
+  float* sM = sS + BQ * LDS;    // running row max
+  float* sL = sM + BQ;          // running row sum
+  float* sA = sL + BQ;          // this step's rescale factor per row
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int q0 = blockIdx.x * BQ;     // first q row (local)
+  const int qpos0 = q0 + q_offset;    // its global position
+  const T* qb = q + static_cast<size_t>(b * hq + h) * sq * D;
+  const T* kb = k + static_cast<size_t>(b * hkv + kvh) * skv * D;
+  const T* vb = v + static_cast<size_t>(b * hkv + kvh) * skv * D;
+
+  repro::stage_tile<T, BQ, D, NT>(qb + static_cast<size_t>(q0) * D, sQ, LD,
+                                  sq - q0, scale);
+  if (tid < BQ) {
+    sM[tid] = repro::NEG_INF;
+    sL[tid] = 0.f;
+  }
+
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+
+  // kv tiles that can hold an unmasked key for some row of this q tile
+  int hi = (skv + BK - 1) / BK;
+  if (causal) hi = min(hi, (qpos0 + BQ - 1) / BK + 1);
+  int lo = 0;
+  if (window > 0) {
+    const int t = qpos0 - window - (BK - 1);  // tiles with k_start <= t are dead
+    lo = t >= 0 ? t / BK + 1 : 0;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  for (int it = lo; it < hi; ++it) {
+    const int k0 = it * BK;
+    __syncthreads();  // the previous step's readers of sK/sV/sS are done
+    const size_t off = static_cast<size_t>(k0) * D;
+    repro::stage_tile<T, BK, D, NT>(kb + off, sK, LD, skv - k0);
+    repro::stage_tile<T, BK, D, NT>(vb + off, sV, D, skv - k0);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < D; ++c) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * LD + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LD + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, cc = tx + 16 * j;
+        const int qp = qpos0 + r, kp = k0 + cc;
+        float x = s[i][j];
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        bool ok = kp < skv;
+        if (causal) ok = ok && qp >= kp;
+        if (window > 0) ok = ok && qp - kp < window;
+        sS[r * LDS + cc] = ok ? x : repro::NEG_INF;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: each warp owns 8 rows, each lane 2 columns
+    for (int rr = 0; rr < BQ / (NT / 32); ++rr) {
+      const int r = warp * (BQ / (NT / 32)) + rr;
+      const float x0 = sS[r * LDS + lane], x1 = sS[r * LDS + lane + 32];
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, repro::warp_max(fmaxf(x0, x1)));
+      // a row with no live key so far keeps p = 0 (exp(0) would be 1)
+      const bool live = m_new > repro::NEG_INF / 2;
+      const float p0 = live ? expf(x0 - m_new) : 0.f;
+      const float p1 = live ? expf(x1 - m_new) : 0.f;
+      sS[r * LDS + lane] = p0;
+      sS[r * LDS + lane + 32] = p1;
+      const float sum = repro::warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = live ? expf(m_old - m_new) : 0.f;
+        sA[r] = alpha;
+        sL[r] = alpha * sL[r] + sum;
+        sM[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = sA[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) acc[i][j] *= a;
+    }
+    for (int c = 0; c < BK; ++c) {
+      float p[4], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * LDS + c];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) vv[j] = sV[c * D + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+    }
+  }
+  __syncthreads();
+
+  T* ob = o + static_cast<size_t>(b * hq + h) * sq * D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r >= sq) continue;
+    float l = sL[r];
+    l = l == 0.f ? 1.f : l;  // fully masked rows come out as 0
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] =
+          repro::from_f32<T>(acc[i][j] / l);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int hq, int hkv, int sq, int skv, float scale,
+                   int causal, int window, float softcap, int q_offset,
+                   cudaStream_t stream) {
+  const size_t bytes = smem_floats<D>() * sizeof(float);
+  static const cudaError_t attr =
+      repro::allow_smem(flash_fwd_kernel<T, D>, bytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
+  flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, skv, scale,
+      causal, window, softcap, q_offset);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
+                       void* o, int b, int hq, int hkv, int sq, int skv,
+                       float scale, int causal, int window, float softcap,
+                       int q_offset, cudaStream_t stream) {
+  if (d == 64)
+    return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
+                         window, softcap, q_offset, stream);
+  if (d == 128)
+    return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
+                          window, softcap, q_offset, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// block_q / block_kv are the tuning table's values: this build holds
+// one schedule, 64 x 64, and refuses any other.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* o, int b, int hq,
+                                   int hkv, int sq, int skv, int d,
+                                   float scale, int causal, int window,
+                                   float softcap, int q_offset, int block_q,
+                                   int block_kv, int dtype, void* stream) {
+  if (block_q != BQ || block_kv != BK || hkv <= 0 || hq % hkv != 0)
+    return cudaErrorInvalidValue;
+  if (b == 0 || sq == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::DTYPE_F32)
+    return dispatch_d<float>(d, q, k, v, o, b, hq, hkv, sq, skv, scale,
+                             causal, window, softcap, q_offset, s);
+  if (dtype == repro::DTYPE_BF16)
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, b, hq, hkv, sq, skv,
+                                     scale, causal, window, softcap,
+                                     q_offset, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,71 @@
+"""Launcher of the CUDA dense decode kernel (``csrc/decode_attention.cu``).
+
+Returns the unnormalized residuals (acc, m, l) in f32, the contract of
+``repro.kernels.decode_attention.decode_attention.decode_attention_fwd``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.build import (CudaKernel, check_cuda, dtype_code, ptr,
+                                    stream_of)
+
+_i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+KERNEL = CudaKernel(
+    "decode_attention", "decode_attention.cu", "decode_attention_fwd",
+    [_p] * 7 + [_i] * 6 + [_f, _i, _f, _i, _p])
+
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8        # G_MAX in csrc/decode_common.cuh
+MAX_BLOCK_KV = 64    # BK_MAX in csrc/decode_common.cuh
+
+
+def check_decode_operands(name: str, q, k, v, lengths) -> None:
+    """Shape/type checks shared by the dense and the paged launchers;
+    ``k``/``v`` are caches (B, Hkv, S, D) or pools (Hkv, P, ps, D)."""
+    b, hq, d = q.shape
+    if k.shape != v.shape or k.shape[-1] != d:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"{name} kernel: head dim {d} (built for "
+                                  f"{HEAD_DIMS})")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{name}: mixed dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"{name}: lengths must be ({b},) int32, got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+
+
+def residual_outputs(q) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, hq, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty((b, hq, d), **f32), torch.empty((b, hq), **f32),
+            torch.empty((b, hq), **f32))
+
+
+def decode_attention_fwd(q, k_cache, v_cache, lengths, *,
+                         window: Optional[int], softcap: Optional[float],
+                         scale: Optional[float], block_kv: int):
+    """q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) int32."""
+    check_decode_operands("decode_attention", q, k_cache, v_cache, lengths)
+    b, hq, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != b or hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} vs cache "
+                         f"{tuple(k_cache.shape)} (group <= {MAX_GROUP})")
+    if not 1 <= block_kv <= MAX_BLOCK_KV:
+        raise ValueError(f"decode_attention: block_kv {block_kv} not in "
+                         f"[1, {MAX_BLOCK_KV}]")
+    check_cuda("decode_attention", q, k_cache, v_cache, lengths)
+    acc, m, l = residual_outputs(q)
+    KERNEL.launch(ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(acc),
+                  ptr(m), ptr(l), b, hq, hkv, s, d, block_kv,
+                  float(d ** -0.5 if scale is None else scale),
+                  int(window or 0), float(softcap or 0.0), dtype_code(q),
+                  stream_of(q))
+    return acc, m, l

@@ -1,0 +1,439 @@
+"""Continuous-batching serving engine (``repro.serve.engine``): batched
+prefill admission and a device-resident decode loop over a paged or a
+dense KV cache, greedy sampling.
+
+Scheduler state (active mask, lengths, current tokens, emitted-token
+counts) lives on the device.  ``step()`` runs the model step, argmax,
+and the length/finish updates as device ops and then makes exactly one
+device-to-host copy (:func:`_device_get`) of the (next token, done)
+pair.  The host keeps numpy mirrors, updated from that copy, for
+admission and page allocation only.  Admission groups queued requests
+by exact effective prompt length and prefills each group in one batched
+call (one more copy per group, for the first sampled tokens), then
+scatters the group's K/V into slot rows (dense) or fresh pages (paged).
+
+Termination: a slot finishes when it has emitted ``max_new_tokens``,
+sampled ``eos_id``, or filled its cache (``lengths == cache_len`` after
+the final row is written, so the last row is usable).
+
+Oversubscription (paged): when an explicit ``total_pages`` leaves the
+pool smaller than the working set, a slot crossing a page boundary can
+find the pool dry.  ``preempt_policy`` "lru" preempts the least-recently
+admitted other slot, "shortest" the one with the fewest generated
+tokens, "fail" raises the allocator's error.  A preempted request is
+checkpointed as prompt + tokens so far onto a requeue deque that admits
+ahead of fresh requests, and re-prefills on re-admission, which under
+greedy decoding reproduces the un-preempted outputs token for token.
+
+Left for later slices (ROADMAP.md queue A): sampling at temperature >
+0, quantized pools, windowed pools, speculative decoding, fault
+recovery, telemetry, the priority policy and per-request budgets.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import warnings
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import tuning
+from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.models.registry import Model
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.serve import paging
+
+
+def _device_get(t: torch.Tensor) -> np.ndarray:
+    """The engine's device-to-host copy (tests count its calls)."""
+    return t.cpu().numpy()
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    slots: int = 4
+    cache_len: int = 128
+    max_new_tokens: int = 16
+    temperature: float = 0.0           # greedy only in this slice
+    eos_id: Optional[int] = None
+    paged: bool = False
+    page_size: Optional[int] = None    # None -> the tuning table (64)
+    total_pages: Optional[int] = None  # None -> 1 + slots*pages_per_slot
+    on_overflow: str = "reject"        # "reject" | "truncate"
+    preempt_policy: str = "lru"        # "lru" | "shortest" | "fail"
+
+
+#: Valid ServeConfig.preempt_policy values (launch/serve.py choices).
+PREEMPT_POLICIES = ("lru", "shortest", "fail")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: List[int]
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    truncated: bool = False
+    preempts: int = 0       # times this request was preempted/requeued
+
+
+class Engine:
+    def __init__(self, model: Model, params: Dict[str, Any],
+                 sc: ServeConfig, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"engine on {self.device}")
+        if sc.temperature > 0.0:
+            raise NotImplementedError(
+                "sampling at temperature > 0 is not ported yet (slice 1 "
+                "serves greedy decoding)")
+        if sc.preempt_policy == "priority":
+            raise NotImplementedError(
+                "preempt_policy='priority' arrives with the workload and "
+                "priority slice")
+        if sc.preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(f"preempt_policy must be one of "
+                             f"{PREEMPT_POLICIES}, got {sc.preempt_policy!r}")
+        if sc.on_overflow not in ("reject", "truncate"):
+            raise ValueError(f"on_overflow must be 'reject' or 'truncate', "
+                             f"got {sc.on_overflow!r}")
+        self.model, self.params, self.sc = model, params, sc
+        self.cfg = cfg = model.cfg
+        slots, dev = sc.slots, self.device
+
+        self.paged = sc.paged
+        if self.paged:
+            ps = sc.page_size or tuning.block_size("paged_decode_attention",
+                                                   "page_size")
+            self.page_size = max(1, min(int(ps), sc.cache_len))
+            self.pages_per_slot = paging.pages_per_slot(sc.cache_len,
+                                                        self.page_size)
+            total = sc.total_pages or (1 + slots * self.pages_per_slot)
+            self.allocator = paging.PageAllocator(total)
+            self.block_tables = np.full((slots, self.pages_per_slot),
+                                        paging.NULL_PAGE, np.int32)
+            self._bt_dev = self._upload(self.block_tables)
+            self._bt_dirty = False
+            self.caches = paging.init_paged_caches(
+                cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, total,
+                self.page_size, device=dev, dtype=dtype_of(cfg.dtype))
+        else:
+            self.caches = model.init_decode_caches(slots, sc.cache_len, dev)
+
+        # device-resident scheduler state
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.lengths = torch.zeros((slots,), **i32)
+        self.cur_tok = torch.zeros((slots,), **i32)
+        self.n_out = torch.zeros((slots,), **i32)
+        self.active_mask = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        # host mirrors (admission control / page allocation only)
+        self._len_h = np.zeros((slots,), np.int64)
+        self._active_h = np.zeros((slots,), bool)
+
+        self.active: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+        # preempted checkpoints, re-admitted ahead of the fresh queue
+        self.requeue: collections.deque = collections.deque()
+        self.metrics = MetricsRegistry()
+        self.metrics.counter("serve.preemptions")
+        for p in PREEMPT_POLICIES:
+            self.metrics.counter(f"serve.preemptions.{p}")
+        self.metrics.gauge("serve.requeue_peak_depth")
+        self._admit_seq = np.zeros((slots,), np.int64)   # lru stamps
+        self._seq = 0
+        self.step_count = 0
+
+    @property
+    def preemptions(self) -> int:
+        return self.metrics.counter("serve.preemptions").value
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, without waiting for the
+        device: a pageable source is staged before the call returns, so
+        the array may change afterwards (``_device_get`` is the step's
+        only sync)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
+
+    # -- request lifecycle ------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Queue a request; a prompt that leaves no room for one decoded
+        token is rejected (or tail-truncated) here."""
+        limit = self.sc.cache_len - 1
+        if self.paged:
+            usable = self.allocator.usable
+            if self.sc.on_overflow == "truncate":
+                limit = min(limit, usable * self.page_size - 1)
+            elif paging.pages_per_slot(len(req.tokens) + 1,
+                                       self.page_size) > usable:
+                # +1: the first decode step writes one more row
+                raise ValueError(
+                    f"request {req.rid}: prompt of {len(req.tokens)} tokens "
+                    f"(+1 decode) needs more KV pages than the whole pool "
+                    f"holds ({usable} x {self.page_size}); raise total_pages")
+        if len(req.tokens) > limit:
+            if self.sc.on_overflow == "truncate" and limit > 0:
+                warnings.warn(
+                    f"request {req.rid}: prompt of {len(req.tokens)} tokens "
+                    f"exceeds the cache capacity of {limit}; keeping the "
+                    f"last {limit}", stacklevel=2)
+                req.tokens = list(req.tokens[-limit:])
+                req.truncated = True
+            else:
+                raise ValueError(
+                    f"request {req.rid}: prompt of {len(req.tokens)} tokens "
+                    f"does not fit cache_len={self.sc.cache_len} (need <= "
+                    f"cache_len-1; set ServeConfig.on_overflow='truncate' "
+                    f"to clip instead)")
+        if not req.tokens:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        self.queue.append(req)
+
+    def _free_slots(self) -> List[int]:
+        return [s for s in range(self.sc.slots) if self.active[s] is None]
+
+    def _take_waiting(self, n: int) -> List[Request]:
+        """Up to ``n`` waiting requests: preempted checkpoints first (the
+        starvation guard), then the fresh queue, FIFO within each."""
+        picked = []
+        while len(picked) < n and self.requeue:
+            picked.append(self.requeue.popleft())
+        while len(picked) < n and self.queue:
+            picked.append(self.queue.pop(0))
+        return picked
+
+    def _requeue_front(self, reqs: List[Request]) -> None:
+        for r in reversed(reqs):
+            if r.preempts:
+                self.requeue.appendleft(r)
+            else:
+                self.queue.insert(0, r)
+
+    @torch.no_grad()
+    def _admit(self) -> None:
+        """Admit waiting requests into free slots: one batched prefill and
+        one batched cache scatter per effective-prompt-length group."""
+        while self._free_slots() and (self.requeue or self.queue):
+            batch = self._take_waiting(len(self._free_slots()))
+            groups: Dict[int, List[Request]] = {}
+            for r in batch:
+                groups.setdefault(len(r.tokens) + len(r.out), []).append(r)
+            admitted = sum(self._admit_group(reqs, plen)
+                           for plen, reqs in groups.items())
+            # a request finishing at admission frees its slot at once, so
+            # loop to backfill; zero admissions means the pool is full
+            if admitted == 0:
+                return
+
+    def _admit_group(self, reqs: List[Request], plen: int) -> int:
+        sc = self.sc
+        if self.paged:
+            # +1: the first decode step writes at position plen; a
+            # checkpoint at plen == cache_len finishes at admission
+            need = paging.pages_per_slot(min(plen + 1, sc.cache_len),
+                                         self.page_size)
+            fit = self.allocator.available // max(need, 1)
+            if fit < len(reqs):
+                self._requeue_front(reqs[fit:])
+                reqs = reqs[:fit]
+            if not reqs:
+                return 0
+        slots = self._free_slots()[:len(reqs)]
+        k = len(reqs)
+        toks = self._upload(np.array([r.tokens + r.out for r in reqs],
+                                     np.int64))
+        logits, cache1 = self.model.prefill(self.params, toks, sc.cache_len)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        first_h = _device_get(first)                 # one copy per group
+
+        page_rows = None
+        if self.paged:
+            rows = np.full((k, self.pages_per_slot), paging.NULL_PAGE,
+                           np.int32)
+            n_pages = paging.pages_per_slot(plen, self.page_size)
+            for i, slot in enumerate(slots):
+                rows[i, :n_pages] = self.allocator.alloc_many(n_pages)
+                self.block_tables[slot] = rows[i]
+            page_rows = self._upload(rows)
+            self._bt_dirty = True
+
+        admit_active = np.ones((k,), bool)
+        for i, req in enumerate(reqs):
+            req.out.append(int(first_h[i]))
+            hit_eos = sc.eos_id is not None and first_h[i] == sc.eos_id
+            # plen + 1 > cache_len: a checkpoint whose cache is full after
+            # re-prefill; its sample is the final token of the run
+            if (hit_eos or len(req.out) >= sc.max_new_tokens
+                    or plen + 1 > sc.cache_len):
+                admit_active[i] = False
+
+        slot_idx = self._upload(np.array(slots, np.int64))
+        paging.scatter_prefill(self.caches, cache1, slot_idx, page_rows)
+        self.lengths.index_fill_(0, slot_idx, plen)
+        self.cur_tok[slot_idx] = first
+        self.active_mask[slot_idx] = self._upload(admit_active)
+        # fresh admissions enter with n_out = 1 (the prefill sample);
+        # re-admitted checkpoints resume their real count
+        self.n_out[slot_idx] = self._upload(
+            np.array([len(r.out) for r in reqs], np.int32))
+
+        for i, (req, slot) in enumerate(zip(reqs, slots)):
+            self._seq += 1
+            self._admit_seq[slot] = self._seq
+            if admit_active[i]:
+                self.active[slot] = req
+                self._active_h[slot] = True
+                self._len_h[slot] = plen
+            else:
+                req.done = True                      # finished at prefill
+                self._release(slot)
+        return k
+
+    def _release(self, slot: int) -> None:
+        """Return a slot (and its pages) to the pool."""
+        self.active[slot] = None
+        self._active_h[slot] = False
+        self._len_h[slot] = 0
+        if self.paged:
+            self.allocator.reclaim(self.block_tables[slot])
+            self.block_tables[slot] = paging.NULL_PAGE
+            self._bt_dirty = True
+
+    # -- preempt/requeue scheduler ----------------------------------------
+    def _select_victim(self, needy: int) -> Optional[int]:
+        """The slot to preempt so ``needy`` can take a page; never the
+        needy slot itself (so the grower makes progress), None when no
+        other slot is active."""
+        cands = [int(s) for s in np.nonzero(self._active_h)[0]
+                 if int(s) != needy]
+        if not cands:
+            return None
+        if self.sc.preempt_policy == "lru":
+            return min(cands, key=lambda s: self._admit_seq[s])
+        # "shortest": fewest generated tokens, oldest admission on ties
+        return min(cands, key=lambda s: (len(self.active[s].out),
+                                         self._admit_seq[s]))
+
+    def _preempt(self, slot: int) -> None:
+        """Checkpoint ``slot`` onto the requeue deque and reclaim its
+        pages; its device rows are parked like a released slot's."""
+        req = self.active[slot]
+        eff = len(req.tokens) + len(req.out)
+        usable = self.allocator.usable
+        if paging.pages_per_slot(min(eff + 1, self.sc.cache_len),
+                                 self.page_size) > usable:
+            raise RuntimeError(
+                f"request {req.rid}: checkpoint of {eff} tokens needs more "
+                f"KV pages than the pool's usable capacity ({usable} x "
+                f"{self.page_size}); raise ServeConfig.total_pages")
+        req.preempts += 1
+        self.metrics.counter("serve.preemptions").inc()
+        self.metrics.counter(
+            f"serve.preemptions.{self.sc.preempt_policy}").inc()
+        self.requeue.append(req)
+        self.metrics.gauge("serve.requeue_peak_depth").set_max(
+            len(self.requeue))
+        self.active_mask[slot] = False   # before the next decode, not after
+        self._release(slot)
+
+    def _ensure_pages(self) -> None:
+        """Allocate the page each active slot's next token writes into,
+        preempting a victim when the pool is dry (unless "fail")."""
+        for slot in np.nonzero(self._active_h)[0]:
+            slot = int(slot)
+            if not self._active_h[slot]:       # preempted earlier in loop
+                continue
+            target = min(int(self._len_h[slot]) + 1, self.sc.cache_len)
+            for j in range(paging.pages_per_slot(target, self.page_size)):
+                if self.block_tables[slot, j] != paging.NULL_PAGE:
+                    continue
+                if self.sc.preempt_policy != "fail":
+                    while self.allocator.available == 0:
+                        victim = self._select_victim(slot)
+                        if victim is None:
+                            raise RuntimeError(
+                                f"KV page pool exhausted: slot {slot} is "
+                                f"the only active sequence and already "
+                                f"holds all {self.allocator.usable} usable "
+                                f"pages; raise ServeConfig.total_pages "
+                                f"(or lower cache_len)")
+                        self._preempt(victim)
+                self.block_tables[slot, j] = self.allocator.alloc()
+                self._bt_dirty = True
+
+    def audit(self) -> List[str]:
+        """paging.audit over the live scheduler state (dense: nothing)."""
+        if not self.paged:
+            return []
+        return paging.audit(self.allocator, self.block_tables, self._len_h,
+                            self._active_h, self.page_size)
+
+    # -- main loop ---------------------------------------------------------
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One decode step for all active slots; returns busy-ness."""
+        self.step_count += 1
+        self._admit()
+        if not self._active_h.any():
+            return False
+        bt = None
+        if self.paged:
+            self._ensure_pages()
+            if self._bt_dirty:          # re-upload only when tables changed
+                self._bt_dev = self._upload(self.block_tables)
+                self._bt_dirty = False
+            bt = self._bt_dev
+        sc, active = self.sc, self.active_mask
+        logits = self.model.decode_step(self.params, self.caches,
+                                        self.cur_tok, self.lengths,
+                                        block_tables=bt)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        adv = active.to(torch.int32)
+        new_lengths = self.lengths + adv
+        new_n_out = self.n_out + adv
+        eos = -1 if sc.eos_id is None else sc.eos_id
+        # finish: budget spent, EOS sampled, or no cache row left for the
+        # next token (the final row at cache_len - 1 is usable)
+        done = active & ((new_n_out >= sc.max_new_tokens) | (next_tok == eos)
+                         | (new_lengths + 1 > sc.cache_len))
+        # THE one device-to-host copy of the step
+        nt, dn = _device_get(torch.stack([next_tok, done.to(torch.int32)]))
+        self.lengths, self.n_out, self.cur_tok = new_lengths, new_n_out, next_tok
+        self.active_mask = active & ~done
+        for slot in np.nonzero(self._active_h)[0]:
+            slot = int(slot)
+            req = self.active[slot]
+            req.out.append(int(nt[slot]))
+            self._len_h[slot] += 1
+            if dn[slot]:
+                req.done = True
+                self._release(slot)
+        return True
+
+    def run_to_completion(self, requests: List[Request],
+                          max_steps: int = 10_000) -> List[Request]:
+        for r in requests:
+            self.submit(r)
+        for _ in range(max_steps):
+            if not self.step() and not self.queue and not self.requeue:
+                break
+        return requests
+
+    def stats(self) -> Dict[str, Any]:
+        """Scheduler and allocator counters (host-side; no device sync)."""
+        m = self.metrics
+        d = {"preemptions": self.preemptions,
+             "preemptions_by_policy": {
+                 p: m.counter(f"serve.preemptions.{p}").value
+                 for p in PREEMPT_POLICIES},
+             "requeue_depth": len(self.requeue),
+             "requeue_peak_depth": int(
+                 m.gauge("serve.requeue_peak_depth").value),
+             "queued_waiting": len(self.queue),
+             "steps": self.step_count}
+        if self.paged:
+            d.update(self.allocator.pressure())
+        return d

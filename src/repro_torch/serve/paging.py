@@ -1,0 +1,214 @@
+"""Paged KV cache: page pool, free-list allocator, block tables
+(``repro.serve.paging``, global-attention group, model-dtype pools).
+
+Allocation is host-side bookkeeping; the pools are device tensors, one
+``kp``/``vp`` pair of shape (Hkv, P, ps, D) per layer.  Page 0 is
+reserved as the null/trash page: unallocated table entries point at it
+and a freed slot's whole row is reset to it, so the stale ``cur_tok`` a
+dead slot keeps feeding through the batched decode writes its K/V into
+trash instead of a live sequence.  The window group, quantized pools
+and fault quarantine arrive with later slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Set
+
+import torch
+
+NULL_PAGE = 0
+
+
+class PageAllocator:
+    """Free-list allocator over ``total_pages`` pages (page 0 reserved).
+
+    O(1) alloc/free, LIFO reuse.  ``free`` is strict: double-freeing a
+    page, or freeing the null page, would hand one physical page to two
+    live sequences, so it raises and leaves the allocator unchanged.
+    """
+
+    def __init__(self, total_pages: int):
+        if total_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.total_pages = int(total_pages)
+        self._free: List[int] = list(range(total_pages - 1, 0, -1))
+        self._allocated: Set[int] = set()
+        self.alloc_count = 0
+        self.free_count = 0
+        self.peak_in_use = 0
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return len(self._allocated)
+
+    @property
+    def usable(self) -> int:
+        """Pages a sequence can ever hold: all but the null page."""
+        return self.total_pages - 1
+
+    def pressure(self) -> dict:
+        return {"total_pages": self.total_pages,
+                "available": self.available,
+                "in_use": self.in_use,
+                "peak_in_use": self.peak_in_use,
+                "allocs": self.alloc_count,
+                "frees": self.free_count}
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError(
+                "KV page pool exhausted; raise ServeConfig.total_pages "
+                "(or lower slots/cache_len) — the default sizing "
+                "(1 + slots * pages_per_slot) never exhausts")
+        p = self._free.pop()
+        self._allocated.add(p)
+        self.alloc_count += 1
+        self.peak_in_use = max(self.peak_in_use, len(self._allocated))
+        return p
+
+    def alloc_many(self, n: int) -> List[int]:
+        # all n or nothing: a partial exhaustion never leaks pages
+        if n > len(self._free):
+            raise RuntimeError(f"KV page pool exhausted: need {n} pages, "
+                               f"{len(self._free)} free")
+        return [self.alloc() for _ in range(n)]
+
+    def free(self, pages: Sequence[int]) -> None:
+        # validate the whole batch (duplicates inside it included) first
+        pages = [int(p) for p in pages]
+        seen: Set[int] = set()
+        for p in pages:
+            if p == NULL_PAGE:
+                raise ValueError(
+                    "cannot free the reserved null page 0 (filter "
+                    "NULL_PAGE entries out of the block-table row first)")
+            if p not in self._allocated or p in seen:
+                raise ValueError(
+                    f"double free of KV page {p} (not currently "
+                    f"allocated); a page freed twice would be handed to "
+                    f"two live sequences")
+            seen.add(p)
+        for p in pages:
+            self._allocated.discard(p)
+            self._free.append(p)
+        self.free_count += len(pages)
+
+    def reclaim(self, table_row: Sequence[int]) -> int:
+        """Free every real page of a block-table row (NULL_PAGE entries
+        are skipped; ``free`` stays strict).  Returns the count."""
+        real = [int(p) for p in table_row if int(p) != NULL_PAGE]
+        if real:
+            self.free(real)
+        return len(real)
+
+
+def pages_per_slot(cache_len: int, page_size: int) -> int:
+    return -(-cache_len // page_size)
+
+
+def audit(allocator: PageAllocator, block_tables, lengths, active,
+          page_size: int) -> List[str]:
+    """Allocator and block-table invariants at a step boundary; returns
+    the problems found (empty = consistent):
+
+    * free and allocated partition the non-null pages exactly;
+    * an active slot's live prefix ``row[:pages_per_slot(len)]`` holds
+      only allocated pages, no NULL_PAGE hole;
+    * nothing past a live prefix, or in an inactive row, holds a page;
+    * no page is leased to two rows;
+    * ``in_use`` equals the sum of live-prefix page counts.
+    """
+    problems: List[str] = []
+    total = allocator.total_pages
+    free_list = [int(p) for p in allocator._free]
+    free = set(free_list)
+    alloc = set(allocator._allocated)
+    if len(free_list) != len(free):
+        dups = sorted(p for p in free if free_list.count(p) > 1)
+        problems.append(f"free list holds duplicate pages {dups}")
+    for name, s in (("free", free), ("allocated", alloc)):
+        if NULL_PAGE in s:
+            problems.append(f"reserved null page in the {name} set")
+        bad = sorted(p for p in s if not 0 < p < total)
+        if bad:
+            problems.append(f"{name} set holds out-of-range pages {bad}")
+    both = sorted(free & alloc)
+    if both:
+        problems.append(f"pages {both} are both free and allocated")
+    if not problems and len(free | alloc) != total - 1:
+        missing = sorted(set(range(1, total)) - free - alloc)
+        problems.append(f"pages {missing} vanished from the allocator "
+                        f"(neither free nor allocated)")
+
+    leased: Dict[int, int] = {}
+    need_total = 0
+    for slot, row in enumerate(block_tables):
+        length = int(lengths[slot]) if active[slot] else 0
+        live = pages_per_slot(length, page_size) if length > 0 else 0
+        need_total += live
+        for j, p in enumerate(row):
+            p = int(p)
+            if j < live:
+                if p == NULL_PAGE:
+                    problems.append(f"slot {slot}: NULL_PAGE inside the live "
+                                    f"prefix at index {j} (length {length})")
+                elif p not in alloc:
+                    problems.append(f"slot {slot}: live page {p} is not "
+                                    f"allocated")
+            elif p != NULL_PAGE:
+                problems.append(f"slot {slot}: page {p} past the live prefix "
+                                f"at index {j} (would leak)")
+            if p != NULL_PAGE:
+                if p in leased:
+                    problems.append(f"page {p} leased to both slot "
+                                    f"{leased[p]} and slot {slot}")
+                leased[p] = slot
+    if need_total != allocator.in_use:
+        problems.append(f"in_use {allocator.in_use} != sum of live-prefix "
+                        f"pages {need_total}")
+    return problems
+
+
+def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
+                      total_pages: int, page_size: int, *, device,
+                      dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
+    """One zeroed ``kp``/``vp`` pool pair (Hkv, P, ps, D) per layer."""
+    shape = (num_kv_heads, total_pages, page_size, head_dim)
+    return [{"kp": torch.zeros(shape, device=device, dtype=dtype),
+             "vp": torch.zeros(shape, device=device, dtype=dtype)}
+            for _ in range(num_layers)]
+
+
+def _page_blocks(one: torch.Tensor, t: int, ps: int) -> torch.Tensor:
+    """Batch-k prefill leaf (k, H, S, D) -> page blocks (H, k, T, ps, D)."""
+    k, h, s, d = one.shape
+    pad = t * ps - s
+    if pad < 0:
+        raise ValueError(f"prefill of {s} rows exceeds {t} pages of {ps}")
+    if pad:
+        one = torch.nn.functional.pad(one, (0, 0, 0, pad))
+    return one.reshape(k, h, t, ps, d).transpose(0, 1)
+
+
+def scatter_prefill(caches: List[Dict[str, torch.Tensor]],
+                    cache1: List[Dict[str, torch.Tensor]],
+                    slot_idx: torch.Tensor,
+                    page_rows: Optional[torch.Tensor] = None) -> None:
+    """Admit a prefilled group into the engine's caches, in place.
+
+    ``cache1`` is ``prefill``'s per-layer dense K/V at batch k; paged
+    caches take it through ``page_rows`` (k, T) destination pages (NULL
+    entries past the prompt land in trash, masked by length at decode),
+    dense caches at rows ``slot_idx`` (k,).
+    """
+    for c, one in zip(caches, cache1):
+        if "kp" in c:
+            for pool, leaf in ((c["kp"], one["k"]), (c["vp"], one["v"])):
+                blocks = _page_blocks(leaf, page_rows.shape[1], pool.shape[2])
+                pool[:, page_rows.long()] = blocks.to(pool.dtype)
+        else:
+            c["k"][slot_idx] = one["k"].to(c["k"].dtype)
+            c["v"][slot_idx] = one["v"].to(c["v"].dtype)
