@@ -53,21 +53,22 @@ def _heads(y: torch.Tensor, n: int) -> torch.Tensor:
     return y.view(b, s, n, -1).transpose(1, 2).contiguous()
 
 
-def _qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig, rope):
     xd = x.dtype
     q = _heads(x @ p["wq"].to(xd), cfg.num_heads)
     k = _heads(x @ p["wk"].to(xd), cfg.num_kv_heads)
     v = _heads(x @ p["wv"].to(xd), cfg.num_kv_heads)
-    cos, sin = L.rope_cache(positions, cfg.head_dim, cfg.rope_theta)
+    cos, sin = rope
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
 
-def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
+def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, rope, *,
                plain: bool = False):
-    """Causal full-sequence attention.  x: (B, S, d).  Returns (y, k, v)
-    with the rope'd K/V (B, Hkv, S, hd) for the prefill cache."""
+    """Causal full-sequence attention.  x: (B, S, d); ``rope`` is
+    ``L.rope_cache`` of positions 0..S-1.  Returns (y, k, v) with the
+    rope'd K/V (B, Hkv, S, hd) for the prefill cache."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, torch.arange(s, device=x.device))
+    q, k, v = _qkv(p, x, cfg, rope)
     fn = flash_ref.flash_attention_ref if plain else flash_attention
     out = fn(q, k, v, causal=True)
     y = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].to(x.dtype)
@@ -76,8 +77,10 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
 
 def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, lengths: torch.Tensor,
-                cfg: ModelConfig, *, block_tables=None) -> torch.Tensor:
-    """One-token decode.  x: (B, 1, d).  The new token's K/V is written
+                cfg: ModelConfig, rope, *,
+                block_tables=None) -> torch.Tensor:
+    """One-token decode.  x: (B, 1, d); ``rope`` is ``L.rope_cache`` of
+    ``lengths``, shaped (B, 1, hd/2).  The new token's K/V is written
     into the cache IN PLACE (dense row ``lengths``, or its page when
     ``block_tables`` (B, T) names pools (Hkv, P, ps, D)), then the step
     attends over ``lengths + 1`` tokens.  Returns out (B, 1, d)."""
@@ -85,9 +88,9 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     q = (x[:, 0] @ p["wq"].to(xd)).view(x.shape[0], cfg.num_heads, -1)
     k = (x[:, 0] @ p["wk"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
     v = (x[:, 0] @ p["wv"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
-    cos, sin = L.rope_cache(lengths, cfg.head_dim, cfg.rope_theta)
-    q = L.apply_rope(q, cos[:, None, :], sin[:, None, :])
-    k = L.apply_rope(k, cos[:, None, :], sin[:, None, :])
+    cos, sin = rope
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin)
     eff_len = (lengths + 1).to(torch.int32)
     if block_tables is not None:
         ps = cache_k.shape[2]

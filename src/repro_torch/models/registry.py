@@ -33,8 +33,8 @@ class Model:
                              f"asked on {dev}")
         return T.init_params(generator, self.cfg)
 
-    def prefill(self, params, tokens, cache_len: int, *, plain: bool = False):
-        return T.prefill(params, self.cfg, tokens, cache_len, plain=plain)
+    def prefill(self, params, tokens, cache_len: int):
+        return T.prefill(params, self.cfg, tokens, cache_len)
 
     def forward_logits(self, params, tokens, *, plain: bool = False):
         return T.forward_logits(params, self.cfg, tokens, plain=plain)

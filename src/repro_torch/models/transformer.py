@@ -86,11 +86,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 # -------------------------------------------------------------- layers ----
 
 def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig,
-                        cache_len: Optional[int], *, plain: bool = False):
-    """Full-sequence layer.  Returns (x, cache) with K/V padded to
+                        cache_len: Optional[int], rope, *,
+                        plain: bool = False):
+    """Full-sequence layer.  ``rope`` is the (cos, sin) pair of the
+    sequence's positions.  Returns (x, cache) with K/V padded to
     ``cache_len`` (no cache when ``cache_len`` is None)."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
-    y, k, v = A.apply_attn(p["attn"], h, cfg, plain=plain)
+    y, k, v = A.apply_attn(p["attn"], h, cfg, rope, plain=plain)
     x = x + y
     x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, plain=plain))
     if cache_len is None:
@@ -102,7 +104,7 @@ def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                       cfg: ModelConfig, lengths: torch.Tensor,
+                       cfg: ModelConfig, lengths: torch.Tensor, rope,
                        block_tables=None) -> torch.Tensor:
     """One-token layer step, x: (B, 1, d).  A cache holding ``kp``/``vp``
     is a paged pool pair; one holding ``k``/``v`` a dense slot cache.
@@ -110,9 +112,10 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     h = L.apply_norm(p["ln1"], x)
     if "kp" in cache:
         y = A.decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
-                          cfg, block_tables=block_tables)
+                          cfg, rope, block_tables=block_tables)
     else:
-        y = A.decode_attn(p["attn"], h, cache["k"], cache["v"], lengths, cfg)
+        y = A.decode_attn(p["attn"], h, cache["k"], cache["v"], lengths, cfg,
+                          rope)
     x = x + y
     return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x))
 
@@ -131,30 +134,33 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-             cache_len: Optional[int], plain: bool):
+             cache_len: Optional[int], *, plain: bool):
     x = L.embed_tokens(params["embed"], tokens, dtype_of(cfg.dtype))
+    # every layer rotates the same positions: one cos/sin for the stack
+    rope = L.rope_cache(torch.arange(tokens.shape[1], device=x.device),
+                        cfg.head_dim, cfg.rope_theta)
     caches = []
     for p in params["layers"]:
-        x, c = apply_layer_prefill(p, x, cfg, cache_len, plain=plain)
+        x, c = apply_layer_prefill(p, x, cfg, cache_len, rope, plain=plain)
         caches.append(c)
     return x, caches
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
-            *, plain: bool = False):
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
     """Full-sequence prefill.  tokens: (B, S).  Returns (last-position
     logits (B, Vp), per-layer caches {"k", "v"} (B, Hkv, cache_len, hd))."""
-    x, caches = _forward(params, cfg, tokens, cache_len, plain)
+    x, caches = _forward(params, cfg, tokens, cache_len, plain=False)
     # the norm kernel takes dense rows: copy the strided last position
     last = x[:, -1:].contiguous()
-    return _logits(params, last, cfg, plain=plain)[:, 0], caches
+    return _logits(params, last, cfg)[:, 0], caches
 
 
 def forward_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                    plain: bool = False) -> torch.Tensor:
     """Logits at every position (B, S, Vp): the teacher-forced reference
-    for served token streams."""
-    x, _ = _forward(params, cfg, tokens, None, plain)
+    for served token streams.  ``plain`` takes the plain PyTorch version
+    of every kernel, on any device."""
+    x, _ = _forward(params, cfg, tokens, None, plain=plain)
     return _logits(params, x, cfg, plain=plain)
 
 
@@ -164,8 +170,11 @@ def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
     already cached.  Writes the step's K/V into ``caches`` in place and
     returns logits (B, Vp).  ``block_tables`` routes paged pools."""
     x = L.embed_tokens(params["embed"], tokens[:, None], dtype_of(cfg.dtype))
+    # each slot's position is its length, the same in every layer
+    cos, sin = L.rope_cache(lengths, cfg.head_dim, cfg.rope_theta)
+    rope = (cos[:, None, :], sin[:, None, :])
     for p, c in zip(params["layers"], caches):
-        x = apply_layer_decode(p, x, c, cfg, lengths, block_tables)
+        x = apply_layer_decode(p, x, c, cfg, lengths, rope, block_tables)
     return _logits(params, x, cfg)[:, 0]
 
 

@@ -38,10 +38,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tol(dtype):
-    # f32: another summation order; bf16: outputs rounded to 8 bits
-    return dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else \
-        dict(atol=2e-2, rtol=2e-2)
+def _tol(dtype, out_dtype=None):
+    """f32: another summation order; bf16: outputs rounded to 8 bits.
+    f32 outputs of bf16 inputs (the decode residuals) are held at 1e-4:
+    no rounding to bf16 stands between the two sides."""
+    if dtype == torch.float32:
+        return dict(atol=2e-5, rtol=2e-5)
+    if out_dtype == torch.float32:
+        return dict(atol=1e-4, rtol=1e-4)
+    return dict(atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -106,7 +111,7 @@ def test_decode_kernels(cuda, dtype, d, window, softcap):
     want = dec_ref.decode_attention_ref(q, kc, vc, lengths,
                                         return_residuals=True, **kw)
     for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, **_tol(dtype))
+        torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
     (kp, vp), bt = _pools_from_caches(kc, vc, ps,
                                       torch.Generator().manual_seed(0))
     for page_size in (None, 16):
@@ -114,7 +119,7 @@ def test_decode_kernels(cuda, dtype, d, window, softcap):
             q, kp, vp, bt, lengths, page_size=page_size,
             return_residuals=True, **kw)
         for a, w in zip(got, want):
-            torch.testing.assert_close(a, w, **_tol(dtype))
+            torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
 
 
 def test_kernels_refuse_misaligned_operands(cuda):
