@@ -20,7 +20,16 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    prompt-length group, and every emitted token must be within 0.05
    logits of the argmax of a plain-path forward over the same tokens;
 5. the same requests through the dense KV cache, checked the same way;
-6. trace five paged decode steps for the card's busy share (reported,
+6. the same requests from int8 and from fp8-e4m3 page pools (fp8
+   resolved strictly, so it can never quietly become int8), with the
+   quantized kernel launched 36 times per decode step and the bf16 one
+   never; the teacher-forced gap, the agreement with bf16 and the pool
+   bytes per slot are reported (int8 must take under 0.53 of bf16's);
+7. the same requests with n-gram self-speculative decoding (k = 4) over
+   bf16 pools, checked as phase 4 plus: the speculative kernel launched
+   36 times per step, at least one rejected draft; and again over an
+   int8 pool;
+8. trace five paged decode steps for the card's busy share (reported,
    not checked).
 
 It then prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -43,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: 80 GB HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM: dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12      # H100 SXM: dense int8 / fp8 tensor-core peak
 # atol = rtol by the output's dtype, compared in f32.  Both sides read
 # the same inputs and sum in f32, in another order; bf16 outputs are
 # also rounded to 8 mantissa bits.  The decode kernels' residuals
@@ -52,6 +62,10 @@ TEACHER_GAP = 0.05            # logits: emitted token vs the plain argmax
 PROMPT_LENS = (17, 64, 200, 511)
 N_REQUESTS, MAX_NEW, SLOTS, CACHE_LEN, PAGE = 12, 32, 8, 1024, 64
 DECODE_LENGTHS = (1, 64, 200, 333, 511, 700, 900, 1024)
+SPEC_K = 4                    # drafts per speculative step: K1 = 5
+# pre-speculation prefixes of the speculative kernel check: the window
+# of the last slot ends at the cache's last row
+SPEC_BASES = (0, 64, 200, 333, 511, 700, 900, CACHE_LEN - SPEC_K - 1)
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -126,11 +140,13 @@ class Smoke:
                        f"worst diff / allowed {worst:.3f})")
         return err
 
-    def timings(self, what, ms, plain_ms, nbytes, flops, library_ms):
+    def timings(self, what, ms, plain_ms, nbytes, flops, library_ms,
+                ops_per_s=BF16_FLOPS_PER_S):
         """Print a kernel's times beside the least time the card could
-        take; returns (bound_ms, bound_by)."""
+        take (``ops_per_s``: the peak for the inputs' type); returns
+        (bound_ms, bound_by)."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_ops = flops / ops_per_s * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"  {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -139,9 +155,9 @@ class Smoke:
         return max(t_bytes, t_ops), by
 
     def record(self, name, source, replaces, err, ms, plain_ms, nbytes,
-               flops, library_ms):
+               flops, library_ms, ops_per_s=BF16_FLOPS_PER_S):
         bound, by = self.timings(name, ms, plain_ms, nbytes, flops,
-                                 library_ms)
+                                 library_ms, ops_per_s)
         self.kernels[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
@@ -226,10 +242,12 @@ def _decode_operands(s: Smoke, lengths):
     return q, kc, vc, ln
 
 
-def _decode_cost(lengths):
+def _decode_cost(lengths, kv_bytes: int = 2):
+    """Bytes (q, live K/V rows of ``kv_bytes`` per element, lengths, f32
+    residuals) and flops of one-token decode over ``lengths``."""
     live = sum(lengths)
     b = len(lengths)
-    nbytes = (b * 32 * 128 * 2 + live * 8 * 128 * 2 * 2 + b * 4
+    nbytes = (b * 32 * 128 * 2 + live * 8 * 128 * 2 * kv_bytes + b * 4
               + b * 32 * 128 * 4 + 2 * b * 32 * 4)
     return nbytes, 4 * 32 * 128 * live
 
@@ -324,6 +342,115 @@ def check_paged(s: Smoke) -> None:
              nbytes + 4 * live_pages, flops, None)
 
 
+def _quantize(s: Smoke, kp, vp, kv_dtype):
+    """(kq, vq, ks, vs): the pools at per-(head, page) absmax in a dtype
+    the card must hold (strict: no fall back)."""
+    from repro_torch.quant import resolve_kv_spec
+    spec = resolve_kv_spec(kv_dtype, s.dev, strict=True)
+    kq, ks = spec.quantize_pages(kp)
+    vq, vs = spec.quantize_pages(vp)
+    return kq, vq, ks, vs
+
+
+def check_quant_paged(s: Smoke) -> None:
+    """B5 on int8 and fp8 pools: against its plain version on the same
+    quantized bytes (f32 residuals, 1e-4), and against bf16 B4 on the
+    unquantized data within DECODE_TOL."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.quant import DECODE_TOL
+    q, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS)
+    kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
+    bf16 = _normalized(ops.paged_decode_attention(q, kp, vp, bt, ln,
+                                                  return_residuals=True))
+    nbytes, flops = _decode_cost(DECODE_LENGTHS, kv_bytes=1)
+    live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    # scales (K and V, 8 heads, f32) and a table entry per live page
+    nbytes += live_pages * (2 * 8 * 4 + 4)
+    for kv in ("int8", "fp8_e4m3"):
+        kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+        args = (q, kq, vq, ks, vs, bt, ln)
+        got = ops.quant_paged_decode_attention(*args, return_residuals=True)
+        want = ref.quant_paged_decode_attention_ref(*args,
+                                                    return_residuals=True)
+        s.compare(f"quant paged {kv} residuals, B = 8, lengths 1..1024",
+                  got, want)
+        err = s.compare(f"quant paged {kv} output acc / l", _normalized(got),
+                        _normalized(want))
+        s.compare(f"quant paged {kv}, logical page 16 of 64",
+                  ops.quant_paged_decode_attention(*args, page_size=16,
+                                                   return_residuals=True),
+                  want)
+        gap = float((_normalized(got) - bf16).abs().max())
+        s.check(gap <= DECODE_TOL[kv],
+                f"quant paged {kv} against bf16 paged on the unquantized "
+                f"data: max abs diff {gap:.4f} <= DECODE_TOL {DECODE_TOL[kv]}")
+        times = (s.time_ms(lambda: ops.quant_paged_decode_attention(
+                     *args, return_residuals=True)),
+                 s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
+                     *args, return_residuals=True)),
+                 nbytes, flops, None, INT8_OPS_PER_S)
+        if kv == "int8":
+            s.record("quant_paged_decode_attention",
+                     "quant_paged_decode_attention.cu",
+                     "src/repro/kernels/decode_attention/quant.py:27", err,
+                     *times)
+        else:
+            s.timings(f"quant_paged_decode_attention ({kv})", *times)
+
+
+def check_spec(s: Smoke) -> None:
+    """B6 with K1 = SPEC_K + 1 positions per slot, over bf16 pools and
+    in its int8 mode, against its plain version (f32 residuals, 1e-4)."""
+    torch = s.torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    k1 = SPEC_K + 1
+    horizons = [n + k1 for n in SPEC_BASES]
+    g = torch.Generator(device=s.dev).manual_seed(5)
+    b = len(SPEC_BASES)
+    q = torch.randn(b, k1, 32, 128, device=s.dev, generator=g).bfloat16()
+    kc, vc = (torch.randn(b, 8, CACHE_LEN, 128, device=s.dev,
+                          generator=g).bfloat16() for _ in range(2))
+    kp, vp, bt = _pages(s, kc, vc, horizons, PAGE)
+    base = torch.tensor(SPEC_BASES, dtype=torch.int32, device=s.dev)
+    live = sum(horizons)
+    live_pages = sum(-(-n // PAGE) for n in horizons)
+    out_bytes = b * k1 * 32 * (128 + 2) * 4
+    # every query row scores and weighs the tokens its horizon shows
+    flops = 4 * 128 * 32 * sum(n + 1 + i for n in SPEC_BASES
+                               for i in range(k1))
+    for kv in (None, "int8"):
+        if kv is None:
+            args = (q, kp, vp, bt, base)
+            fn, plain = (ops.spec_paged_decode_attention,
+                         ref.spec_paged_decode_attention_ref)
+            kv_bytes, scale_bytes, rate = 2, 0, BF16_FLOPS_PER_S
+        else:
+            kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+            args = (q, kq, vq, ks, vs, bt, base)
+            fn, plain = (ops.quant_spec_paged_decode_attention,
+                         ref.quant_spec_paged_decode_attention_ref)
+            kv_bytes, scale_bytes, rate = 1, 2 * 8 * 4, INT8_OPS_PER_S
+        what = f"spec K1 = {k1} {kv or 'bf16'}"
+        got = fn(*args, return_residuals=True)
+        want = plain(*args, return_residuals=True)
+        s.compare(f"{what} residuals, B = 8, prefixes 0..{SPEC_BASES[-1]}",
+                  got, want)
+        err = s.compare(f"{what} output acc / l", _normalized(got),
+                        _normalized(want))
+        nbytes = (q.numel() * 2 + live * 8 * 128 * 2 * kv_bytes + out_bytes
+                  + live_pages * (scale_bytes + 4) + b * k1 * 32 * 4)
+        times = (s.time_ms(lambda: fn(*args, return_residuals=True)),
+                 s.time_ms(lambda: plain(*args, return_residuals=True)),
+                 nbytes, flops, None, rate)
+        if kv is None:
+            s.record("spec_paged_decode_attention",
+                     "spec_paged_decode_attention.cu",
+                     "src/repro/kernels/decode_attention/spec.py:80", err,
+                     *times)
+        else:
+            s.timings(f"spec_paged_decode_attention ({kv})", *times)
+
+
 # ------------------------------------------------------------ serving -----
 
 def _requests(vocab: int):
@@ -335,14 +462,16 @@ def _requests(vocab: int):
         for i in range(N_REQUESTS)]
 
 
-def serve(s: Smoke, model, params, paged: bool):
-    """Drive the engine over the 12 requests; returns (requests, stats)."""
+def serve(s: Smoke, model, params, **mode):
+    """Drive the engine over the 12 requests in a serving ``mode``
+    (ServeConfig fields); returns (requests, stats)."""
     torch = s.torch
     from repro_torch.core.build import KERNELS
     from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.paging import paged_bytes_per_slot
     sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=CACHE_LEN,
-                                max_new_tokens=MAX_NEW, paged=paged,
-                                page_size=PAGE)
+                                max_new_tokens=MAX_NEW, page_size=PAGE,
+                                **mode)
     engine = engine_mod.Engine(model, params, sc, device=s.dev)
     reqs = _requests(model.cfg.vocab_size)
     syncs, groups = [0], [0]
@@ -403,6 +532,16 @@ def serve(s: Smoke, model, params, paged: bool):
              "launches": launches, "preemptions": engine.preemptions,
              "hidden_syncs": hidden}
     stats["tok_per_s"] = stats["tokens"] / wall
+    if engine.paged:
+        stats["kv_dtype"] = (None if engine.kv_spec is None
+                             else engine.kv_spec.dtype)
+        stats["pool_bytes_per_slot"] = paged_bytes_per_slot(
+            engine.caches, engine.allocator.total_pages,
+            engine.pages_per_slot)
+    if engine.spec:
+        stats.update(spec_steps=engine.spec_steps,
+                     spec_emitted=engine.spec_emitted,
+                     spec_rejections=engine.spec_rejections)
     del engine
     return reqs, stats
 
@@ -474,11 +613,17 @@ def teacher_gap(s: Smoke, model, params, reqs) -> float:
     return worst
 
 
-def check_serving(s: Smoke, model, params, paged: bool, kernels_used):
+def check_serving(s: Smoke, model, params, name: str, mode: dict,
+                  kernels_used, kernels_idle=(), teacher_checked=True):
+    """Serve the 12 requests in ``mode``; check completion, the one-sync
+    contract, that every kernel in ``kernels_used`` launched (the
+    per-token decode kernel among them exactly 36 times per step when
+    it is the first named) and none in ``kernels_idle``, and the
+    teacher-forced gap (reported only where ``teacher_checked`` is
+    false: a quantized pool is not the bf16 model)."""
     torch = s.torch
-    mode = "paged" if paged else "dense"
     t0 = time.perf_counter()
-    reqs, st = serve(s, model, params, paged)
+    reqs, st = serve(s, model, params, **mode)
     print(f"  served {len(reqs)} requests in {st['wall_s']:.3f} s "
           f"({time.perf_counter() - t0:.3f} s with set-up): "
           f"{st['tokens']} tokens, {st['tok_per_s']:.1f} tok/s, "
@@ -486,32 +631,58 @@ def check_serving(s: Smoke, model, params, paged: bool, kernels_used):
           f"{st['step_ms_median']:.2f} ms), {st['groups']} prefill groups, "
           f"peak memory {st['peak_gib']:.2f} GiB, launches "
           f"{st['launches']}")
-    s.check(all(r.done for r in reqs), f"{mode}: every request done")
+    s.check(all(r.done for r in reqs), f"{name}: every request done")
     s.check(all(len(r.out) == MAX_NEW for r in reqs),
-            f"{mode}: every request emitted {MAX_NEW} tokens")
-    for name in kernels_used:
-        s.check(st["launches"][name] > 0,
-                f"{mode}: {name} launched {st['launches'][name]} times")
-        s.kernels[name]["launches_by_path"][mode] = st["launches"][name]
+            f"{name}: every request emitted {MAX_NEW} tokens")
+    for kname in kernels_used:
+        s.check(st["launches"][kname] > 0,
+                f"{name}: {kname} launched {st['launches'][kname]} times")
+        s.kernels[kname]["launches_by_path"][name] = st["launches"][kname]
+    per_step = model.cfg.num_layers * st["decode_steps"]
+    decode_kernel = kernels_used[-1]
+    s.check(st["launches"][decode_kernel] == per_step,
+            f"{name}: {decode_kernel} launched {model.cfg.num_layers} times "
+            f"per decode step ({st['launches'][decode_kernel]} = "
+            f"{model.cfg.num_layers} x {st['decode_steps']})")
+    for kname in kernels_idle:
+        s.check(st["launches"][kname] == 0,
+                f"{name}: {kname} not launched ({st['launches'][kname]})")
     s.check(st["syncs"] == st["decode_steps"] + st["groups"],
-            f"{mode}: {st['syncs']} host syncs = {st['decode_steps']} "
+            f"{name}: {st['syncs']} host syncs = {st['decode_steps']} "
             f"decode steps + {st['groups']} admitted groups")
     s.check(st["hidden_syncs"]["decoding"] == 0,
-            f"{mode}: no other sync in steps that admitted nothing "
+            f"{name}: no other sync in steps that admitted nothing "
             f"({st['hidden_syncs']['decoding']}; "
             f"{st['hidden_syncs']['admitting']} in admitting steps)")
     gap = teacher_gap(s, model, params, reqs)
-    s.check(gap <= TEACHER_GAP,
-            f"{mode}: every emitted token within {TEACHER_GAP} logits of "
-            f"the plain forward's argmax (largest gap {gap:.4f})")
+    st["teacher_gap"] = gap
+    if teacher_checked:
+        s.check(gap <= TEACHER_GAP,
+                f"{name}: every emitted token within {TEACHER_GAP} logits "
+                f"of the plain forward's argmax (largest gap {gap:.4f})")
+    else:
+        print(f"  {name}: largest teacher-forced gap against the bf16 "
+              f"plain forward {gap:.4f} logits (reported)")
+    if "spec_steps" in st:
+        s.check(st["spec_rejections"] > 0,
+                f"{name}: {st['spec_rejections']} rejected drafts (> 0)")
+        print(f"  {name}: {st['spec_emitted']} tokens in "
+              f"{st['spec_steps']} speculative steps, "
+              f"{st['spec_emitted'] / st['spec_steps']:.3f} tokens per "
+              f"step over {SLOTS} slots")
     torch.cuda.empty_cache()
     return reqs, st
+
+
+def _agree(a, b) -> int:
+    return sum(x == y for p, q in zip(a, b) for x, y in zip(p.out, q.out))
 
 
 def run_serving(s: Smoke):
     torch = s.torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
+    from repro_torch.quant import resolve_kv_spec
     cfg = get_config("granite-8b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -522,22 +693,58 @@ def run_serving(s: Smoke):
     print(f"  granite-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n / 1e9:.3f} B parameters in {cfg.dtype}, random from seed 0 "
           f"({time.perf_counter() - t0:.2f} s)")
-    print("== serve, paged KV", flush=True)
-    paged, pst = check_serving(s, model, params, True,
-                               ("rmsnorm", "flash_attention",
-                                "paged_decode_attention"))
-    print("== serve, dense KV", flush=True)
-    dense, dst = check_serving(s, model, params, False, ("decode_attention",))
-    same = sum(a == b for p, d in zip(paged, dense)
-               for a, b in zip(p.out, d.out))
-    print(f"  dense and paged agree on {same} of {pst['tokens']} tokens")
+    prefill = ("rmsnorm", "flash_attention")
+    runs, stats = {}, {}
+
+    def run(name, mode, decode_kernel, idle=(), **kw):
+        print(f"== serve, {name}", flush=True)
+        runs[name], stats[name] = check_serving(
+            s, model, params, name, mode, prefill + (decode_kernel,), idle,
+            **kw)
+
+    run("paged", dict(paged=True), "paged_decode_attention")
+    run("dense", dict(paged=False), "decode_attention")
+    print(f"  dense and paged agree on {_agree(runs['paged'], runs['dense'])}"
+          f" of {stats['paged']['tokens']} tokens")
+    quant_idle = ("paged_decode_attention", "spec_paged_decode_attention")
+    for kv in ("int8", "fp8_e4m3"):
+        # strict: a card without the dtype fails here, never serves int8
+        resolve_kv_spec(kv, s.dev, strict=True)
+        run(kv, dict(paged=True, kv_dtype=kv), "quant_paged_decode_attention",
+            quant_idle, teacher_checked=False)
+        st = stats[kv]
+        s.check(st["kv_dtype"] == kv,
+                f"{kv}: the engine's pools are {st['kv_dtype']}")
+        ratio = st["pool_bytes_per_slot"] / \
+            stats["paged"]["pool_bytes_per_slot"]
+        s.check(ratio < 0.53,
+                f"{kv}: pool bytes per slot {st['pool_bytes_per_slot']} = "
+                f"{ratio:.4f} of bf16's {stats['paged']['pool_bytes_per_slot']}")
+        print(f"  {kv} and bf16 paged agree on "
+              f"{_agree(runs[kv], runs['paged'])} of {st['tokens']} tokens")
+    spec_idle = ("paged_decode_attention", "quant_paged_decode_attention")
+    spec = dict(paged=True, spec_mode="ngram", spec_k=SPEC_K)
+    run("spec", spec, "spec_paged_decode_attention", spec_idle)
+    print(f"  spec and plain paged agree on "
+          f"{_agree(runs['spec'], runs['paged'])} of "
+          f"{stats['spec']['tokens']} tokens")
+    run("spec-int8", dict(spec, kv_dtype="int8"),
+        "spec_paged_decode_attention", spec_idle, teacher_checked=False)
+    print(f"  spec-int8 and int8 agree on "
+          f"{_agree(runs['spec-int8'], runs['int8'])} of "
+          f"{stats['spec-int8']['tokens']} tokens")
     print("== trace the card over paged decode steps", flush=True)
     share = traced_busy_share(s, model, params)
     print(f"  card busy over decode steps {PROFILED_STEPS[0]}-"
           f"{PROFILED_STEPS[1] - 1} (traced, a lower bound): "
           + ("not measured" if share is None else f"{100 * share:.1f}%"))
-    return {"paged": pst, "dense": dst, "tokens_agree": same,
-            "device_busy_share": share}
+    return dict(stats, tokens_agree={
+        "dense_paged": _agree(runs["paged"], runs["dense"]),
+        "spec_paged": _agree(runs["spec"], runs["paged"]),
+        "int8_paged": _agree(runs["int8"], runs["paged"]),
+        "fp8_e4m3_paged": _agree(runs["fp8_e4m3"], runs["paged"]),
+        "spec_int8_int8": _agree(runs["spec-int8"], runs["int8"])},
+        device_busy_share=share)
 
 
 def _leaves(tree):
@@ -589,7 +796,9 @@ def main() -> int:
         print(f"  {len(build.KERNELS)} kernels built by nvcc in {secs:.2f} s "
               f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for name, fn in (("rmsnorm", check_rmsnorm), ("flash", check_flash),
-                     ("decode", check_decode), ("paged", check_paged)):
+                     ("decode", check_decode), ("paged", check_paged),
+                     ("quant paged", check_quant_paged),
+                     ("spec paged", check_spec)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
@@ -597,8 +806,9 @@ def main() -> int:
     serving = s.phase("serve granite-8b at full width", run_serving, s)
 
     for k in s.kernels.values():
-        by = k["launches_by_path"]
-        k["launches"] = by.get("paged", 0) or by.get("dense", 0)
+        # the main path's count: the first serving run that launched it
+        k["launches"] = next((n for n in k["launches_by_path"].values()
+                              if n), 0)
     if serving is not None:
         print(json.dumps({"serving": serving}))
     if s.failures:

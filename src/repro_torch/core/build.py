@@ -118,7 +118,10 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
+#: Element-type codes of csrc/common.cuh: f32 and bf16 for activations
+#: and unquantized pools, int8 and fp8-e4m3 for quantized pools.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3}
 
 
 def dtype_code(t: torch.Tensor) -> int:
@@ -126,8 +129,8 @@ def dtype_code(t: torch.Tensor) -> int:
     try:
         return _DTYPE_CODES[t.dtype]
     except KeyError:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got "
-                        f"{t.dtype}") from None
+        raise TypeError(f"CUDA kernels take float32 or bfloat16 (and int8 "
+                        f"or float8_e4m3fn KV pools), got {t.dtype}") from None
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -14,6 +14,12 @@ TABLE = {
     ("decode_attention", "block_kv"): 64,
     ("paged_decode_attention", "page_size"): 64,
     ("paged_decode_attention", "block_kv"): 64,
+    ("quant_paged_decode_attention", "page_size"): 64,
+    ("quant_paged_decode_attention", "block_kv"): 64,
+    ("spec_paged_decode_attention", "page_size"): 64,
+    ("spec_paged_decode_attention", "block_kv"): 64,
+    ("quant_spec_paged_decode_attention", "page_size"): 64,
+    ("quant_spec_paged_decode_attention", "block_kv"): 64,
 }
 
 

@@ -1,9 +1,11 @@
-// Shared helpers of the port's CUDA kernels: element conversion, the
+// Shared helpers of the port's CUDA kernels: element conversion (f32,
+// bf16, and the int8 / fp8-e4m3 storage of quantized KV pools), the
 // large-negative mask value of the reference kernels, and the error
 // string entry point every library exports for its ctypes wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,10 +18,16 @@ constexpr float NEG_INF = -1e30f;
 // dtype codes passed by the Python wrappers
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_I8 = 2;   // quantized KV pools
+constexpr int DTYPE_FP8 = 3;  // __nv_fp8_e4m3, the encoding of torch.float8_e4m3fn
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);  // exact: every e4m3 value is an f32
 }
 
 template <typename T>
@@ -42,11 +50,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Stage the first `rows` rows of a row-major ROWS x D tile of T into
-// shared memory as f32 (row stride `ld`, times `scale`); rows past
-// `rows` become 0.  Each thread issues all its 16-byte loads before it
-// converts and stores any, so the tile costs about one memory latency,
-// not one per element: with one small CTA per SM nothing else would
-// hide it.  `src` must be 16-byte aligned (the Python wrappers check).
+// shared memory as f32 (row stride `ld`), each element as
+// `to_f32(x) * scale`: the dequantization of a quantized block, exactly
+// the reference's `f32(k) * k_scale`; rows past `rows` become 0.  Each
+// thread issues all its 16-byte loads before it converts and stores
+// any, so the tile costs about one memory latency, not one per
+// element: with one small CTA per SM nothing else would hide it.  A
+// 16-byte load holds 16 / sizeof(T) elements (16 of int8 or fp8).
+// `src` must be 16-byte aligned (the Python wrappers check).
 template <typename T, int ROWS, int D, int NT>
 __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
                                            float* dst, int ld, int rows,

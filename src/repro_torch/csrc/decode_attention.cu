@@ -23,20 +23,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lengths,
               float* acc_out, float* m_out, float* l_out, int hq, int hkv,
               int s, int bk, float scale, int window, float softcap) {
+  constexpr int G = repro::G_DECODE;
   extern __shared__ float smem[];
-  const repro::DecodeSmem<D> sm(smem);
+  const repro::DecodeSmem<D, G> sm(smem);
   const int h = blockIdx.x, b = blockIdx.y, g = hq / hkv;
-  const size_t row0 = static_cast<size_t>(b) * hq + h * g;
-  float acc[repro::G_MAX];
-  repro::decode_init<T, D>(sm, q + row0 * D, g, scale, acc);
+  const repro::Rows<G> rows{static_cast<size_t>(b) * hq + h * g, g, hq, g};
   const int length = min(lengths[b], s);
+  float acc[G];
+  repro::decode_init<T, D, G>(sm, q, rows, scale, acc);
   const size_t base = static_cast<size_t>(b * hkv + h) * s * D;
   for (int k0 = 0; k0 < length; k0 += bk)
-    repro::decode_block<T, D>(sm, kc + base + static_cast<size_t>(k0) * D,
-                              vc + base + static_cast<size_t>(k0) * D,
-                              min(bk, s - k0), k0, length, g, window, softcap,
-                              acc);
-  repro::decode_store<D>(sm, acc, g, row0, acc_out, m_out, l_out);
+    repro::decode_block<T, D, G>(sm, kc + base + static_cast<size_t>(k0) * D,
+                                 vc + base + static_cast<size_t>(k0) * D,
+                                 min(bk, s - k0), k0, g, length, window,
+                                 softcap, 1.f, 1.f, acc);
+  repro::decode_store<D, G>(sm, acc, rows, acc_out, m_out, l_out);
 }
 
 template <typename T, int D>
@@ -44,7 +45,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const int* lengths, float* acc, float* m, float* l,
                    int b, int hq, int hkv, int s, int bk, float scale,
                    int window, float softcap, cudaStream_t stream) {
-  const size_t bytes = repro::decode_smem_floats<D>() * sizeof(float);
+  const size_t bytes =
+      repro::decode_smem_floats<D, repro::G_DECODE>() * sizeof(float);
   static const cudaError_t attr = repro::allow_smem(decode_kernel<T, D>, bytes);
   if (attr != cudaSuccess) return attr;
   decode_kernel<T, D><<<dim3(hkv, b), D, bytes, stream>>>(
@@ -76,7 +78,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc,
                                     int hq, int hkv, int s, int d, int bk,
                                     float scale, int window, float softcap,
                                     int dtype, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::G_MAX || bk < 1 ||
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::G_DECODE || bk < 1 ||
       bk > repro::BK_MAX)
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;

@@ -1,81 +1,121 @@
-// The flash-decode step shared by the dense and the paged decode
-// kernels, as flash_decode_step (src/repro/kernels/decode_attention/
+// The flash-decode step shared by the decode kernels, as
+// flash_decode_step (src/repro/kernels/decode_attention/
 // decode_attention.py:37) is shared by the reference's kernels: they
-// differ only in where a block of K/V rows comes from.
+// differ only in where a block of K/V rows comes from, what element
+// type it is stored in, and how far each query row may see.
 //
-// One CTA serves one (batch row, kv head) and all G = Hq / Hkv query
-// heads of its group, so each K/V row is read from memory once.  The
-// CTA has D threads; thread c owns output column c of every group row.
-// Per block of up to BK_MAX tokens: stage K and V in shared memory as
-// f32 (stage_tile: every thread's 16-byte loads in flight together, so
-// a block pays about one memory latency), score every (row, token)
-// pair, run the online-softmax update (one warp per row), and
-// accumulate P V in registers.  The outputs are the unnormalized
-// residuals (acc, m, l) of the reference's contract.
+// One CTA serves one (batch row, kv head) and the G query rows stacked
+// on that kv head, so each K/V row is read from memory once.  For the
+// one-token kernels (B3, B4, B5) the rows are the group's Hq / Hkv
+// query heads; for the speculative kernel (B6) they are the K1 window
+// positions times the group, position-major (row r = qi * group + gi,
+// `Rows` below).  The CTA has D threads; thread c owns output column c
+// of every row.  Per block of up to BK_MAX tokens: stage K and V in
+// shared memory as f32 (stage_tile: every thread's 16-byte loads in
+// flight together, so a block pays about one memory latency; a
+// quantized block is dequantized there, before any dot), score every
+// (row, token) pair against the row's own causal horizon, run the
+// online-softmax update (one warp per row), and accumulate P V in
+// registers.  The outputs are the unnormalized residuals (acc, m, l) of
+// the reference's contract.
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
 
-constexpr int BK_MAX = 64;  // tokens per block
-constexpr int G_MAX = 8;    // query heads per kv head
+constexpr int BK_MAX = 64;     // tokens per block
+constexpr int G_DECODE = 8;    // rows of the one-token kernels: the group
+constexpr int G_SPEC = 32;     // rows of the speculative kernel: K1 * group
 
-template <int D>
-constexpr size_t decode_smem_floats() {
-  return static_cast<size_t>(G_MAX) * D + BK_MAX * (D + 1) + BK_MAX * D +
-         G_MAX * BK_MAX + 3 * G_MAX;
+// The speculative kernel's rows each see their own causal horizon, read
+// from shared memory; the one-token kernels' rows all see the CTA's one
+// length, kept in a register.
+template <int G>
+__host__ __device__ constexpr bool per_row_horizon() {
+  return G == G_SPEC;
 }
 
-template <int D>
+template <int D, int G>
+constexpr size_t decode_smem_floats() {
+  return static_cast<size_t>(G) * D + BK_MAX * (D + 1) + BK_MAX * D +
+         G * BK_MAX + 4 * G;
+}
+
+template <int D, int G>
 struct DecodeSmem {
-  float* q;  // G_MAX x D, pre-scaled
-  float* k;  // BK_MAX x (D + 1)
-  float* v;  // BK_MAX x D
-  float* s;  // G_MAX x BK_MAX: scores, then probabilities
-  float* m;  // running max per row
-  float* l;  // running sum per row
-  float* a;  // this block's rescale factor per row
+  float* q;   // G x D, pre-scaled
+  float* k;   // BK_MAX x (D + 1)
+  float* v;   // BK_MAX x D
+  float* s;   // G x BK_MAX: scores, then probabilities
+  float* m;   // running max per row
+  float* l;   // running sum per row
+  float* a;   // this block's rescale factor per row
+  int* hz;    // per-row horizons (per_row_horizon): tokens [0, hz) visible
   __device__ explicit DecodeSmem(float* base) {
     q = base;
-    k = q + G_MAX * D;
+    k = q + G * D;
     v = k + BK_MAX * (D + 1);
     s = v + BK_MAX * D;
-    m = s + G_MAX * BK_MAX;
-    l = m + G_MAX;
-    a = l + G_MAX;
+    m = s + G * BK_MAX;
+    l = m + G;
+    a = l + G;
+    hz = reinterpret_cast<int*>(a + G);
   }
 };
 
-// Load the group's query rows (scaled) and reset the running state.
-template <typename T, int D>
-__device__ void decode_init(const DecodeSmem<D>& sm, const T* qrows, int g,
-                            float scale, float acc[G_MAX]) {
-  for (int i = threadIdx.x; i < g * D; i += D) sm.q[i] = to_f32(qrows[i]) * scale;
-  if (threadIdx.x < G_MAX) {
+// Where the CTA's row r lives in the (B, K1, Hq) row space of q and of
+// the outputs: query position r / group, head h * group + r % group.
+// The one-token kernels' rows are consecutive heads (K1 = 1), so their
+// index is row0 + r, with no division.
+template <int G>
+struct Rows {
+  size_t row0;  // (b * K1) * Hq + h * group
+  int group;    // query heads per kv head
+  int hq;       // rows per query position
+  int n;        // live rows: K1 * group (<= G)
+  __device__ size_t operator()(int r) const {
+    if (!per_row_horizon<G>()) return row0 + r;
+    return row0 + static_cast<size_t>(r / group) * hq + r % group;
+  }
+};
+
+// Load the CTA's query rows (scaled) and reset the running state.
+template <typename T, int D, int G>
+__device__ void decode_init(const DecodeSmem<D, G>& sm, const T* q,
+                            const Rows<G>& rows, float scale, float acc[G]) {
+  for (int r = 0; r < rows.n; ++r)
+    sm.q[r * D + threadIdx.x] = to_f32(q[rows(r) * D + threadIdx.x]) * scale;
+  if (threadIdx.x < G) {
     sm.m[threadIdx.x] = NEG_INF;
     sm.l[threadIdx.x] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < G_MAX; ++i) acc[i] = 0.f;
+  for (int i = 0; i < G; ++i) acc[i] = 0.f;
 }
 
 // One block update.  `kblk`/`vblk` point at `rows` contiguous K/V rows
-// holding tokens k_start .. k_start + rows - 1; tokens at or past
-// `length` are masked, as is anything outside the window.
-template <typename T, int D>
-__device__ void decode_block(const DecodeSmem<D>& sm, const T* __restrict__ kblk,
-                             const T* __restrict__ vblk, int rows, int k_start,
-                             int length, int g, int window, float softcap,
-                             float acc[G_MAX]) {
+// holding tokens k_start .. k_start + rows - 1, stored as KV; a 1-byte
+// KV is quantized storage, dequantized with `k_scale`/`v_scale`.  Row r
+// masks tokens at or past its horizon (sm.hz[r], or `length` for every
+// row of a one-token kernel), and outside the window measured back from
+// that horizon (decode_attention.py:80-83).
+template <typename KV, int D, int G>
+__device__ void decode_block(const DecodeSmem<D, G>& sm,
+                             const KV* __restrict__ kblk,
+                             const KV* __restrict__ vblk, int rows,
+                             int k_start, int n, int length, int window,
+                             float softcap, float k_scale, float v_scale,
+                             float acc[G]) {
   constexpr int LD = D + 1;
   constexpr int NW = D / 32;
+  constexpr bool kQuant = sizeof(KV) == 1;
   const int tid = threadIdx.x;
   __syncthreads();  // the previous block's readers are done
-  stage_tile<T, BK_MAX, D, D>(kblk, sm.k, LD, rows);
-  stage_tile<T, BK_MAX, D, D>(vblk, sm.v, D, rows);
+  stage_tile<KV, BK_MAX, D, D>(kblk, sm.k, LD, rows, kQuant ? k_scale : 1.f);
+  stage_tile<KV, BK_MAX, D, D>(vblk, sm.v, D, rows, kQuant ? v_scale : 1.f);
   __syncthreads();
-  for (int i = tid; i < g * BK_MAX; i += D) {
+  for (int i = tid; i < n * BK_MAX; i += D) {
     const int gi = i / BK_MAX, t = i % BK_MAX;
     const float* qr = sm.q + gi * D;
     const float* kr = sm.k + t * LD;
@@ -84,13 +124,14 @@ __device__ void decode_block(const DecodeSmem<D>& sm, const T* __restrict__ kblk
     for (int c = 0; c < D; ++c) x = fmaf(qr[c], kr[c], x);
     if (softcap > 0.f) x = softcap * tanhf(x / softcap);
     const int kp = k_start + t;
-    bool ok = t < rows && kp < length;
-    if (window > 0) ok = ok && (length - 1 - kp) < window;
+    const int horizon = per_row_horizon<G>() ? sm.hz[gi] : length;
+    bool ok = t < rows && kp < horizon;
+    if (window > 0) ok = ok && (horizon - 1 - kp) < window;
     sm.s[gi * BK_MAX + t] = ok ? x : NEG_INF;
   }
   __syncthreads();
   const int warp = tid / 32, lane = tid % 32;
-  for (int gi = warp; gi < g; gi += NW) {
+  for (int gi = warp; gi < n; gi += NW) {
     float* sr = sm.s + gi * BK_MAX;
     const float x0 = sr[lane], x1 = sr[lane + 32];
     const float m_old = sm.m[gi];
@@ -110,29 +151,142 @@ __device__ void decode_block(const DecodeSmem<D>& sm, const T* __restrict__ kblk
   }
   __syncthreads();
 #pragma unroll
-  for (int gi = 0; gi < G_MAX; ++gi)
-    if (gi < g) acc[gi] *= sm.a[gi];
+  for (int gi = 0; gi < G; ++gi)
+    if (gi < n) acc[gi] *= sm.a[gi];
   for (int t = 0; t < rows; ++t) {
     const float vv = sm.v[t * D + tid];
 #pragma unroll
-    for (int gi = 0; gi < G_MAX; ++gi)
-      if (gi < g) acc[gi] = fmaf(sm.s[gi * BK_MAX + t], vv, acc[gi]);
+    for (int gi = 0; gi < G; ++gi)
+      if (gi < n) acc[gi] = fmaf(sm.s[gi * BK_MAX + t], vv, acc[gi]);
   }
 }
 
-// Write the residuals of the group's rows: acc (B, Hq, D), m/l (B, Hq).
-template <int D>
-__device__ void decode_store(const DecodeSmem<D>& sm, const float acc[G_MAX],
-                             int g, size_t row0, float* acc_out, float* m_out,
-                             float* l_out) {
+// Write the residuals of the CTA's rows: acc (rows, D), m/l (rows).
+template <int D, int G>
+__device__ void decode_store(const DecodeSmem<D, G>& sm, const float acc[G],
+                             const Rows<G>& rows, float* acc_out,
+                             float* m_out, float* l_out) {
   __syncthreads();
 #pragma unroll
-  for (int gi = 0; gi < G_MAX; ++gi)
-    if (gi < g) acc_out[(row0 + gi) * D + threadIdx.x] = acc[gi];
-  if (threadIdx.x < g) {
-    m_out[row0 + threadIdx.x] = sm.m[threadIdx.x];
-    l_out[row0 + threadIdx.x] = sm.l[threadIdx.x];
+  for (int gi = 0; gi < G; ++gi)
+    if (gi < rows.n) acc_out[rows(gi) * D + threadIdx.x] = acc[gi];
+  if (threadIdx.x < rows.n) {
+    m_out[rows(threadIdx.x)] = sm.m[threadIdx.x];
+    l_out[rows(threadIdx.x)] = sm.l[threadIdx.x];
   }
+}
+
+// The paged decode body of B4, B5 and B6: K/V gathered through per-row
+// block tables from head-major page pools (Hkv, P, ps, D) of KV; a
+// 1-byte KV is quantized storage, with (Hkv, P) f32 scale pools read at
+// scales[h * P + page] for the page a block comes from.  Page 0 is
+// the allocator's null page; a table entry outside the pool reads it
+// instead of out-of-bounds memory.  Logical page ik / ps of row b maps
+// to physical page bt[b, ik / ps], and its bk-token sub-block is a
+// contiguous run of rows (bk divides ps; the wrapper clamps it).
+//
+// Horizons: a one-token kernel's rows all see row_len[b] tokens (its
+// lengths already count the new token), capped at the table's reach;
+// the speculative kernel's row r sees row_len[b * row_stride + r] (its
+// wrapper computes base + 1 + r / group), and its block loop runs to
+// the largest horizon, capped at the table's reach.
+template <typename T, typename KV, int D, int G>
+__global__ void __launch_bounds__(D)
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                    const KV* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int* __restrict__ bt,
+                    const int* __restrict__ row_len, int row_stride,
+                    float* acc_out, float* m_out, float* l_out, int k1,
+                    int hq, int hkv, int n_pages, int page_size, int t_cols,
+                    int bk, float scale, int window, float softcap) {
+  extern __shared__ float smem[];
+  const DecodeSmem<D, G> sm(smem);
+  const int h = blockIdx.x, b = blockIdx.y, group = hq / hkv;
+  constexpr bool kQuant = sizeof(KV) == 1;
+  const Rows<G> rows{static_cast<size_t>(b) * k1 * hq + h * group, group, hq,
+                     k1 * group};
+  float acc[G];
+  decode_init<T, D, G>(sm, q, rows, scale, acc);
+  const int reach = t_cols * page_size;
+  int length = per_row_horizon<G>() ? 0 : min(row_len[b], reach);
+  int limit = length;
+  if (per_row_horizon<G>()) {
+    if (threadIdx.x < rows.n)
+      sm.hz[threadIdx.x] =
+          row_len[static_cast<size_t>(b) * row_stride + threadIdx.x];
+    __syncthreads();
+    limit = 0;
+    for (int r = 0; r < rows.n; ++r) limit = max(limit, sm.hz[r]);
+    limit = min(limit, reach);
+  }
+  const int* row = bt + static_cast<size_t>(b) * t_cols;
+  for (int k0 = 0; k0 < limit; k0 += bk) {
+    int page = row[k0 / page_size];
+    if (page < 0 || page >= n_pages) page = 0;
+    const size_t pg = static_cast<size_t>(h) * n_pages + page;
+    const size_t off = (pg * page_size + k0 % page_size) * D;
+    decode_block<KV, D, G>(sm, kp + off, vp + off, bk, k0, rows.n, length,
+                           window, softcap, kQuant ? ks[pg] : 1.f,
+                           kQuant ? vs[pg] : 1.f, acc);
+  }
+  decode_store<D, G>(sm, acc, rows, acc_out, m_out, l_out);
+}
+
+// Launch paged_decode_kernel<T, KV, D, G> on a (Hkv, B) grid.
+template <typename T, typename KV, int D, int G>
+cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
+                         const float* ks, const float* vs, const int* bt,
+                         const int* row_len, int row_stride, float* acc,
+                         float* m, float* l, int b, int k1, int hq, int hkv,
+                         int n_pages, int page_size, int t_cols, int bk,
+                         float scale, int window, float softcap,
+                         cudaStream_t stream) {
+  const size_t bytes = decode_smem_floats<D, G>() * sizeof(float);
+  static const cudaError_t attr =
+      allow_smem(paged_decode_kernel<T, KV, D, G>, bytes);
+  if (attr != cudaSuccess) return attr;
+  paged_decode_kernel<T, KV, D, G><<<dim3(hkv, b), D, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), ks, vs, bt, row_len, row_stride, acc, m, l,
+      k1, hq, hkv, n_pages, page_size, t_cols, bk, scale, window, softcap);
+  return cudaGetLastError();
+}
+
+// The arguments every paged entry point passes through, and their
+// dispatch on the query's element type, the pools' and the head dim.
+struct PagedArgs {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *bt, *row_len;
+  int row_stride;
+  float *acc, *m, *l;
+  int b, k1, hq, hkv, n_pages, page_size, t_cols, d, bk;
+  float scale;
+  int window;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, int G>
+cudaError_t dispatch_paged_d(const PagedArgs& a) {
+#define REPRO_PAGED_LAUNCH(DIM)                                              \
+  launch_paged<T, KV, DIM, G>(a.q, a.kp, a.vp, a.ks, a.vs, a.bt, a.row_len,  \
+                              a.row_stride, a.acc, a.m, a.l, a.b, a.k1, a.hq, \
+                              a.hkv, a.n_pages, a.page_size, a.t_cols, a.bk, \
+                              a.scale, a.window, a.softcap, a.stream)
+  if (a.d == 64) return REPRO_PAGED_LAUNCH(64);
+  if (a.d == 128) return REPRO_PAGED_LAUNCH(128);
+#undef REPRO_PAGED_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+// Shape checks shared by the paged entry points: whole groups, at most
+// G rows per CTA, blocks that divide the page.
+template <int G>
+inline bool paged_args_ok(const PagedArgs& a) {
+  return a.hkv > 0 && a.hq % a.hkv == 0 && a.k1 >= 1 &&
+         a.k1 * (a.hq / a.hkv) <= G && a.bk >= 1 && a.bk <= BK_MAX &&
+         a.page_size % a.bk == 0 && a.n_pages >= 1;
 }
 
 }  // namespace repro

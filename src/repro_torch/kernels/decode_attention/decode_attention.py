@@ -19,21 +19,32 @@ KERNEL = CudaKernel(
     [_p] * 7 + [_i] * 6 + [_f, _i, _f, _i, _p])
 
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 8        # G_MAX in csrc/decode_common.cuh
+MAX_GROUP = 8        # G_DECODE in csrc/decode_common.cuh
 MAX_BLOCK_KV = 64    # BK_MAX in csrc/decode_common.cuh
 
 
-def check_decode_operands(name: str, q, k, v, lengths) -> None:
-    """Shape/type checks shared by the dense and the paged launchers;
-    ``k``/``v`` are caches (B, Hkv, S, D) or pools (Hkv, P, ps, D)."""
-    b, hq, d = q.shape
+#: Pool element types of the quantized kernels (B5, B6's quantized mode).
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def check_decode_operands(name: str, q, k, v, lengths, *,
+                          quantized: bool = False) -> None:
+    """Shape/type checks shared by the decode launchers; ``k``/``v`` are
+    caches (B, Hkv, S, D) or pools (Hkv, P, ps, D).  Quantized pools
+    must hold a storage type the kernels have (int8, fp8-e4m3);
+    unquantized ones q's dtype."""
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     if k.shape != v.shape or k.shape[-1] != d:
         raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"{name} kernel: head dim {d} (built for "
                                   f"{HEAD_DIMS})")
-    if not q.dtype == k.dtype == v.dtype:
+    if quantized:
+        if k.dtype != v.dtype or k.dtype not in QUANT_DTYPES:
+            raise TypeError(f"{name}: quantized pools must be one of "
+                            f"{QUANT_DTYPES}, got {k.dtype}, {v.dtype}")
+    elif not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{name}: mixed dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
@@ -42,10 +53,10 @@ def check_decode_operands(name: str, q, k, v, lengths) -> None:
 
 
 def residual_outputs(q) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    b, hq, d = q.shape
+    """Empty f32 (acc, m, l) for q (..., D): acc like q, m/l without D."""
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty((b, hq, d), **f32), torch.empty((b, hq), **f32),
-            torch.empty((b, hq), **f32))
+    return (torch.empty(q.shape, **f32), torch.empty(q.shape[:-1], **f32),
+            torch.empty(q.shape[:-1], **f32))
 
 
 def decode_attention_fwd(q, k_cache, v_cache, lengths, *,

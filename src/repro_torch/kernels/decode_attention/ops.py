@@ -1,9 +1,12 @@
-"""Public decode-attention ops, dense and paged.
+"""Public decode-attention ops: dense, paged, quantized paged,
+speculative paged and quantized speculative paged.
 
 A CPU tensor takes the plain version, a CUDA tensor the hand-written
-kernel.  Both return the unnormalized residuals (acc, m, l) internally;
-the public functions normalize them with the ``l == 0 -> 1`` guard
-unless ``return_residuals`` asks for the raw triple.
+kernel (or the call raises).  Both return the unnormalized residuals
+(acc, m, l) internally; the public functions normalize them with the
+``l == 0 -> 1`` guard unless ``return_residuals`` asks for the raw
+triple.  ``page_size`` (logical, divides the pool's) and ``block_kv``
+are schedule choices that never change the result.
 """
 from __future__ import annotations
 
@@ -12,10 +15,20 @@ from typing import Optional
 from repro_torch.core import tuning
 from repro_torch.kernels.decode_attention import decode_attention as _kern
 from repro_torch.kernels.decode_attention import paged as _paged
+from repro_torch.kernels.decode_attention import quant as _quant
 from repro_torch.kernels.decode_attention import ref as _ref
+from repro_torch.kernels.decode_attention import spec as _spec
 
 #: Tolerance of the reference ops (``core/op.py`` default), f32.
 TOL = {"atol": 2e-5, "rtol": 2e-5}
+
+
+def _finish(q, res, return_residuals: bool):
+    """The residuals, or the output normalized with ``l == 0 -> 1``."""
+    acc, m, l = res
+    if return_residuals:
+        return acc, m, l
+    return _ref.normalize(acc, l, q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
@@ -29,16 +42,14 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     token)."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
-        acc, m, l = _ref.decode_attention_ref(
+        res = _ref.decode_attention_ref(
             q, k_cache, v_cache, lengths, return_residuals=True, **kw)
     else:
         block_kv = block_kv or tuning.block_size("decode_attention",
                                                  "block_kv")
-        acc, m, l = _kern.decode_attention_fwd(
+        res = _kern.decode_attention_fwd(
             q, k_cache, v_cache, lengths, block_kv=block_kv, **kw)
-    if return_residuals:
-        return acc, m, l
-    return _ref.normalize(acc, l, q.dtype)
+    return _finish(q, res, return_residuals)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -54,15 +65,87 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     choices that never change the result."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
-        acc, m, l = _ref.paged_decode_attention_ref(
+        res = _ref.paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, lengths,
             return_residuals=True, **kw)
     else:
         block_kv = block_kv or tuning.block_size("paged_decode_attention",
                                                  "block_kv")
-        acc, m, l = _paged.paged_decode_attention_fwd(
+        res = _paged.paged_decode_attention_fwd(
             q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
             block_kv=block_kv, **kw)
-    if return_residuals:
-        return acc, m, l
-    return _ref.normalize(acc, l, q.dtype)
+    return _finish(q, res, return_residuals)
+
+
+def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
+                                 block_tables, lengths, *,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
+                                 scale: Optional[float] = None,
+                                 page_size: Optional[int] = None,
+                                 block_kv: Optional[int] = None,
+                                 return_residuals: bool = False):
+    """Single-token GQA decode over a quantized paged pool: pools (Hkv,
+    P, ps, D) int8/fp8-e4m3, scale pools (Hkv, P) f32.  Semantics of
+    ``paged_decode_attention`` over the dequantized pools."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        res = _ref.quant_paged_decode_attention_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths,
+            return_residuals=True, **kw)
+    else:
+        block_kv = block_kv or tuning.block_size(
+            "quant_paged_decode_attention", "block_kv")
+        res = _quant.quant_paged_decode_attention_fwd(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths,
+            page_size=page_size, block_kv=block_kv, **kw)
+    return _finish(q, res, return_residuals)
+
+
+def spec_paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
+                                *, window: Optional[int] = None,
+                                softcap: Optional[float] = None,
+                                scale: Optional[float] = None,
+                                page_size: Optional[int] = None,
+                                block_kv: Optional[int] = None,
+                                return_residuals: bool = False):
+    """Speculative (multi-query) GQA decode over a paged pool.  q: (B,
+    K1, Hq, D), the committed token plus k drafts per slot; lengths:
+    (B,) PRE-speculation prefix.  Position i attends causally to
+    ``lengths + 1 + i`` tokens.  Returns (B, K1, Hq, D) or residuals."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        res = _ref.spec_paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, lengths,
+            return_residuals=True, **kw)
+    else:
+        block_kv = block_kv or tuning.block_size(
+            "spec_paged_decode_attention", "block_kv")
+        res = _spec.spec_paged_decode_attention_fwd(
+            q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
+            block_kv=block_kv, **kw)
+    return _finish(q, res, return_residuals)
+
+
+def quant_spec_paged_decode_attention(q, k_pages, v_pages, k_scales,
+                                      v_scales, block_tables, lengths, *,
+                                      window: Optional[int] = None,
+                                      softcap: Optional[float] = None,
+                                      scale: Optional[float] = None,
+                                      page_size: Optional[int] = None,
+                                      block_kv: Optional[int] = None,
+                                      return_residuals: bool = False):
+    """``spec_paged_decode_attention`` over quantized pools; on the card
+    the same kernel in its quantized mode."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        res = _ref.quant_spec_paged_decode_attention_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths,
+            return_residuals=True, **kw)
+    else:
+        block_kv = block_kv or tuning.block_size(
+            "quant_spec_paged_decode_attention", "block_kv")
+        res = _spec.spec_paged_decode_attention_fwd(
+            q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
+            block_kv=block_kv, k_scales=k_scales, v_scales=v_scales, **kw)
+    return _finish(q, res, return_residuals)

@@ -7,8 +7,10 @@ Layouts (as ``repro.kernels.decode_attention.paged``):
   block_tables (B, T) int32     page id per (slot, logical page)
   lengths      (B,)   int32     valid tokens per slot
 
-``repage`` and ``clamp_block_kv`` are plain functions so that the CPU
-tests check the index math the kernel launch relies on.
+``repage``, ``repage_scales`` and ``clamp_block_kv`` are plain
+functions so that the CPU tests check the index math the kernel
+launches rely on; ``paged_operands`` applies them for this launcher and
+for the quantized (``quant.py``) and speculative (``spec.py``) ones.
 """
 from __future__ import annotations
 
@@ -48,6 +50,17 @@ def repage(pool: torch.Tensor, block_tables: torch.Tensor, page_size: int):
     return pool, bt.reshape(block_tables.shape[0], -1)
 
 
+def repage_scales(scales: torch.Tensor, page_size: int, ps_phys: int):
+    """Per-page (H, P) scales at a smaller logical page: every logical
+    page carved from a physical page shares its scale (identity when
+    the sizes agree)."""
+    if page_size == ps_phys:
+        return scales
+    r = ps_phys // page_size
+    h, p = scales.shape
+    return scales.repeat_interleave(r, dim=1).reshape(h, p * r)
+
+
 def clamp_block_kv(block_kv: int, page_size: int) -> int:
     """The largest block size <= ``block_kv`` that divides
     ``page_size``: a block may never span two non-contiguous pages
@@ -58,6 +71,38 @@ def clamp_block_kv(block_kv: int, page_size: int) -> int:
     return block_kv
 
 
+def paged_operands(name: str, q, k_pages, v_pages, block_tables, *,
+                   page_size: Optional[int], block_kv: int,
+                   k_scales=None, v_scales=None):
+    """Check the paged operands of a launcher and re-view them at the
+    logical page size.  q is (B, Hq, D) or (B, K1, Hq, D).  Returns
+    (k_pages, v_pages, table, k_scales, v_scales, page_size, bk) ready
+    to hand to a kernel: contiguous, int32 table, ``bk`` dividing the
+    logical page."""
+    b = q.shape[0]
+    hkv, p_phys, ps_phys = k_pages.shape[:3]
+    if (block_tables.dim() != 2 or block_tables.shape[0] != b
+            or block_tables.dtype != torch.int32):
+        raise ValueError(f"{name}: block_tables must be ({b}, T) int32, got "
+                         f"{tuple(block_tables.shape)} {block_tables.dtype}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: pass both scale pools or neither")
+    page_size = ps_phys if page_size is None else page_size
+    k_pages, bt = repage(k_pages, block_tables, page_size)
+    v_pages, _ = repage(v_pages, block_tables, page_size)
+    if k_scales is not None:
+        for sc in (k_scales, v_scales):
+            if sc.shape != (hkv, p_phys) or sc.dtype != torch.float32:
+                raise ValueError(f"{name}: scale pools must be ({hkv}, "
+                                 f"{p_phys}) float32, got {tuple(sc.shape)} "
+                                 f"{sc.dtype}")
+        k_scales = repage_scales(k_scales, page_size, ps_phys).contiguous()
+        v_scales = repage_scales(v_scales, page_size, ps_phys).contiguous()
+    bk = clamp_block_kv(min(block_kv, MAX_BLOCK_KV), page_size)
+    return (k_pages, v_pages, bt.contiguous(), k_scales, v_scales, page_size,
+            bk)
+
+
 def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
                                window: Optional[int],
                                softcap: Optional[float],
@@ -65,24 +110,17 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
                                page_size: Optional[int], block_kv: int):
     """Returns unnormalized f32 residuals (acc, m, l), as the dense
     decode kernel does."""
-    check_decode_operands("paged_decode_attention", q, k_pages, v_pages,
-                          lengths)
+    name = "paged_decode_attention"
+    check_decode_operands(name, q, k_pages, v_pages, lengths)
     b, hq, d = q.shape
     hkv = k_pages.shape[0]
     if hq % hkv or hq // hkv > MAX_GROUP:
-        raise ValueError(f"paged_decode_attention: {hq} query heads over "
-                         f"{hkv} kv heads (group <= {MAX_GROUP})")
-    if (block_tables.dim() != 2 or block_tables.shape[0] != b
-            or block_tables.dtype != torch.int32):
-        raise ValueError(f"paged_decode_attention: block_tables must be "
-                         f"({b}, T) int32, got {tuple(block_tables.shape)} "
-                         f"{block_tables.dtype}")
-    page_size = k_pages.shape[2] if page_size is None else page_size
-    k_pages, bt = repage(k_pages, block_tables, page_size)
-    v_pages, _ = repage(v_pages, block_tables, page_size)
-    bk = clamp_block_kv(min(block_kv, MAX_BLOCK_KV), page_size)
-    bt = bt.contiguous()
-    check_cuda("paged_decode_attention", q, k_pages, v_pages, bt, lengths)
+        raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads "
+                         f"(group <= {MAX_GROUP})")
+    k_pages, v_pages, bt, _, _, page_size, bk = paged_operands(
+        name, q, k_pages, v_pages, block_tables, page_size=page_size,
+        block_kv=block_kv)
+    check_cuda(name, q, k_pages, v_pages, bt, lengths)
     acc, m, l = residual_outputs(q)
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(bt), ptr(lengths),
                   ptr(acc), ptr(m), ptr(l), b, hq, hkv, k_pages.shape[1],

@@ -1,5 +1,6 @@
-"""Plain PyTorch single-token decode attention over dense or paged KV
-(transcribed from ``repro.kernels.decode_attention.ref``)."""
+"""Plain PyTorch decode attention over dense, paged, quantized paged
+and speculative paged KV (transcribed from
+``repro.kernels.decode_attention.ref``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -74,4 +75,86 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     return decode_attention_ref(
         q, gather_pages(k_pages, block_tables),
         gather_pages(v_pages, block_tables), lengths, window=window,
+        softcap=softcap, scale=scale, return_residuals=return_residuals)
+
+
+def dequantize_pools(k_pages, v_pages, k_scales, v_scales):
+    """int8/fp8 pools (Hkv, P, ps, D) and their (Hkv, P) f32 scales ->
+    f32 pools, as ``f32(q) * scale``: the kernels' arithmetic, so kernel
+    and plain version agree at float tolerances."""
+    return (k_pages.float() * k_scales[:, :, None, None],
+            v_pages.float() * v_scales[:, :, None, None])
+
+
+def quant_paged_decode_attention_ref(q, k_pages, v_pages, k_scales, v_scales,
+                                     block_tables, lengths, *,
+                                     window: Optional[int] = None,
+                                     softcap: Optional[float] = None,
+                                     scale: Optional[float] = None,
+                                     return_residuals: bool = False):
+    """Dequantize the pools densely, then the paged plain version."""
+    k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
+    return paged_decode_attention_ref(
+        q, k_dense, v_dense, block_tables, lengths, window=window,
+        softcap=softcap, scale=scale, return_residuals=return_residuals)
+
+
+def spec_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                    lengths, *,
+                                    window: Optional[int] = None,
+                                    softcap: Optional[float] = None,
+                                    scale: Optional[float] = None,
+                                    return_residuals: bool = False):
+    """Speculative (multi-query) paged decode.
+
+    q: (B, K1, Hq, D), the K1 = k+1 window positions of each slot;
+    lengths: (B,) the PRE-speculation prefix.  Position i sits at token
+    ``lengths + i`` and attends causally to ``lengths + 1 + i`` tokens
+    (the window's K/V rows are written before the verify).  Returns
+    (B, K1, Hq, D) in q's dtype, or residuals acc (B, K1, Hq, D), m and
+    l (B, K1, Hq)."""
+    b, k1, hq, d = q.shape
+    hkv = k_pages.shape[0]
+    group = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+
+    k_dense = gather_pages(k_pages, block_tables)       # (B, Hkv, S, D)
+    v_dense = gather_pages(v_pages, block_tables)
+    s = k_dense.shape[2]
+    qf = q.float() * scale
+    kf = k_dense.float().repeat_interleave(group, dim=1)
+    vf = v_dense.float().repeat_interleave(group, dim=1)
+
+    scores = torch.einsum("bihd,bhkd->bihk", qf, kf)     # (B, K1, Hq, S)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    k_pos = torch.arange(s, device=q.device)[None, None, None, :]
+    row_len = (lengths.long()[:, None] + 1
+               + torch.arange(k1, device=q.device)[None, :])
+    mask = k_pos < row_len[:, :, None, None]
+    if window is not None:
+        q_pos = (row_len - 1)[:, :, None, None]
+        mask &= (q_pos - k_pos) < window
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = torch.where(m > NEG_INF / 2, p, torch.zeros_like(p))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bihk,bhkd->bihd", p, vf)
+    if return_residuals:
+        return acc, m[..., 0], l[..., 0]
+    return normalize(acc, l[..., 0], q.dtype)
+
+
+def quant_spec_paged_decode_attention_ref(q, k_pages, v_pages, k_scales,
+                                          v_scales, block_tables, lengths, *,
+                                          window: Optional[int] = None,
+                                          softcap: Optional[float] = None,
+                                          scale: Optional[float] = None,
+                                          return_residuals: bool = False):
+    """Dequantize the pools densely, then the speculative plain version."""
+    k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
+    return spec_paged_decode_attention_ref(
+        q, k_dense, v_dense, block_tables, lengths, window=window,
         softcap=softcap, scale=scale, return_residuals=return_residuals)

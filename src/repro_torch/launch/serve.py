@@ -6,13 +6,18 @@ On the card (the default device), full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --paged --prompts 12 --prompt-len 200 --slots 8 --cache-len 1024
 
+From an int8 pool, speculating 4 tokens per step:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --paged --kv-dtype int8 --spec-mode ngram --spec-k 4
+
 On the CPU, through the plain PyTorch versions of the kernels:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --smoke --prompts 6 --max-new 12 --paged --device cpu
 
-Prints one JSON summary: completion, token counts, wall time and the
-launch count of every kernel in the run.
+Prints one JSON summary: completion, token counts, wall time, the
+speculative counters and the launch count of every kernel in the run.
 """
 from __future__ import annotations
 
@@ -30,8 +35,9 @@ def main(argv=None):
     from repro_torch.core.build import KERNELS
     from repro_torch.core.device import resolve_device
     from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import (PREEMPT_POLICIES, Engine, Request,
-                                         ServeConfig)
+    from repro_torch.quant import KV_DTYPES
+    from repro_torch.serve.engine import (PREEMPT_POLICIES, SPEC_MODES,
+                                         Engine, Request, ServeConfig)
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -54,12 +60,23 @@ def main(argv=None):
                     help="what a dry page pool does: preempt the least-"
                          "recently-admitted slot, the one with the fewest "
                          "generated tokens, or fail")
+    ap.add_argument("--kv-dtype", default=None, choices=list(KV_DTYPES),
+                    help="paged KV pool dtype (default: the model's); "
+                         "fp8 falls back to int8 on a card without it")
+    ap.add_argument("--spec-mode", default="off", choices=list(SPEC_MODES),
+                    help="self-speculative decoding (paged, greedy): "
+                         "ngram drafts from each request's own history")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens per speculative step")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no card and no --device "
                          "cpu is an error")
     args = ap.parse_args(argv)
-    if args.total_pages is not None and not args.paged:
-        ap.error("--total-pages requires --paged")
+    for flag, used in (("--total-pages", args.total_pages is not None),
+                       ("--kv-dtype", args.kv_dtype is not None),
+                       ("--spec-mode", args.spec_mode != "off")):
+        if used and not args.paged:
+            ap.error(f"{flag} requires --paged")
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -69,7 +86,9 @@ def main(argv=None):
     sc = ServeConfig(slots=args.slots, cache_len=args.cache_len,
                      max_new_tokens=args.max_new, paged=args.paged,
                      page_size=args.page_size, total_pages=args.total_pages,
-                     preempt_policy=args.preempt_policy)
+                     preempt_policy=args.preempt_policy,
+                     kv_dtype=args.kv_dtype, spec_mode=args.spec_mode,
+                     spec_k=args.spec_k)
     engine = Engine(model, params, sc, device=dev)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, tokens=rng.integers(
@@ -92,6 +111,10 @@ def main(argv=None):
         "new_tokens": new_tokens, "wall_s": dt,
         "tok_per_s": new_tokens / dt, "steps": st["steps"],
         "preemptions": st["preemptions"],
+        "kv_dtype": st.get("kv_dtype"), "spec_mode": args.spec_mode,
+        "spec_rejections": st.get("spec_rejections"),
+        "accepted_tokens_per_step": (st["spec_emitted"] / st["spec_steps"]
+                                     if st.get("spec_steps") else None),
         "kernel_launches": {k.name: k.launches for k in KERNELS},
         "sample_output": reqs[0].out,
     }, indent=1))

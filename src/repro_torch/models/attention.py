@@ -1,4 +1,6 @@
-"""GQA attention (``repro.models.attention``, global layers only).
+"""GQA attention (``repro.models.attention``, global layers only):
+prefill, one-token decode over dense, paged or quantized paged caches,
+and the speculative K1-token verify over paged pools.
 
 Weights keep the reference's shapes flattened to 2-D matrices:
 ``wq`` (d, H*hd), ``wk``/``wv`` (d, Hkv*hd), ``wo`` (H*hd, d), which is
@@ -13,7 +15,9 @@ from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.sharding.kernel_sharding import (
-    decode_update_attend, paged_decode_update_attend)
+    decode_update_attend, paged_decode_update_attend,
+    quant_paged_decode_update_attend, quant_spec_paged_decode_update_attend,
+    spec_paged_decode_update_attend)
 
 NULL_PAGE = 0
 
@@ -33,6 +37,24 @@ def _page_coords(block_tables: torch.Tensor, lengths: torch.Tensor,
     write_page = torch.where(page_idx < t, gathered,
                              torch.zeros_like(gathered))
     write_off = (lengths % page_size).to(torch.int32)
+    return write_page, write_off
+
+
+def _spec_page_coords(block_tables: torch.Tensor, lengths: torch.Tensor,
+                      k1: int, page_size: int):
+    """(write_page, write_off), both (B, K1), for the speculation window
+    at positions ``lengths .. lengths + k1 - 1``.  Positions past the
+    table's reach (the engine caps speculation at ``cache_len``, the
+    table covers ``pages_per_slot`` pages) go to the null page 0, as
+    freed slots' writes do."""
+    t = block_tables.shape[1]
+    pos = lengths[:, None] + torch.arange(k1, dtype=lengths.dtype,
+                                          device=lengths.device)[None, :]
+    page_idx = (pos // page_size).clamp(max=t - 1).long()
+    gathered = block_tables.gather(1, page_idx)
+    write_page = torch.where(pos < t * page_size, gathered,
+                             torch.zeros_like(gathered))
+    write_off = (pos % page_size).to(torch.int32)
     return write_page, write_off
 
 
@@ -77,13 +99,16 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, rope, *,
 
 def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, lengths: torch.Tensor,
-                cfg: ModelConfig, rope, *,
-                block_tables=None) -> torch.Tensor:
+                cfg: ModelConfig, rope, *, block_tables=None,
+                cache_scales=None) -> torch.Tensor:
     """One-token decode.  x: (B, 1, d); ``rope`` is ``L.rope_cache`` of
     ``lengths``, shaped (B, 1, hd/2).  The new token's K/V is written
     into the cache IN PLACE (dense row ``lengths``, or its page when
     ``block_tables`` (B, T) names pools (Hkv, P, ps, D)), then the step
-    attends over ``lengths + 1`` tokens.  Returns out (B, 1, d)."""
+    attends over ``lengths + 1`` tokens.  ``cache_scales`` (ks, vs), the
+    (Hkv, P) scale pools, marks the pools quantized: the write
+    re-quantizes the page and the quantized kernel reads it.  Returns
+    out (B, 1, d)."""
     xd = x.dtype
     q = (x[:, 0] @ p["wq"].to(xd)).view(x.shape[0], cfg.num_heads, -1)
     k = (x[:, 0] @ p["wk"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
@@ -95,10 +120,48 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     if block_tables is not None:
         ps = cache_k.shape[2]
         write_page, write_off = _page_coords(block_tables, lengths, ps)
-        out = paged_decode_update_attend(q, k, v, cache_k, cache_v,
-                                         block_tables, write_page,
-                                         write_off, eff_len, page_size=ps)
+        if cache_scales is not None:
+            out = quant_paged_decode_update_attend(
+                q, k, v, cache_k, cache_v, cache_scales[0], cache_scales[1],
+                block_tables, write_page, write_off, eff_len, page_size=ps)
+        else:
+            out = paged_decode_update_attend(q, k, v, cache_k, cache_v,
+                                             block_tables, write_page,
+                                             write_off, eff_len, page_size=ps)
     else:
         out = decode_update_attend(q, k, v, cache_k, cache_v, lengths,
                                    eff_len)
     return (out.reshape(x.shape[0], -1) @ p["wo"].to(xd))[:, None, :]
+
+
+def spec_decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, lengths: torch.Tensor,
+                     cfg: ModelConfig, rope, *, block_tables,
+                     cache_scales=None) -> torch.Tensor:
+    """Speculative K1-token decode over paged pools.  x: (B, K1, d), the
+    slot's current token and K1-1 drafts; ``rope`` is ``L.rope_cache``
+    of positions ``lengths + i``, shaped (B, K1, 1, hd/2); ``lengths``
+    the PRE-speculation prefix.  All K1 rows' K/V are written into the
+    pools IN PLACE, then row i attends to ``lengths + 1 + i`` tokens, so
+    one call verifies the window.  Returns out (B, K1, d)."""
+    b, k1, _ = x.shape
+    xd = x.dtype
+    q = (x @ p["wq"].to(xd)).view(b, k1, cfg.num_heads, -1)
+    k = (x @ p["wk"].to(xd)).view(b, k1, cfg.num_kv_heads, -1)
+    v = (x @ p["wv"].to(xd)).view(b, k1, cfg.num_kv_heads, -1)
+    cos, sin = rope
+    q = L.apply_rope(q, cos, sin)
+    k = L.apply_rope(k, cos, sin).transpose(1, 2)          # (B, Hkv, K1, hd)
+    v = v.transpose(1, 2)
+    ps = cache_k.shape[2]
+    write_page, write_off = _spec_page_coords(block_tables, lengths, k1, ps)
+    base = lengths.to(torch.int32)
+    if cache_scales is not None:
+        out = quant_spec_paged_decode_update_attend(
+            q, k, v, cache_k, cache_v, cache_scales[0], cache_scales[1],
+            block_tables, write_page, write_off, base, page_size=ps)
+    else:
+        out = spec_paged_decode_update_attend(
+            q, k, v, cache_k, cache_v, block_tables, write_page, write_off,
+            base, page_size=ps)
+    return out.reshape(b, k1, -1) @ p["wo"].to(xd)

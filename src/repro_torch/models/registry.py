@@ -44,6 +44,11 @@ class Model:
         return T.decode_step(params, self.cfg, caches, tokens, lengths,
                              block_tables=block_tables)
 
+    def spec_decode_step(self, params, caches, tokens, lengths,
+                         block_tables):
+        return T.spec_decode_step(params, self.cfg, caches, tokens, lengths,
+                                  block_tables)
+
     def init_decode_caches(self, batch: int, cache_len: int,
                            device: DeviceLike = None) -> List[Dict]:
         return T.init_decode_caches(self.cfg, batch, cache_len,

@@ -107,15 +107,35 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        cfg: ModelConfig, lengths: torch.Tensor, rope,
                        block_tables=None) -> torch.Tensor:
     """One-token layer step, x: (B, 1, d).  A cache holding ``kp``/``vp``
-    is a paged pool pair; one holding ``k``/``v`` a dense slot cache.
-    The new token's K/V is written into it in place."""
+    is a paged pool pair, quantized when ``ks``/``vs`` scale pools sit
+    beside it; one holding ``k``/``v`` a dense slot cache.  The new
+    token's K/V is written into it in place."""
     h = L.apply_norm(p["ln1"], x)
     if "kp" in cache:
+        scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
         y = A.decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
-                          cfg, rope, block_tables=block_tables)
+                          cfg, rope, block_tables=block_tables,
+                          cache_scales=scales)
     else:
         y = A.decode_attn(p["attn"], h, cache["k"], cache["v"], lengths, cfg,
                           rope)
+    x = x + y
+    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x))
+
+
+def apply_layer_spec_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                            cfg: ModelConfig, lengths: torch.Tensor, rope,
+                            block_tables) -> torch.Tensor:
+    """Speculative K1-token layer step, x: (B, K1, d), over a paged
+    (possibly quantized) cache; the window's K/V rows are written into
+    it in place.  The norms and the MLP are shape-generic over K1."""
+    if "kp" not in cache:
+        raise ValueError("spec decode requires paged caches")
+    h = L.apply_norm(p["ln1"], x)
+    scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
+    y = A.spec_decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
+                           cfg, rope, block_tables=block_tables,
+                           cache_scales=scales)
     x = x + y
     return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x))
 
@@ -176,6 +196,25 @@ def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
     for p, c in zip(params["layers"], caches):
         x = apply_layer_decode(p, x, c, cfg, lengths, rope, block_tables)
     return _logits(params, x, cfg)[:, 0]
+
+
+def spec_decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
+                     lengths, block_tables) -> torch.Tensor:
+    """Speculative verify step.  tokens (B, K1) int, the current token
+    and K1-1 drafts; lengths (B,) int32, tokens already cached.  Writes
+    all K1 rows' K/V into the paged ``caches`` in place and returns
+    logits (B, K1, Vp): row i conditions on ``tokens[:, :i+1]``."""
+    k1 = tokens.shape[1]
+    x = L.embed_tokens(params["embed"], tokens, dtype_of(cfg.dtype))
+    # positions lengths + i, the same in every layer: one cos/sin
+    pos = lengths[:, None] + torch.arange(k1, dtype=lengths.dtype,
+                                          device=lengths.device)[None, :]
+    cos, sin = L.rope_cache(pos, cfg.head_dim, cfg.rope_theta)
+    rope = (cos[:, :, None, :], sin[:, :, None, :])
+    for p, c in zip(params["layers"], caches):
+        x = apply_layer_spec_decode(p, x, c, cfg, lengths, rope,
+                                    block_tables)
+    return _logits(params, x, cfg)
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,

@@ -25,9 +25,23 @@ checkpointed as prompt + tokens so far onto a requeue deque that admits
 ahead of fresh requests, and re-prefills on re-admission, which under
 greedy decoding reproduces the un-preempted outputs token for token.
 
+Quantized KV (paged): ``kv_dtype`` "int8" or "fp8_e4m3" stores the
+pools in that type with per-(head, page) f32 scales, resolved against
+what the device holds (``quant.resolve_kv_spec``, fp8 -> int8 -> bf16
+with a warning).
+
+Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
+``spec_k`` tokens per slot from the slot's own token history
+(``tok_hist``: prompt lookup, no draft model), verifies the committed
+token and the drafts in one K1 = spec_k + 1 position step, accepts the
+longest prefix that agrees with the argmax chain, and rolls the
+rejected tail's pages back with ``paging.truncate_suffix``.  Still one
+device-to-host copy per step, of (tokens, accepted count, done).
+
 Left for later slices (ROADMAP.md queue A): sampling at temperature >
-0, quantized pools, windowed pools, speculative decoding, fault
-recovery, telemetry, the priority policy and per-request budgets.
+0, windowed pools, fault recovery (with the spec-degrade rung
+``spec_ok``/``spec_disable_after``, the NaN sentinel and the watchdog),
+telemetry, the priority policy and per-request budgets.
 """
 from __future__ import annotations
 
@@ -43,6 +57,7 @@ from repro_torch.core import tuning
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.registry import Model
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.quant import resolve_kv_spec
 from repro_torch.serve import paging
 
 
@@ -63,10 +78,20 @@ class ServeConfig:
     total_pages: Optional[int] = None  # None -> 1 + slots*pages_per_slot
     on_overflow: str = "reject"        # "reject" | "truncate"
     preempt_policy: str = "lru"        # "lru" | "shortest" | "fail"
+    # KV pool dtype (paged only): None = the model's dtype; "bf16" |
+    # "int8" | "fp8_e4m3" resolve against what the device holds
+    kv_dtype: Optional[str] = None
+    # self-speculative decoding (paged, greedy): "ngram" drafts spec_k
+    # tokens per step from the slot's own history; "off" is plain
+    spec_mode: str = "off"
+    spec_k: int = 4
 
 
 #: Valid ServeConfig.preempt_policy values (launch/serve.py choices).
 PREEMPT_POLICIES = ("lru", "shortest", "fail")
+
+#: Valid ServeConfig.spec_mode values (launch/serve.py choices).
+SPEC_MODES = ("off", "ngram")
 
 
 @dataclasses.dataclass
@@ -86,6 +111,31 @@ class Engine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine on {self.device}")
+        if sc.spec_mode not in SPEC_MODES:
+            raise ValueError(f"spec_mode must be one of {SPEC_MODES}, "
+                             f"got {sc.spec_mode!r}")
+        self.spec = sc.spec_mode != "off"
+        if self.spec:
+            if not sc.paged:
+                raise ValueError("spec_mode requires paged=True (rollback "
+                                 "is block-table suffix truncation)")
+            if sc.temperature > 0.0:
+                raise ValueError(
+                    f"spec_mode={sc.spec_mode!r} requires greedy decoding: "
+                    f"verification accepts drafts by token identity with "
+                    f"the argmax chain, which sampling at temperature="
+                    f"{sc.temperature} breaks; set temperature=0.0")
+            if sc.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {sc.spec_k}")
+            kinds = set(model.cfg.layer_kinds())
+            if kinds - {"global"}:
+                raise ValueError(
+                    f"spec_mode supports attention-only decoder models "
+                    f"(global attention); layer kinds {sorted(kinds)} "
+                    f"include state that a batched verify cannot roll back")
+        if sc.kv_dtype is not None and not sc.paged:
+            raise ValueError("kv_dtype requires paged=True (only paged "
+                             "pools are dtype-parametric)")
         if sc.temperature > 0.0:
             raise NotImplementedError(
                 "sampling at temperature > 0 is not ported yet (slice 1 "
@@ -105,9 +155,13 @@ class Engine:
         slots, dev = sc.slots, self.device
 
         self.paged = sc.paged
+        self.kv_spec = None
         if self.paged:
-            ps = sc.page_size or tuning.block_size("paged_decode_attention",
-                                                   "page_size")
+            self.kv_spec = resolve_kv_spec(sc.kv_dtype, self.device)
+            quantized = self.kv_spec is not None and self.kv_spec.quantized
+            op = ("quant_paged_decode_attention" if quantized
+                  else "paged_decode_attention")
+            ps = sc.page_size or tuning.block_size(op, "page_size")
             self.page_size = max(1, min(int(ps), sc.cache_len))
             self.pages_per_slot = paging.pages_per_slot(sc.cache_len,
                                                         self.page_size)
@@ -117,9 +171,13 @@ class Engine:
                                         paging.NULL_PAGE, np.int32)
             self._bt_dev = self._upload(self.block_tables)
             self._bt_dirty = False
+            # pages ensured for each slot this step: the horizon the spec
+            # step's rollback truncates back from
+            self._ensured = np.zeros((slots,), np.int64)
             self.caches = paging.init_paged_caches(
                 cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, total,
-                self.page_size, device=dev, dtype=dtype_of(cfg.dtype))
+                self.page_size, device=dev, dtype=dtype_of(cfg.dtype),
+                kv_spec=self.kv_spec)
         else:
             self.caches = model.init_decode_caches(slots, sc.cache_len, dev)
 
@@ -129,6 +187,14 @@ class Engine:
         self.cur_tok = torch.zeros((slots,), **i32)
         self.n_out = torch.zeros((slots,), **i32)
         self.active_mask = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        if self.spec:
+            # committed token history: position p holds the token whose
+            # K/V sits in cache row p; column cache_len absorbs writes
+            # clipped at the cache edge.  Only the proposer reads it.
+            self.tok_hist = torch.zeros((slots, sc.cache_len + 1), **i32)
+            self._rows = torch.arange(slots, device=dev)
+            self._hist_idx = torch.arange(sc.cache_len + 1, **i32)[None, :]
+            self._win_idx = torch.arange(sc.spec_k + 1, **i32)[None, :]
         # host mirrors (admission control / page allocation only)
         self._len_h = np.zeros((slots,), np.int64)
         self._active_h = np.zeros((slots,), bool)
@@ -142,6 +208,8 @@ class Engine:
         for p in PREEMPT_POLICIES:
             self.metrics.counter(f"serve.preemptions.{p}")
         self.metrics.gauge("serve.requeue_peak_depth")
+        for name in ("spec_steps", "spec_emitted", "spec_rejections"):
+            self.metrics.counter(f"serve.{name}")
         self._admit_seq = np.zeros((slots,), np.int64)   # lru stamps
         self._seq = 0
         self.step_count = 0
@@ -149,6 +217,18 @@ class Engine:
     @property
     def preemptions(self) -> int:
         return self.metrics.counter("serve.preemptions").value
+
+    @property
+    def spec_steps(self) -> int:
+        return self.metrics.counter("serve.spec_steps").value
+
+    @property
+    def spec_emitted(self) -> int:
+        return self.metrics.counter("serve.spec_emitted").value
+
+    @property
+    def spec_rejections(self) -> int:
+        return self.metrics.counter("serve.spec_rejections").value
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, without waiting for the
@@ -272,6 +352,14 @@ class Engine:
 
         slot_idx = self._upload(np.array(slots, np.int64))
         paging.scatter_prefill(self.caches, cache1, slot_idx, page_rows)
+        if self.spec:
+            # history rows for the proposer: the prompt and the tokens
+            # so far, not the prefill sample (it is cur_tok, and the
+            # spec step writes it at position plen itself)
+            hist = np.zeros((k, sc.cache_len + 1), np.int32)
+            for i, r in enumerate(reqs):
+                hist[i, :plen] = r.tokens + r.out[:-1]
+            self.tok_hist[slot_idx] = self._upload(hist)
         self.lengths.index_fill_(0, slot_idx, plen)
         self.cur_tok[slot_idx] = first
         self.active_mask[slot_idx] = self._upload(admit_active)
@@ -339,15 +427,19 @@ class Engine:
         self.active_mask[slot] = False   # before the next decode, not after
         self._release(slot)
 
-    def _ensure_pages(self) -> None:
-        """Allocate the page each active slot's next token writes into,
-        preempting a victim when the pool is dry (unless "fail")."""
+    def _ensure_pages(self, horizon: int = 1) -> None:
+        """Allocate the pages the next ``horizon`` tokens of each active
+        slot write into (plain decode: 1; the spec step: its whole
+        window, capped at the cache), preempting a victim when the pool
+        is dry (unless "fail")."""
         for slot in np.nonzero(self._active_h)[0]:
             slot = int(slot)
             if not self._active_h[slot]:       # preempted earlier in loop
                 continue
-            target = min(int(self._len_h[slot]) + 1, self.sc.cache_len)
-            for j in range(paging.pages_per_slot(target, self.page_size)):
+            target = min(int(self._len_h[slot]) + horizon, self.sc.cache_len)
+            needed = paging.pages_per_slot(target, self.page_size)
+            self._ensured[slot] = needed
+            for j in range(needed):
                 if self.block_tables[slot, j] != paging.NULL_PAGE:
                     continue
                 if self.sc.preempt_policy != "fail":
@@ -371,6 +463,12 @@ class Engine:
         return paging.audit(self.allocator, self.block_tables, self._len_h,
                             self._active_h, self.page_size)
 
+    def _table_dev(self) -> torch.Tensor:
+        if self._bt_dirty:              # re-upload only when tables changed
+            self._bt_dev = self._upload(self.block_tables)
+            self._bt_dirty = False
+        return self._bt_dev
+
     # -- main loop ---------------------------------------------------------
     @torch.no_grad()
     def step(self) -> bool:
@@ -379,13 +477,12 @@ class Engine:
         self._admit()
         if not self._active_h.any():
             return False
+        if self.spec:
+            return self._spec_step()
         bt = None
         if self.paged:
             self._ensure_pages()
-            if self._bt_dirty:          # re-upload only when tables changed
-                self._bt_dev = self._upload(self.block_tables)
-                self._bt_dirty = False
-            bt = self._bt_dev
+            bt = self._table_dev()
         sc, active = self.sc, self.active_mask
         logits = self.model.decode_step(self.params, self.caches,
                                         self.cur_tok, self.lengths,
@@ -413,6 +510,105 @@ class Engine:
                 self._release(slot)
         return True
 
+    def _propose(self, hist: torch.Tensor) -> torch.Tensor:
+        """N-gram prompt lookup (``repro`` engine.py:507): draft the
+        spec_k tokens that followed the latest earlier occurrence of
+        ``cur_tok`` in the slot's history, preferring occurrences whose
+        predecessor also matches (bigram over unigram, latest breaks
+        ties); none found -> repeat ``cur_tok``.  ``hist`` already holds
+        ``cur_tok`` at ``lengths``.  Device ops only."""
+        w, k = self.sc.cache_len + 1, self.sc.spec_k
+        cur, idx = self.cur_tok, self._hist_idx
+        big = self.lengths[:, None]                # match below L only
+        match = (idx < big) & (hist == cur[:, None])
+        prev = torch.cat([torch.zeros_like(hist[:, :1]), hist[:, :-1]], 1)
+        ctx = hist.gather(1, (big - 1).clamp(min=0).long())
+        bigram = (idx >= 1) & (big >= 1) & (prev == ctx)
+        score = torch.where(match, 1 + bigram.to(torch.int32),
+                            torch.zeros_like(hist))
+        rank = torch.where(score > 0, score * w + idx,
+                           torch.full_like(hist, -1))
+        j = rank.argmax(dim=1).to(torch.int32)
+        found = rank.amax(dim=1) >= 0
+        di = j[:, None] + 1 + self._win_idx[:, :k]
+        d = hist.gather(1, di.clamp(max=w - 1).long())
+        return torch.where(found[:, None] & (di <= big), d, cur[:, None])
+
+    def _spec_step(self) -> bool:
+        """One speculative verify step for all active slots: ensure the
+        window's pages, write ``cur_tok`` into the history, draft,
+        verify the K1 window in one model call, accept the longest
+        prefix that agrees with the argmax chain, then commit and roll
+        the rejected tail's pages back (``repro`` engine.py:1300).  One
+        device-to-host copy, of (tokens, accepted count, done).  After
+        every step in_use == sum over active slots of
+        pages_per_slot(length)."""
+        sc = self.sc
+        k1 = sc.spec_k + 1
+        self._ensure_pages(horizon=k1)
+        bt = self._table_dev()
+        active, lengths, rows = self.active_mask, self.lengths, self._rows
+        hist = self.tok_hist
+        # commit cur_tok at its cache position L before proposing, so
+        # drafts that read up to L see it
+        p0 = lengths.clamp(max=sc.cache_len).long()
+        hist[rows, p0] = torch.where(active, self.cur_tok, hist[rows, p0])
+        window = torch.cat([self.cur_tok[:, None], self._propose(hist)], 1)
+        # draft positions L+1..L+k: accepted ones hold committed tokens;
+        # rejected ones sit past the new length, where the proposer
+        # never reads
+        pt = (lengths[:, None] + self._win_idx[:, 1:]).clamp(
+            max=sc.cache_len).long()
+        hist[rows[:, None], pt] = torch.where(active[:, None], window[:, 1:],
+                                              hist[rows[:, None], pt])
+        logits = self.model.spec_decode_step(self.params, self.caches,
+                                             window, lengths, bt)
+        y = torch.argmax(logits, dim=-1).to(torch.int32)      # (B, K1)
+        # accept-longest-prefix: row t is emitted iff every earlier row
+        # was, did not finish, and its draft equals the argmax chain
+        t_idx = self._win_idx
+        eos = -1 if sc.eos_id is None else sc.eos_id
+        done_t = active[:, None] & (
+            (self.n_out[:, None] + t_idx + 1 >= sc.max_new_tokens)
+            | (y == eos) | (lengths[:, None] + t_idx + 2 > sc.cache_len))
+        cont = (window[:, 1:] == y[:, :-1]) & ~done_t[:, :-1]
+        prefix = torch.cat(
+            [active[:, None],
+             active[:, None] & torch.cumprod(cont.to(torch.int32), 1).bool()],
+            1)
+        n_emit = prefix.sum(dim=1, dtype=torch.int32)
+        done = (prefix & done_t).any(dim=1)
+        last = y.gather(1, (n_emit - 1).clamp(min=0).long()[:, None])[:, 0]
+        # THE one device-to-host copy of the step
+        out = _device_get(torch.cat(
+            [y, n_emit[:, None], done[:, None].to(torch.int32)], 1))
+        self.lengths = lengths + n_emit
+        self.n_out = self.n_out + n_emit
+        self.cur_tok = torch.where(active, last, self.cur_tok)
+        self.active_mask = active & ~done
+        self.metrics.counter("serve.spec_steps").inc()
+        for slot in np.nonzero(self._active_h)[0]:
+            slot = int(slot)
+            req, m = self.active[slot], int(out[slot, k1])
+            req.out.extend(int(t) for t in out[slot, :m])
+            self._len_h[slot] += m
+            self.metrics.counter("serve.spec_emitted").inc(m)
+            if out[slot, k1 + 1]:
+                req.done = True
+                self._release(slot)        # reclaims the whole row
+                continue
+            if m < k1:
+                self.metrics.counter("serve.spec_rejections").inc()
+            # rollback: free the rejected tail's pages; rejected rows in
+            # kept pages sit past the new length, masked by every read
+            keep = paging.pages_per_slot(int(self._len_h[slot]),
+                                         self.page_size)
+            if paging.truncate_suffix(self.allocator,
+                                      self.block_tables[slot], keep,
+                                      int(self._ensured[slot])):
+                self._bt_dirty = True
+        return True
+
     def run_to_completion(self, requests: List[Request],
                           max_steps: int = 10_000) -> List[Request]:
         for r in requests:
@@ -436,4 +632,10 @@ class Engine:
              "steps": self.step_count}
         if self.paged:
             d.update(self.allocator.pressure())
+            d["kv_dtype"] = (self.kv_spec.dtype if self.kv_spec is not None
+                             else None)
+        if self.spec:
+            d.update({"spec_steps": self.spec_steps,
+                      "spec_emitted": self.spec_emitted,
+                      "spec_rejections": self.spec_rejections})
         return d

@@ -1,19 +1,24 @@
 """Paged KV cache: page pool, free-list allocator, block tables
-(``repro.serve.paging``, global-attention group, model-dtype pools).
+(``repro.serve.paging``, global-attention group).
 
 Allocation is host-side bookkeeping; the pools are device tensors, one
-``kp``/``vp`` pair of shape (Hkv, P, ps, D) per layer.  Page 0 is
-reserved as the null/trash page: unallocated table entries point at it
-and a freed slot's whole row is reset to it, so the stale ``cur_tok`` a
-dead slot keeps feeding through the batched decode writes its K/V into
-trash instead of a live sequence.  The window group, quantized pools
-and fault quarantine arrive with later slices.
+``kp``/``vp`` pair of shape (Hkv, P, ps, D) per layer, in the model's
+dtype or, with a quantizing ``KVQuantSpec``, in int8/fp8 beside a
+``ks``/``vs`` pair of (Hkv, P) f32 scale pools.  Page 0 is reserved as
+the null/trash page: unallocated table entries point at it and a freed
+slot's whole row is reset to it, so the stale ``cur_tok`` a dead slot
+keeps feeding through the batched decode writes its K/V into trash
+instead of a live sequence.  ``truncate_suffix`` is the speculative
+step's rollback.  The window group and fault quarantine arrive with
+later slices.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Set
 
 import torch
+
+from repro_torch.quant.spec import KVQuantSpec, spec_for_storage
 
 NULL_PAGE = 0
 
@@ -109,6 +114,31 @@ def pages_per_slot(cache_len: int, page_size: int) -> int:
     return -(-cache_len // page_size)
 
 
+def truncate_suffix(allocator: PageAllocator, table_row, keep: int,
+                    upto: Optional[int] = None) -> int:
+    """Free a block-table row's page suffix ``[keep, upto)`` back to the
+    pool and reset those entries to ``NULL_PAGE``, in place.
+
+    The speculative rollback: after a verify step accepts part of the
+    window, the pages ensured for the rejected tail are ``row[keep:
+    upto]`` with ``keep = pages_per_slot(new_length)``; rejected rows
+    inside kept pages sit past the length and every read masks them.
+    Strict like ``PageAllocator.free``: a ``NULL_PAGE`` inside the
+    suffix means it was already truncated or never ensured, so it
+    raises.  Returns the number of pages freed."""
+    tail = table_row[keep:upto]
+    if len(tail) == 0:
+        return 0
+    if any(int(p) == NULL_PAGE for p in tail):
+        raise ValueError(
+            f"truncate_suffix: pages [{keep}:{upto}) contain NULL_PAGE "
+            f"entries — suffix already truncated or never allocated "
+            f"(row={list(int(p) for p in table_row)})")
+    allocator.free([int(p) for p in tail])
+    table_row[keep:upto] = NULL_PAGE
+    return len(tail)
+
+
 def audit(allocator: PageAllocator, block_tables, lengths, active,
           page_size: int) -> List[str]:
     """Allocator and block-table invariants at a step boundary; returns
@@ -174,12 +204,35 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
 
 def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
                       total_pages: int, page_size: int, *, device,
-                      dtype: torch.dtype) -> List[Dict[str, torch.Tensor]]:
-    """One zeroed ``kp``/``vp`` pool pair (Hkv, P, ps, D) per layer."""
+                      dtype: torch.dtype,
+                      kv_spec: Optional[KVQuantSpec] = None
+                      ) -> List[Dict[str, torch.Tensor]]:
+    """One zeroed ``kp``/``vp`` pool pair (Hkv, P, ps, D) per layer, in
+    ``dtype`` or the spec's storage dtype.  A quantizing spec adds
+    ``ks``/``vs`` (Hkv, P) f32 scale pools, ones-initialized: a zero
+    pool dequantizes to zeros under any scale, and a unit scale keeps
+    dequantization total before the first write."""
     shape = (num_kv_heads, total_pages, page_size, head_dim)
-    return [{"kp": torch.zeros(shape, device=device, dtype=dtype),
-             "vp": torch.zeros(shape, device=device, dtype=dtype)}
-            for _ in range(num_layers)]
+    pool_dtype = kv_spec.storage if kv_spec is not None else dtype
+    quantized = kv_spec is not None and kv_spec.quantized
+    caches = []
+    for _ in range(num_layers):
+        c = {"kp": torch.zeros(shape, device=device, dtype=pool_dtype),
+             "vp": torch.zeros(shape, device=device, dtype=pool_dtype)}
+        if quantized:
+            for name in ("ks", "vs"):
+                c[name] = torch.ones(shape[:2], device=device,
+                                     dtype=kv_spec.scale_dtype)
+        caches.append(c)
+    return caches
+
+
+def raw_bytes(pool: torch.Tensor) -> torch.Tensor:
+    """An fp8 pool viewed as uint8 (other pools unchanged), for indexed
+    reads and writes: the bytes are the values, and byte indexing needs
+    nothing of the fp8 type on any device."""
+    return pool.view(torch.uint8) if pool.dtype == torch.float8_e4m3fn \
+        else pool
 
 
 def _page_blocks(one: torch.Tensor, t: int, ps: int) -> torch.Tensor:
@@ -193,6 +246,19 @@ def _page_blocks(one: torch.Tensor, t: int, ps: int) -> torch.Tensor:
     return one.reshape(k, h, t, ps, d).transpose(0, 1)
 
 
+def _scatter_pages_quant(pool: torch.Tensor, scale_pool: torch.Tensor,
+                         one: torch.Tensor, page_rows: torch.Tensor) -> None:
+    """Quantizing page scatter, in place: absmax per (head, page) block,
+    int8/fp8 values into the pool, f32 scales into the scale pool.  Rows
+    past the prompt are zero padding, so they never inflate a page's
+    absmax (``repro`` paging.py:532)."""
+    blocks = _page_blocks(one, page_rows.shape[1], pool.shape[2])
+    q, scales = spec_for_storage(pool.dtype).quantize_pages(blocks)
+    rows = page_rows.long()
+    raw_bytes(pool)[:, rows] = raw_bytes(q)
+    scale_pool[:, rows] = scales.to(scale_pool.dtype)
+
+
 def scatter_prefill(caches: List[Dict[str, torch.Tensor]],
                     cache1: List[Dict[str, torch.Tensor]],
                     slot_idx: torch.Tensor,
@@ -202,13 +268,29 @@ def scatter_prefill(caches: List[Dict[str, torch.Tensor]],
     ``cache1`` is ``prefill``'s per-layer dense K/V at batch k; paged
     caches take it through ``page_rows`` (k, T) destination pages (NULL
     entries past the prompt land in trash, masked by length at decode),
-    dense caches at rows ``slot_idx`` (k,).
+    quantized ones quantized per (head, page); dense caches at rows
+    ``slot_idx`` (k,).
     """
     for c, one in zip(caches, cache1):
-        if "kp" in c:
+        if "ks" in c:
+            _scatter_pages_quant(c["kp"], c["ks"], one["k"], page_rows)
+            _scatter_pages_quant(c["vp"], c["vs"], one["v"], page_rows)
+        elif "kp" in c:
             for pool, leaf in ((c["kp"], one["k"]), (c["vp"], one["v"])):
                 blocks = _page_blocks(leaf, page_rows.shape[1], pool.shape[2])
                 pool[:, page_rows.long()] = blocks.to(pool.dtype)
         else:
             c["k"][slot_idx] = one["k"].to(c["k"].dtype)
             c["v"][slot_idx] = one["v"].to(c["v"].dtype)
+
+
+def paged_bytes_per_slot(caches: List[Dict[str, torch.Tensor]],
+                         total_pages: int, n_pages_per_slot: int) -> int:
+    """Device bytes of the paged pools (K/V and scales) that one slot's
+    pages take: at a fixed pool budget, ``budget // this`` slots fit."""
+    per_page = 0
+    for c in caches:
+        for name, leaf in c.items():
+            if name in ("kp", "vp", "ks", "vs"):
+                per_page += leaf.numel() * leaf.element_size() // total_pages
+    return per_page * n_pages_per_slot

@@ -1,11 +1,13 @@
 """Fused cache-write + decode attention: the no-mesh branches of
-``repro.sharding.kernel_sharding`` (``sharded_decode_update_attend``
-and ``sharded_paged_decode_update_attend``).  The mesh branches arrive
-with the distribution slice.
+``repro.sharding.kernel_sharding`` (``sharded_decode_update_attend``,
+``sharded_paged_decode_update_attend``, their quantized and speculative
+variants).  The mesh branches arrive with the distribution slice.
 
 The reference returns fresh caches (JAX arrays are immutable); the port
-writes the new K/V row into the caller's cache tensors IN PLACE and
-returns only the attention output.
+writes the new K/V rows (and scales) into the caller's tensors IN PLACE
+and returns only the attention output.  The re-quantizing page write is
+plain PyTorch, as it is plain ``jnp`` outside any kernel in the
+reference; fusing it into a kernel is later work (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,7 +16,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, paged_decode_attention)
+    decode_attention, paged_decode_attention, quant_paged_decode_attention,
+    quant_spec_paged_decode_attention, spec_paged_decode_attention)
+from repro_torch.quant.blockwise import quantize_absmax
+from repro_torch.serve.paging import raw_bytes
 
 
 def decode_update_attend(q, k_new, v_new, k_cache, v_cache, write_pos,
@@ -52,3 +57,91 @@ def paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
     return paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   eff_len, window=window, softcap=softcap,
                                   scale=scale, page_size=page_size)
+
+
+def requant_page_write(pool: torch.Tensor, scales: torch.Tensor,
+                       new_row: torch.Tensor, page: torch.Tensor,
+                       off: torch.Tensor) -> None:
+    """Write one row per slot into a quantized pool, keeping each page
+    consistent with its one scale, in place (``repro``
+    kernel_sharding.py:357): gather the write page, dequantize it,
+    splice the new row at ``off``, zero the rows past it (unwritten, or
+    stale from an earlier tenant of a recycled page), take the absmax
+    again and quantize again.  Exact when the page's scale does not
+    change (``round(q * s / s) == q``).
+
+    pool (H, P, ps, D) int8/fp8; scales (H, P) f32; new_row (B, H, D);
+    page, off (B,).  Dead slots write into the null page 0 (trash)."""
+    ps = pool.shape[2]
+    page = page.long()
+    new = new_row.transpose(0, 1).float()                    # (H, B, D)
+    pg = raw_bytes(pool)[:, page].view(pool.dtype)           # (H, B, ps, D)
+    pgf = pg.float() * scales[:, page][:, :, None, None]
+    rows = torch.arange(ps, device=pool.device)[None, None, :, None]
+    offb = off.long()[None, :, None, None]
+    pgf = torch.where(rows == offb, new[:, :, None, :],
+                      torch.where(rows < offb, pgf, torch.zeros_like(pgf)))
+    q_pg, sc_new = quantize_absmax(pgf, dtype=pool.dtype, axis=(-2, -1))
+    raw_bytes(pool)[:, page] = raw_bytes(q_pg)
+    scales[:, page] = sc_new.to(scales.dtype)
+
+
+def quant_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
+                                     k_scales, v_scales, block_tables,
+                                     write_page, write_off, eff_len, *,
+                                     window: Optional[int] = None,
+                                     softcap: Optional[float] = None,
+                                     scale: Optional[float] = None,
+                                     page_size: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """Re-quantizing page write of each slot's new K/V row, then
+    quantized paged decode.  Pools (Hkv, P, ps, D) int8/fp8, scale pools
+    (Hkv, P) f32, all updated in place; returns (B, Hq, D)."""
+    requant_page_write(k_pages, k_scales, k_new, write_page, write_off)
+    requant_page_write(v_pages, v_scales, v_new, write_page, write_off)
+    return quant_paged_decode_attention(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, eff_len,
+        window=window, softcap=softcap, scale=scale, page_size=page_size)
+
+
+def spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
+                                    block_tables, write_pages, write_offs,
+                                    base_len, *,
+                                    window: Optional[int] = None,
+                                    softcap: Optional[float] = None,
+                                    scale: Optional[float] = None,
+                                    page_size: Optional[int] = None
+                                    ) -> torch.Tensor:
+    """Write the whole speculation window's K/V rows in one indexed
+    write, then verify every position in one speculative launch.
+
+    q (B, K1, Hq, D); k_new/v_new (B, Hkv, K1, D); write_pages/offs
+    (B, K1), redirected to the null page past the table's reach;
+    base_len (B,) the PRE-speculation prefix.  Returns (B, K1, Hq, D)."""
+    pages, offs = write_pages.long(), write_offs.long()
+    k_pages[:, pages, offs] = k_new.transpose(0, 1).to(k_pages.dtype)
+    v_pages[:, pages, offs] = v_new.transpose(0, 1).to(v_pages.dtype)
+    return spec_paged_decode_attention(
+        q, k_pages, v_pages, block_tables, base_len, window=window,
+        softcap=softcap, scale=scale, page_size=page_size)
+
+
+def quant_spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
+                                          k_scales, v_scales, block_tables,
+                                          write_pages, write_offs, base_len,
+                                          *, window: Optional[int] = None,
+                                          softcap: Optional[float] = None,
+                                          scale: Optional[float] = None,
+                                          page_size: Optional[int] = None
+                                          ) -> torch.Tensor:
+    """The window's rows written one after another in token order by the
+    re-quantizing write, so each row sees the earlier ones already
+    spliced, then the speculative kernel in its quantized mode."""
+    for i in range(q.shape[1]):
+        requant_page_write(k_pages, k_scales, k_new[:, :, i],
+                           write_pages[:, i], write_offs[:, i])
+        requant_page_write(v_pages, v_scales, v_new[:, :, i],
+                           write_pages[:, i], write_offs[:, i])
+    return quant_spec_paged_decode_attention(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, base_len,
+        window=window, softcap=softcap, scale=scale, page_size=page_size)

@@ -23,7 +23,10 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
+from repro_torch.kernels.decode_attention import quant as quant_kern
+from repro_torch.kernels.decode_attention import spec as spec_kern
 from repro_torch.models.registry import build_model
+from repro_torch.quant import DECODE_TOL, resolve_kv_spec
 from repro_torch.serve.engine import Engine, Request, ServeConfig
 
 pytestmark = pytest.mark.gpu
@@ -122,6 +125,93 @@ def test_decode_kernels(cuda, dtype, d, window, softcap):
             torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
 
 
+def _quantized(pool, dtype):
+    """(q, scales) of a pool at per-(head, page) absmax."""
+    spec = resolve_kv_spec(dtype, pool.device, strict=True)
+    return spec.quantize_pages(pool)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("d,window,softcap", [(128, None, None),
+                                              (64, 50, 20.0)])
+def test_quant_paged_decode_kernel(cuda, kv_dtype, d, window, softcap):
+    """B5 against its plain version on the same quantized bytes (f32
+    residuals, 1e-4), and against bf16 B4 on the unquantized data within
+    the documented DECODE_TOL."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, hq, hkv, s, ps = 4, 32, 8, 300, 64
+    q = torch.randn(b, hq, d, device=cuda, generator=g).bfloat16()
+    kc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    lengths = torch.tensor([0, 1, 299, 300], dtype=torch.int32, device=cuda)
+    (kp, vp), bt = _pools_from_caches(kc, vc, ps,
+                                      torch.Generator().manual_seed(0))
+    (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp, kv_dtype)
+    kw = dict(window=window, softcap=softcap)
+    want = dec_ref.quant_paged_decode_attention_ref(
+        q, kq, vq, ks, vs, bt, lengths, return_residuals=True, **kw)
+    for page_size in (None, 16):
+        before = quant_kern.KERNEL.launches
+        got = dec_ops.quant_paged_decode_attention(
+            q, kq, vq, ks, vs, bt, lengths, page_size=page_size,
+            return_residuals=True, **kw)
+        assert quant_kern.KERNEL.launches == before + 1
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+    out = dec_ops.quant_paged_decode_attention(q, kq, vq, ks, vs, bt,
+                                               lengths, **kw)
+    bf16 = dec_ops.paged_decode_attention(q, kp, vp, bt, lengths, **kw)
+    assert float((out.float() - bf16.float()).abs().max()) <= \
+        DECODE_TOL[kv_dtype]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("k1,d,window", [(5, 128, None), (1, 128, None),
+                                         (3, 64, 40)])
+def test_spec_paged_decode_kernel(cuda, kv_dtype, k1, d, window):
+    """B6 (bf16 pools and its int8 mode) against its plain version, f32
+    residuals at 1e-4; slot 0 is empty, slot 3's window runs past the
+    table's last page."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, hq, hkv, s, ps = 4, 32, 8, 320, 64
+    q = torch.randn(b, k1, hq, d, device=cuda, generator=g).bfloat16()
+    kc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    base = torch.tensor([0, 1, 200, s - k1 + 1], dtype=torch.int32,
+                        device=cuda)
+    (kp, vp), bt = _pools_from_caches(kc, vc, ps,
+                                      torch.Generator().manual_seed(0))
+    bt[0, 0] = bt[3, 0]                # slot 0 reads one page
+    before = spec_kern.KERNEL.launches
+    if kv_dtype is None:
+        got = dec_ops.spec_paged_decode_attention(
+            q, kp, vp, bt, base, window=window, return_residuals=True)
+        want = dec_ref.spec_paged_decode_attention_ref(
+            q, kp, vp, bt, base, window=window, return_residuals=True)
+    else:
+        (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
+                                                                  kv_dtype)
+        got = dec_ops.quant_spec_paged_decode_attention(
+            q, kq, vq, ks, vs, bt, base, window=window,
+            return_residuals=True)
+        want = dec_ref.quant_spec_paged_decode_attention_ref(
+            q, kq, vq, ks, vs, bt, base, window=window,
+            return_residuals=True)
+    assert spec_kern.KERNEL.launches == before + 1
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+
+
+def test_quant_kernel_refuses_a_pool_type_it_lacks(cuda):
+    q = torch.zeros(1, 4, 64, device=cuda, dtype=torch.bfloat16)
+    pool = torch.zeros(2, 3, 8, 64, device=cuda, dtype=torch.float16)
+    sc = torch.ones(2, 3, device=cuda)
+    bt = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    ln = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="quantized pools"):
+        dec_ops.quant_paged_decode_attention(q, pool, pool, sc, sc, bt, ln)
+
+
 def test_kernels_refuse_misaligned_operands(cuda):
     """The kernels load 16 bytes at a time: a view that starts off a
     16-byte boundary is refused, not read crooked."""
@@ -139,11 +229,15 @@ def _to(tree, dev):
     return [_to(v, dev) for v in tree]
 
 
-@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-def test_engine_on_card_matches_cpu(cuda, paged):
+@pytest.mark.parametrize("mode", [
+    dict(paged=False), dict(paged=True), dict(paged=True, kv_dtype="int8"),
+    dict(paged=True, spec_mode="ngram", spec_k=3),
+    dict(paged=True, spec_mode="ngram", spec_k=3, kv_dtype="int8")],
+    ids=["dense", "paged", "int8", "spec", "spec-int8"])
+def test_engine_on_card_matches_cpu(cuda, mode):
     """A float32 model narrow enough for the CPU, with a head dim the
     kernels take: the same greedy tokens on the card (kernels) and on
-    the CPU (plain versions)."""
+    the CPU (plain versions), in every serving mode."""
     cfg = dataclasses.replace(smoke_config("granite-8b", num_layers=2),
                               d_model=256, num_heads=8, num_kv_heads=2,
                               head_dim=64, d_ff=512, dtype="float32")
@@ -152,7 +246,7 @@ def test_engine_on_card_matches_cpu(cuda, paged):
     outs = {}
     for dev in ("cpu", "cuda"):
         sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
-                         paged=paged, page_size=8)
+                         page_size=8, **mode)
         eng = Engine(model, _to(params, dev), sc, device=dev)
         reqs = [Request(rid=i, tokens=[1 + i] * (3 + 5 * i))
                 for i in range(3)]

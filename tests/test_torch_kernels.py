@@ -275,11 +275,13 @@ def test_kernel_launchers_refuse_shapes_they_were_not_built_for():
 def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
     assert names == ["decode_attention", "flash_attention",
-                     "paged_decode_attention", "rmsnorm"]
+                     "paged_decode_attention",
+                     "quant_paged_decode_attention", "rmsnorm",
+                     "spec_paged_decode_attention"]
     for k in build.KERNELS:
         assert k.source.is_file()
         text = k.source.read_text()
         assert "Replaces the TPU kernel" in text and "Bound on the H100" in text
         assert f'extern "C" int {k.symbol}' in text
         assert k.library_path().parent == build.BUILD_DIR
-    assert len({k.library_path() for k in build.KERNELS}) == 4
+    assert len({k.library_path() for k in build.KERNELS}) == 6
