@@ -9,10 +9,14 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
 2. build every kernel of the serving path from ``src/repro_torch/csrc``
    with ``nvcc``, one process per source, all at once;
 3. hold each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it and at edge cases, and time the
+   the shapes the serving paths give it and at edge cases, and time the
    kernel, the plain version and, where one exists, the PyTorch library
    call that computes the same function (a yardstick the port never
-   calls), beside the least time the card could take;
+   calls), beside the least time the card could take: granite-8b's
+   shapes (head dim 128), then gemma2-2b's (head dim 256): the
+   sliding-window kernels over ring tables (bf16, int8, fp8) and the
+   head-dim-256 builds of the prefill, dense, paged and quantized
+   decode kernels, at lengths 1 to 8,192, rings wrapped and not;
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -29,8 +33,20 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    bf16 pools, checked as phase 4 plus: the speculative kernel launched
    36 times per step, at least one rejected draft; and again over an
    int8 pool;
-8. trace five paged decode steps for the card's busy share (reported,
-   not checked).
+8. free granite-8b and serve 12 greedy requests of 17 to 6,000 tokens
+   on ``gemma2-2b`` at full width and depth (26 layers alternating a
+   4,096-token window and global attention, random weights from a
+   seed), cache 8,192: paged (global layers through the paged kernel,
+   local ones through the window kernel over ring tables, 13 launches
+   each per step), dense (rings for local layers, 26 dense-kernel
+   launches per step), and from int8 and fp8 pools (the quantized
+   kernels, 13 each per step); checked as phase 4, plus: pages behind
+   the window freed during the run and the allocator audit clean at the
+   end (paged modes), the teacher-forced gap checked for bf16 and
+   reported for int8/fp8, and the dense/paged token agreement
+   reported;
+9. trace five paged decode steps of each model for the card's busy
+   share (reported, not checked).
 
 It then prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without
@@ -66,6 +82,16 @@ SPEC_K = 4                    # drafts per speculative step: K1 = 5
 # pre-speculation prefixes of the speculative kernel check: the window
 # of the last slot ends at the cache's last row
 SPEC_BASES = (0, 64, 200, 333, 511, 700, 900, CACHE_LEN - SPEC_K - 1)
+# gemma2-2b: 8 query / 4 KV heads of 256, a 4,096-token window on local
+# layers.  Prompts of 4,150 tokens cross a page boundary behind the
+# window while decoding; 6,000-token prompts start with wrapped rings.
+G2_PROMPT_LENS = (17, 1000, 4150, 6000)
+G2_CACHE_LEN, G2_WINDOW, G2_HQ, G2_HKV, G2_D = 8192, 4096, 8, 4, 256
+# decode lengths of the gemma2 kernel checks: inside the window, at its
+# edge, rings wrapped, and the last row of the cache
+G2_LENGTHS = (1, 17, 1001, 4096, 4151, 6001, 6032, 8192)
+G2_FLASH_S = 6000             # the longest prompt
+G2_SOFTCAP = 50.0
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -166,6 +192,16 @@ class Smoke:
             "bound_by": by, "library_ms": library_ms,
             "launches_by_path": {}}
 
+    def record_also(self, name, key, err, ms, plain_ms, nbytes, flops,
+                    library_ms, ops_per_s=BF16_FLOPS_PER_S):
+        """The same kernel at another path's shapes (``key``, e.g. the
+        head-dim-256 build gemma2 runs): kept beside the main record."""
+        bound, by = self.timings(f"{name} ({key})", ms, plain_ms, nbytes,
+                                 flops, library_ms, ops_per_s)
+        self.kernels[name][key] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
 
 # ------------------------------------------------------------ kernels -----
 
@@ -231,25 +267,26 @@ def check_flash(s: Smoke) -> None:
              *times(main))
 
 
-def _decode_operands(s: Smoke, lengths):
+def _decode_operands(s: Smoke, lengths, hq=32, hkv=8, d=128,
+                     s_len=CACHE_LEN):
     torch = s.torch
     g = torch.Generator(device=s.dev).manual_seed(3)
     b = len(lengths)
-    q = torch.randn(b, 32, 128, device=s.dev, generator=g).bfloat16()
-    kc, vc = (torch.randn(b, 8, CACHE_LEN, 128, device=s.dev,
+    q = torch.randn(b, hq, d, device=s.dev, generator=g).bfloat16()
+    kc, vc = (torch.randn(b, hkv, s_len, d, device=s.dev,
                           generator=g).bfloat16() for _ in range(2))
     ln = torch.tensor(lengths, dtype=torch.int32, device=s.dev)
     return q, kc, vc, ln
 
 
-def _decode_cost(lengths, kv_bytes: int = 2):
+def _decode_cost(lengths, kv_bytes: int = 2, hq=32, hkv=8, d=128):
     """Bytes (q, live K/V rows of ``kv_bytes`` per element, lengths, f32
     residuals) and flops of one-token decode over ``lengths``."""
     live = sum(lengths)
     b = len(lengths)
-    nbytes = (b * 32 * 128 * 2 + live * 8 * 128 * 2 * kv_bytes + b * 4
-              + b * 32 * 128 * 4 + 2 * b * 32 * 4)
-    return nbytes, 4 * 32 * 128 * live
+    nbytes = (b * hq * d * 2 + live * hkv * d * 2 * kv_bytes + b * 4
+              + b * hq * d * 4 + 2 * b * hq * 4)
+    return nbytes, 4 * hq * d * live
 
 
 def _normalized(res):
@@ -451,29 +488,259 @@ def check_spec(s: Smoke) -> None:
             s.timings(f"spec_paged_decode_attention ({kv})", *times)
 
 
+# ------------------------------------------------ gemma2-2b kernels -----
+
+G2 = dict(hq=G2_HQ, hkv=G2_HKV, d=G2_D)
+
+
+def _ring_pools(s: Smoke, lengths):
+    """gemma2's window pools at its decode shapes: (4, 1 + 8 T_w, 64,
+    256) bf16 pools and (8, T_w) ring tables, T_w = 65, mapping each
+    slot's live window pages to scrambled pages (global page g at
+    column g % T_w; null elsewhere)."""
+    torch = s.torch
+    from repro_torch.serve.paging import live_window_pages, window_table_width
+    tw = window_table_width(G2_WINDOW, PAGE)
+    b = len(lengths)
+    perm = (torch.randperm(b * tw, generator=torch.Generator().manual_seed(6))
+            + 1).tolist()
+    bt = torch.zeros(b, tw, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        for gp in live_window_pages(n, G2_WINDOW, PAGE):
+            bt[i, gp % tw] = perm.pop()
+    g = torch.Generator(device=s.dev).manual_seed(7)
+    kp, vp = (torch.randn(G2_HKV, 1 + b * tw, PAGE, G2_D, device=s.dev,
+                          generator=g).bfloat16() for _ in range(2))
+    q = torch.randn(b, G2_HQ, G2_D, device=s.dev, generator=g).bfloat16()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=s.dev)
+    return q, kp, vp, bt.to(s.dev), ln
+
+
+def _window_cost(lengths, kv_bytes: int = 2, scale_bytes: int = 0):
+    """What the window kernels must read and write: the window's live
+    tokens, min(L, window) per slot, a table entry (and the scales) per
+    live page, q and the f32 residuals; the flops of those tokens."""
+    from repro_torch.serve.paging import live_window_pages
+    live = [min(n, G2_WINDOW) for n in lengths]
+    nbytes, flops = _decode_cost(live, kv_bytes, **G2)
+    pages = sum(len(live_window_pages(n, G2_WINDOW, PAGE)) for n in lengths)
+    return nbytes + pages * (4 + scale_bytes), flops
+
+
+def check_window(s: Smoke) -> None:
+    """B7 over bf16 pools and B7q over int8 and fp8 pools, at gemma2's
+    shapes: against their plain versions (f32 residuals, 1e-4), at the
+    physical page and a logical page of 16; B7q against bf16 B7 on the
+    unquantized data within DECODE_TOL."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.quant import DECODE_TOL
+    q, kp, vp, bt, ln = _ring_pools(s, G2_LENGTHS)
+    kw = dict(window=G2_WINDOW, softcap=G2_SOFTCAP)
+    got = ops.window_paged_decode_attention(q, kp, vp, bt, ln,
+                                            return_residuals=True, **kw)
+    want = ref.window_paged_decode_attention_ref(q, kp, vp, bt, ln,
+                                                 return_residuals=True, **kw)
+    s.compare("window residuals, B = 8, 8/4 heads of 256, window 4096, "
+              "lengths 1..8192, rings wrapped", got, want)
+    err = s.compare("window output acc / l", _normalized(got),
+                    _normalized(want))
+    s.compare("window, logical page 16 of 64",
+              ops.window_paged_decode_attention(
+                  q, kp, vp, bt, ln, page_size=16, return_residuals=True,
+                  **kw), want)
+    bf16 = _normalized(got)
+    nbytes, flops = _window_cost(G2_LENGTHS)
+    s.record("window_paged_decode_attention",
+             "window_paged_decode_attention.cu",
+             "src/repro/kernels/decode_attention/paged.py:258", err,
+             s.time_ms(lambda: ops.window_paged_decode_attention(
+                 q, kp, vp, bt, ln, return_residuals=True, **kw)),
+             s.time_ms(lambda: ref.window_paged_decode_attention_ref(
+                 q, kp, vp, bt, ln, return_residuals=True, **kw)),
+             nbytes, flops, None)
+    nbytes, flops = _window_cost(G2_LENGTHS, 1, 2 * G2_HKV * 4)
+    for kv in ("int8", "fp8_e4m3"):
+        kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+        args = (q, kq, vq, ks, vs, bt, ln)
+        got = ops.quant_window_paged_decode_attention(
+            *args, return_residuals=True, **kw)
+        want = ref.quant_window_paged_decode_attention_ref(
+            *args, return_residuals=True, **kw)
+        s.compare(f"quant window {kv} residuals", got, want)
+        err = s.compare(f"quant window {kv} output acc / l",
+                        _normalized(got), _normalized(want))
+        s.compare(f"quant window {kv}, logical page 16 of 64",
+                  ops.quant_window_paged_decode_attention(
+                      *args, page_size=16, return_residuals=True, **kw),
+                  want)
+        gap = float((_normalized(got) - bf16).abs().max())
+        s.check(gap <= DECODE_TOL[kv],
+                f"quant window {kv} against bf16 window on the unquantized "
+                f"data: max abs diff {gap:.4f} <= DECODE_TOL {DECODE_TOL[kv]}")
+        times = (s.time_ms(lambda: ops.quant_window_paged_decode_attention(
+                     *args, return_residuals=True, **kw)),
+                 s.time_ms(lambda: ref.quant_window_paged_decode_attention_ref(
+                     *args, return_residuals=True, **kw)),
+                 nbytes, flops, None, INT8_OPS_PER_S)
+        if kv == "int8":
+            s.record("quant_window_paged_decode_attention",
+                     "quant_window_paged_decode_attention.cu",
+                     "src/repro/kernels/decode_attention/quant.py:47", err,
+                     *times)
+        else:
+            s.timings(f"quant_window_paged_decode_attention ({kv})", *times)
+
+
+def check_head_dim_256(s: Smoke) -> None:
+    """The head-dim-256 builds of B1's width, B2, B3, B4 and B5 at
+    gemma2's shapes, against their plain versions; their times go into
+    each kernel's record under "gemma2"."""
+    torch = s.torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    g = torch.Generator(device=s.dev).manual_seed(8)
+    # B1 at d_model 2304 = 9 x 256: a prefill of 3 x 6000 rows
+    rows, dm = 3 * G2_FLASH_S, 2304
+    x = torch.randn(rows, dm, device=s.dev, generator=g).bfloat16()
+    w = (0.1 * torch.randn(dm, device=s.dev, generator=g)).bfloat16()
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    err = s.compare(f"rmsnorm ({rows}, {dm}) bf16", rops.rmsnorm(x, w, **kw),
+                    rref.rmsnorm_ref(x, w, **kw))
+    s.record_also("rmsnorm", "gemma2", err,
+                  s.time_ms(lambda: rops.rmsnorm(x, w, **kw)),
+                  s.time_ms(lambda: rref.rmsnorm_ref(x, w, **kw)),
+                  2 * x.numel() * 2 + 2 * dm, 4 * x.numel(),
+                  s.time_ms(lambda: torch.nn.functional.rms_norm(
+                      x, (dm,), w + 1.0, 1e-6)))
+
+    # B2: B 3 x S 6000, 8/4 heads of 256, softcap 50; local layers also
+    # take the window.  Checked at B 1 (the plain version holds S x S
+    # scores), timed at B 3.
+    def qkv(b):
+        return tuple(torch.randn(b, h, G2_FLASH_S, G2_D, device=s.dev,
+                                 generator=g).bfloat16()
+                     for h in (G2_HQ, G2_HKV, G2_HKV))
+
+    one, err = qkv(1), 0.0
+    for what, window in (("global", None), ("local", G2_WINDOW)):
+        kw = dict(window=window, softcap=G2_SOFTCAP)
+        err = max(err, s.compare(
+            f"flash (1, 8/4, {G2_FLASH_S}, 256) causal, softcap 50, {what}",
+            fops.flash_attention(*one, **kw),
+            fref.flash_attention_ref(*one, **kw)))
+    three = qkv(3)
+    kw = dict(window=G2_WINDOW, softcap=G2_SOFTCAP)
+    n = G2_FLASH_S
+    pairs = sum(min(i + 1, G2_WINDOW) for i in range(n))
+    s.record_also("flash_attention", "gemma2", err,
+                  s.time_ms(lambda: fops.flash_attention(*three, **kw)),
+                  s.time_ms(lambda: fref.flash_attention_ref(*three, **kw)),
+                  2 * 3 * G2_HQ * n * G2_D * 2 + 2 * 3 * G2_HKV * n * G2_D * 2,
+                  4 * 3 * G2_HQ * G2_D * pairs, None)
+
+    # B3 (dense, and the ring of a local layer) and B4 over cache 8192
+    q, kc, vc, ln = _decode_operands(s, G2_LENGTHS, s_len=G2_CACHE_LEN,
+                                     **G2)
+    kw = dict(softcap=G2_SOFTCAP)
+    want = ref.decode_attention_ref(q, kc, vc, ln, return_residuals=True,
+                                    **kw)
+    got = ops.decode_attention(q, kc, vc, ln, return_residuals=True, **kw)
+    s.compare("decode residuals, 8/4 heads of 256, cache 8192", got, want)
+    err = s.compare("decode output acc / l", _normalized(got),
+                    _normalized(want))
+    ring_ln = ln.clamp(max=G2_WINDOW)
+    ring = (kc[:, :, :G2_WINDOW].contiguous(),
+            vc[:, :, :G2_WINDOW].contiguous())
+    s.compare("decode over a ring of 4096 (no window mask)",
+              ops.decode_attention(q, *ring, ring_ln, return_residuals=True,
+                                   **kw),
+              ref.decode_attention_ref(q, *ring, ring_ln,
+                                       return_residuals=True, **kw))
+    nbytes, flops = _decode_cost(G2_LENGTHS, **G2)
+    s.record_also("decode_attention", "gemma2", err,
+                  s.time_ms(lambda: ops.decode_attention(
+                      q, kc, vc, ln, return_residuals=True, **kw)),
+                  s.time_ms(lambda: ref.decode_attention_ref(
+                      q, kc, vc, ln, return_residuals=True, **kw)),
+                  nbytes, flops, None)
+    kp, vp, bt = _pages(s, kc, vc, G2_LENGTHS, PAGE)
+    got = ops.paged_decode_attention(q, kp, vp, bt, ln,
+                                     return_residuals=True, **kw)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
+                                          return_residuals=True, **kw)
+    s.compare("paged residuals, 8/4 heads of 256, table (8, 128)", got,
+              want)
+    err = s.compare("paged output acc / l", _normalized(got),
+                    _normalized(want))
+    live_pages = sum(-(-n // PAGE) for n in G2_LENGTHS)
+    # the layout's cost at 4 KV heads: 32 CTAs on 132 SMs, every one
+    # walking the 95 blocks of a 6,032-token slot, the longest in serving
+    ln95 = torch.full_like(ln, 6032)
+    s.timings("paged_decode_attention (gemma2, every slot at 6032: 95 "
+              "blocks per CTA)",
+              s.time_ms(lambda: ops.paged_decode_attention(
+                  q, kp, vp, bt, ln95, return_residuals=True, **kw)),
+              s.time_ms(lambda: ref.paged_decode_attention_ref(
+                  q, kp, vp, bt, ln95, return_residuals=True, **kw)),
+              *_decode_cost([6032] * len(G2_LENGTHS), **G2), None)
+    s.record_also("paged_decode_attention", "gemma2", err,
+                  s.time_ms(lambda: ops.paged_decode_attention(
+                      q, kp, vp, bt, ln, return_residuals=True, **kw)),
+                  s.time_ms(lambda: ref.paged_decode_attention_ref(
+                      q, kp, vp, bt, ln, return_residuals=True, **kw)),
+                  nbytes + 4 * live_pages, flops, None)
+    # B5 over the same pages, int8 and fp8
+    nbytes, flops = _decode_cost(G2_LENGTHS, 1, **G2)
+    nbytes += live_pages * (2 * G2_HKV * 4 + 4)
+    for kv in ("int8", "fp8_e4m3"):
+        kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+        args = (q, kq, vq, ks, vs, bt, ln)
+        got = ops.quant_paged_decode_attention(*args, return_residuals=True,
+                                               **kw)
+        want = ref.quant_paged_decode_attention_ref(
+            *args, return_residuals=True, **kw)
+        s.compare(f"quant paged {kv} residuals, heads of 256", got, want)
+        err = s.compare(f"quant paged {kv} output acc / l, heads of 256",
+                        _normalized(got), _normalized(want))
+        times = (s.time_ms(lambda: ops.quant_paged_decode_attention(
+                     *args, return_residuals=True, **kw)),
+                 s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
+                     *args, return_residuals=True, **kw)),
+                 nbytes, flops, None, INT8_OPS_PER_S)
+        if kv == "int8":
+            s.record_also("quant_paged_decode_attention", "gemma2", err,
+                          *times)
+        else:
+            s.timings(f"quant_paged_decode_attention ({kv}, gemma2)", *times)
+
+
 # ------------------------------------------------------------ serving -----
 
-def _requests(vocab: int):
+def _requests(vocab: int, prompt_lens=PROMPT_LENS):
     import numpy as np
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
     return [Request(rid=i, tokens=rng.integers(
-        0, vocab, size=PROMPT_LENS[i % len(PROMPT_LENS)]).tolist())
+        0, vocab, size=prompt_lens[i % len(prompt_lens)]).tolist())
         for i in range(N_REQUESTS)]
 
 
-def serve(s: Smoke, model, params, **mode):
+def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
+          prompt_lens=PROMPT_LENS, **mode):
     """Drive the engine over the 12 requests in a serving ``mode``
     (ServeConfig fields); returns (requests, stats)."""
     torch = s.torch
     from repro_torch.core.build import KERNELS
     from repro_torch.serve import engine as engine_mod
     from repro_torch.serve.paging import paged_bytes_per_slot
-    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=CACHE_LEN,
+    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=cache_len,
                                 max_new_tokens=MAX_NEW, page_size=PAGE,
                                 **mode)
     engine = engine_mod.Engine(model, params, sc, device=s.dev)
-    reqs = _requests(model.cfg.vocab_size)
+    reqs = _requests(model.cfg.vocab_size, prompt_lens)
     syncs, groups = [0], [0]
     real_get, real_admit = engine_mod._device_get, engine._admit_group
 
@@ -523,6 +790,9 @@ def serve(s: Smoke, model, params, **mode):
         finally:
             torch.cuda.set_sync_debug_mode(0)
             engine_mod._device_get = real_get
+            # the wrapper holds the engine's bound method: without this
+            # the cycle keeps its weights and pools alive after the run
+            del engine._admit_group
     launches = {k.name: k.launches for k in KERNELS}
     stats = {"wall_s": wall, "decode_steps": decode_steps,
              "groups": groups[0], "syncs": syncs[0],
@@ -538,6 +808,12 @@ def serve(s: Smoke, model, params, **mode):
         stats["pool_bytes_per_slot"] = paged_bytes_per_slot(
             engine.caches, engine.allocator.total_pages,
             engine.pages_per_slot)
+        stats["audit"] = engine.audit()
+        if engine.windowed:
+            est = engine.stats()
+            stats["window_prefix_frees"] = est["window_prefix_frees"]
+            stats["window_peak_in_use"] = \
+                est["pool_groups"]["window"]["peak_in_use"]
     if engine.spec:
         stats.update(spec_steps=engine.spec_steps,
                      spec_emitted=engine.spec_emitted,
@@ -546,7 +822,8 @@ def serve(s: Smoke, model, params, **mode):
     return reqs, stats
 
 
-def traced_busy_share(s: Smoke, model, params):
+def traced_busy_share(s: Smoke, model, params, cache_len=CACHE_LEN,
+                      prompt_lens=PROMPT_LENS):
     """The card's busy share over the decode steps PROFILED_STEPS of a
     fresh paged run with all slots decoding: summed kernel time from a
     trace, over the steps' wall time.  Tracing slows the host, so this
@@ -555,11 +832,11 @@ def traced_busy_share(s: Smoke, model, params):
     everything that is timed."""
     torch = s.torch
     from repro_torch.serve import engine as engine_mod
-    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=CACHE_LEN,
+    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=cache_len,
                                 max_new_tokens=MAX_NEW, paged=True,
                                 page_size=PAGE)
     engine = engine_mod.Engine(model, params, sc, device=s.dev)
-    for r in _requests(model.cfg.vocab_size)[:SLOTS]:
+    for r in _requests(model.cfg.vocab_size, prompt_lens)[:SLOTS]:
         engine.submit(r)
     for _ in range(PROFILED_STEPS[0]):
         engine.step()
@@ -596,34 +873,45 @@ def _device_busy_ms(prof):
     return total_us / 1e3 if total_us > 0 else None
 
 
-def teacher_gap(s: Smoke, model, params, reqs) -> float:
+def teacher_gap(s: Smoke, model, params, reqs):
     """Largest (argmax logit - emitted token's logit) over every emitted
-    token, from a plain-path forward over prompt + outputs."""
+    token, from a plain-path forward over prompt + outputs; returns it
+    and where it was (request, index of the emitted token: 0 is the
+    prefill's sample)."""
     torch = s.torch
-    worst = 0.0
+    worst, where = 0.0, None
     with torch.no_grad():
         for r in reqs:
             seq = torch.tensor([r.tokens + r.out[:-1]], device=s.dev)
-            logits = model.forward_logits(params, seq, plain=True)[0]
             p0 = len(r.tokens) - 1
-            rows = logits[p0:p0 + len(r.out)]
+            # logits only where tokens were emitted: at gemma2's vocab of
+            # 256,000 every position of a 6,000-token prompt is 6 GB
+            rows = model.forward_logits(params, seq, plain=True,
+                                        start=p0)[0]
             got = rows[torch.arange(len(r.out), device=s.dev),
                        torch.tensor(r.out, device=s.dev)]
-            worst = max(worst, float((rows.max(-1).values - got).max()))
-    return worst
+            gaps = rows.max(-1).values - got
+            if float(gaps.max()) > worst:
+                worst = float(gaps.max())
+                where = (r.rid, int(gaps.argmax()))
+    return worst, where
 
 
 def check_serving(s: Smoke, model, params, name: str, mode: dict,
-                  kernels_used, kernels_idle=(), teacher_checked=True):
-    """Serve the 12 requests in ``mode``; check completion, the one-sync
-    contract, that every kernel in ``kernels_used`` launched (the
-    per-token decode kernel among them exactly 36 times per step when
-    it is the first named) and none in ``kernels_idle``, and the
-    teacher-forced gap (reported only where ``teacher_checked`` is
-    false: a quantized pool is not the bf16 model)."""
+                  per_step, kernels_idle=(), teacher_checked=True,
+                  prefill=("rmsnorm", "flash_attention"), **shape):
+    """Serve the 12 requests in ``mode`` (``shape``: the cache length and
+    prompt lengths, if not granite's); check completion, the one-sync
+    contract, that the prefill kernels launched, that each decode
+    kernel in ``per_step`` launched exactly that many times per decode
+    step and none in ``kernels_idle`` ever, that a paged run's
+    allocator audit is clean at the end and, with a window group, that
+    pages behind the window were freed; and the teacher-forced gap
+    (reported only where ``teacher_checked`` is false: a quantized pool
+    is not the bf16 model)."""
     torch = s.torch
     t0 = time.perf_counter()
-    reqs, st = serve(s, model, params, **mode)
+    reqs, st = serve(s, model, params, **shape, **mode)
     print(f"  served {len(reqs)} requests in {st['wall_s']:.3f} s "
           f"({time.perf_counter() - t0:.3f} s with set-up): "
           f"{st['tokens']} tokens, {st['tok_per_s']:.1f} tok/s, "
@@ -634,16 +922,14 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
     s.check(all(r.done for r in reqs), f"{name}: every request done")
     s.check(all(len(r.out) == MAX_NEW for r in reqs),
             f"{name}: every request emitted {MAX_NEW} tokens")
-    for kname in kernels_used:
+    for kname in prefill + tuple(per_step):
         s.check(st["launches"][kname] > 0,
                 f"{name}: {kname} launched {st['launches'][kname]} times")
         s.kernels[kname]["launches_by_path"][name] = st["launches"][kname]
-    per_step = model.cfg.num_layers * st["decode_steps"]
-    decode_kernel = kernels_used[-1]
-    s.check(st["launches"][decode_kernel] == per_step,
-            f"{name}: {decode_kernel} launched {model.cfg.num_layers} times "
-            f"per decode step ({st['launches'][decode_kernel]} = "
-            f"{model.cfg.num_layers} x {st['decode_steps']})")
+    for kname, n in per_step.items():
+        s.check(st["launches"][kname] == n * st["decode_steps"],
+                f"{name}: {kname} launched {n} times per decode step "
+                f"({st['launches'][kname]} = {n} x {st['decode_steps']})")
     for kname in kernels_idle:
         s.check(st["launches"][kname] == 0,
                 f"{name}: {kname} not launched ({st['launches'][kname]})")
@@ -654,15 +940,25 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
             f"{name}: no other sync in steps that admitted nothing "
             f"({st['hidden_syncs']['decoding']}; "
             f"{st['hidden_syncs']['admitting']} in admitting steps)")
-    gap = teacher_gap(s, model, params, reqs)
-    st["teacher_gap"] = gap
+    if "audit" in st:
+        s.check(st["audit"] == [], f"{name}: allocator audit clean at the "
+                                   f"end ({st['audit'][:3]})")
+    if "window_prefix_frees" in st:
+        s.check(st["window_prefix_frees"] > 0,
+                f"{name}: {st['window_prefix_frees']} pages behind the "
+                f"window freed during the run (> 0); window pool peak "
+                f"{st['window_peak_in_use']} pages")
+    gap, where = teacher_gap(s, model, params, reqs)
+    st["teacher_gap"], st["teacher_gap_at"] = gap, where
+    at = "" if where is None else \
+        f", request {where[0]}, emitted token {where[1]}"
     if teacher_checked:
         s.check(gap <= TEACHER_GAP,
                 f"{name}: every emitted token within {TEACHER_GAP} logits "
-                f"of the plain forward's argmax (largest gap {gap:.4f})")
+                f"of the plain forward's argmax (largest gap {gap:.4f}{at})")
     else:
         print(f"  {name}: largest teacher-forced gap against the bf16 "
-              f"plain forward {gap:.4f} logits (reported)")
+              f"plain forward {gap:.4f} logits{at} (reported)")
     if "spec_steps" in st:
         s.check(st["spec_rejections"] > 0,
                 f"{name}: {st['spec_rejections']} rejected drafts (> 0)")
@@ -693,14 +989,13 @@ def run_serving(s: Smoke):
     print(f"  granite-8b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n / 1e9:.3f} B parameters in {cfg.dtype}, random from seed 0 "
           f"({time.perf_counter() - t0:.2f} s)")
-    prefill = ("rmsnorm", "flash_attention")
     runs, stats = {}, {}
 
     def run(name, mode, decode_kernel, idle=(), **kw):
         print(f"== serve, {name}", flush=True)
         runs[name], stats[name] = check_serving(
-            s, model, params, name, mode, prefill + (decode_kernel,), idle,
-            **kw)
+            s, model, params, name, mode, {decode_kernel: cfg.num_layers},
+            idle, **kw)
 
     run("paged", dict(paged=True), "paged_decode_attention")
     run("dense", dict(paged=False), "decode_attention")
@@ -733,18 +1028,99 @@ def run_serving(s: Smoke):
     print(f"  spec-int8 and int8 agree on "
           f"{_agree(runs['spec-int8'], runs['int8'])} of "
           f"{stats['spec-int8']['tokens']} tokens")
-    print("== trace the card over paged decode steps", flush=True)
-    share = traced_busy_share(s, model, params)
-    print(f"  card busy over decode steps {PROFILED_STEPS[0]}-"
-          f"{PROFILED_STEPS[1] - 1} (traced, a lower bound): "
-          + ("not measured" if share is None else f"{100 * share:.1f}%"))
     return dict(stats, tokens_agree={
         "dense_paged": _agree(runs["paged"], runs["dense"]),
         "spec_paged": _agree(runs["spec"], runs["paged"]),
         "int8_paged": _agree(runs["int8"], runs["paged"]),
         "fp8_e4m3_paged": _agree(runs["fp8_e4m3"], runs["paged"]),
-        "spec_int8_int8": _agree(runs["spec-int8"], runs["int8"])},
-        device_busy_share=share)
+        "spec_int8_int8": _agree(runs["spec-int8"], runs["int8"])})
+
+
+def run_traces(s: Smoke):
+    """The card's busy share over paged decode steps of each model,
+    fresh weights from the same seed; last, since tracing slows every
+    later step (gemma2-2b's is traced first, so granite-8b's, traced
+    second, is the lower bound of the two)."""
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    shares = {}
+    for arch, shape in (("gemma2-2b", dict(cache_len=G2_CACHE_LEN,
+                                           prompt_lens=G2_PROMPT_LENS)),
+                        ("granite-8b", {})):
+        model = build_model(get_config(arch))
+        params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                            device=s.dev)
+        share = traced_busy_share(s, model, params, **shape)
+        shares[arch] = share
+        print(f"  {arch}: card busy over paged decode steps "
+              f"{PROFILED_STEPS[0]}-{PROFILED_STEPS[1] - 1} (traced, a "
+              f"lower bound): "
+              + ("not measured" if share is None else f"{100 * share:.1f}%"))
+        del params
+        torch.cuda.empty_cache()
+    return shares
+
+
+def run_serving_gemma2(s: Smoke):
+    """gemma2-2b at full width and depth, four ways: paged (B4 on the 13
+    global layers, B7 over ring tables on the 13 local ones), dense
+    (B3 on all 26, local layers over rings of the window), and from
+    int8 and fp8 pools (B5 and B7q)."""
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.quant import resolve_kv_spec
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                        device=s.dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    kinds = cfg.layer_kinds()
+    n_local = kinds.count("local")
+    print(f"  gemma2-2b: {cfg.num_layers} layers ({n_local} local, window "
+          f"{cfg.window}), d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, {n / 1e9:.3f} B "
+          f"parameters in {cfg.dtype}, random from seed 0 "
+          f"({time.perf_counter() - t0:.2f} s); cache {G2_CACHE_LEN}, "
+          f"prompts {G2_PROMPT_LENS}")
+    shape = dict(cache_len=G2_CACHE_LEN, prompt_lens=G2_PROMPT_LENS)
+    runs, stats = {}, {}
+    decode = ("decode_attention", "paged_decode_attention",
+              "window_paged_decode_attention",
+              "quant_paged_decode_attention",
+              "quant_window_paged_decode_attention",
+              "spec_paged_decode_attention")
+    n_global = cfg.num_layers - n_local
+
+    def run(name, mode, per_step, **kw):
+        print(f"== serve gemma2-2b, {name}", flush=True)
+        idle = tuple(k for k in decode if k not in per_step)
+        runs[name], stats[name] = check_serving(
+            s, model, params, f"gemma2 {name}", mode, per_step, idle,
+            **shape, **kw)
+
+    run("paged", dict(paged=True),
+        {"paged_decode_attention": n_global,
+         "window_paged_decode_attention": n_local})
+    run("dense", dict(paged=False), {"decode_attention": cfg.num_layers})
+    agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
+    print(f"  gemma2 dense and paged agree on {agree['dense_paged']} of "
+          f"{stats['paged']['tokens']} tokens")
+    for kv in ("int8", "fp8_e4m3"):
+        resolve_kv_spec(kv, s.dev, strict=True)
+        run(kv, dict(paged=True, kv_dtype=kv),
+            {"quant_paged_decode_attention": n_global,
+             "quant_window_paged_decode_attention": n_local},
+            teacher_checked=False)
+        agree[f"{kv}_paged"] = _agree(runs[kv], runs["paged"])
+        print(f"  gemma2 {kv} and bf16 paged agree on "
+              f"{agree[f'{kv}_paged']} of {stats[kv]['tokens']} tokens")
+    del params
+    torch.cuda.empty_cache()
+    return dict(stats, tokens_agree=agree)
 
 
 def _leaves(tree):
@@ -798,12 +1174,19 @@ def main() -> int:
     for name, fn in (("rmsnorm", check_rmsnorm), ("flash", check_flash),
                      ("decode", check_decode), ("paged", check_paged),
                      ("quant paged", check_quant_paged),
-                     ("spec paged", check_spec)):
+                     ("spec paged", check_spec),
+                     ("window paged (gemma2 shapes)", check_window),
+                     ("head-dim-256 builds (gemma2 shapes)",
+                      check_head_dim_256)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
         _die("failed before serving:\n  " + "\n  ".join(s.failures))
     serving = s.phase("serve granite-8b at full width", run_serving, s)
+    torch.cuda.empty_cache()
+    serving_g2 = s.phase("serve gemma2-2b at full width", run_serving_gemma2,
+                         s)
+    traces = s.phase("trace the card over paged decode steps", run_traces, s)
 
     for k in s.kernels.values():
         # the main path's count: the first serving run that launched it
@@ -811,6 +1194,10 @@ def main() -> int:
                               if n), 0)
     if serving is not None:
         print(json.dumps({"serving": serving}))
+    if serving_g2 is not None:
+        print(json.dumps({"serving_gemma2": serving_g2}))
+    if traces is not None:
+        print(json.dumps({"device_busy_share": traces}))
     if s.failures:
         _die("failed:\n  " + "\n  ".join(s.failures))
     print(json.dumps({"kernels": list(s.kernels.values())}))

@@ -2,9 +2,13 @@
 
 The caller turns the JAX tree into numpy first
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module needs
-no JAX.  A dense global-attention model's tree is ``embed.table``,
-``unembed.table``, ``final_norm`` and one segment holding one block
-whose leaves carry a leading ``reps = num_layers`` axis.
+no JAX.  The tree is ``embed.table``, ``unembed.table``, ``final_norm``
+and the segments of ``plan_segments``: segment ``i`` holds one leaf
+dict per position of its block, each leaf with a leading ``reps`` axis,
+so layer ``r * len(block) + j`` of the segment is position ``j`` at
+index ``r`` (granite: one segment of one global layer repeated 36
+times; gemma2: a (local, global) block repeated 13 times, with the
+sandwich norms ``post_ln1``/``post_ln2``).
 """
 from __future__ import annotations
 
@@ -34,26 +38,31 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     plans = plan_segments(cfg)
     if (len(segments) != len(plans)
             or [len(s) for s in segments] != [len(p.block) for p in plans]):
-        raise ValueError(f"expected {len(plans)} segment of one block for "
-                         f"a dense global model, got {len(segments)}")
-    blk = segments[0][0]
-    n = np.asarray(blk["ln1"]).shape[0]
-    if n != plans[0].reps:
-        raise ValueError(f"tree holds {n} layers, config {cfg.num_layers}")
+        raise ValueError(
+            f"expected segments of {[len(p.block) for p in plans]} block "
+            f"positions for {cfg.name}, got {[len(s) for s in segments]}")
     d, hd = cfg.d_model, cfg.head_dim
+    norms = ("ln1", "ln2") + (("post_ln1", "post_ln2")
+                              if cfg.use_post_norms else ())
     layers = []
-    for i in range(n):
-        a, m = blk["attn"], blk["mlp"]
-        layers.append({
-            "ln1": t(blk["ln1"][i]),
-            "attn": {"wq": t(a["wq"][i], (d, cfg.num_heads * hd)),
-                     "wk": t(a["wk"][i], (d, cfg.num_kv_heads * hd)),
-                     "wv": t(a["wv"][i], (d, cfg.num_kv_heads * hd)),
-                     "wo": t(a["wo"][i], (cfg.num_heads * hd, d))},
-            "ln2": t(blk["ln2"][i]),
-            "mlp": {"w_gate": t(m["w_gate"][i]), "w_up": t(m["w_up"][i]),
-                    "w_down": t(m["w_down"][i])},
-        })
+    for seg, plan in zip(segments, plans):
+        n = np.asarray(seg[0]["ln1"]).shape[0]
+        if n != plan.reps:
+            raise ValueError(f"tree holds {n} repeats of a segment, config "
+                             f"{cfg.num_layers} layers ({plan.reps})")
+        for r in range(n):
+            for blk in seg:
+                a, m = blk["attn"], blk["mlp"]
+                layer = {name: t(blk[name][r]) for name in norms}
+                layer["attn"] = {
+                    "wq": t(a["wq"][r], (d, cfg.num_heads * hd)),
+                    "wk": t(a["wk"][r], (d, cfg.num_kv_heads * hd)),
+                    "wv": t(a["wv"][r], (d, cfg.num_kv_heads * hd)),
+                    "wo": t(a["wo"][r], (cfg.num_heads * hd, d))}
+                layer["mlp"] = {"w_gate": t(m["w_gate"][r]),
+                                "w_up": t(m["w_up"][r]),
+                                "w_down": t(m["w_down"][r])}
+                layers.append(layer)
     return {"embed": t(tree["embed"]["table"]),
             "unembed": t(tree["unembed"]["table"]),
             "final_norm": t(tree["final_norm"]),

@@ -16,6 +16,10 @@ TABLE = {
     ("paged_decode_attention", "block_kv"): 64,
     ("quant_paged_decode_attention", "page_size"): 64,
     ("quant_paged_decode_attention", "block_kv"): 64,
+    ("window_paged_decode_attention", "page_size"): 64,
+    ("window_paged_decode_attention", "block_kv"): 64,
+    ("quant_window_paged_decode_attention", "page_size"): 64,
+    ("quant_window_paged_decode_attention", "block_kv"): 64,
     ("spec_paged_decode_attention", "page_size"): 64,
     ("spec_paged_decode_attention", "block_kv"): 64,
     ("quant_spec_paged_decode_attention", "page_size"): 64,

@@ -67,6 +67,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* kc, const void* vc,
   if (d == 128)
     return launch<T, 128>(q, kc, vc, lengths, acc, m, l, b, hq, hkv, s, bk,
                           scale, window, softcap, stream);
+  if (d == 256)
+    return launch<T, 256>(q, kc, vc, lengths, acc, m, l, b, hq, hkv, s, bk,
+                          scale, window, softcap, stream);
   return cudaErrorInvalidValue;
 }
 

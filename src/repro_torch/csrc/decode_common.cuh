@@ -190,15 +190,25 @@ __device__ void decode_store(const DecodeSmem<D, G>& sm, const float acc[G],
 // the speculative kernel's row r sees row_len[b * row_stride + r] (its
 // wrapper computes base + 1 + r / group), and its block loop runs to
 // the largest horizon, capped at the table's reach.
-template <typename T, typename KV, int D, int G>
+//
+// RING (the sliding-window kernels B7, B7q): the table row is the
+// slot's ring walk, its live window pages in timeline order
+// (kernels/decode_attention/paged.py, ring_walk), and column 0 holds
+// the token at start[b], the first token of the window's first live
+// page.  The block loop runs from start[b] up to the slot's length,
+// at most the row's reach past start[b]; the window mask trims the
+// first page's tokens before length - window.
+template <typename T, typename KV, int D, int G, bool RING = false>
 __global__ void __launch_bounds__(D)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     const KV* __restrict__ vp, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ bt,
-                    const int* __restrict__ row_len, int row_stride,
+                    const int* __restrict__ row_len,
+                    const int* __restrict__ start, int row_stride,
                     float* acc_out, float* m_out, float* l_out, int k1,
                     int hq, int hkv, int n_pages, int page_size, int t_cols,
                     int bk, float scale, int window, float softcap) {
+  static_assert(!RING || !per_row_horizon<G>(), "ring walks are one-token");
   extern __shared__ float smem[];
   const DecodeSmem<D, G> sm(smem);
   const int h = blockIdx.x, b = blockIdx.y, group = hq / hkv;
@@ -208,8 +218,10 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   float acc[G];
   decode_init<T, D, G>(sm, q, rows, scale, acc);
   const int reach = t_cols * page_size;
-  int length = per_row_horizon<G>() ? 0 : min(row_len[b], reach);
-  int limit = length;
+  const int lo = RING ? start[b] : 0;
+  int length = RING ? row_len[b]
+                    : (per_row_horizon<G>() ? 0 : min(row_len[b], reach));
+  int limit = RING ? min(length, lo + reach) : length;
   if (per_row_horizon<G>()) {
     if (threadIdx.x < rows.n)
       sm.hz[threadIdx.x] =
@@ -220,11 +232,12 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     limit = min(limit, reach);
   }
   const int* row = bt + static_cast<size_t>(b) * t_cols;
-  for (int k0 = 0; k0 < limit; k0 += bk) {
-    int page = row[k0 / page_size];
+  for (int k0 = lo; k0 < limit; k0 += bk) {
+    // lo is a whole number of pages, so k0 - lo keeps k0's page offset
+    int page = row[(k0 - lo) / page_size];
     if (page < 0 || page >= n_pages) page = 0;
     const size_t pg = static_cast<size_t>(h) * n_pages + page;
-    const size_t off = (pg * page_size + k0 % page_size) * D;
+    const size_t off = (pg * page_size + (k0 - lo) % page_size) * D;
     decode_block<KV, D, G>(sm, kp + off, vp + off, bk, k0, rows.n, length,
                            window, softcap, kQuant ? ks[pg] : 1.f,
                            kQuant ? vs[pg] : 1.f, acc);
@@ -232,28 +245,9 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   decode_store<D, G>(sm, acc, rows, acc_out, m_out, l_out);
 }
 
-// Launch paged_decode_kernel<T, KV, D, G> on a (Hkv, B) grid.
-template <typename T, typename KV, int D, int G>
-cudaError_t launch_paged(const void* q, const void* kp, const void* vp,
-                         const float* ks, const float* vs, const int* bt,
-                         const int* row_len, int row_stride, float* acc,
-                         float* m, float* l, int b, int k1, int hq, int hkv,
-                         int n_pages, int page_size, int t_cols, int bk,
-                         float scale, int window, float softcap,
-                         cudaStream_t stream) {
-  const size_t bytes = decode_smem_floats<D, G>() * sizeof(float);
-  static const cudaError_t attr =
-      allow_smem(paged_decode_kernel<T, KV, D, G>, bytes);
-  if (attr != cudaSuccess) return attr;
-  paged_decode_kernel<T, KV, D, G><<<dim3(hkv, b), D, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kp),
-      static_cast<const KV*>(vp), ks, vs, bt, row_len, row_stride, acc, m, l,
-      k1, hq, hkv, n_pages, page_size, t_cols, bk, scale, window, softcap);
-  return cudaGetLastError();
-}
-
 // The arguments every paged entry point passes through, and their
 // dispatch on the query's element type, the pools' and the head dim.
+// `start` is read by the ring kernels only.
 struct PagedArgs {
   const void *q, *kp, *vp;
   const float *ks, *vs;
@@ -265,18 +259,31 @@ struct PagedArgs {
   int window;
   float softcap;
   cudaStream_t stream;
+  const int* start = nullptr;
 };
 
-template <typename T, typename KV, int G>
+// Launch paged_decode_kernel<T, KV, D, G, RING> on a (Hkv, B) grid.
+template <typename T, typename KV, int D, int G, bool RING>
+cudaError_t launch_paged(const PagedArgs& a) {
+  const size_t bytes = decode_smem_floats<D, G>() * sizeof(float);
+  static const cudaError_t attr =
+      allow_smem(paged_decode_kernel<T, KV, D, G, RING>, bytes);
+  if (attr != cudaSuccess) return attr;
+  paged_decode_kernel<T, KV, D, G, RING>
+      <<<dim3(a.hkv, a.b), D, bytes, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
+          static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len, a.start,
+          a.row_stride, a.acc, a.m, a.l, a.k1, a.hq, a.hkv, a.n_pages,
+          a.page_size, a.t_cols, a.bk, a.scale, a.window, a.softcap);
+  return cudaGetLastError();
+}
+
+// Head dims 64, 128 and 256 (gemma2); a CTA has D threads.
+template <typename T, typename KV, int G, bool RING = false>
 cudaError_t dispatch_paged_d(const PagedArgs& a) {
-#define REPRO_PAGED_LAUNCH(DIM)                                              \
-  launch_paged<T, KV, DIM, G>(a.q, a.kp, a.vp, a.ks, a.vs, a.bt, a.row_len,  \
-                              a.row_stride, a.acc, a.m, a.l, a.b, a.k1, a.hq, \
-                              a.hkv, a.n_pages, a.page_size, a.t_cols, a.bk, \
-                              a.scale, a.window, a.softcap, a.stream)
-  if (a.d == 64) return REPRO_PAGED_LAUNCH(64);
-  if (a.d == 128) return REPRO_PAGED_LAUNCH(128);
-#undef REPRO_PAGED_LAUNCH
+  if (a.d == 64) return launch_paged<T, KV, 64, G, RING>(a);
+  if (a.d == 128) return launch_paged<T, KV, 128, G, RING>(a);
+  if (a.d == 256) return launch_paged<T, KV, 256, G, RING>(a);
   return cudaErrorInvalidValue;
 }
 

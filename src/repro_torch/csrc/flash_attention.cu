@@ -209,6 +209,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
   if (d == 128)
     return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
                           window, softcap, q_offset, stream);
+  if (d == 256)  // 214.5 KB of shared memory: under the 227 KB opt-in cap
+    return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
+                          window, softcap, q_offset, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,7 @@ KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu", "decode_attention_fwd",
     [_p] * 7 + [_i] * 6 + [_f, _i, _f, _i, _p])
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8        # G_DECODE in csrc/decode_common.cuh
 MAX_BLOCK_KV = 64    # BK_MAX in csrc/decode_common.cuh
 

@@ -1,4 +1,5 @@
 """Public decode-attention ops: dense, paged, quantized paged,
+sliding-window paged over ring tables (bf16 and quantized),
 speculative paged and quantized speculative paged.
 
 A CPU tensor takes the plain version, a CUDA tensor the hand-written
@@ -99,6 +100,55 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
         res = _quant.quant_paged_decode_attention_fwd(
             q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths,
             page_size=page_size, block_kv=block_kv, **kw)
+    return _finish(q, res, return_residuals)
+
+
+def window_paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                  lengths, *, window: int,
+                                  softcap: Optional[float] = None,
+                                  scale: Optional[float] = None,
+                                  page_size: Optional[int] = None,
+                                  block_kv: Optional[int] = None,
+                                  return_residuals: bool = False):
+    """Sliding-window GQA decode over ring block tables (B, T_w), global
+    page ``g`` at column ``g % T_w``: ``decode_attention(window=window)``
+    over the un-rung cache, read in O(window) however long the context
+    ran.  q: (B, Hq, D); pools (Hkv, P, ps, D); lengths (B,) int32."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        res = _ref.window_paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, lengths,
+            return_residuals=True, **kw)
+    else:
+        block_kv = block_kv or tuning.block_size(
+            "window_paged_decode_attention", "block_kv")
+        res = _paged.window_paged_decode_attention_fwd(
+            q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
+            block_kv=block_kv, **kw)
+    return _finish(q, res, return_residuals)
+
+
+def quant_window_paged_decode_attention(q, k_pages, v_pages, k_scales,
+                                        v_scales, block_tables, lengths, *,
+                                        window: int,
+                                        softcap: Optional[float] = None,
+                                        scale: Optional[float] = None,
+                                        page_size: Optional[int] = None,
+                                        block_kv: Optional[int] = None,
+                                        return_residuals: bool = False):
+    """``window_paged_decode_attention`` over int8/fp8-e4m3 pools with
+    (Hkv, P) f32 scale pools, dequantized before the dots."""
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        res = _ref.quant_window_paged_decode_attention_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths,
+            return_residuals=True, **kw)
+    else:
+        block_kv = block_kv or tuning.block_size(
+            "quant_window_paged_decode_attention", "block_kv")
+        res = _paged.window_paged_decode_attention_fwd(
+            q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
+            block_kv=block_kv, k_scales=k_scales, v_scales=v_scales, **kw)
     return _finish(q, res, return_residuals)
 
 

@@ -1,5 +1,7 @@
-"""Paged decode: the logical-page helpers and the launcher of the CUDA
-paged decode kernel (``csrc/paged_decode_attention.cu``).
+"""Paged decode: the logical-page and ring-walk helpers and the
+launchers of the CUDA paged decode kernel
+(``csrc/paged_decode_attention.cu``) and of its sliding-window twin
+over ring block tables (``csrc/window_paged_decode_attention.cu``).
 
 Layouts (as ``repro.kernels.decode_attention.paged``):
   q            (B, Hq, D)       one new token per slot
@@ -7,10 +9,16 @@ Layouts (as ``repro.kernels.decode_attention.paged``):
   block_tables (B, T) int32     page id per (slot, logical page)
   lengths      (B,)   int32     valid tokens per slot
 
-``repage``, ``repage_scales`` and ``clamp_block_kv`` are plain
-functions so that the CPU tests check the index math the kernel
-launches rely on; ``paged_operands`` applies them for this launcher and
-for the quantized (``quant.py``) and speculative (``spec.py``) ones.
+A sliding-window layer's table is a *ring* (B, T_w), T_w =
+``window_table_width(window, ps)``: global page ``g`` sits at column
+``g % T_w``.  ``ring_walk`` lays each row out in timeline order from
+the window's first live page, the walk the window kernels follow.
+
+``repage``, ``repage_scales``, ``clamp_block_kv`` and ``ring_walk`` are
+plain functions so that the CPU tests check the index math the kernel
+launches rely on; ``paged_operands`` applies them for these launchers
+and for the quantized (``quant.py``) and speculative (``spec.py``)
+ones.
 """
 from __future__ import annotations
 
@@ -29,6 +37,16 @@ KERNEL = CudaKernel(
     "paged_decode_attention", "paged_decode_attention.cu",
     "paged_decode_attention_fwd",
     [_p] * 8 + [_i] * 8 + [_f, _i, _f, _i, _p])
+# the window kernels over bf16/f32 pools (B7) and int8/fp8 pools with
+# scale pools (B7q): one argument list, one launcher
+_WINDOW_ARGS = [_p] * 11 + [_i] * 8 + [_f, _i, _f, _i, _i, _p]
+WINDOW_KERNEL = CudaKernel(
+    "window_paged_decode_attention", "window_paged_decode_attention.cu",
+    "window_paged_decode_attention_fwd", _WINDOW_ARGS)
+QUANT_WINDOW_KERNEL = CudaKernel(
+    "quant_window_paged_decode_attention",
+    "quant_window_paged_decode_attention.cu",
+    "quant_window_paged_decode_attention_fwd", _WINDOW_ARGS)
 
 
 def repage(pool: torch.Tensor, block_tables: torch.Tensor, page_size: int):
@@ -69,6 +87,22 @@ def clamp_block_kv(block_kv: int, page_size: int) -> int:
     while page_size % block_kv:
         block_kv -= 1
     return block_kv
+
+
+def ring_walk(block_tables: torch.Tensor, lengths: torch.Tensor,
+              window: int, page_size: int):
+    """(walk, start) of ring tables (B, T_w): ``walk[b, j]`` is the page
+    at column ``(first + j) % T_w``, ``first = max(L - window, 0) //
+    page_size`` the window's first live page, and ``start = first *
+    page_size`` the token at the head of column 0 (``repro`` paged.py:
+    301-305, where grid step ``ik`` reads column ``(first + ik // spp) %
+    T_w``).  Columns past the live window come after it in the walk,
+    and the kernels stop at ``L`` before reaching them."""
+    t = block_tables.shape[1]
+    first = (lengths.long() - window).clamp(min=0) // page_size
+    cols = (first[:, None] + torch.arange(t, device=lengths.device)) % t
+    walk = block_tables.gather(1, cols).to(torch.int32).contiguous()
+    return walk, (first * page_size).to(torch.int32)
 
 
 def paged_operands(name: str, q, k_pages, v_pages, block_tables, *,
@@ -128,4 +162,55 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
                   float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   stream_of(q))
+    return acc, m, l
+
+
+def check_window(name: str, window) -> None:
+    """The window kernels take a positive window (``repro`` refuses
+    None: a full-context table goes to the prefix-table kernel)."""
+    if window is None or int(window) < 1:
+        raise ValueError(f"{name} requires a window >= 1, got {window!r} "
+                         f"(use paged_decode_attention for full-context "
+                         f"tables)")
+
+
+def window_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
+                                      lengths, *, window: int,
+                                      softcap: Optional[float],
+                                      scale: Optional[float],
+                                      page_size: Optional[int],
+                                      block_kv: int, k_scales=None,
+                                      v_scales=None):
+    """Sliding-window decode over ring tables (B, T_w); lengths (B,)
+    int32 count the new token.  With ``k_scales``/``v_scales`` the pools
+    are int8/fp8 storage and the quantized kernel (B7q) dequantizes each
+    block, else they hold q's dtype (B7).  Returns unnormalized f32
+    residuals (acc, m, l), as the prefix-table kernel does."""
+    quantized = k_scales is not None
+    kern = QUANT_WINDOW_KERNEL if quantized else WINDOW_KERNEL
+    name = kern.name
+    check_window(name, window)
+    check_decode_operands(name, q, k_pages, v_pages, lengths,
+                          quantized=quantized)
+    b, hq, d = q.shape
+    hkv = k_pages.shape[0]
+    if hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads "
+                         f"(group <= {MAX_GROUP})")
+    k_pages, v_pages, bt, ks, vs, page_size, bk = paged_operands(
+        name, q, k_pages, v_pages, block_tables, page_size=page_size,
+        block_kv=block_kv, k_scales=k_scales, v_scales=v_scales)
+    walk, start = ring_walk(bt, lengths, window, page_size)
+    operands = [q, k_pages, v_pages, walk, start, lengths]
+    if quantized:
+        operands += [ks, vs]
+    check_cuda(name, *operands)
+    acc, m, l = residual_outputs(q)
+    kern.launch(
+        ptr(q), ptr(k_pages), ptr(v_pages), ptr(ks) if quantized else None,
+        ptr(vs) if quantized else None, ptr(walk), ptr(start), ptr(lengths),
+        ptr(acc), ptr(m), ptr(l), b, hq, hkv, k_pages.shape[1], page_size,
+        walk.shape[1], d, bk, float(d ** -0.5 if scale is None else scale),
+        int(window), float(softcap or 0.0), dtype_code(q),
+        dtype_code(k_pages), stream_of(q))
     return acc, m, l

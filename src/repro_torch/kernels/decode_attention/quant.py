@@ -1,6 +1,7 @@
 """Quantized paged decode: the launcher of the CUDA kernel
 ``csrc/quant_paged_decode_attention.cu`` (``repro``'s
-``kernels/decode_attention/quant.py``).
+``kernels/decode_attention/quant.py``; its window twin over ring tables
+launches through ``paged.window_paged_decode_attention_fwd``).
 
 Layouts as the bf16 paged op, with the pools stored as int8 or
 fp8-e4m3 and one f32 scale per (head, page) in the (Hkv, P) scale
@@ -58,3 +59,4 @@ def quant_paged_decode_attention_fwd(q, k_pages, v_pages, k_scales, v_scales,
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   dtype_code(k_pages), stream_of(q))
     return acc, m, l
+

@@ -1,11 +1,13 @@
-"""Plain PyTorch decode attention over dense, paged, quantized paged
-and speculative paged KV (transcribed from
+"""Plain PyTorch decode attention over dense, paged, quantized paged,
+sliding-window paged and speculative paged KV (transcribed from
 ``repro.kernels.decode_attention.ref``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.decode_attention.paged import ring_walk
 
 NEG_INF = -1e30
 
@@ -14,12 +16,15 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None,
                          scale: Optional[float] = None,
+                         kv_offset=0,
                          return_residuals: bool = False):
     """q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) int32.
 
-    The query is the token at position ``lengths[b] - 1``.  Returns
-    (B, Hq, D) in q's dtype, or the unnormalized f32 residuals
-    (acc (B, Hq, D), m (B, Hq), l (B, Hq)).
+    The query is the token at position ``lengths[b] - 1``;
+    ``kv_offset`` is the global position of cache row 0 (an int, or a
+    tensor that broadcasts against (B, 1, S)).  Returns (B, Hq, D) in
+    q's dtype, or the unnormalized f32 residuals (acc (B, Hq, D),
+    m (B, Hq), l (B, Hq)).
     """
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
@@ -32,7 +37,7 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
     scores = torch.einsum("bhd,bhkd->bhk", qf, kf)
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    k_pos = torch.arange(s, device=q.device)[None, None, :]
+    k_pos = torch.arange(s, device=q.device)[None, None, :] + kv_offset
     lengths = lengths.long()
     mask = k_pos < lengths[:, None, None]
     if window is not None:
@@ -95,6 +100,39 @@ def quant_paged_decode_attention_ref(q, k_pages, v_pages, k_scales, v_scales,
     """Dequantize the pools densely, then the paged plain version."""
     k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
     return paged_decode_attention_ref(
+        q, k_dense, v_dense, block_tables, lengths, window=window,
+        softcap=softcap, scale=scale, return_residuals=return_residuals)
+
+
+def window_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                      lengths, *, window: int,
+                                      softcap: Optional[float] = None,
+                                      scale: Optional[float] = None,
+                                      return_residuals: bool = False):
+    """Sliding-window decode over ring tables (B, T_w), global page
+    ``g`` at column ``g % T_w``: gather the ring walk (``paged.
+    ring_walk``) dense, so row 0 is the token at ``start``, then the
+    dense plain version with the window mask and that offset.  Stale or
+    null columns past the live window land past ``lengths`` and never
+    count."""
+    walk, start = ring_walk(block_tables, lengths, window,
+                            k_pages.shape[2])
+    return decode_attention_ref(
+        q, gather_pages(k_pages, walk), gather_pages(v_pages, walk),
+        lengths, window=window, softcap=softcap, scale=scale,
+        kv_offset=start.long()[:, None, None],
+        return_residuals=return_residuals)
+
+
+def quant_window_paged_decode_attention_ref(q, k_pages, v_pages, k_scales,
+                                            v_scales, block_tables, lengths,
+                                            *, window: int,
+                                            softcap: Optional[float] = None,
+                                            scale: Optional[float] = None,
+                                            return_residuals: bool = False):
+    """Dequantize the pools densely, then the window plain version."""
+    k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
+    return window_paged_decode_attention_ref(
         q, k_dense, v_dense, block_tables, lengths, window=window,
         softcap=softcap, scale=scale, return_residuals=return_residuals)
 

@@ -21,7 +21,7 @@ KERNEL = CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_fwd",
     [_p] * 4 + [_i] * 6 + [_f, _i, _i, _f, _i, _i, _i, _i, _p])
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

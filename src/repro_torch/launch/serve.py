@@ -6,6 +6,11 @@ On the card (the default device), full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --paged --prompts 12 --prompt-len 200 --slots 8 --cache-len 1024
 
+gemma2-2b (sliding-window local layers page through ring tables):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+      --paged --prompts 12 --prompt-len 6000 --slots 8 --cache-len 8192
+
 From an int8 pool, speculating 4 tokens per step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -17,7 +22,8 @@ On the CPU, through the plain PyTorch versions of the kernels:
       --smoke --prompts 6 --max-new 12 --paged --device cpu
 
 Prints one JSON summary: completion, token counts, wall time, the
-speculative counters and the launch count of every kernel in the run.
+speculative counters, the pages freed behind sliding windows and the
+launch count of every kernel in the run.
 """
 from __future__ import annotations
 
@@ -115,6 +121,7 @@ def main(argv=None):
         "spec_rejections": st.get("spec_rejections"),
         "accepted_tokens_per_step": (st["spec_emitted"] / st["spec_steps"]
                                      if st.get("spec_steps") else None),
+        "window_prefix_frees": st.get("window_prefix_frees"),
         "kernel_launches": {k.name: k.launches for k in KERNELS},
         "sample_output": reqs[0].out,
     }, indent=1))

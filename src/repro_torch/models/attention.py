@@ -1,6 +1,8 @@
-"""GQA attention (``repro.models.attention``, global layers only):
-prefill, one-token decode over dense, paged or quantized paged caches,
-and the speculative K1-token verify over paged pools.
+"""GQA attention (``repro.models.attention``: global and sliding-window
+local layers, with the attention softcap): prefill, one-token decode
+over dense caches, dense rings, paged pools and ring-table window pools
+(each bf16 or quantized), and the speculative K1-token verify over
+paged pools.
 
 Weights keep the reference's shapes flattened to 2-D matrices:
 ``wq`` (d, H*hd), ``wk``/``wv`` (d, Hkv*hd), ``wo`` (H*hd, d), which is
@@ -17,7 +19,8 @@ from repro_torch.models import layers as L
 from repro_torch.sharding.kernel_sharding import (
     decode_update_attend, paged_decode_update_attend,
     quant_paged_decode_update_attend, quant_spec_paged_decode_update_attend,
-    spec_paged_decode_update_attend)
+    quant_window_paged_decode_update_attend, spec_paged_decode_update_attend,
+    window_paged_decode_update_attend)
 
 NULL_PAGE = 0
 
@@ -36,6 +39,21 @@ def _page_coords(block_tables: torch.Tensor, lengths: torch.Tensor,
     gathered = block_tables.gather(1, page_idx.clamp(max=t - 1)[:, None])[:, 0]
     write_page = torch.where(page_idx < t, gathered,
                              torch.zeros_like(gathered))
+    write_off = (lengths % page_size).to(torch.int32)
+    return write_page, write_off
+
+
+def _window_page_coords(block_tables: torch.Tensor, lengths: torch.Tensor,
+                        page_size: int):
+    """(write_page, write_off) against a (B, T_w) *ring* table: global
+    page ``g`` sits at column ``g % T_w``, so the token at position
+    ``lengths`` goes to column ``(lengths // ps) % T_w``.  The engine's
+    eager prefix free ran before the step, so that column's previous
+    tenant (page ``g - T_w``, behind the window) is already back in the
+    pool; a freed slot's all-null row sends the write to page 0."""
+    t = block_tables.shape[1]
+    col = ((lengths // page_size) % t).long()
+    write_page = block_tables.gather(1, col[:, None])[:, 0]
     write_off = (lengths % page_size).to(torch.int32)
     return write_page, write_off
 
@@ -85,30 +103,45 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, rope):
 
 
 def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, rope, *,
-               plain: bool = False):
+               kind: str = "global", plain: bool = False):
     """Causal full-sequence attention.  x: (B, S, d); ``rope`` is
-    ``L.rope_cache`` of positions 0..S-1.  Returns (y, k, v) with the
-    rope'd K/V (B, Hkv, S, hd) for the prefill cache."""
+    ``L.rope_cache`` of positions 0..S-1; a ``local`` layer sees the
+    config's window.  Returns (y, k, v) with the rope'd K/V (B, Hkv, S,
+    hd) for the prefill cache."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, rope)
     fn = flash_ref.flash_attention_ref if plain else flash_attention
-    out = fn(q, k, v, causal=True)
+    out = fn(q, k, v, causal=True, window=_window(cfg, kind),
+             softcap=cfg.attn_softcap)
     y = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].to(x.dtype)
     return y, k, v
 
 
+def _window(cfg: ModelConfig, kind: str):
+    return cfg.window if kind == "local" else None
+
+
 def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, lengths: torch.Tensor,
-                cfg: ModelConfig, rope, *, block_tables=None,
-                cache_scales=None) -> torch.Tensor:
+                cfg: ModelConfig, rope, *, kind: str = "global",
+                ring: bool = False, block_tables=None, cache_scales=None,
+                windowed: bool = False) -> torch.Tensor:
     """One-token decode.  x: (B, 1, d); ``rope`` is ``L.rope_cache`` of
     ``lengths``, shaped (B, 1, hd/2).  The new token's K/V is written
-    into the cache IN PLACE (dense row ``lengths``, or its page when
-    ``block_tables`` (B, T) names pools (Hkv, P, ps, D)), then the step
-    attends over ``lengths + 1`` tokens.  ``cache_scales`` (ks, vs), the
-    (Hkv, P) scale pools, marks the pools quantized: the write
-    re-quantizes the page and the quantized kernel reads it.  Returns
-    out (B, 1, d)."""
+    into the cache IN PLACE, then the step attends over ``lengths + 1``
+    tokens (a ``local`` layer over its window):
+
+    * dense (B, Hkv, S, D): row ``lengths``; with ``ring`` the cache
+      holds the window, written at ``lengths % W`` and read whole
+      (``min(lengths + 1, W)`` rows, no window mask: every row in the
+      ring is in the window);
+    * paged, ``block_tables`` (B, T) over pools (Hkv, P, ps, D): the
+      slot's page; with ``windowed`` the table is a (B, T_w) ring of a
+      local layer's window pool and the step reads O(window) pages.
+
+    ``cache_scales`` (ks, vs), the (Hkv, P) scale pools, marks the pools
+    quantized: the write re-quantizes the page and the quantized kernel
+    reads it.  Returns out (B, 1, d)."""
     xd = x.dtype
     q = (x[:, 0] @ p["wq"].to(xd)).view(x.shape[0], cfg.num_heads, -1)
     k = (x[:, 0] @ p["wk"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
@@ -117,20 +150,43 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
     eff_len = (lengths + 1).to(torch.int32)
+    kw = dict(softcap=cfg.attn_softcap)
     if block_tables is not None:
+        if ring:
+            raise ValueError(
+                f"paged decode does not take ring caches (layer kind "
+                f"{kind!r}, window={cfg.window}): local layers page "
+                f"through ring tables (windowed=True), not dense rings")
         ps = cache_k.shape[2]
-        write_page, write_off = _page_coords(block_tables, lengths, ps)
-        if cache_scales is not None:
-            out = quant_paged_decode_update_attend(
-                q, k, v, cache_k, cache_v, cache_scales[0], cache_scales[1],
-                block_tables, write_page, write_off, eff_len, page_size=ps)
+        if windowed:
+            if kind != "local" or cfg.window is None:
+                raise ValueError(
+                    f"windowed paged decode needs a local layer with a "
+                    f"window (got kind={kind!r}, window={cfg.window})")
+            write_page, write_off = _window_page_coords(block_tables,
+                                                        lengths, ps)
+            fn = window_paged_decode_update_attend
+            qfn = quant_window_paged_decode_update_attend
+            kw["window"] = cfg.window
         else:
-            out = paged_decode_update_attend(q, k, v, cache_k, cache_v,
-                                             block_tables, write_page,
-                                             write_off, eff_len, page_size=ps)
+            write_page, write_off = _page_coords(block_tables, lengths, ps)
+            fn = paged_decode_update_attend
+            qfn = quant_paged_decode_update_attend
+            kw["window"] = _window(cfg, kind)
+        if cache_scales is not None:
+            out = qfn(q, k, v, cache_k, cache_v, cache_scales[0],
+                      cache_scales[1], block_tables, write_page, write_off,
+                      eff_len, page_size=ps, **kw)
+        else:
+            out = fn(q, k, v, cache_k, cache_v, block_tables, write_page,
+                     write_off, eff_len, page_size=ps, **kw)
+    elif ring:
+        w = cache_k.shape[2]
+        out = decode_update_attend(q, k, v, cache_k, cache_v, lengths % w,
+                                   eff_len.clamp(max=w), **kw)
     else:
         out = decode_update_attend(q, k, v, cache_k, cache_v, lengths,
-                                   eff_len)
+                                   eff_len, window=_window(cfg, kind), **kw)
     return (out.reshape(x.shape[0], -1) @ p["wo"].to(xd))[:, None, :]
 
 
@@ -159,9 +215,10 @@ def spec_decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     if cache_scales is not None:
         out = quant_spec_paged_decode_update_attend(
             q, k, v, cache_k, cache_v, cache_scales[0], cache_scales[1],
-            block_tables, write_page, write_off, base, page_size=ps)
+            block_tables, write_page, write_off, base,
+            softcap=cfg.attn_softcap, page_size=ps)
     else:
         out = spec_paged_decode_update_attend(
             q, k, v, cache_k, cache_v, block_tables, write_page, write_off,
-            base, page_size=ps)
+            base, softcap=cfg.attn_softcap, page_size=ps)
     return out.reshape(b, k1, -1) @ p["wo"].to(xd)

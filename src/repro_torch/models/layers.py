@@ -1,5 +1,5 @@
 """Shared building blocks (``repro.models.layers``): init laws, the
-norm, RoPE, the gated-SiLU MLP, embeddings."""
+norm, RoPE, the gated MLP (SiLU or tanh-GELU), embeddings."""
 from __future__ import annotations
 
 import math
@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import dtype_of
 from repro_torch.kernels.rmsnorm import ref as rmsnorm_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
@@ -76,12 +77,16 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, *, dtype):
                                  in_axis_size=ff)}
 
 
-def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU: (silu(x W_gate) * x W_up) W_down."""
+def apply_mlp(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """Gated MLP: (act(x W_gate) * x W_up) W_down, act SiLU or, for
+    ``activation="gelu"``, tanh-approximated GELU (``repro`` layers.py:
+    80-90, ``jax.nn.gelu(approximate=True)``)."""
     xd = x.dtype
     up = x @ p["w_up"].to(xd)
     gate = x @ p["w_gate"].to(xd)
-    return (F.silu(gate) * up) @ p["w_down"].to(xd)
+    act = F.gelu(gate, approximate="tanh") if activation == "gelu" \
+        else F.silu(gate)
+    return (act * up) @ p["w_down"].to(xd)
 
 
 # --------------------------------------------------------- Embedding ----
@@ -93,6 +98,29 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, *, dtype):
             dense_init(gen, (cfg.d_model, v), dtype=dtype))
 
 
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits x (..., d) @ table (d, Vp) as float32: the compute-dtype
+    products summed in f32 and kept there.  The reference rounds them to
+    the compute dtype first; in bf16 that is a resolution of 1/32 at a
+    logit of 4, where the top candidates of a 256,000-token vocabulary
+    tie or swap by rounding alone, and greedy decoding reads the order.
+    On the card cuBLAS writes the f32 output itself; on the CPU the
+    operands are widened first, which computes the same sums."""
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), table.to(x.dtype),
+                        out_dtype=torch.float32)
+        return flat.reshape(*x.shape[:-1], table.shape[-1])
+    return x.float() @ table.float()
+
+
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    return table[tokens.long()].to(dtype)
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Rows of the table in the compute dtype; gemma scales them by
+    sqrt(d_model), rounded to that dtype first, as the reference's
+    ``jnp.asarray(sqrt(d), x.dtype)`` (a Python number: no tensor, so
+    no host-to-device copy)."""
+    dt = dtype_of(cfg.dtype)
+    x = table[tokens.long()].to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
+    return x

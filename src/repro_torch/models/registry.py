@@ -36,8 +36,10 @@ class Model:
     def prefill(self, params, tokens, cache_len: int):
         return T.prefill(params, self.cfg, tokens, cache_len)
 
-    def forward_logits(self, params, tokens, *, plain: bool = False):
-        return T.forward_logits(params, self.cfg, tokens, plain=plain)
+    def forward_logits(self, params, tokens, *, plain: bool = False,
+                       start: int = 0):
+        return T.forward_logits(params, self.cfg, tokens, plain=plain,
+                                start=start)
 
     def decode_step(self, params, caches, tokens, lengths,
                     block_tables=None):
@@ -51,6 +53,8 @@ class Model:
 
     def init_decode_caches(self, batch: int, cache_len: int,
                            device: DeviceLike = None) -> List[Dict]:
+        """Dense caches per layer kind: (B, Hkv, cache_len, hd), or the
+        window's ring for a local layer whose window is shorter."""
         return T.init_decode_caches(self.cfg, batch, cache_len,
                                     resolve_device(device))
 

@@ -1,13 +1,16 @@
-"""Dense GQA decoder stack (``repro.models.transformer``, the branches
-granite-8b serving takes).
+"""Decoder stack (``repro.models.transformer``, the branches serving
+takes for dense decoders of global and sliding-window attention layers:
+granite-8b, and gemma2-2b's alternating local/global pattern with
+softcaps, sandwich norms, a tanh-GELU MLP and a scaled embedding).
 
 Parameters are a dict of tensors: ``embed`` (Vp, d), ``unembed``
 (d, Vp), ``final_norm`` (d,), and ``layers``, a list with one dict per
 layer (``ln1``, ``attn.{wq,wk,wv,wo}``, ``ln2``, ``mlp.{w_gate,w_up,
-w_down}``).  A Python loop over the layers takes the place of the
-reference's ``lax.scan`` over stacked segments.  Weights are stored in
-the compute dtype; the reference stores f32 and casts at each use,
-which computes the same thing.
+w_down}``, and ``post_ln1``/``post_ln2`` with sandwich norms); layer
+``i`` has kind ``cfg.layer_kinds()[i]``.  A Python loop over the layers
+takes the place of the reference's ``lax.scan`` over stacked segments.
+Weights are stored in the compute dtype; the reference stores f32 and
+casts at each use, which computes the same thing.
 """
 from __future__ import annotations
 
@@ -22,28 +25,32 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
 _DENSE_DEFAULTS = {
-    "family": "dense", "window": None, "attn_softcap": None,
-    "final_softcap": None, "use_qk_norm": False, "use_post_norms": False,
-    "mlp_activation": "silu", "moe": None, "moe_layers": "none",
-    "mla": None, "ssm": None, "xlstm": None, "encoder_layers": 0,
-    "frontend": None, "embed_scale": False,
+    "family": "dense", "use_qk_norm": False, "rope_theta_local": None,
+    "moe": None, "moe_layers": "none", "mla": None, "ssm": None,
+    "xlstm": None, "encoder_layers": 0, "frontend": None,
 }
+_KINDS = ("global", "local")
+_ACTIVATIONS = ("silu", "gelu")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for any configuration outside this slice of the port."""
+    """Raise for any configuration outside the port so far."""
     odd = {k: getattr(cfg, k) for k, v in _DENSE_DEFAULTS.items()
            if getattr(cfg, k) != v}
-    if set(cfg.layer_kinds()) != {"global"}:
+    if set(cfg.layer_kinds()) - set(_KINDS):
         odd["layer_pattern"] = cfg.layer_pattern
+    if cfg.mlp_activation not in _ACTIVATIONS:
+        odd["mlp_activation"] = cfg.mlp_activation
     if cfg.d_ff <= 0:
         odd["d_ff"] = cfg.d_ff
     if odd:
         raise NotImplementedError(
-            f"{cfg.name}: {odd} are not ported yet — slice 1 serves dense "
-            f"global-attention decoders with a gated-SiLU MLP; windows, "
-            f"softcaps, MoE/MLA, recurrent and multimodal layers arrive in "
-            f"later slices (ROADMAP.md queue A)")
+            f"{cfg.name}: {odd} are not ported yet — the port serves dense "
+            f"decoders of global and sliding-window (local) attention "
+            f"layers with softcaps, sandwich norms and a gated SiLU or "
+            f"tanh-GELU MLP; still to port: qk-norm and rope_theta_local "
+            f"(gemma3), MoE/MLA, recurrent (mamba, xLSTM) layers, "
+            f"encoders and multimodal frontends (ROADMAP.md queue A)")
     dtype_of(cfg.dtype)
 
 
@@ -54,11 +61,21 @@ class SegmentPlan:
 
 
 def plan_segments(cfg: ModelConfig) -> List[SegmentPlan]:
-    """The reference's segmentation for the configs this slice takes:
-    one global-attention layer repeated ``num_layers`` times (the layout
-    of ``repro``'s parameter tree that ``convert`` reads)."""
+    """The reference's segmentation (``repro`` transformer.py:50) for the
+    configs the port takes: the layer pattern as one block repeated as
+    often as it fits, then the truncated tail as a segment of its own.
+    It is the layout of ``repro``'s parameter tree that ``convert``
+    reads."""
     check_supported(cfg)
-    return [SegmentPlan((("global", False),), cfg.num_layers)]
+    descs = [(k, False) for k in cfg.layer_kinds()]
+    p = len(cfg.layer_pattern)
+    reps = len(descs) // p
+    segs = []
+    if reps:
+        segs.append(SegmentPlan(tuple(descs[:p]), reps))
+    if descs[reps * p:]:
+        segs.append(SegmentPlan(tuple(descs[reps * p:]), 1))
+    return segs
 
 
 # ---------------------------------------------------------------- init ----
@@ -72,12 +89,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     embed, unembed = L.init_embed(gen, cfg, dtype=dt)
     layers = []
     for _ in range(cfg.num_layers):
-        layers.append({
-            "ln1": L.norm_param(cfg.d_model, device=dev, dtype=dt),
-            "attn": A.init_attn(gen, cfg, dtype=dt),
-            "ln2": L.norm_param(cfg.d_model, device=dev, dtype=dt),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt),
-        })
+        p = {"ln1": L.norm_param(cfg.d_model, device=dev, dtype=dt),
+             "attn": A.init_attn(gen, cfg, dtype=dt),
+             "ln2": L.norm_param(cfg.d_model, device=dev, dtype=dt),
+             "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)}
+        if cfg.use_post_norms:
+            for name in ("post_ln1", "post_ln2"):
+                p[name] = L.norm_param(cfg.d_model, device=dev, dtype=dt)
+        layers.append(p)
     return {"embed": embed, "unembed": unembed,
             "final_norm": L.norm_param(cfg.d_model, device=dev, dtype=dt),
             "layers": layers}
@@ -85,18 +104,54 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
 
 # -------------------------------------------------------------- layers ----
 
-def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig,
+def _ring_from_full(k_full: torch.Tensor, w: int) -> torch.Tensor:
+    """Full-sequence K/V (B, H, S, D) -> a ring cache (B, H, W, D) with
+    token ``p`` at slot ``p % W`` (``repro`` transformer.py:207)."""
+    s = k_full.shape[2]
+    if s <= w:
+        return torch.nn.functional.pad(k_full, (0, 0, 0, w - s))
+    j = torch.arange(w, device=k_full.device)
+    return k_full.index_select(2, s - w + (j - s % w) % w)
+
+
+def _ring_cache(cfg: ModelConfig, kind: str, cache_len: int) -> bool:
+    """Whether a layer's dense cache is a ring of the window (a local
+    layer whose window is shorter than the cache)."""
+    return (kind == "local" and cfg.window is not None
+            and cfg.window < cache_len)
+
+
+def _residual(p, x: torch.Tensor, y: torch.Tensor, post: str, cfg,
+              plain: bool = False) -> torch.Tensor:
+    """x + y, with y normed first by ``p[post]`` under sandwich norms."""
+    if cfg.use_post_norms:
+        y = L.apply_norm(p[post], y, plain=plain)
+    return x + y
+
+
+def _mlp_block(p, x: torch.Tensor, cfg: ModelConfig, *,
+               plain: bool = False) -> torch.Tensor:
+    h = L.apply_norm(p["ln2"], x, plain=plain)
+    return _residual(p, x, L.apply_mlp(p["mlp"], h, cfg.mlp_activation),
+                     "post_ln2", cfg, plain)
+
+
+def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                         cache_len: Optional[int], rope, *,
                         plain: bool = False):
     """Full-sequence layer.  ``rope`` is the (cos, sin) pair of the
-    sequence's positions.  Returns (x, cache) with K/V padded to
-    ``cache_len`` (no cache when ``cache_len`` is None)."""
+    sequence's positions.  Returns (x, cache): K/V padded to
+    ``cache_len``, or the window's ring for a local layer whose window
+    is shorter (no cache when ``cache_len`` is None)."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
-    y, k, v = A.apply_attn(p["attn"], h, cfg, rope, plain=plain)
-    x = x + y
-    x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, plain=plain))
+    y, k, v = A.apply_attn(p["attn"], h, cfg, rope, kind=kind, plain=plain)
+    x = _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
+                   plain=plain)
     if cache_len is None:
         return x, None
+    if _ring_cache(cfg, kind, cache_len):
+        return x, {"k": _ring_from_full(k, cfg.window),
+                   "v": _ring_from_full(v, cfg.window)}
     pad = cache_len - x.shape[1]
     cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, pad)),
              "v": torch.nn.functional.pad(v, (0, 0, 0, pad))}
@@ -104,31 +159,48 @@ def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig,
 
 
 def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                       cfg: ModelConfig, lengths: torch.Tensor, rope,
-                       block_tables=None) -> torch.Tensor:
+                       cfg: ModelConfig, kind: str, lengths: torch.Tensor,
+                       rope, block_tables=None) -> torch.Tensor:
     """One-token layer step, x: (B, 1, d).  A cache holding ``kp``/``vp``
-    is a paged pool pair, quantized when ``ks``/``vs`` scale pools sit
-    beside it; one holding ``k``/``v`` a dense slot cache.  The new
-    token's K/V is written into it in place."""
+    is a paged pool pair of the global group, ``kw``/``vw`` one of the
+    window group (ring tables), either quantized when ``ks``/``vs``
+    scale pools sit beside it; one holding ``k``/``v`` a dense slot
+    cache, or the window's ring.  ``block_tables`` is the (B, T) table,
+    or for a model with a window group the dict {"global", "window"}.
+    The new token's K/V is written into the cache in place."""
     h = L.apply_norm(p["ln1"], x)
-    if "kp" in cache:
-        scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
+    if isinstance(block_tables, dict):
+        bt_g, bt_w = block_tables.get("global"), block_tables.get("window")
+    else:
+        bt_g, bt_w = block_tables, None
+    scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
+    if "kw" in cache:
+        y = A.decode_attn(p["attn"], h, cache["kw"], cache["vw"], lengths,
+                          cfg, rope, kind=kind, block_tables=bt_w,
+                          cache_scales=scales, windowed=True)
+    elif "kp" in cache:
         y = A.decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
-                          cfg, rope, block_tables=block_tables,
+                          cfg, rope, kind=kind, block_tables=bt_g,
                           cache_scales=scales)
     else:
+        ring = (kind == "local" and cfg.window is not None
+                and cache["k"].shape[2] == cfg.window)
         y = A.decode_attn(p["attn"], h, cache["k"], cache["v"], lengths, cfg,
-                          rope)
-    x = x + y
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x))
+                          rope, kind=kind, ring=ring)
+    return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg), cfg)
 
 
 def apply_layer_spec_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                            cfg: ModelConfig, lengths: torch.Tensor, rope,
+                            cfg: ModelConfig, kind: str,
+                            lengths: torch.Tensor, rope,
                             block_tables) -> torch.Tensor:
     """Speculative K1-token layer step, x: (B, K1, d), over a paged
-    (possibly quantized) cache; the window's K/V rows are written into
-    it in place.  The norms and the MLP are shape-generic over K1."""
+    (possibly quantized) cache of a global layer; the window's K/V rows
+    are written into it in place.  The norms and the MLP are
+    shape-generic over K1."""
+    if kind != "global":
+        raise ValueError(f"spec decode supports global-attention layers "
+                         f"only, got {kind!r}")
     if "kp" not in cache:
         raise ValueError("spec decode requires paged caches")
     h = L.apply_norm(p["ln1"], x)
@@ -136,17 +208,20 @@ def apply_layer_spec_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = A.spec_decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
                            cfg, rope, block_tables=block_tables,
                            cache_scales=scales)
-    x = x + y
-    return x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x))
+    return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg), cfg)
 
 
 # --------------------------------------------------------------- model ----
 
 def _logits(params, x: torch.Tensor, cfg: ModelConfig, *,
             plain: bool = False) -> torch.Tensor:
-    """f32 logits over the padded vocabulary; the padded tail is -1e30."""
+    """f32 logits over the padded vocabulary (``L.unembed``), softcapped
+    as ``final_softcap * tanh(x / final_softcap)`` where the config has
+    one; the padded tail is -1e30."""
     x = L.apply_norm(params["final_norm"], x, plain=plain)
-    logits = (x @ params["unembed"].to(x.dtype)).float()
+    logits = L.unembed(x, params["unembed"])
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     v = L.padded_vocab(cfg.vocab_size)
     if v != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
@@ -155,20 +230,23 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
              cache_len: Optional[int], *, plain: bool):
-    x = L.embed_tokens(params["embed"], tokens, dtype_of(cfg.dtype))
+    x = L.embed_tokens(params["embed"], tokens, cfg)
     # every layer rotates the same positions: one cos/sin for the stack
     rope = L.rope_cache(torch.arange(tokens.shape[1], device=x.device),
                         cfg.head_dim, cfg.rope_theta)
     caches = []
-    for p in params["layers"]:
-        x, c = apply_layer_prefill(p, x, cfg, cache_len, rope, plain=plain)
+    for p, kind in zip(params["layers"], cfg.layer_kinds()):
+        x, c = apply_layer_prefill(p, x, cfg, kind, cache_len, rope,
+                                   plain=plain)
         caches.append(c)
     return x, caches
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
     """Full-sequence prefill.  tokens: (B, S).  Returns (last-position
-    logits (B, Vp), per-layer caches {"k", "v"} (B, Hkv, cache_len, hd))."""
+    logits (B, Vp), per-layer caches {"k", "v"}: (B, Hkv, cache_len, hd),
+    or (B, Hkv, window, hd) rings for local layers whose window is
+    shorter than ``cache_len``)."""
     x, caches = _forward(params, cfg, tokens, cache_len, plain=False)
     # the norm kernel takes dense rows: copy the strided last position
     last = x[:, -1:].contiguous()
@@ -176,25 +254,29 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
 
 
 def forward_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                   plain: bool = False) -> torch.Tensor:
-    """Logits at every position (B, S, Vp): the teacher-forced reference
-    for served token streams.  ``plain`` takes the plain PyTorch version
-    of every kernel, on any device."""
+                   plain: bool = False, start: int = 0) -> torch.Tensor:
+    """Logits (B, S - start, Vp) at positions ``start`` .. S-1: the
+    teacher-forced reference for served token streams, computed only
+    where it is read (at a vocabulary of 256,000, every position of a
+    long prompt would be gigabytes).  ``plain`` takes the plain PyTorch
+    version of every kernel, on any device."""
     x, _ = _forward(params, cfg, tokens, None, plain=plain)
-    return _logits(params, x, cfg, plain=plain)
+    return _logits(params, x[:, start:].contiguous(), cfg, plain=plain)
 
 
 def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
                 lengths, block_tables=None) -> torch.Tensor:
     """One decode step.  tokens (B,) int; lengths (B,) int32, tokens
     already cached.  Writes the step's K/V into ``caches`` in place and
-    returns logits (B, Vp).  ``block_tables`` routes paged pools."""
-    x = L.embed_tokens(params["embed"], tokens[:, None], dtype_of(cfg.dtype))
+    returns logits (B, Vp).  ``block_tables`` routes paged pools: a
+    (B, T) table, or {"global", "window"} with a window group."""
+    x = L.embed_tokens(params["embed"], tokens[:, None], cfg)
     # each slot's position is its length, the same in every layer
     cos, sin = L.rope_cache(lengths, cfg.head_dim, cfg.rope_theta)
     rope = (cos[:, None, :], sin[:, None, :])
-    for p, c in zip(params["layers"], caches):
-        x = apply_layer_decode(p, x, c, cfg, lengths, rope, block_tables)
+    for p, c, kind in zip(params["layers"], caches, cfg.layer_kinds()):
+        x = apply_layer_decode(p, x, c, cfg, kind, lengths, rope,
+                               block_tables)
     return _logits(params, x, cfg)[:, 0]
 
 
@@ -205,22 +287,28 @@ def spec_decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
     all K1 rows' K/V into the paged ``caches`` in place and returns
     logits (B, K1, Vp): row i conditions on ``tokens[:, :i+1]``."""
     k1 = tokens.shape[1]
-    x = L.embed_tokens(params["embed"], tokens, dtype_of(cfg.dtype))
+    x = L.embed_tokens(params["embed"], tokens, cfg)
     # positions lengths + i, the same in every layer: one cos/sin
     pos = lengths[:, None] + torch.arange(k1, dtype=lengths.dtype,
                                           device=lengths.device)[None, :]
     cos, sin = L.rope_cache(pos, cfg.head_dim, cfg.rope_theta)
     rope = (cos[:, :, None, :], sin[:, :, None, :])
-    for p, c in zip(params["layers"], caches):
-        x = apply_layer_spec_decode(p, x, c, cfg, lengths, rope,
+    for p, c, kind in zip(params["layers"], caches, cfg.layer_kinds()):
+        x = apply_layer_spec_decode(p, x, c, cfg, kind, lengths, rope,
                                     block_tables)
     return _logits(params, x, cfg)
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
                        device) -> List[Dict[str, torch.Tensor]]:
-    shape = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
+    """Zeroed dense caches (B, Hkv, S, hd) per layer: S = cache_len, or
+    the window for a local layer whose window is shorter (its ring,
+    ``repro`` transformer.py:176)."""
     dt = dtype_of(cfg.dtype)
-    return [{"k": torch.zeros(shape, device=device, dtype=dt),
-             "v": torch.zeros(shape, device=device, dtype=dt)}
-            for _ in range(cfg.num_layers)]
+    caches = []
+    for kind in cfg.layer_kinds():
+        s = cfg.window if _ring_cache(cfg, kind, cache_len) else cache_len
+        shape = (batch, cfg.num_kv_heads, s, cfg.head_dim)
+        caches.append({"k": torch.zeros(shape, device=device, dtype=dt),
+                       "v": torch.zeros(shape, device=device, dtype=dt)})
+    return caches

@@ -30,6 +30,16 @@ pools in that type with per-(head, page) f32 scales, resolved against
 what the device holds (``quant.resolve_kv_spec``, fp8 -> int8 -> bf16
 with a warning).
 
+Sliding-window layers (paged): a model with ``local`` layers whose
+window is shorter than the cache pages them as a *window group*, over
+a pool of their own (``total_pages_window``, default 1 + slots * T_w)
+through ring block tables of width T_w = ``paging.window_table_width``.
+A slot holds only its live window pages there: admission allocates the
+prompt's, and each step first frees the pages the window slid past
+(``paging.free_prefix``, counted in ``serve.window_prefix_frees``),
+then ensures the write page.  The dense engine keeps such layers in
+rings of the window.
+
 Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
 ``spec_k`` tokens per slot from the slot's own token history
 (``tok_hist``: prompt lookup, no draft model), verifies the committed
@@ -39,7 +49,7 @@ rejected tail's pages back with ``paging.truncate_suffix``.  Still one
 device-to-host copy per step, of (tokens, accepted count, done).
 
 Left for later slices (ROADMAP.md queue A): sampling at temperature >
-0, windowed pools, fault recovery (with the spec-degrade rung
+0, fault recovery (with the spec-degrade rung
 ``spec_ok``/``spec_disable_after``, the NaN sentinel and the watchdog),
 telemetry, the priority policy and per-request budgets.
 """
@@ -76,6 +86,8 @@ class ServeConfig:
     paged: bool = False
     page_size: Optional[int] = None    # None -> the tuning table (64)
     total_pages: Optional[int] = None  # None -> 1 + slots*pages_per_slot
+    # the window group's pool (paged, local layers): None -> 1 + slots*T_w
+    total_pages_window: Optional[int] = None
     on_overflow: str = "reject"        # "reject" | "truncate"
     preempt_policy: str = "lru"        # "lru" | "shortest" | "fail"
     # KV pool dtype (paged only): None = the model's dtype; "bf16" |
@@ -174,11 +186,35 @@ class Engine:
             # pages ensured for each slot this step: the horizon the spec
             # step's rollback truncates back from
             self._ensured = np.zeros((slots,), np.int64)
+            # the window group: local layers whose window is shorter
+            # than the cache page through ring tables over their own
+            # pool, O(window) pages per slot
+            kinds = cfg.layer_kinds()
+            self.window = cfg.window
+            self.windowed = bool("local" in kinds and cfg.window
+                                 and cfg.window < sc.cache_len)
+            window_layers, total_w = (), None
+            if self.windowed:
+                window_layers = [i for i, k in enumerate(kinds)
+                                 if k == "local"]
+                self.tw = paging.window_table_width(cfg.window,
+                                                    self.page_size)
+                total_w = sc.total_pages_window or (1 + slots * self.tw)
+                self.allocator_w = paging.PageAllocator(total_w)
+                self.block_tables_w = np.full((slots, self.tw),
+                                              paging.NULL_PAGE, np.int32)
+                self._btw_dev = self._upload(self.block_tables_w)
+                self._btw_dirty = False
+                # first live global page per slot: the mark free_prefix
+                # advances from
+                self.win_first = np.zeros((slots,), np.int64)
             self.caches = paging.init_paged_caches(
                 cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, total,
                 self.page_size, device=dev, dtype=dtype_of(cfg.dtype),
-                kv_spec=self.kv_spec)
+                kv_spec=self.kv_spec, window_layers=window_layers,
+                total_pages_window=total_w)
         else:
+            self.windowed = False
             self.caches = model.init_decode_caches(slots, sc.cache_len, dev)
 
         # device-resident scheduler state
@@ -208,7 +244,8 @@ class Engine:
         for p in PREEMPT_POLICIES:
             self.metrics.counter(f"serve.preemptions.{p}")
         self.metrics.gauge("serve.requeue_peak_depth")
-        for name in ("spec_steps", "spec_emitted", "spec_rejections"):
+        for name in ("spec_steps", "spec_emitted", "spec_rejections",
+                     "window_prefix_frees"):
             self.metrics.counter(f"serve.{name}")
         self._admit_seq = np.zeros((slots,), np.int64)   # lru stamps
         self._seq = 0
@@ -229,6 +266,10 @@ class Engine:
     @property
     def spec_rejections(self) -> int:
         return self.metrics.counter("serve.spec_rejections").value
+
+    @property
+    def window_prefix_frees(self) -> int:
+        return self.metrics.counter("serve.window_prefix_frees").value
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, without waiting for the
@@ -254,6 +295,14 @@ class Engine:
                     f"request {req.rid}: prompt of {len(req.tokens)} tokens "
                     f"(+1 decode) needs more KV pages than the whole pool "
                     f"holds ({usable} x {self.page_size}); raise total_pages")
+            elif self.windowed and len(paging.live_window_pages(
+                    len(req.tokens) + 1, self.window,
+                    self.page_size)) > self.allocator_w.usable:
+                raise ValueError(
+                    f"request {req.rid}: prompt of {len(req.tokens)} tokens "
+                    f"needs more window KV pages than the window pool "
+                    f"holds ({self.allocator_w.usable} x {self.page_size}); "
+                    f"raise total_pages_window")
         if len(req.tokens) > limit:
             if self.sc.on_overflow == "truncate" and limit > 0:
                 warnings.warn(
@@ -316,6 +365,11 @@ class Engine:
             need = paging.pages_per_slot(min(plen + 1, sc.cache_len),
                                          self.page_size)
             fit = self.allocator.available // max(need, 1)
+            if self.windowed:
+                need_w = len(paging.live_window_pages(
+                    min(plen + 1, sc.cache_len), self.window,
+                    self.page_size))
+                fit = min(fit, self.allocator_w.available // max(need_w, 1))
             if fit < len(reqs):
                 self._requeue_front(reqs[fit:])
                 reqs = reqs[:fit]
@@ -329,7 +383,7 @@ class Engine:
         first = torch.argmax(logits, dim=-1).to(torch.int32)
         first_h = _device_get(first)                 # one copy per group
 
-        page_rows = None
+        page_rows = page_rows_w = None
         if self.paged:
             rows = np.full((k, self.pages_per_slot), paging.NULL_PAGE,
                            np.int32)
@@ -339,6 +393,21 @@ class Engine:
                 self.block_tables[slot] = rows[i]
             page_rows = self._upload(rows)
             self._bt_dirty = True
+            if self.windowed:
+                # only the prompt's live window pages: rows_w is indexed
+                # by global page for the scatter, the ring table keeps
+                # the same pages at column g % T_w
+                rows_w = np.full((k, self.pages_per_slot), paging.NULL_PAGE,
+                                 np.int32)
+                live = paging.live_window_pages(plen, self.window,
+                                                self.page_size)
+                for i, slot in enumerate(slots):
+                    for g in live:
+                        rows_w[i, g] = self.allocator_w.alloc()
+                        self.block_tables_w[slot, g % self.tw] = rows_w[i, g]
+                    self.win_first[slot] = live.start
+                page_rows_w = self._upload(rows_w)
+                self._btw_dirty = True
 
         admit_active = np.ones((k,), bool)
         for i, req in enumerate(reqs):
@@ -351,7 +420,13 @@ class Engine:
                 admit_active[i] = False
 
         slot_idx = self._upload(np.array(slots, np.int64))
-        paging.scatter_prefill(self.caches, cache1, slot_idx, page_rows)
+        if self.windowed:
+            paging.scatter_prefill(
+                self.caches, cache1, slot_idx, page_rows, page_rows_w,
+                plens=self._upload(np.full((k,), plen, np.int64)),
+                window=self.window)
+        else:
+            paging.scatter_prefill(self.caches, cache1, slot_idx, page_rows)
         if self.spec:
             # history rows for the proposer: the prompt and the tokens
             # so far, not the prefill sample (it is cur_tok, and the
@@ -389,6 +464,11 @@ class Engine:
             self.allocator.reclaim(self.block_tables[slot])
             self.block_tables[slot] = paging.NULL_PAGE
             self._bt_dirty = True
+            if self.windowed:
+                self.allocator_w.reclaim(self.block_tables_w[slot])
+                self.block_tables_w[slot] = paging.NULL_PAGE
+                self.win_first[slot] = 0
+                self._btw_dirty = True
 
     # -- preempt/requeue scheduler ----------------------------------------
     def _select_victim(self, needy: int) -> Optional[int]:
@@ -437,37 +517,80 @@ class Engine:
             if not self._active_h[slot]:       # preempted earlier in loop
                 continue
             target = min(int(self._len_h[slot]) + horizon, self.sc.cache_len)
+            if self.windowed:
+                # eager reclaim first: the pages the window left behind
+                # go back to the pool before anything allocates
+                new_first = paging.first_live_page(target, self.window,
+                                                   self.page_size)
+                freed = paging.free_prefix(
+                    self.allocator_w, self.block_tables_w[slot],
+                    int(self.win_first[slot]), new_first)
+                if freed:
+                    self.metrics.counter("serve.window_prefix_frees").inc(
+                        freed)
+                    self._btw_dirty = True
+                self.win_first[slot] = new_first
             needed = paging.pages_per_slot(target, self.page_size)
             self._ensured[slot] = needed
             for j in range(needed):
                 if self.block_tables[slot, j] != paging.NULL_PAGE:
                     continue
-                if self.sc.preempt_policy != "fail":
-                    while self.allocator.available == 0:
-                        victim = self._select_victim(slot)
-                        if victim is None:
-                            raise RuntimeError(
-                                f"KV page pool exhausted: slot {slot} is "
-                                f"the only active sequence and already "
-                                f"holds all {self.allocator.usable} usable "
-                                f"pages; raise ServeConfig.total_pages "
-                                f"(or lower cache_len)")
-                        self._preempt(victim)
+                self._make_room(self.allocator, slot, "total_pages")
                 self.block_tables[slot, j] = self.allocator.alloc()
                 self._bt_dirty = True
+            if not self.windowed:
+                continue
+            # the column a fresh page lands in was vacated by free_prefix
+            # (its old tenant is T_w pages behind, outside the window)
+            for g in paging.live_window_pages(target, self.window,
+                                              self.page_size):
+                col = g % self.tw
+                if self.block_tables_w[slot, col] != paging.NULL_PAGE:
+                    continue
+                self._make_room(self.allocator_w, slot, "total_pages_window")
+                self.block_tables_w[slot, col] = self.allocator_w.alloc()
+                self._btw_dirty = True
+
+    def _make_room(self, allocator: paging.PageAllocator, slot: int,
+                   knob: str) -> None:
+        """Preempt victims until ``allocator`` has a page for ``slot``
+        (unless the policy is "fail", when the alloc raises)."""
+        if self.sc.preempt_policy == "fail":
+            return
+        while allocator.available == 0:
+            victim = self._select_victim(slot)
+            if victim is None:
+                raise RuntimeError(
+                    f"KV page pool exhausted: slot {slot} is the only "
+                    f"active sequence and already holds all "
+                    f"{allocator.usable} usable pages; raise "
+                    f"ServeConfig.{knob} (or lower cache_len)")
+            self._preempt(victim)
 
     def audit(self) -> List[str]:
         """paging.audit over the live scheduler state (dense: nothing)."""
         if not self.paged:
             return []
-        return paging.audit(self.allocator, self.block_tables, self._len_h,
-                            self._active_h, self.page_size)
+        probs = paging.audit(self.allocator, self.block_tables, self._len_h,
+                             self._active_h, self.page_size)
+        if self.windowed:
+            probs += ["window: " + p for p in paging.audit(
+                self.allocator_w, self.block_tables_w, self._len_h,
+                self._active_h, self.page_size, window=self.window)]
+        return probs
 
-    def _table_dev(self) -> torch.Tensor:
-        if self._bt_dirty:              # re-upload only when tables changed
+    def _table_dev(self):
+        """The device block tables, re-uploaded only when they changed:
+        the (B, T) table, or {"global", "window"} with a window group."""
+        if self._bt_dirty:
             self._bt_dev = self._upload(self.block_tables)
             self._bt_dirty = False
-        return self._bt_dev
+        if not self.windowed:
+            return self._bt_dev
+        if self._btw_dirty:
+            self._btw_dev = self._upload(self.block_tables_w)
+            self._btw_dirty = False
+        return {"global": self._bt_dev, "window": self._btw_dev}
 
     # -- main loop ---------------------------------------------------------
     @torch.no_grad()
@@ -634,6 +757,11 @@ class Engine:
             d.update(self.allocator.pressure())
             d["kv_dtype"] = (self.kv_spec.dtype if self.kv_spec is not None
                              else None)
+            if self.windowed:
+                # top-level pressure keys stay the global group's
+                d["pool_groups"] = {"global": self.allocator.pressure(),
+                                    "window": self.allocator_w.pressure()}
+                d["window_prefix_frees"] = self.window_prefix_frees
         if self.spec:
             d.update({"spec_steps": self.spec_steps,
                       "spec_emitted": self.spec_emitted,

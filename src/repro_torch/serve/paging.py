@@ -1,20 +1,26 @@
 """Paged KV cache: page pool, free-list allocator, block tables
-(``repro.serve.paging``, global-attention group).
+(``repro.serve.paging``: the global group and the window group).
 
 Allocation is host-side bookkeeping; the pools are device tensors, one
-``kp``/``vp`` pair of shape (Hkv, P, ps, D) per layer, in the model's
-dtype or, with a quantizing ``KVQuantSpec``, in int8/fp8 beside a
-``ks``/``vs`` pair of (Hkv, P) f32 scale pools.  Page 0 is reserved as
-the null/trash page: unallocated table entries point at it and a freed
-slot's whole row is reset to it, so the stale ``cur_tok`` a dead slot
-keeps feeding through the batched decode writes its K/V into trash
-instead of a live sequence.  ``truncate_suffix`` is the speculative
-step's rollback.  The window group and fault quarantine arrive with
-later slices.
+``kp``/``vp`` pair of shape (Hkv, P, ps, D) per global-attention layer,
+in the model's dtype or, with a quantizing ``KVQuantSpec``, in int8/fp8
+beside a ``ks``/``vs`` pair of (Hkv, P) f32 scale pools.  Page 0 is
+reserved as the null/trash page: unallocated table entries point at it
+and a freed slot's whole row is reset to it, so the stale ``cur_tok`` a
+dead slot keeps feeding through the batched decode writes its K/V into
+trash instead of a live sequence.  ``truncate_suffix`` is the
+speculative step's rollback.
+
+Sliding-window layers whose window is shorter than the cache form the
+*window group*: ``kw``/``vw`` pools (with ``ks``/``vs`` when quantized)
+over their own page pool, addressed through ring block tables of width
+``window_table_width`` (global page ``g`` at column ``g % T_w``), from
+which ``free_prefix`` eagerly returns the pages the window slid past.
+Fault quarantine arrives with a later slice.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Collection, Dict, List, Optional, Sequence, Set
 
 import torch
 
@@ -114,6 +120,67 @@ def pages_per_slot(cache_len: int, page_size: int) -> int:
     return -(-cache_len // page_size)
 
 
+# ------------------------------------------------ windowed block tables ----
+
+def window_table_width(window: int, page_size: int) -> int:
+    """Ring block-table width of a sliding-window layer: ``window``
+    positions touch at most ``(window - 1) // ps + 1`` pages, and one
+    more column lets the next write page coexist with a first page not
+    yet freed, so the live span never wraps onto itself."""
+    return (window - 1) // page_size + 2
+
+
+def first_live_page(length: int, window: int, page_size: int) -> int:
+    """First global page holding an in-window token of a sequence of
+    ``length`` tokens (the window is ``[length - window, length)``);
+    the pages before it are dead and freed eagerly."""
+    return max(0, length - window) // page_size
+
+
+def live_window_pages(length: int, window: int, page_size: int) -> range:
+    """Global pages a windowed slot of ``length`` tokens has mapped (none
+    for length <= 0); at most ``window_table_width`` of them."""
+    if length <= 0:
+        return range(0)
+    return range(first_live_page(length, window, page_size),
+                 (length - 1) // page_size + 1)
+
+
+def free_prefix(allocator: PageAllocator, table_row, old_first: int,
+                new_first: int) -> int:
+    """Free a windowed slot's pages ``[old_first, new_first)``, the ones
+    the window just slid past, and reset their ring columns ``g % T``
+    to ``NULL_PAGE``, in place; returns the count.  It runs before each
+    step's page ensure, so a write page's column is vacant by then.
+
+    Strict like ``truncate_suffix``: the window start may not move
+    backwards, the range may not exceed the ring's width (it would lap
+    live columns), and every column in it must hold a real page (a
+    NULL there means the prefix was already freed)."""
+    if new_first < old_first:
+        raise ValueError(
+            f"free_prefix: window start moved backwards "
+            f"({old_first} -> {new_first})")
+    t = len(table_row)
+    if new_first - old_first > t:
+        raise ValueError(
+            f"free_prefix: freeing {new_first - old_first} pages would "
+            f"lap the ring (width {t}) — window start was not advanced "
+            f"every step")
+    cols = [g % t for g in range(old_first, new_first)]
+    pages = [int(table_row[c]) for c in cols]
+    if any(p == NULL_PAGE for p in pages):
+        raise ValueError(
+            f"free_prefix: pages [{old_first}:{new_first}) contain "
+            f"NULL_PAGE entries — prefix already freed or never "
+            f"allocated (row={list(int(p) for p in table_row)})")
+    if pages:
+        allocator.free(pages)           # validates the batch atomically
+        for c in cols:
+            table_row[c] = NULL_PAGE
+    return len(pages)
+
+
 def truncate_suffix(allocator: PageAllocator, table_row, keep: int,
                     upto: Optional[int] = None) -> int:
     """Free a block-table row's page suffix ``[keep, upto)`` back to the
@@ -140,7 +207,7 @@ def truncate_suffix(allocator: PageAllocator, table_row, keep: int,
 
 
 def audit(allocator: PageAllocator, block_tables, lengths, active,
-          page_size: int) -> List[str]:
+          page_size: int, window: Optional[int] = None) -> List[str]:
     """Allocator and block-table invariants at a step boundary; returns
     the problems found (empty = consistent):
 
@@ -150,6 +217,11 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
     * nothing past a live prefix, or in an inactive row, holds a page;
     * no page is leased to two rows;
     * ``in_use`` equals the sum of live-prefix page counts.
+
+    With ``window`` the rows are ring tables (the window group): the
+    live set is the columns ``g % T`` of ``live_window_pages``, so the
+    same walk holds the live window fully mapped, nothing mapped behind
+    it, and ``in_use`` equal to the sum of live window pages.
     """
     problems: List[str] = []
     total = allocator.total_pages
@@ -177,27 +249,37 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
     need_total = 0
     for slot, row in enumerate(block_tables):
         length = int(lengths[slot]) if active[slot] else 0
-        live = pages_per_slot(length, page_size) if length > 0 else 0
-        need_total += live
+        if window is None:
+            live_at = {j: j for j in range(
+                pages_per_slot(length, page_size) if length > 0 else 0)}
+        else:
+            live_at = {g % len(row): g for g in
+                       live_window_pages(length, window, page_size)}
+        need_total += len(live_at)
         for j, p in enumerate(row):
             p = int(p)
-            if j < live:
+            if j in live_at:
                 if p == NULL_PAGE:
-                    problems.append(f"slot {slot}: NULL_PAGE inside the live "
-                                    f"prefix at index {j} (length {length})")
+                    where = ("live prefix at index" if window is None else
+                             f"live window (page {live_at[j]}) at column")
+                    problems.append(f"slot {slot}: NULL_PAGE inside the "
+                                    f"{where} {j} (length {length})")
                 elif p not in alloc:
                     problems.append(f"slot {slot}: live page {p} is not "
                                     f"allocated")
             elif p != NULL_PAGE:
-                problems.append(f"slot {slot}: page {p} past the live prefix "
-                                f"at index {j} (would leak)")
+                where = ("past the live prefix at index" if window is None
+                         else "mapped behind the live window at column")
+                problems.append(f"slot {slot}: page {p} {where} {j} "
+                                f"(would leak)")
             if p != NULL_PAGE:
                 if p in leased:
                     problems.append(f"page {p} leased to both slot "
                                     f"{leased[p]} and slot {slot}")
                 leased[p] = slot
     if need_total != allocator.in_use:
-        problems.append(f"in_use {allocator.in_use} != sum of live-prefix "
+        what = "live-prefix" if window is None else "live window"
+        problems.append(f"in_use {allocator.in_use} != sum of {what} "
                         f"pages {need_total}")
     return problems
 
@@ -205,20 +287,29 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
 def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
                       total_pages: int, page_size: int, *, device,
                       dtype: torch.dtype,
-                      kv_spec: Optional[KVQuantSpec] = None
+                      kv_spec: Optional[KVQuantSpec] = None,
+                      window_layers: Collection[int] = (),
+                      total_pages_window: Optional[int] = None
                       ) -> List[Dict[str, torch.Tensor]]:
-    """One zeroed ``kp``/``vp`` pool pair (Hkv, P, ps, D) per layer, in
-    ``dtype`` or the spec's storage dtype.  A quantizing spec adds
-    ``ks``/``vs`` (Hkv, P) f32 scale pools, ones-initialized: a zero
-    pool dequantizes to zeros under any scale, and a unit scale keeps
-    dequantization total before the first write."""
-    shape = (num_kv_heads, total_pages, page_size, head_dim)
+    """One zeroed pool pair (Hkv, P, ps, D) per layer, in ``dtype`` or
+    the spec's storage dtype: ``kp``/``vp`` over ``total_pages`` pages,
+    or, for the layers in ``window_layers`` (the window group),
+    ``kw``/``vw`` over ``total_pages_window``.  A quantizing spec adds
+    ``ks``/``vs`` (Hkv, P) f32 scale pools of the layer's group,
+    ones-initialized: a zero pool dequantizes to zeros under any scale,
+    and a unit scale keeps dequantization total before the first
+    write."""
+    if window_layers and total_pages_window is None:
+        raise ValueError("window-group layers need total_pages_window")
     pool_dtype = kv_spec.storage if kv_spec is not None else dtype
     quantized = kv_spec is not None and kv_spec.quantized
     caches = []
-    for _ in range(num_layers):
-        c = {"kp": torch.zeros(shape, device=device, dtype=pool_dtype),
-             "vp": torch.zeros(shape, device=device, dtype=pool_dtype)}
+    for i in range(num_layers):
+        win = i in window_layers
+        shape = (num_kv_heads, total_pages_window if win else total_pages,
+                 page_size, head_dim)
+        c = {name: torch.zeros(shape, device=device, dtype=pool_dtype)
+             for name in (("kw", "vw") if win else ("kp", "vp"))}
         if quantized:
             for name in ("ks", "vs"):
                 c[name] = torch.ones(shape[:2], device=device,
@@ -246,15 +337,36 @@ def _page_blocks(one: torch.Tensor, t: int, ps: int) -> torch.Tensor:
     return one.reshape(k, h, t, ps, d).transpose(0, 1)
 
 
-def _scatter_pages_quant(pool: torch.Tensor, scale_pool: torch.Tensor,
-                         one: torch.Tensor, page_rows: torch.Tensor) -> None:
-    """Quantizing page scatter, in place: absmax per (head, page) block,
-    int8/fp8 values into the pool, f32 scales into the scale pool.  Rows
-    past the prompt are zero padding, so they never inflate a page's
-    absmax (``repro`` paging.py:532)."""
-    blocks = _page_blocks(one, page_rows.shape[1], pool.shape[2])
-    q, scales = spec_for_storage(pool.dtype).quantize_pages(blocks)
+def _unring_window(one: torch.Tensor, t: int, ps: int, window: int,
+                   plens: torch.Tensor) -> torch.Tensor:
+    """Batch-k *ring* prefill leaf (k, H, W, D), token ``p`` at slot
+    ``p % W``, -> page blocks (H, k, T, ps, D) at true token positions
+    (``repro`` paging.py:551).  Positions outside ``[plen - window,
+    plen)`` are zeroed: behind the window their pages' rows are NULL
+    (the zeros land in trash), past the prompt they are masked by
+    length, and as zeros they never inflate a quantized page's
+    absmax."""
+    k, h, w, d = one.shape
+    pos = torch.arange(t * ps, device=one.device)
+    full = one.index_select(2, pos % w)              # (k, H, T*ps, D)
+    valid = ((pos[None, :] >= plens[:, None] - window)
+             & (pos[None, :] < plens[:, None]))
+    full = torch.where(valid[:, None, :, None], full, torch.zeros_like(full))
+    return full.reshape(k, h, t, ps, d).transpose(0, 1)
+
+
+def _scatter_blocks(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
+                    blocks: torch.Tensor, page_rows: torch.Tensor) -> None:
+    """Write page blocks (H, k, T, ps, D) into ``pool[:, page_rows]`` in
+    place; with a scale pool, quantized per (head, page) block at
+    absmax first (int8/fp8 values into the pool, f32 scales beside
+    them).  Rows past a prompt are zero padding, so they never inflate
+    a page's absmax (``repro`` paging.py:532)."""
     rows = page_rows.long()
+    if scale_pool is None:
+        pool[:, rows] = blocks.to(pool.dtype)
+        return
+    q, scales = spec_for_storage(pool.dtype).quantize_pages(blocks)
     raw_bytes(pool)[:, rows] = raw_bytes(q)
     scale_pool[:, rows] = scales.to(scale_pool.dtype)
 
@@ -262,34 +374,48 @@ def _scatter_pages_quant(pool: torch.Tensor, scale_pool: torch.Tensor,
 def scatter_prefill(caches: List[Dict[str, torch.Tensor]],
                     cache1: List[Dict[str, torch.Tensor]],
                     slot_idx: torch.Tensor,
-                    page_rows: Optional[torch.Tensor] = None) -> None:
+                    page_rows: Optional[torch.Tensor] = None,
+                    page_rows_w: Optional[torch.Tensor] = None,
+                    plens: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> None:
     """Admit a prefilled group into the engine's caches, in place.
 
-    ``cache1`` is ``prefill``'s per-layer dense K/V at batch k; paged
-    caches take it through ``page_rows`` (k, T) destination pages (NULL
-    entries past the prompt land in trash, masked by length at decode),
-    quantized ones quantized per (head, page); dense caches at rows
-    ``slot_idx`` (k,).
+    ``cache1`` is ``prefill``'s per-layer dense K/V at batch k; the
+    global group takes it through ``page_rows`` (k, T) destination
+    pages (NULL entries past the prompt land in trash, masked by length
+    at decode); the window group takes its ring leaves, un-rung,
+    through ``page_rows_w`` (k, T), global-page-indexed and NULL but
+    for each prompt's live window pages, so only the window's tail
+    reaches real pages (``plens`` (k,) the prompt lengths, ``window``
+    the model's).  Quantized pools are quantized per (head, page);
+    dense caches take rows ``slot_idx`` (k,).
     """
     for c, one in zip(caches, cache1):
-        if "ks" in c:
-            _scatter_pages_quant(c["kp"], c["ks"], one["k"], page_rows)
-            _scatter_pages_quant(c["vp"], c["vs"], one["v"], page_rows)
-        elif "kp" in c:
-            for pool, leaf in ((c["kp"], one["k"]), (c["vp"], one["v"])):
-                blocks = _page_blocks(leaf, page_rows.shape[1], pool.shape[2])
-                pool[:, page_rows.long()] = blocks.to(pool.dtype)
-        else:
-            c["k"][slot_idx] = one["k"].to(c["k"].dtype)
-            c["v"][slot_idx] = one["v"].to(c["v"].dtype)
+        for kind in ("k", "v"):
+            scales = c.get(f"{kind}s")
+            if f"{kind}p" in c:
+                pool = c[f"{kind}p"]
+                _scatter_blocks(pool, scales, _page_blocks(
+                    one[kind], page_rows.shape[1], pool.shape[2]),
+                    page_rows)
+            elif f"{kind}w" in c:
+                pool = c[f"{kind}w"]
+                _scatter_blocks(pool, scales, _unring_window(
+                    one[kind], page_rows_w.shape[1], pool.shape[2], window,
+                    plens), page_rows_w)
+            else:
+                c[kind][slot_idx] = one[kind].to(c[kind].dtype)
 
 
 def paged_bytes_per_slot(caches: List[Dict[str, torch.Tensor]],
                          total_pages: int, n_pages_per_slot: int) -> int:
-    """Device bytes of the paged pools (K/V and scales) that one slot's
-    pages take: at a fixed pool budget, ``budget // this`` slots fit."""
+    """Device bytes of the global group's pools (K/V and scales) that
+    one slot's pages take: at a fixed pool budget, ``budget // this``
+    slots fit."""
     per_page = 0
     for c in caches:
+        if "kp" not in c:
+            continue
         for name, leaf in c.items():
             if name in ("kp", "vp", "ks", "vs"):
                 per_page += leaf.numel() * leaf.element_size() // total_pages

@@ -1,7 +1,8 @@
 """Fused cache-write + decode attention: the no-mesh branches of
 ``repro.sharding.kernel_sharding`` (``sharded_decode_update_attend``,
-``sharded_paged_decode_update_attend``, their quantized and speculative
-variants).  The mesh branches arrive with the distribution slice.
+``sharded_paged_decode_update_attend``, their quantized, sliding-window
+and speculative variants).  The mesh branches arrive with the
+distribution slice.
 
 The reference returns fresh caches (JAX arrays are immutable); the port
 writes the new K/V rows (and scales) into the caller's tensors IN PLACE
@@ -17,7 +18,8 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, paged_decode_attention, quant_paged_decode_attention,
-    quant_spec_paged_decode_attention, spec_paged_decode_attention)
+    quant_spec_paged_decode_attention, quant_window_paged_decode_attention,
+    spec_paged_decode_attention, window_paged_decode_attention)
 from repro_torch.quant.blockwise import quantize_absmax
 from repro_torch.serve.paging import raw_bytes
 
@@ -57,6 +59,25 @@ def paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
     return paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   eff_len, window=window, softcap=softcap,
                                   scale=scale, page_size=page_size)
+
+
+def window_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
+                                      block_tables, write_page, write_off,
+                                      eff_len, *, window: int,
+                                      softcap: Optional[float] = None,
+                                      scale: Optional[float] = None,
+                                      page_size: Optional[int] = None
+                                      ) -> torch.Tensor:
+    """``paged_decode_update_attend`` over a window pool and its (B, T_w)
+    ring tables (``repro`` kernel_sharding.py:402): the caller resolved
+    the write page from the ring, so the write is the same in-place row
+    write; then the sliding-window kernel."""
+    page, off = write_page.long(), write_off.long()
+    k_pages[:, page, off] = k_new.transpose(0, 1).to(k_pages.dtype)
+    v_pages[:, page, off] = v_new.transpose(0, 1).to(v_pages.dtype)
+    return window_paged_decode_attention(
+        q, k_pages, v_pages, block_tables, eff_len, window=window,
+        softcap=softcap, scale=scale, page_size=page_size)
 
 
 def requant_page_write(pool: torch.Tensor, scales: torch.Tensor,
@@ -100,6 +121,26 @@ def quant_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
     requant_page_write(k_pages, k_scales, k_new, write_page, write_off)
     requant_page_write(v_pages, v_scales, v_new, write_page, write_off)
     return quant_paged_decode_attention(
+        q, k_pages, v_pages, k_scales, v_scales, block_tables, eff_len,
+        window=window, softcap=softcap, scale=scale, page_size=page_size)
+
+
+def quant_window_paged_decode_update_attend(q, k_new, v_new, k_pages,
+                                            v_pages, k_scales, v_scales,
+                                            block_tables, write_page,
+                                            write_off, eff_len, *,
+                                            window: int,
+                                            softcap: Optional[float] = None,
+                                            scale: Optional[float] = None,
+                                            page_size: Optional[int] = None
+                                            ) -> torch.Tensor:
+    """The re-quantizing page write over a window pool (``repro``
+    kernel_sharding.py:458; ring columns recycle pages constantly, and
+    zeroing the rows past the write keeps a recycled page's previous
+    tenant out of its new absmax), then the quantized window kernel."""
+    requant_page_write(k_pages, k_scales, k_new, write_page, write_off)
+    requant_page_write(v_pages, v_scales, v_new, write_page, write_off)
+    return quant_window_paged_decode_attention(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, eff_len,
         window=window, softcap=softcap, scale=scale, page_size=page_size)
 

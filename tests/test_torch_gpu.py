@@ -23,11 +23,13 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
+from repro_torch.kernels.decode_attention import paged as paged_kern
 from repro_torch.kernels.decode_attention import quant as quant_kern
 from repro_torch.kernels.decode_attention import spec as spec_kern
 from repro_torch.models.registry import build_model
 from repro_torch.quant import DECODE_TOL, resolve_kv_spec
 from repro_torch.serve.engine import Engine, Request, ServeConfig
+from repro_torch.serve.paging import live_window_pages, window_table_width
 
 pytestmark = pytest.mark.gpu
 
@@ -66,7 +68,8 @@ def test_rmsnorm_kernel(cuda, dtype, rows, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,d,window,softcap", [
-    (200, 128, None, None), (64, 128, None, None), (130, 64, 32, 30.0)])
+    (200, 128, None, None), (64, 128, None, None), (130, 64, 32, 30.0),
+    (300, 256, None, 50.0), (300, 256, 128, 50.0)])
 def test_flash_kernel(cuda, dtype, sq, d, window, softcap):
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, 8, sq, d, device=cuda, generator=g).to(dtype)
@@ -100,7 +103,7 @@ def _pools_from_caches(kc, vc, ps, gen):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,window,softcap", [
-    (128, None, None), (128, 50, 20.0), (64, None, None)])
+    (128, None, None), (128, 50, 20.0), (64, None, None), (256, None, 50.0)])
 def test_decode_kernels(cuda, dtype, d, window, softcap):
     g = torch.Generator(device=cuda).manual_seed(0)
     b, hq, hkv, s, ps = 4, 32, 8, 300, 64
@@ -133,7 +136,8 @@ def _quantized(pool, dtype):
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
 @pytest.mark.parametrize("d,window,softcap", [(128, None, None),
-                                              (64, 50, 20.0)])
+                                              (64, 50, 20.0),
+                                              (256, None, 50.0)])
 def test_quant_paged_decode_kernel(cuda, kv_dtype, d, window, softcap):
     """B5 against its plain version on the same quantized bytes (f32
     residuals, 1e-4), and against bf16 B4 on the unquantized data within
@@ -202,6 +206,57 @@ def test_spec_paged_decode_kernel(cuda, kv_dtype, k1, d, window):
         torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
 
 
+def _ring_tables(lengths, window, ps, gen):
+    """Ring tables (B, T_w) mapping each slot's live window pages to
+    distinct scrambled pool pages, global page g at column g % T_w."""
+    tw = window_table_width(window, ps)
+    perm = (torch.randperm(len(lengths) * tw, generator=gen) + 1).tolist()
+    bt = torch.zeros(len(lengths), tw, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        for g in live_window_pages(n, window, ps):
+            bt[i, g % tw] = perm.pop()
+    return bt, 1 + len(lengths) * tw
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("d", [128, 256])
+def test_window_paged_decode_kernel(cuda, kv_dtype, d):
+    """B7 (bf16 pools) and B7q (int8, fp8) against their plain versions,
+    f32 residuals at 1e-4, at the physical page and a logical one below
+    it: an empty slot, one inside the window, one at its edge, and
+    rings that have wrapped (lengths up to 5x the window)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    window, ps, hq, hkv = 96, 32, 8, 4
+    lengths = [0, 1, 96, 130, 481]
+    bt, n_pages = _ring_tables(lengths, window, ps,
+                               torch.Generator().manual_seed(1))
+    bt = bt.to(cuda)
+    q = torch.randn(len(lengths), hq, d, device=cuda, generator=g).bfloat16()
+    kp, vp = (torch.randn(hkv, n_pages, ps, d, device=cuda,
+                          generator=g).bfloat16() for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=50.0)
+    if kv_dtype is None:
+        args, kern = (q, kp, vp, bt, ln), paged_kern.WINDOW_KERNEL
+        fn = dec_ops.window_paged_decode_attention
+        plain = dec_ref.window_paged_decode_attention_ref
+    else:
+        (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
+                                                                  kv_dtype)
+        args = (q, kq, vq, ks, vs, bt, ln)
+        kern = paged_kern.QUANT_WINDOW_KERNEL
+        fn = dec_ops.quant_window_paged_decode_attention
+        plain = dec_ref.quant_window_paged_decode_attention_ref
+    want = plain(*args, return_residuals=True, **kw)
+    for page_size in (None, 16):
+        before = kern.launches
+        got = fn(*args, page_size=page_size, return_residuals=True, **kw)
+        assert kern.launches == before + 1
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+    assert not got[2][0].any()                  # the empty slot: l = 0
+
+
 def test_quant_kernel_refuses_a_pool_type_it_lacks(cuda):
     q = torch.zeros(1, 4, 64, device=cuda, dtype=torch.bfloat16)
     pool = torch.zeros(2, 3, 8, 64, device=cuda, dtype=torch.float16)
@@ -252,5 +307,32 @@ def test_engine_on_card_matches_cpu(cuda, mode):
                 for i in range(3)]
         eng.run_to_completion(reqs)
         assert all(r.done and len(r.out) == 12 for r in reqs)
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("mode", [
+    dict(paged=False), dict(paged=True), dict(paged=True, kv_dtype="int8")],
+    ids=["dense-ring", "paged-window", "int8-window"])
+def test_gemma2_engine_on_card_matches_cpu(cuda, mode):
+    """The gemma2 smoke pattern (local window 16 / global, softcaps,
+    post norms) at head dim 256, float32: the same greedy tokens on the
+    card and on the CPU past the window, with prefix frees."""
+    cfg = dataclasses.replace(smoke_config("gemma2-2b", num_layers=2),
+                              d_model=256, num_heads=4, num_kv_heads=2,
+                              head_dim=256, d_ff=512, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, **mode)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        if eng.paged:
+            assert eng.stats()["window_prefix_frees"] > 0
         outs[dev] = [r.out for r in reqs]
     assert outs["cuda"] == outs["cpu"]

@@ -1,5 +1,6 @@
-"""The port's four kernels on the serving path (rmsnorm, flash prefill,
-dense decode, paged decode).
+"""The port's kernels on the serving path (rmsnorm, flash prefill,
+dense decode, paged decode, sliding-window paged decode and its
+quantized mode).
 
 On the CPU: each public op (which takes the plain PyTorch version for a
 CPU tensor) against the JAX op's reference under ``target("generic")``,
@@ -69,6 +70,17 @@ _PORT_OPS = {
             q, k, v, bt, ln, window=p["window"], softcap=p["softcap"],
             scale=p["scale"], page_size=p["page_size"],
             return_residuals=True),
+    "window_paged_decode_attention":
+        lambda q, k, v, bt, ln, **p: dec_ops.window_paged_decode_attention(
+            q, k, v, bt, ln, window=p["window"], softcap=p["softcap"],
+            scale=p["scale"], page_size=p["page_size"],
+            return_residuals=True),
+    "quant_window_paged_decode_attention":
+        lambda q, k, v, ks, vs, bt, ln, **p:
+        dec_ops.quant_window_paged_decode_attention(
+            q, k, v, ks, vs, bt, ln, window=p["window"],
+            softcap=p["softcap"], scale=p["scale"],
+            page_size=p["page_size"], return_residuals=True),
 }
 
 
@@ -80,9 +92,8 @@ def test_registry_example_matches_reference(name):
         want = op.ref_call(operands, params)
     got = _PORT_OPS[name](*(_t(a) for a in operands), **params)
     _close(got, want, op.tol)
-    tol = {"rmsnorm": rms_ops.TOL, "flash_attention": fa_ops.TOL,
-           "decode_attention": dec_ops.TOL,
-           "paged_decode_attention": dec_ops.TOL}[name]
+    tol = {"rmsnorm": rms_ops.TOL, "flash_attention": fa_ops.TOL}.get(
+        name, dec_ops.TOL)
     assert tol == op.tol
 
 
@@ -276,12 +287,14 @@ def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
     assert names == ["decode_attention", "flash_attention",
                      "paged_decode_attention",
-                     "quant_paged_decode_attention", "rmsnorm",
-                     "spec_paged_decode_attention"]
+                     "quant_paged_decode_attention",
+                     "quant_window_paged_decode_attention", "rmsnorm",
+                     "spec_paged_decode_attention",
+                     "window_paged_decode_attention"]
     for k in build.KERNELS:
         assert k.source.is_file()
         text = k.source.read_text()
         assert "Replaces the TPU kernel" in text and "Bound on the H100" in text
         assert f'extern "C" int {k.symbol}' in text
         assert k.library_path().parent == build.BUILD_DIR
-    assert len({k.library_path() for k in build.KERNELS}) == 6
+    assert len({k.library_path() for k in build.KERNELS}) == 8

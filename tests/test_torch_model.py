@@ -83,15 +83,16 @@ def test_config_matches_reference():
         for f in dataclasses.fields(got):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_configs.get_config("gemma2-2b")
+        port_configs.get_config("gemma3-4b")
     with pytest.raises(KeyError):
         port_configs.get_config("no-such-arch")
 
 
 def test_unported_layer_kinds_raise():
     cfg = port_smoke_config("granite-8b", num_layers=2)
-    for change in (dict(window=16, layer_pattern=("local", "global")),
-                   dict(attn_softcap=30.0), dict(use_qk_norm=True),
+    for change in (dict(rope_theta_local=10_000.0), dict(use_qk_norm=True),
+                   dict(layer_pattern=("mamba", "global")),
+                   dict(mlp_activation="gelu_ungated"),
                    dict(dtype="float16")):
         with pytest.raises(NotImplementedError):
             port_build_model(dataclasses.replace(cfg, **change))
