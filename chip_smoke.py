@@ -16,7 +16,12 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    shapes (head dim 128), then gemma2-2b's (head dim 256): the
    sliding-window kernels over ring tables (bf16, int8, fp8) and the
    head-dim-256 builds of the prefill, dense, paged and quantized
-   decode kernels, at lengths 1 to 8,192, rings wrapped and not;
+   decode kernels, at lengths 1 to 8,192, rings wrapped and not; then
+   deepseek-v2-lite-16b's: the grouped matmul of the MoE experts (the
+   reference's example with masked rows, sizes 0 and C, the decode
+   shape and the largest prefill's, timed beside ``torch.bmm``) and
+   the Dk 192 / Dv 128 builds of the prefill, dense and paged decode
+   kernels (MLA);
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -45,7 +50,18 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    end (paged modes), the teacher-forced gap checked for bf16 and
    reported for int8/fp8, and the dense/paged token agreement
    reported;
-9. trace five paged decode steps of each model for the card's busy
+9. free gemma2-2b and serve the same 12 requests as granite on
+   ``deepseek-v2-lite-16b`` at full width and depth (27 MLA layers,
+   the first dense, then 64 routed experts top-6 and 2 shared experts
+   on each of the other 26; random weights from a seed), paged and
+   dense: checked as phase 4, with 27 launches of the mode's decode
+   kernel and 78 of the grouped matmul per decode step (and 78 per
+   admitted group), the assignments that capacity dropped reported,
+   and the teacher-forced gap taken against a plain replay of the run's
+   own calls (same prefill groups, same decode batches, the served
+   tokens and expert choices fed back, so each MoE call drops what it
+   dropped when served; a replay routing by its own top-k is reported);
+10. trace five paged decode steps of each model for the card's busy
    share (reported, not checked).
 
 It then prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -92,6 +108,10 @@ G2_CACHE_LEN, G2_WINDOW, G2_HQ, G2_HKV, G2_D = 8192, 4096, 8, 4, 256
 G2_LENGTHS = (1, 17, 1001, 4096, 4151, 6001, 6032, 8192)
 G2_FLASH_S = 6000             # the longest prompt
 G2_SOFTCAP = 50.0
+# deepseek-v2-lite-16b: 16 MLA heads (query/key 192 = 128 + 64 rope,
+# value 128) over d_model 2048; 64 routed experts, top 6, of d_ff 1408
+DS_H, DS_DK, DS_DV = 16, 192, 128
+DS_E, DS_TOPK, DS_D, DS_FF = 64, 6, 2048, 1408
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -329,7 +349,7 @@ def _pages(s: Smoke, kc, vc, lengths, ps):
     """Scatter dense caches into scrambled pages: each slot gets the
     pages its length needs, the rest of its row is the null page 0."""
     torch = s.torch
-    b, hkv, sl, d = kc.shape
+    b, hkv, sl, _ = kc.shape
     t = sl // ps
     perm = torch.randperm(b * t, generator=torch.Generator().manual_seed(4))
     bt = (perm.reshape(b, t) + 1).to(torch.int32)
@@ -338,6 +358,7 @@ def _pages(s: Smoke, kc, vc, lengths, ps):
     bt = bt.to(s.dev)
     pools = []
     for cache in (kc, vc):
+        d = cache.shape[-1]
         pool = torch.zeros(hkv, 1 + b * t, ps, d, device=s.dev,
                            dtype=kc.dtype)
         pool[:, bt.long()] = cache.reshape(b, hkv, t, ps, d).transpose(0, 1)
@@ -717,6 +738,142 @@ def check_head_dim_256(s: Smoke) -> None:
             s.timings(f"quant_paged_decode_attention ({kv}, gemma2)", *times)
 
 
+# ------------------------------------------- deepseek-v2-lite kernels -----
+
+def check_gmm(s: Smoke) -> None:
+    """B8 against its plain version: the reference's registry example
+    (E 4, C 64, K = N = 128, rows masked by sizes 0, 21, 42, 63) and
+    sizes of 0 and C, in f32 and bf16; then bf16 at deepseek's decode
+    shape (C 8 at 8 slots, masked sizes too) and its largest prefill
+    shape (C 184 for 3 x 511 tokens), timed beside ``torch.bmm``."""
+    torch = s.torch
+    from repro_torch.kernels.gmm import ops, ref
+    from repro_torch.models.moe import _capacity
+    g = torch.Generator(device=s.dev).manual_seed(9)
+
+    def operands(e, c, k, n, dt=torch.bfloat16):
+        return (torch.randn(e, c, k, device=s.dev, generator=g).to(dt),
+                torch.randn(e, k, n, device=s.dev, generator=g).to(dt))
+
+    for dt in (torch.float32, torch.bfloat16):
+        lhs, rhs = operands(4, 64, 128, 128, dt)
+        for what, vals in (("sizes 0, 21, 42, 63", [0, 21, 42, 63]),
+                           ("sizes 0 and C", [0, 64, 0, 64])):
+            gs = torch.tensor(vals, dtype=torch.int32, device=s.dev)
+            out = ops.gmm(lhs, rhs, gs)
+            s.compare(f"gmm (4, 64, 128) @ (4, 128, 128) {dt}, {what}", out,
+                      ref.gmm_ref(lhs, rhs, gs))
+            s.check(all(not out[i, n:].any() for i, n in enumerate(vals)),
+                    f"gmm {dt}, {what}: rows at or past each size are 0")
+    c_dec = _capacity(SLOTS, DS_E, DS_TOPK, 1.25)
+    c_pre = _capacity(3 * PROMPT_LENS[-1], DS_E, DS_TOPK, 1.25)
+    print(f"  capacity: {c_dec} rows per expert at decode ({SLOTS} slots), "
+          f"{c_pre} at the largest prefill (3 x {PROMPT_LENS[-1]} tokens)")
+
+    def run(c, k, n, what):
+        lhs, rhs = operands(DS_E, c, k, n)
+        gs = torch.full((DS_E,), c, dtype=torch.int32, device=s.dev)
+        err = s.compare(f"gmm {what} ({DS_E}, {c}, {k}) @ ({DS_E}, {k}, "
+                        f"{n}) bf16", ops.gmm(lhs, rhs, gs),
+                        ref.gmm_ref(lhs, rhs, gs))
+        if c <= 8:
+            masked = torch.randint(0, c + 1, (DS_E,), generator=g,
+                                   device=s.dev, dtype=torch.int32)
+            s.compare(f"gmm {what}, sizes 0..{c}",
+                      ops.gmm(lhs, rhs, masked),
+                      ref.gmm_ref(lhs, rhs, masked))
+        nbytes = 2 * (lhs.numel() + rhs.numel() + DS_E * c * n) + 4 * DS_E
+        return err, (s.time_ms(lambda: ops.gmm(lhs, rhs, gs)),
+                     s.time_ms(lambda: ref.gmm_ref(lhs, rhs, gs)),
+                     nbytes, 2 * DS_E * c * k * n,
+                     s.time_ms(lambda: torch.bmm(lhs, rhs)))
+
+    err, times = run(c_dec, DS_D, DS_FF, "decode gate/up")
+    s.record("gmm", "gmm.cu", "src/repro/kernels/gmm/gmm.py:47", err, *times)
+    _, times = run(c_dec, DS_FF, DS_D, "decode down")
+    s.timings("gmm (decode down projection)", *times)
+    err, times = run(c_pre, DS_D, DS_FF, "prefill gate/up")
+    s.record_also("gmm", "prefill", err, *times)
+
+
+def check_mla_builds(s: Smoke) -> None:
+    """The Dk 192 / Dv 128 builds of B2, B3 and B4 at deepseek's
+    serving shapes (16 query heads on 16 kv heads), against their plain
+    versions; their times go into each kernel's record under
+    "deepseek"."""
+    torch = s.torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=s.dev).manual_seed(10)
+    scale = DS_DK ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=s.dev, generator=g).bfloat16()
+
+    # B2: the largest prefill group, 3 prompts of 511 tokens
+    b, n = 3, PROMPT_LENS[-1]
+    q, k, v = rnd(b, DS_H, n, DS_DK), rnd(b, DS_H, n, DS_DK), \
+        rnd(b, DS_H, n, DS_DV)
+    err = s.compare(f"flash ({b}, 16/16, {n}, 192/128) causal bf16",
+                    fops.flash_attention(q, k, v, scale=scale),
+                    fref.flash_attention_ref(q, k, v, scale=scale))
+    pairs = n * (n + 1) // 2
+    s.record_also("flash_attention", "deepseek", err,
+                  s.time_ms(lambda: fops.flash_attention(q, k, v,
+                                                         scale=scale)),
+                  s.time_ms(lambda: fref.flash_attention_ref(q, k, v,
+                                                             scale=scale)),
+                  2 * (q.numel() + k.numel() + 2 * v.numel()),
+                  2 * b * DS_H * pairs * (DS_DK + DS_DV),
+                  s.time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                         scale=scale)))
+    del q, k, v
+    # B3 and B4: 8 slots, lengths 1..1024 over a cache of 1024
+    qd = rnd(SLOTS, DS_H, DS_DK)
+    kc, vc = rnd(SLOTS, DS_H, CACHE_LEN, DS_DK), \
+        rnd(SLOTS, DS_H, CACHE_LEN, DS_DV)
+    ln = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=s.dev)
+    kw = dict(scale=scale, return_residuals=True)
+    got = ops.decode_attention(qd, kc, vc, ln, **kw)
+    want = ref.decode_attention_ref(qd, kc, vc, ln, **kw)
+    s.compare("decode residuals, 16/16 heads of 192/128, lengths 1..1024",
+              got, want)
+    err = s.compare("decode 192/128 output acc / l", _normalized(got),
+                    _normalized(want))
+    live = sum(DECODE_LENGTHS)
+    nbytes = (qd.numel() * 2 + live * DS_H * (DS_DK + DS_DV) * 2
+              + 4 * SLOTS + SLOTS * DS_H * (DS_DV + 2) * 4)
+    flops = 2 * DS_H * (DS_DK + DS_DV) * live
+    mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+    s.record_also("decode_attention", "deepseek", err,
+                  s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
+                                                         **kw)),
+                  s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
+                                                             **kw)),
+                  nbytes, flops,
+                  s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
+                                         attn_mask=mask, scale=scale)))
+    kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
+    got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **kw)
+    want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **kw)
+    s.compare("paged residuals, 16/16 heads of 192/128, page 64", got, want)
+    err = s.compare("paged 192/128 output acc / l", _normalized(got),
+                    _normalized(want))
+    s.compare("paged 192/128, logical page 16 of 64",
+              ops.paged_decode_attention(qd, kp, vp, bt, ln, page_size=16,
+                                         **kw), want)
+    live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    s.record_also("paged_decode_attention", "deepseek", err,
+                  s.time_ms(lambda: ops.paged_decode_attention(
+                      qd, kp, vp, bt, ln, **kw)),
+                  s.time_ms(lambda: ref.paged_decode_attention_ref(
+                      qd, kp, vp, bt, ln, **kw)),
+                  nbytes + 4 * live_pages, flops, None)
+
+
 # ------------------------------------------------------------ serving -----
 
 def _requests(vocab: int, prompt_lens=PROMPT_LENS):
@@ -728,18 +885,109 @@ def _requests(vocab: int, prompt_lens=PROMPT_LENS):
         for i in range(N_REQUESTS)]
 
 
+class _Recorder:
+    """The served model, keeping each call's sampled tokens (every
+    slot's argmax, on the card) and, through ``route``, every MoE
+    call's expert choices, for the plain replay."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.calls, self.routes = model, model.cfg, \
+            [], []
+
+    def route(self, real):
+        """``moe._route`` that keeps each call's (T, k) expert ids."""
+        def recording(router_w, x_flat, k):
+            gates, idx = real(router_w, x_flat, k)
+            self.routes.append(idx)
+            return gates, idx
+        return recording
+
+    def init_decode_caches(self, *args, **kw):
+        return self.model.init_decode_caches(*args, **kw)
+
+    def prefill(self, params, tokens, cache_len):
+        logits, caches = self.model.prefill(params, tokens, cache_len)
+        self.calls.append(logits.argmax(-1))
+        return logits, caches
+
+    def decode_step(self, params, caches, tokens, lengths,
+                    block_tables=None):
+        logits = self.model.decode_step(params, caches, tokens, lengths,
+                                        block_tables)
+        self.calls.append(logits.argmax(-1))
+        return logits
+
+
+class _Replayer(_Recorder):
+    """The same calls through the plain versions on the card, each
+    answered with the served tokens, so that the engine admits,
+    schedules and pages exactly as it served; keeps the largest
+    (argmax logit - served token's logit) over the slots each call
+    emitted for.  Given the served expert choices (``routes``), every
+    MoE call takes them too, with gates from its own router
+    probabilities, and counts the choices its own top-k would have
+    made otherwise."""
+
+    def __init__(self, model, calls, routes=None):
+        super().__init__(model)
+        self.calls, self.routes = calls, routes
+        self.i, self.r, self.engine, self.worst = 0, 0, None, None
+        self.flips = 0
+
+    def route(self, real):
+        def forced(router_w, x_flat, k):
+            _, own = real(router_w, x_flat, k)
+            idx = self.routes[self.r]
+            self.r += 1
+            self.flips = self.flips + (own != idx).sum()
+            probs = (x_flat.float() @ router_w.float()).softmax(-1)
+            gates = probs.gather(1, idx)
+            return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
+        return forced if self.routes is not None else real
+
+    def _answer(self, logits, emitting):
+        forced = self.calls[self.i]
+        self.i += 1
+        gap = logits.max(-1).values - logits.gather(
+            1, forced[:, None].long())[:, 0]
+        gap = gap.where(emitting, gap.new_zeros(())).max()
+        self.worst = gap if self.worst is None else self.worst.maximum(gap)
+        return logits.new_zeros(logits.shape).scatter_(
+            1, forced[:, None].long(), 1.0)
+
+    def prefill(self, params, tokens, cache_len):
+        logits, caches = self.model.prefill(params, tokens, cache_len,
+                                            plain=True)
+        return self._answer(logits, logits.new_ones(
+            logits.shape[:1], dtype=bool)), caches
+
+    def decode_step(self, params, caches, tokens, lengths,
+                    block_tables=None):
+        logits = self.model.decode_step(params, caches, tokens, lengths,
+                                        block_tables, plain=True)
+        return self._answer(logits, self.engine.active_mask)
+
+
 def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
-          prompt_lens=PROMPT_LENS, **mode):
+          prompt_lens=PROMPT_LENS, record=False, **mode):
     """Drive the engine over the 12 requests in a serving ``mode``
-    (ServeConfig fields); returns (requests, stats)."""
+    (ServeConfig fields); returns (requests, stats).  ``record`` keeps
+    every call's sampled tokens in ``stats["calls"]`` for the replay;
+    an MoE model's dropped assignments are counted on the card and read
+    after the run."""
     torch = s.torch
     from repro_torch.core.build import KERNELS
+    from repro_torch.models import moe
     from repro_torch.serve import engine as engine_mod
     from repro_torch.serve.paging import paged_bytes_per_slot
     sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=cache_len,
                                 max_new_tokens=MAX_NEW, page_size=PAGE,
                                 **mode)
-    engine = engine_mod.Engine(model, params, sc, device=s.dev)
+    served = _Recorder(model) if record else model
+    engine = engine_mod.Engine(served, params, sc, device=s.dev)
+    real_route = moe._route
+    if record:
+        moe._route = served.route(real_route)
     reqs = _requests(model.cfg.vocab_size, prompt_lens)
     syncs, groups = [0], [0]
     real_get, real_admit = engine_mod._device_get, engine._admit_group
@@ -764,6 +1012,7 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
+    drops = moe.count_drops(s.dev) if model.cfg.moe is not None else None
     step_s, decode_steps, hidden = [], 0, {"admitting": 0, "decoding": 0}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -789,6 +1038,8 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
             wall = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode(0)
+            moe.stop_counting_drops()
+            moe._route = real_route
             engine_mod._device_get = real_get
             # the wrapper holds the engine's bound method: without this
             # the cycle keeps its weights and pools alive after the run
@@ -802,6 +1053,10 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
              "launches": launches, "preemptions": engine.preemptions,
              "hidden_syncs": hidden}
     stats["tok_per_s"] = stats["tokens"] / wall
+    if drops is not None:
+        stats["moe_dropped"] = int(drops)
+    if record:
+        stats["calls"] = (served.calls, served.routes)
     if engine.paged:
         stats["kv_dtype"] = (None if engine.kv_spec is None
                              else engine.kv_spec.dtype)
@@ -899,19 +1154,24 @@ def teacher_gap(s: Smoke, model, params, reqs):
 
 def check_serving(s: Smoke, model, params, name: str, mode: dict,
                   per_step, kernels_idle=(), teacher_checked=True,
-                  prefill=("rmsnorm", "flash_attention"), **shape):
+                  prefill=("rmsnorm", "flash_attention"), per_group=None,
+                  replay=False, **shape):
     """Serve the 12 requests in ``mode`` (``shape``: the cache length and
     prompt lengths, if not granite's); check completion, the one-sync
     contract, that the prefill kernels launched, that each decode
     kernel in ``per_step`` launched exactly that many times per decode
-    step and none in ``kernels_idle`` ever, that a paged run's
-    allocator audit is clean at the end and, with a window group, that
-    pages behind the window were freed; and the teacher-forced gap
-    (reported only where ``teacher_checked`` is false: a quantized pool
-    is not the bf16 model)."""
+    step (plus ``per_group[k]`` per admitted group, for a kernel that
+    prefill runs too) and none in ``kernels_idle`` ever (nor B8 for a
+    model without experts), that a paged run's allocator audit is clean
+    at the end and, with a window group, that pages behind the window
+    were freed; and the teacher-forced gap (reported only where
+    ``teacher_checked`` is false: a quantized pool is not the bf16
+    model), against a plain forward over each request's tokens or, with
+    ``replay``, against the plain replay of the run's own calls."""
     torch = s.torch
+    per_group = per_group or {}
     t0 = time.perf_counter()
-    reqs, st = serve(s, model, params, **shape, **mode)
+    reqs, st = serve(s, model, params, record=replay, **shape, **mode)
     print(f"  served {len(reqs)} requests in {st['wall_s']:.3f} s "
           f"({time.perf_counter() - t0:.3f} s with set-up): "
           f"{st['tokens']} tokens, {st['tok_per_s']:.1f} tok/s, "
@@ -927,9 +1187,18 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
                 f"{name}: {kname} launched {st['launches'][kname]} times")
         s.kernels[kname]["launches_by_path"][name] = st["launches"][kname]
     for kname, n in per_step.items():
-        s.check(st["launches"][kname] == n * st["decode_steps"],
-                f"{name}: {kname} launched {n} times per decode step "
-                f"({st['launches'][kname]} = {n} x {st['decode_steps']})")
+        g = per_group.get(kname, 0)
+        s.check(st["launches"][kname]
+                == n * st["decode_steps"] + g * st["groups"],
+                f"{name}: {kname} launched {n} times per decode step"
+                + (f" and {g} per admitted group" if g else "")
+                + f" ({st['launches'][kname]} = {n} x {st['decode_steps']}"
+                + (f" + {g} x {st['groups']}" if g else "") + ")")
+    if model.cfg.moe is None:
+        kernels_idle = tuple(kernels_idle) + ("gmm",)
+    else:
+        print(f"  {name}: {st['moe_dropped']} MoE assignments dropped by "
+              f"capacity over the run")
     for kname in kernels_idle:
         s.check(st["launches"][kname] == 0,
                 f"{name}: {kname} not launched ({st['launches'][kname]})")
@@ -948,7 +1217,27 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
                 f"{name}: {st['window_prefix_frees']} pages behind the "
                 f"window freed during the run (> 0); window pool peak "
                 f"{st['window_peak_in_use']} pages")
-    gap, where = teacher_gap(s, model, params, reqs)
+    if replay:
+        calls, routes = st.pop("calls")
+        # the served expert choices too: at a near tie the plain path's
+        # rounding can pick another expert, and past capacity that
+        # reorders which assignments drop (reported below, unchecked)
+        gap, dropped, flips = replay_gap(s, model, params, calls, routes,
+                                         **shape, **mode)
+        s.check(dropped == st["moe_dropped"],
+                f"{name}: the replay on the served expert choices dropped "
+                f"the served {st['moe_dropped']} assignments ({dropped}); "
+                f"its own top-k differed in {flips} choices")
+        free, free_dropped, _ = replay_gap(s, model, params, calls, None,
+                                           **shape, **mode)
+        st.update(replay_routing_flips=flips, free_replay_gap=free,
+                  free_replay_moe_dropped=free_dropped)
+        print(f"  {name}: a replay routing by its own top-k dropped "
+              f"{free_dropped} assignments, largest gap {free:.4f} logits "
+              f"(reported)")
+        where = None
+    else:
+        gap, where = teacher_gap(s, model, params, reqs)
     st["teacher_gap"], st["teacher_gap_at"] = gap, where
     at = "" if where is None else \
         f", request {where[0]}, emitted token {where[1]}"
@@ -968,6 +1257,48 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
               f"step over {SLOTS} slots")
     torch.cuda.empty_cache()
     return reqs, st
+
+
+def replay_gap(s: Smoke, model, params, calls, routes=None,
+               cache_len=CACHE_LEN, prompt_lens=PROMPT_LENS, **mode):
+    """The teacher-forced gap of a recorded run against the plain
+    versions on the card, compared like with like: the same engine
+    replays the same prefill groups and decode batches (every call's
+    tokens answered with the served ones, so capacity follows each
+    call's own token count as served) and, given ``routes``, the same
+    expert choices, so the same assignments drop.  Returns (largest
+    gap, the replay's dropped assignments, the expert choices its own
+    routing would have changed)."""
+    from repro_torch.core.build import KERNELS
+    from repro_torch.models import moe
+    from repro_torch.serve import engine as engine_mod
+    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=cache_len,
+                                max_new_tokens=MAX_NEW, page_size=PAGE,
+                                **mode)
+    replayer = _Replayer(model, calls, routes)
+    engine = engine_mod.Engine(replayer, params, sc, device=s.dev)
+    replayer.engine = engine
+    for k in KERNELS:
+        k.launches = 0
+    drops = moe.count_drops(s.dev)
+    real_route = moe._route
+    moe._route = replayer.route(real_route)
+    try:
+        engine.run_to_completion(_requests(model.cfg.vocab_size, prompt_lens))
+    finally:
+        moe._route = real_route
+        moe.stop_counting_drops()
+        replayer.engine = None
+    s.check(replayer.i == len(calls),
+            f"replay made the served run's {len(calls)} model calls "
+            f"({replayer.i})")
+    if routes is not None:
+        s.check(replayer.r == len(routes),
+                f"replay made the served run's {len(routes)} MoE calls "
+                f"({replayer.r})")
+    s.check(all(k.launches == 0 for k in KERNELS),
+            "replay launched no kernel (plain versions only)")
+    return float(replayer.worst), int(drops), int(replayer.flips)
 
 
 def _agree(a, b) -> int:
@@ -1039,13 +1370,14 @@ def run_serving(s: Smoke):
 def run_traces(s: Smoke):
     """The card's busy share over paged decode steps of each model,
     fresh weights from the same seed; last, since tracing slows every
-    later step (gemma2-2b's is traced first, so granite-8b's, traced
-    second, is the lower bound of the two)."""
+    later step (deepseek-v2-lite-16b's is traced first, then gemma2-2b's
+    and granite-8b's, each a lower bound)."""
     torch = s.torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
     shares = {}
-    for arch, shape in (("gemma2-2b", dict(cache_len=G2_CACHE_LEN,
+    for arch, shape in (("deepseek-v2-lite-16b", {}),
+                        ("gemma2-2b", dict(cache_len=G2_CACHE_LEN,
                                            prompt_lens=G2_PROMPT_LENS)),
                         ("granite-8b", {})):
         model = build_model(get_config(arch))
@@ -1123,6 +1455,65 @@ def run_serving_gemma2(s: Smoke):
     return dict(stats, tokens_agree=agree)
 
 
+def run_serving_deepseek(s: Smoke):
+    """deepseek-v2-lite-16b at full width and depth (27 MLA layers, the
+    first dense, 26 of 64 routed experts top-6 with 2 shared experts),
+    served paged (B4 at 192/128) and dense (B3 at 192/128), B8 on every
+    MoE layer, held to a plain replay of its own calls."""
+    import gc
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    s.check(held < 1.0, f"the earlier models' weights and pools are freed "
+                        f"({held:.3f} GiB still allocated)")
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                        device=s.dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    m = cfg.moe
+    print(f"  deepseek-v2-lite-16b: {cfg.num_layers} layers (MLA, 16 heads "
+          f"of 192/128; MoE on {cfg.num_layers - 1}: {m.num_experts} "
+          f"experts top-{m.top_k}, d_ff {m.d_ff_expert}, "
+          f"{m.num_shared_experts} shared), d_model {cfg.d_model}, "
+          f"{n / 1e9:.3f} B parameters ({nbytes / 1e9:.2f} GB), random "
+          f"from seed 0 ({time.perf_counter() - t0:.2f} s)")
+    runs, stats = {}, {}
+    n_moe = cfg.num_layers - 1
+    decode = ("decode_attention", "paged_decode_attention",
+              "window_paged_decode_attention",
+              "quant_paged_decode_attention",
+              "quant_window_paged_decode_attention",
+              "spec_paged_decode_attention")
+
+    def run(name, mode, decode_kernel):
+        print(f"== serve deepseek-v2-lite-16b, {name}", flush=True)
+        per_step = {decode_kernel: cfg.num_layers, "gmm": 3 * n_moe}
+        runs[name], stats[name] = check_serving(
+            s, model, params, f"deepseek {name}", mode, per_step,
+            tuple(k for k in decode if k != decode_kernel),
+            prefill=("rmsnorm", "flash_attention", "gmm"),
+            per_group={"gmm": 3 * n_moe}, replay=True)
+        for kname in ("flash_attention", decode_kernel):
+            s.kernels[kname]["deepseek"]["launches"] = \
+                stats[name]["launches"][kname]
+
+    run("paged", dict(paged=True), "paged_decode_attention")
+    run("dense", dict(paged=False), "decode_attention")
+    agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
+    print(f"  deepseek dense and paged agree on {agree['dense_paged']} of "
+          f"{stats['paged']['tokens']} tokens")
+    del params
+    torch.cuda.empty_cache()
+    return dict(stats, tokens_agree=agree)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1166,6 +1557,7 @@ def main() -> int:
     # the kernel modules register themselves with the builder on import
     from repro_torch.kernels.decode_attention import ops as _d  # noqa: F401
     from repro_torch.kernels.flash_attention import ops as _f  # noqa: F401
+    from repro_torch.kernels.gmm import ops as _g  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _r  # noqa: F401
     secs = s.phase("build", build.build_all)
     if secs is not None:
@@ -1177,7 +1569,9 @@ def main() -> int:
                      ("spec paged", check_spec),
                      ("window paged (gemma2 shapes)", check_window),
                      ("head-dim-256 builds (gemma2 shapes)",
-                      check_head_dim_256)):
+                      check_head_dim_256),
+                     ("gmm (deepseek shapes)", check_gmm),
+                     ("192/128 builds (deepseek shapes)", check_mla_builds)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
@@ -1186,6 +1580,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_g2 = s.phase("serve gemma2-2b at full width", run_serving_gemma2,
                          s)
+    torch.cuda.empty_cache()
+    serving_ds = s.phase("serve deepseek-v2-lite-16b at full width",
+                         run_serving_deepseek, s)
     traces = s.phase("trace the card over paged decode steps", run_traces, s)
 
     for k in s.kernels.values():
@@ -1196,6 +1593,8 @@ def main() -> int:
         print(json.dumps({"serving": serving}))
     if serving_g2 is not None:
         print(json.dumps({"serving_gemma2": serving_g2}))
+    if serving_ds is not None:
+        print(json.dumps({"serving_deepseek": serving_ds}))
     if traces is not None:
         print(json.dumps({"device_busy_share": traces}))
     if s.failures:

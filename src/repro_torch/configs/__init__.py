@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port carries the dense GQA decoder (granite-8b) and the
-local/global sliding-window decoder (gemma2-2b); every other
+The port carries the dense GQA decoder (granite-8b), the local/global
+sliding-window decoder (gemma2-2b) and the MLA + MoE decoder
+(deepseek-v2-lite-16b); every other
 architecture of ``repro`` arrives with the slice that ports its layers
 (ROADMAP.md, queue A).
 """
@@ -11,11 +12,12 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-_MODULES = {"granite-8b": "granite_8b", "gemma2-2b": "gemma2_2b"}
+_MODULES = {"granite-8b": "granite_8b", "gemma2-2b": "gemma2_2b",
+            "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
 
 #: Architectures of the reference that later slices of the port add.
 LATER_SLICES = (
-    "deepseek-v2-lite-16b", "arctic-480b", "whisper-base", "gemma3-27b",
+    "arctic-480b", "whisper-base", "gemma3-27b",
     "gemma3-4b", "xlstm-1.3b", "internvl2-26b",
     "jamba-1.5-large-398b",
 )

@@ -98,3 +98,14 @@ class ModelConfig:
         reps = -(-self.num_layers // len(self.layer_pattern))
         kinds = (tuple(self.layer_pattern) * reps)[: self.num_layers]
         return tuple("global" if k == "attn" else k for k in kinds)
+
+    def is_moe_layer(self, idx: int) -> bool:
+        if self.moe is None or self.moe_layers == "none":
+            return False
+        if self.moe_layers == "all":
+            return True
+        if self.moe_layers == "every_2":
+            return idx % 2 == 1
+        if self.moe_layers == "all_but_first":
+            return idx > 0
+        raise ValueError(self.moe_layers)

@@ -8,7 +8,10 @@ dict per position of its block, each leaf with a leading ``reps`` axis,
 so layer ``r * len(block) + j`` of the segment is position ``j`` at
 index ``r`` (granite: one segment of one global layer repeated 36
 times; gemma2: a (local, global) block repeated 13 times, with the
-sandwich norms ``post_ln1``/``post_ln2``).
+sandwich norms ``post_ln1``/``post_ln2``; deepseek: a dense first MLA
+layer, then one MLA + MoE layer repeated 26 times, its ``moe`` leaf
+holding the router, the stacked expert weights and the shared
+experts' MLP).
 """
 from __future__ import annotations
 
@@ -28,11 +31,11 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     dev = resolve_device(device)
     dt = dtype or dtype_of(cfg.dtype)
 
-    def t(a, shape=None):
+    def t(a, shape=None, dtype=None):
         a = np.array(a, dtype=np.float32)          # a writable copy
         if shape is not None:
             a = a.reshape(shape)
-        return torch.from_numpy(a).to(dev, dt)
+        return torch.from_numpy(a).to(dev, dtype or dt)
 
     segments = tree["segments"]
     plans = plan_segments(cfg)
@@ -44,6 +47,31 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     d, hd = cfg.d_model, cfg.head_dim
     norms = ("ln1", "ln2") + (("post_ln1", "post_ln2")
                               if cfg.use_post_norms else ())
+
+    def mlp(m, r):
+        return {"w_gate": t(m["w_gate"][r]), "w_up": t(m["w_up"][r]),
+                "w_down": t(m["w_down"][r])}
+
+    def attn(a, r):
+        if cfg.mla is None:
+            return {"wq": t(a["wq"][r], (d, cfg.num_heads * hd)),
+                    "wk": t(a["wk"][r], (d, cfg.num_kv_heads * hd)),
+                    "wv": t(a["wv"][r], (d, cfg.num_kv_heads * hd)),
+                    "wo": t(a["wo"][r], (cfg.num_heads * hd, d))}
+        lora = cfg.mla.kv_lora_rank
+        return {"wq_mla": t(a["wq_mla"][r], (d, -1)),
+                "wkv_a": t(a["wkv_a"][r]),
+                "wkv_b": t(a["wkv_b"][r], (lora, -1)),
+                "wo_mla": t(a["wo_mla"][r], (-1, d))}
+
+    def moe(m, r):
+        p = {"router": t(m["router"][r], dtype=torch.float32),
+             **{w: t(m[w][r]) for w in ("we_gate", "we_up", "we_down")}}
+        for name in ("shared", "dense"):
+            if name in m:
+                p[name] = mlp(m[name], r)
+        return p
+
     layers = []
     for seg, plan in zip(segments, plans):
         n = np.asarray(seg[0]["ln1"]).shape[0]
@@ -52,16 +80,12 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                              f"{cfg.num_layers} layers ({plan.reps})")
         for r in range(n):
             for blk in seg:
-                a, m = blk["attn"], blk["mlp"]
                 layer = {name: t(blk[name][r]) for name in norms}
-                layer["attn"] = {
-                    "wq": t(a["wq"][r], (d, cfg.num_heads * hd)),
-                    "wk": t(a["wk"][r], (d, cfg.num_kv_heads * hd)),
-                    "wv": t(a["wv"][r], (d, cfg.num_kv_heads * hd)),
-                    "wo": t(a["wo"][r], (cfg.num_heads * hd, d))}
-                layer["mlp"] = {"w_gate": t(m["w_gate"][r]),
-                                "w_up": t(m["w_up"][r]),
-                                "w_down": t(m["w_down"][r])}
+                layer["attn"] = attn(blk["attn"], r)
+                if "moe" in blk:
+                    layer["moe"] = moe(blk["moe"], r)
+                else:
+                    layer["mlp"] = mlp(blk["mlp"], r)
                 layers.append(layer)
     return {"embed": t(tree["embed"]["table"]),
             "unembed": t(tree["unembed"]["table"]),

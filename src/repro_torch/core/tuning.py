@@ -4,7 +4,9 @@ The counterpart of ``repro.core.tuning`` without targets or the
 autotuner (ROADMAP.md queue A, item 14): one card, one table.  The
 flash kernel's tile sizes are compiled in (``csrc/flash_attention.cu``
 refuses others); the decode kernels take ``block_kv`` at run time, up
-to 64 tokens.
+to 64 tokens.  The grouped matmul keeps the reference's parameter
+names; its N and K tiles are compiled in, and its capacity tile has a
+second build of 8 rows for decode (``kernels/gmm/gmm.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ TABLE = {
     ("spec_paged_decode_attention", "block_kv"): 64,
     ("quant_spec_paged_decode_attention", "page_size"): 64,
     ("quant_spec_paged_decode_attention", "block_kv"): 64,
+    ("gmm", "block_c"): 64,
+    ("gmm", "block_n"): 128,
+    ("gmm", "block_k"): 32,
 }
 
 

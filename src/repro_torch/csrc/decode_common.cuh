@@ -9,8 +9,11 @@
 // one-token kernels (B3, B4, B5) the rows are the group's Hq / Hkv
 // query heads; for the speculative kernel (B6) they are the K1 window
 // positions times the group, position-major (row r = qi * group + gi,
-// `Rows` below).  The CTA has D threads; thread c owns output column c
-// of every row.  Per block of up to BK_MAX tokens: stage K and V in
+// `Rows` below).  Keys may be wider than values (MLA: DK = 192 query/
+// key columns, DV = 128 value columns); the CTA has DV threads, and
+// thread c owns output column c of every row, while the scores, a dot
+// over DK columns per (row, token) pair, are shared out over all the
+// threads.  Per block of up to BK_MAX tokens: stage K and V in
 // shared memory as f32 (stage_tile: every thread's 16-byte loads in
 // flight together, so a block pays about one memory latency; a
 // quantized block is dequantized there, before any dot), score every
@@ -36,17 +39,17 @@ __host__ __device__ constexpr bool per_row_horizon() {
   return G == G_SPEC;
 }
 
-template <int D, int G>
+template <int DK, int DV, int G>
 constexpr size_t decode_smem_floats() {
-  return static_cast<size_t>(G) * D + BK_MAX * (D + 1) + BK_MAX * D +
+  return static_cast<size_t>(G) * DK + BK_MAX * (DK + 1) + BK_MAX * DV +
          G * BK_MAX + 4 * G;
 }
 
-template <int D, int G>
+template <int DK, int DV, int G>
 struct DecodeSmem {
-  float* q;   // G x D, pre-scaled
-  float* k;   // BK_MAX x (D + 1)
-  float* v;   // BK_MAX x D
+  float* q;   // G x DK, pre-scaled
+  float* k;   // BK_MAX x (DK + 1)
+  float* v;   // BK_MAX x DV
   float* s;   // G x BK_MAX: scores, then probabilities
   float* m;   // running max per row
   float* l;   // running sum per row
@@ -54,9 +57,9 @@ struct DecodeSmem {
   int* hz;    // per-row horizons (per_row_horizon): tokens [0, hz) visible
   __device__ explicit DecodeSmem(float* base) {
     q = base;
-    k = q + G * D;
-    v = k + BK_MAX * (D + 1);
-    s = v + BK_MAX * D;
+    k = q + G * DK;
+    v = k + BK_MAX * (DK + 1);
+    s = v + BK_MAX * DV;
     m = s + G * BK_MAX;
     l = m + G;
     a = l + G;
@@ -81,11 +84,18 @@ struct Rows {
 };
 
 // Load the CTA's query rows (scaled) and reset the running state.
-template <typename T, int D, int G>
-__device__ void decode_init(const DecodeSmem<D, G>& sm, const T* q,
+template <typename T, int DK, int DV, int G>
+__device__ void decode_init(const DecodeSmem<DK, DV, G>& sm, const T* q,
                             const Rows<G>& rows, float scale, float acc[G]) {
-  for (int r = 0; r < rows.n; ++r)
-    sm.q[r * D + threadIdx.x] = to_f32(q[rows(r) * D + threadIdx.x]) * scale;
+  for (int r = 0; r < rows.n; ++r) {
+    if constexpr (DK == DV) {
+      sm.q[r * DK + threadIdx.x] =
+          to_f32(q[rows(r) * DK + threadIdx.x]) * scale;
+    } else {  // a thread per value column: the key's wider row in turns
+      for (int c = threadIdx.x; c < DK; c += DV)
+        sm.q[r * DK + c] = to_f32(q[rows(r) * DK + c]) * scale;
+    }
+  }
   if (threadIdx.x < G) {
     sm.m[threadIdx.x] = NEG_INF;
     sm.l[threadIdx.x] = 0.f;
@@ -100,28 +110,28 @@ __device__ void decode_init(const DecodeSmem<D, G>& sm, const T* q,
 // masks tokens at or past its horizon (sm.hz[r], or `length` for every
 // row of a one-token kernel), and outside the window measured back from
 // that horizon (decode_attention.py:80-83).
-template <typename KV, int D, int G>
-__device__ void decode_block(const DecodeSmem<D, G>& sm,
+template <typename KV, int DK, int DV, int G>
+__device__ void decode_block(const DecodeSmem<DK, DV, G>& sm,
                              const KV* __restrict__ kblk,
                              const KV* __restrict__ vblk, int rows,
                              int k_start, int n, int length, int window,
                              float softcap, float k_scale, float v_scale,
                              float acc[G]) {
-  constexpr int LD = D + 1;
-  constexpr int NW = D / 32;
+  constexpr int LD = DK + 1;
+  constexpr int NW = DV / 32;
   constexpr bool kQuant = sizeof(KV) == 1;
   const int tid = threadIdx.x;
   __syncthreads();  // the previous block's readers are done
-  stage_tile<KV, BK_MAX, D, D>(kblk, sm.k, LD, rows, kQuant ? k_scale : 1.f);
-  stage_tile<KV, BK_MAX, D, D>(vblk, sm.v, D, rows, kQuant ? v_scale : 1.f);
+  stage_tile<KV, BK_MAX, DK, DV>(kblk, sm.k, LD, rows, kQuant ? k_scale : 1.f);
+  stage_tile<KV, BK_MAX, DV, DV>(vblk, sm.v, DV, rows, kQuant ? v_scale : 1.f);
   __syncthreads();
-  for (int i = tid; i < n * BK_MAX; i += D) {
+  for (int i = tid; i < n * BK_MAX; i += DV) {
     const int gi = i / BK_MAX, t = i % BK_MAX;
-    const float* qr = sm.q + gi * D;
+    const float* qr = sm.q + gi * DK;
     const float* kr = sm.k + t * LD;
     float x = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) x = fmaf(qr[c], kr[c], x);
+    for (int c = 0; c < DK; ++c) x = fmaf(qr[c], kr[c], x);
     if (softcap > 0.f) x = softcap * tanhf(x / softcap);
     const int kp = k_start + t;
     const int horizon = per_row_horizon<G>() ? sm.hz[gi] : length;
@@ -154,22 +164,22 @@ __device__ void decode_block(const DecodeSmem<D, G>& sm,
   for (int gi = 0; gi < G; ++gi)
     if (gi < n) acc[gi] *= sm.a[gi];
   for (int t = 0; t < rows; ++t) {
-    const float vv = sm.v[t * D + tid];
+    const float vv = sm.v[t * DV + tid];
 #pragma unroll
     for (int gi = 0; gi < G; ++gi)
       if (gi < n) acc[gi] = fmaf(sm.s[gi * BK_MAX + t], vv, acc[gi]);
   }
 }
 
-// Write the residuals of the CTA's rows: acc (rows, D), m/l (rows).
-template <int D, int G>
-__device__ void decode_store(const DecodeSmem<D, G>& sm, const float acc[G],
+// Write the residuals of the CTA's rows: acc (rows, DV), m/l (rows).
+template <int DK, int DV, int G>
+__device__ void decode_store(const DecodeSmem<DK, DV, G>& sm, const float acc[G],
                              const Rows<G>& rows, float* acc_out,
                              float* m_out, float* l_out) {
   __syncthreads();
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
-    if (gi < rows.n) acc_out[rows(gi) * D + threadIdx.x] = acc[gi];
+    if (gi < rows.n) acc_out[rows(gi) * DV + threadIdx.x] = acc[gi];
   if (threadIdx.x < rows.n) {
     m_out[rows(threadIdx.x)] = sm.m[threadIdx.x];
     l_out[rows(threadIdx.x)] = sm.l[threadIdx.x];
@@ -177,7 +187,7 @@ __device__ void decode_store(const DecodeSmem<D, G>& sm, const float acc[G],
 }
 
 // The paged decode body of B4, B5 and B6: K/V gathered through per-row
-// block tables from head-major page pools (Hkv, P, ps, D) of KV; a
+// block tables from head-major page pools (Hkv, P, ps, DK|DV) of KV; a
 // 1-byte KV is quantized storage, with (Hkv, P) f32 scale pools read at
 // scales[h * P + page] for the page a block comes from.  Page 0 is
 // the allocator's null page; a table entry outside the pool reads it
@@ -198,8 +208,8 @@ __device__ void decode_store(const DecodeSmem<D, G>& sm, const float acc[G],
 // page.  The block loop runs from start[b] up to the slot's length,
 // at most the row's reach past start[b]; the window mask trims the
 // first page's tokens before length - window.
-template <typename T, typename KV, int D, int G, bool RING = false>
-__global__ void __launch_bounds__(D)
+template <typename T, typename KV, int DK, int DV, int G, bool RING = false>
+__global__ void __launch_bounds__(DV)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     const KV* __restrict__ vp, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ bt,
@@ -210,13 +220,13 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     int bk, float scale, int window, float softcap) {
   static_assert(!RING || !per_row_horizon<G>(), "ring walks are one-token");
   extern __shared__ float smem[];
-  const DecodeSmem<D, G> sm(smem);
+  const DecodeSmem<DK, DV, G> sm(smem);
   const int h = blockIdx.x, b = blockIdx.y, group = hq / hkv;
   constexpr bool kQuant = sizeof(KV) == 1;
   const Rows<G> rows{static_cast<size_t>(b) * k1 * hq + h * group, group, hq,
                      k1 * group};
   float acc[G];
-  decode_init<T, D, G>(sm, q, rows, scale, acc);
+  decode_init<T, DK, DV, G>(sm, q, rows, scale, acc);
   const int reach = t_cols * page_size;
   const int lo = RING ? start[b] : 0;
   int length = RING ? row_len[b]
@@ -237,17 +247,21 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     int page = row[(k0 - lo) / page_size];
     if (page < 0 || page >= n_pages) page = 0;
     const size_t pg = static_cast<size_t>(h) * n_pages + page;
-    const size_t off = (pg * page_size + (k0 - lo) % page_size) * D;
-    decode_block<KV, D, G>(sm, kp + off, vp + off, bk, k0, rows.n, length,
-                           window, softcap, kQuant ? ks[pg] : 1.f,
-                           kQuant ? vs[pg] : 1.f, acc);
+    const size_t row0 = pg * page_size + (k0 - lo) % page_size;
+    const size_t off = row0 * DK;
+    decode_block<KV, DK, DV, G>(sm, kp + off,
+                                vp + (DK == DV ? off : row0 * DV), bk, k0,
+                                rows.n, length, window, softcap,
+                                kQuant ? ks[pg] : 1.f, kQuant ? vs[pg] : 1.f,
+                                acc);
   }
-  decode_store<D, G>(sm, acc, rows, acc_out, m_out, l_out);
+  decode_store<DK, DV, G>(sm, acc, rows, acc_out, m_out, l_out);
 }
 
 // The arguments every paged entry point passes through, and their
-// dispatch on the query's element type, the pools' and the head dim.
-// `start` is read by the ring kernels only.
+// dispatch on the query's element type, the pools' and the head dims.
+// `start` is read by the ring kernels only; `dv` is the value head dim
+// where it differs from the key's `d` (MLA), else 0.
 struct PagedArgs {
   const void *q, *kp, *vp;
   const float *ks, *vs;
@@ -260,17 +274,19 @@ struct PagedArgs {
   float softcap;
   cudaStream_t stream;
   const int* start = nullptr;
+  int dv = 0;
 };
 
-// Launch paged_decode_kernel<T, KV, D, G, RING> on a (Hkv, B) grid.
-template <typename T, typename KV, int D, int G, bool RING>
+// Launch paged_decode_kernel<T, KV, DK, DV, G, RING> on a (Hkv, B) grid
+// of DV-thread CTAs.
+template <typename T, typename KV, int DK, int DV, int G, bool RING>
 cudaError_t launch_paged(const PagedArgs& a) {
-  const size_t bytes = decode_smem_floats<D, G>() * sizeof(float);
+  const size_t bytes = decode_smem_floats<DK, DV, G>() * sizeof(float);
   static const cudaError_t attr =
-      allow_smem(paged_decode_kernel<T, KV, D, G, RING>, bytes);
+      allow_smem(paged_decode_kernel<T, KV, DK, DV, G, RING>, bytes);
   if (attr != cudaSuccess) return attr;
-  paged_decode_kernel<T, KV, D, G, RING>
-      <<<dim3(a.hkv, a.b), D, bytes, a.stream>>>(
+  paged_decode_kernel<T, KV, DK, DV, G, RING>
+      <<<dim3(a.hkv, a.b), DV, bytes, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
           static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len, a.start,
           a.row_stride, a.acc, a.m, a.l, a.k1, a.hq, a.hkv, a.n_pages,
@@ -278,12 +294,14 @@ cudaError_t launch_paged(const PagedArgs& a) {
   return cudaGetLastError();
 }
 
-// Head dims 64, 128 and 256 (gemma2); a CTA has D threads.
+// Equal key and value head dims 64, 128 and 256 (gemma2); a CTA has D
+// threads.
 template <typename T, typename KV, int G, bool RING = false>
 cudaError_t dispatch_paged_d(const PagedArgs& a) {
-  if (a.d == 64) return launch_paged<T, KV, 64, G, RING>(a);
-  if (a.d == 128) return launch_paged<T, KV, 128, G, RING>(a);
-  if (a.d == 256) return launch_paged<T, KV, 256, G, RING>(a);
+  if (a.dv != 0 && a.dv != a.d) return cudaErrorInvalidValue;
+  if (a.d == 64) return launch_paged<T, KV, 64, 64, G, RING>(a);
+  if (a.d == 128) return launch_paged<T, KV, 128, 128, G, RING>(a);
+  if (a.d == 256) return launch_paged<T, KV, 256, 256, G, RING>(a);
   return cudaErrorInvalidValue;
 }
 

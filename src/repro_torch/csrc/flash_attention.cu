@@ -4,6 +4,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py (flash_attention_fwd, body _fa_kernel).
+// Keys may be wider than values: MLA's 192 query/key columns against
+// 128 value columns are a build of their own (DK, DV) beside the
+// equal-dim ones.
 //
 // Bound on the H100: bytes for prompts up to about 740 tokens, then
 // operations (causal, 32/8 heads of 128: 0.4 S flops per byte moved,
@@ -17,7 +20,7 @@
 // staged in shared memory as f32 by stage_tile (16-byte loads, all in
 // flight together; K and Q rows padded to d + 1 floats so the 16
 // threads of a half-warp hit 16 banks); each thread owns a 4 x 4 block
-// of the score tile and a 4 x (d/16) block of the output.  KV tiles that lie
+// of the score tile and a 4 x (dv/16) block of the output.  KV tiles that lie
 // wholly after the causal bound or before the window are skipped, as
 // the reference's `needed` predicate does.
 #include "common.cuh"
@@ -29,25 +32,25 @@ constexpr int BK = 64;   // kv rows per loop step
 constexpr int NT = 256;  // threads per CTA: a 16 x 16 grid
 constexpr int LDS = BK + 1;
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t smem_floats() {
-  return static_cast<size_t>(BQ) * (D + 1) + BK * (D + 1) + BK * D +
+  return static_cast<size_t>(BQ) * (DK + 1) + BK * (DK + 1) + BK * DV +
          BQ * LDS + 3 * BQ;
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int hq,
                  int hkv, int sq, int skv, float scale, int causal,
                  int window, float softcap, int q_offset) {
-  constexpr int LD = D + 1;
-  constexpr int DC = D / 16;  // output columns per thread
+  constexpr int LD = DK + 1;
+  constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* sQ = smem;             // BQ x LD, pre-scaled
   float* sK = sQ + BQ * LD;     // BK x LD
-  float* sV = sK + BK * LD;     // BK x D
-  float* sS = sV + BK * D;      // BQ x LDS: scores, then probabilities
+  float* sV = sK + BK * LD;     // BK x DV
+  float* sS = sV + BK * DV;     // BQ x LDS: scores, then probabilities
   float* sM = sS + BQ * LDS;    // running row max
   float* sL = sM + BQ;          // running row sum
   float* sA = sL + BQ;          // this step's rescale factor per row
@@ -57,12 +60,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (hq / hkv);
   const int q0 = blockIdx.x * BQ;     // first q row (local)
   const int qpos0 = q0 + q_offset;    // its global position
-  const T* qb = q + static_cast<size_t>(b * hq + h) * sq * D;
-  const T* kb = k + static_cast<size_t>(b * hkv + kvh) * skv * D;
-  const T* vb = v + static_cast<size_t>(b * hkv + kvh) * skv * D;
+  const T* qb = q + static_cast<size_t>(b * hq + h) * sq * DK;
+  const T* kb = k + static_cast<size_t>(b * hkv + kvh) * skv * DK;
+  const T* vb = v + static_cast<size_t>(b * hkv + kvh) * skv * DV;
 
-  repro::stage_tile<T, BQ, D, NT>(qb + static_cast<size_t>(q0) * D, sQ, LD,
-                                  sq - q0, scale);
+  repro::stage_tile<T, BQ, DK, NT>(qb + static_cast<size_t>(q0) * DK, sQ, LD,
+                                   sq - q0, scale);
   if (tid < BQ) {
     sM[tid] = repro::NEG_INF;
     sL[tid] = 0.f;
@@ -88,9 +91,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = lo; it < hi; ++it) {
     const int k0 = it * BK;
     __syncthreads();  // the previous step's readers of sK/sV/sS are done
-    const size_t off = static_cast<size_t>(k0) * D;
-    repro::stage_tile<T, BK, D, NT>(kb + off, sK, LD, skv - k0);
-    repro::stage_tile<T, BK, D, NT>(vb + off, sV, D, skv - k0);
+    repro::stage_tile<T, BK, DK, NT>(kb + static_cast<size_t>(k0) * DK, sK,
+                                     LD, skv - k0);
+    repro::stage_tile<T, BK, DV, NT>(vb + static_cast<size_t>(k0) * DV, sV,
+                                     DV, skv - k0);
     __syncthreads();
 
     float s[4][4];
@@ -98,7 +102,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DK; ++c) {
       float qv[4], kv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * LD + c];
@@ -158,7 +162,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * LDS + c];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = sV[c * D + tx + 16 * j];
+      for (int j = 0; j < DC; ++j) vv[j] = sV[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -167,7 +171,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* ob = o + static_cast<size_t>(b * hq + h) * sq * D;
+  T* ob = o + static_cast<size_t>(b * hq + h) * sq * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -176,22 +180,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l = l == 0.f ? 1.f : l;  // fully masked rows come out as 0
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      ob[static_cast<size_t>(q0 + r) * D + tx + 16 * j] =
+      ob[static_cast<size_t>(q0 + r) * DV + tx + 16 * j] =
           repro::from_f32<T>(acc[i][j] / l);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int hq, int hkv, int sq, int skv, float scale,
                    int causal, int window, float softcap, int q_offset,
                    cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
+  const size_t bytes = smem_floats<DK, DV>() * sizeof(float);
   static const cudaError_t attr =
-      repro::allow_smem(flash_fwd_kernel<T, D>, bytes);
+      repro::allow_smem(flash_fwd_kernel<T, DK, DV>, bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
+  flash_fwd_kernel<T, DK, DV><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, skv, scale,
       causal, window, softcap, q_offset);
@@ -199,19 +203,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
+cudaError_t dispatch_d(int d, int dv, const void* q, const void* k,
+                       const void* v,
                        void* o, int b, int hq, int hkv, int sq, int skv,
                        float scale, int causal, int window, float softcap,
                        int q_offset, cudaStream_t stream) {
+  if (d == 192 && dv == 128)  // MLA: 149 KB of shared memory
+    return launch<T, 192, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                               causal, window, softcap, q_offset, stream);
+  if (dv != d) return cudaErrorInvalidValue;
   if (d == 64)
-    return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                         window, softcap, q_offset, stream);
+    return launch<T, 64, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
+                             window, softcap, q_offset, stream);
   if (d == 128)
-    return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                          window, softcap, q_offset, stream);
+    return launch<T, 128, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                               causal, window, softcap, q_offset, stream);
   if (d == 256)  // 214.5 KB of shared memory: under the 227 KB opt-in cap
-    return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                          window, softcap, q_offset, stream);
+    return launch<T, 256, 256>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                               causal, window, softcap, q_offset, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -221,7 +230,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 // one schedule, 64 x 64, and refuses any other.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int hq,
-                                   int hkv, int sq, int skv, int d,
+                                   int hkv, int sq, int skv, int d, int dv,
                                    float scale, int causal, int window,
                                    float softcap, int q_offset, int block_q,
                                    int block_kv, int dtype, void* stream) {
@@ -230,10 +239,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (b == 0 || sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::DTYPE_F32)
-    return dispatch_d<float>(d, q, k, v, o, b, hq, hkv, sq, skv, scale,
+    return dispatch_d<float>(d, dv, q, k, v, o, b, hq, hkv, sq, skv, scale,
                              causal, window, softcap, q_offset, s);
   if (dtype == repro::DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, o, b, hq, hkv, sq, skv,
+    return dispatch_d<__nv_bfloat16>(d, dv, q, k, v, o, b, hq, hkv, sq, skv,
                                      scale, causal, window, softcap,
                                      q_offset, s);
   return cudaErrorInvalidValue;

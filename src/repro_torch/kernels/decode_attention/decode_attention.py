@@ -2,6 +2,7 @@
 
 Returns the unnormalized residuals (acc, m, l) in f32, the contract of
 ``repro.kernels.decode_attention.decode_attention.decode_attention_fwd``.
+Key and value head dims are equal (64, 128, 256), or MLA's 192 and 128.
 """
 from __future__ import annotations
 
@@ -16,9 +17,12 @@ from repro_torch.core.build import (CudaKernel, check_cuda, dtype_code, ptr,
 _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu", "decode_attention_fwd",
-    [_p] * 7 + [_i] * 6 + [_f, _i, _f, _i, _p])
+    [_p] * 7 + [_i] * 7 + [_f, _i, _f, _i, _p])
 
 HEAD_DIMS = (64, 128, 256)
+#: (Dk, Dv) builds of the one-token kernels with values narrower than
+#: keys (MLA); the quantized, speculative and window kernels have none.
+MLA_DIMS = ((192, 128),)
 MAX_GROUP = 8        # G_DECODE in csrc/decode_common.cuh
 MAX_BLOCK_KV = 64    # BK_MAX in csrc/decode_common.cuh
 
@@ -28,16 +32,23 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 def check_decode_operands(name: str, q, k, v, lengths, *,
-                          quantized: bool = False) -> None:
+                          quantized: bool = False, mla: bool = False) -> int:
     """Shape/type checks shared by the decode launchers; ``k``/``v`` are
-    caches (B, Hkv, S, D) or pools (Hkv, P, ps, D).  Quantized pools
+    caches (B, Hkv, S, D) or pools (Hkv, P, ps, D), ``v`` of its own
+    width where ``mla`` allows a build of ``MLA_DIMS``.  Quantized pools
     must hold a storage type the kernels have (int8, fp8-e4m3);
-    unquantized ones q's dtype."""
+    unquantized ones q's dtype.  Returns the value head dim."""
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
-    if k.shape != v.shape or k.shape[-1] != d:
+    dv = v.shape[-1]
+    if k.shape[:-1] != v.shape[:-1] or k.shape[-1] != d:
         raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
+    if dv != d:
+        if not mla or (d, dv) not in MLA_DIMS:
+            raise NotImplementedError(
+                f"{name} kernel: head dims ({d}, {dv}) (built for "
+                f"{MLA_DIMS if mla else 'equal key and value widths'})")
+    elif d not in HEAD_DIMS:
         raise NotImplementedError(f"{name} kernel: head dim {d} (built for "
                                   f"{HEAD_DIMS})")
     if quantized:
@@ -50,20 +61,26 @@ def check_decode_operands(name: str, q, k, v, lengths, *,
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: lengths must be ({b},) int32, got "
                          f"{tuple(lengths.shape)} {lengths.dtype}")
+    return dv
 
 
-def residual_outputs(q) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Empty f32 (acc, m, l) for q (..., D): acc like q, m/l without D."""
+def residual_outputs(q, dv: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Empty f32 (acc, m, l) for q (..., D): acc (..., dv) (dv = D by
+    default), m/l without the head dim."""
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (torch.empty(q.shape, **f32), torch.empty(q.shape[:-1], **f32),
+    dv = q.shape[-1] if dv is None else dv
+    return (torch.empty(q.shape[:-1] + (dv,), **f32),
+            torch.empty(q.shape[:-1], **f32),
             torch.empty(q.shape[:-1], **f32))
 
 
 def decode_attention_fwd(q, k_cache, v_cache, lengths, *,
                          window: Optional[int], softcap: Optional[float],
                          scale: Optional[float], block_kv: int):
-    """q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) int32."""
-    check_decode_operands("decode_attention", q, k_cache, v_cache, lengths)
+    """q: (B, Hq, Dk); caches: (B, Hkv, S, Dk|Dv); lengths: (B,) int32."""
+    dv = check_decode_operands("decode_attention", q, k_cache, v_cache,
+                               lengths, mla=True)
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != b or hq % hkv or hq // hkv > MAX_GROUP:
@@ -73,9 +90,9 @@ def decode_attention_fwd(q, k_cache, v_cache, lengths, *,
         raise ValueError(f"decode_attention: block_kv {block_kv} not in "
                          f"[1, {MAX_BLOCK_KV}]")
     check_cuda("decode_attention", q, k_cache, v_cache, lengths)
-    acc, m, l = residual_outputs(q)
+    acc, m, l = residual_outputs(q, dv)
     KERNEL.launch(ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(acc),
-                  ptr(m), ptr(l), b, hq, hkv, s, d, block_kv,
+                  ptr(m), ptr(l), b, hq, hkv, s, d, dv, block_kv,
                   float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   stream_of(q))

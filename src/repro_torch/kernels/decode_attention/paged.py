@@ -36,7 +36,7 @@ _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "paged_decode_attention", "paged_decode_attention.cu",
     "paged_decode_attention_fwd",
-    [_p] * 8 + [_i] * 8 + [_f, _i, _f, _i, _p])
+    [_p] * 8 + [_i] * 9 + [_f, _i, _f, _i, _p])
 # the window kernels over bf16/f32 pools (B7) and int8/fp8 pools with
 # scale pools (B7q): one argument list, one launcher
 _WINDOW_ARGS = [_p] * 11 + [_i] * 8 + [_f, _i, _f, _i, _i, _p]
@@ -143,9 +143,10 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
                                scale: Optional[float],
                                page_size: Optional[int], block_kv: int):
     """Returns unnormalized f32 residuals (acc, m, l), as the dense
-    decode kernel does."""
+    decode kernel does; the V pool may be narrower than the K pool
+    (MLA)."""
     name = "paged_decode_attention"
-    check_decode_operands(name, q, k_pages, v_pages, lengths)
+    dv = check_decode_operands(name, q, k_pages, v_pages, lengths, mla=True)
     b, hq, d = q.shape
     hkv = k_pages.shape[0]
     if hq % hkv or hq // hkv > MAX_GROUP:
@@ -155,10 +156,10 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv)
     check_cuda(name, q, k_pages, v_pages, bt, lengths)
-    acc, m, l = residual_outputs(q)
+    acc, m, l = residual_outputs(q, dv)
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(bt), ptr(lengths),
                   ptr(acc), ptr(m), ptr(l), b, hq, hkv, k_pages.shape[1],
-                  page_size, bt.shape[1], d, bk,
+                  page_size, bt.shape[1], d, dv, bk,
                   float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   stream_of(q))

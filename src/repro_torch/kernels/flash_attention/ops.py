@@ -1,8 +1,9 @@
 """Public flash-attention op (forward only: serving needs no backward).
 
 A CPU tensor takes the plain version, a CUDA tensor the hand-written
-kernel.  The reference's traced ``q_offset`` (sequence-parallel shards)
-and Dk != Dv (MLA) belong to later slices and raise here.
+kernel.  Values may be narrower than keys (MLA: Dk 192, Dv 128).  The
+reference's traced ``q_offset`` (sequence-parallel shards) belongs to
+a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -22,13 +23,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """GQA attention.  q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D)."""
+    """GQA attention.  q: (B, Hq, Sq, Dk); k: (B, Hkv, Skv, Dk); v: (B,
+    Hkv, Skv, Dv) -> (B, Hq, Sq, Dv)."""
     if not isinstance(q_offset, int):
         raise NotImplementedError("a traced q_offset (sequence-parallel "
                                   "shards) arrives with the distribution "
-                                  "slice")
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError("Dk != Dv (MLA) arrives with the MoE/MLA "
                                   "slice")
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               q_offset=q_offset)

@@ -29,7 +29,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         softcap: Optional[float] = None,
                         scale: Optional[float] = None,
                         q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
+    """q: (B, Hq, Sq, Dk); k: (B, Hkv, Skv, Dk); v: (B, Hkv, Skv, Dv)
+    -> (B, Hq, Sq, Dv)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     assert hq % hkv == 0, (hq, hkv)

@@ -11,6 +11,13 @@ gemma2-2b (sliding-window local layers page through ring tables):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --paged --prompts 12 --prompt-len 6000 --slots 8 --cache-len 8192
 
+deepseek-v2-lite-16b (MLA attention, 64 routed experts top-6 on 26 of
+its 27 layers), paged or dense, bf16 pools:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --paged --prompts 12 --prompt-len 511 \
+      --slots 8 --cache-len 1024
+
 From an int8 pool, speculating 4 tokens per step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -22,8 +29,9 @@ On the CPU, through the plain PyTorch versions of the kernels:
       --smoke --prompts 6 --max-new 12 --paged --device cpu
 
 Prints one JSON summary: completion, token counts, wall time, the
-speculative counters, the pages freed behind sliding windows and the
-launch count of every kernel in the run.
+speculative counters, the pages freed behind sliding windows, the MoE
+assignments that capacity dropped and the launch count of every kernel
+in the run.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ def main(argv=None):
     from repro_torch.configs.smoke import smoke_config
     from repro_torch.core.build import KERNELS
     from repro_torch.core.device import resolve_device
+    from repro_torch.models import moe
     from repro_torch.models.registry import build_model
     from repro_torch.quant import KV_DTYPES
     from repro_torch.serve.engine import (PREEMPT_POLICIES, SPEC_MODES,
@@ -103,11 +112,15 @@ def main(argv=None):
 
     for k in KERNELS:
         k.launches = 0
-    t0 = time.perf_counter()
-    engine.run_to_completion(reqs)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
+    drops = moe.count_drops(dev) if cfg.moe is not None else None
+    try:
+        t0 = time.perf_counter()
+        engine.run_to_completion(reqs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        moe.stop_counting_drops()
     new_tokens = sum(len(r.out) for r in reqs)
     st = engine.stats()
     print(json.dumps({
@@ -122,6 +135,7 @@ def main(argv=None):
         "accepted_tokens_per_step": (st["spec_emitted"] / st["spec_steps"]
                                      if st.get("spec_steps") else None),
         "window_prefix_frees": st.get("window_prefix_frees"),
+        "moe_dropped": None if drops is None else int(drops),
         "kernel_launches": {k.name: k.launches for k in KERNELS},
         "sample_output": reqs[0].out,
     }, indent=1))

@@ -1,12 +1,19 @@
-"""GQA attention (``repro.models.attention``: global and sliding-window
-local layers, with the attention softcap): prefill, one-token decode
-over dense caches, dense rings, paged pools and ring-table window pools
-(each bf16 or quantized), and the speculative K1-token verify over
-paged pools.
+"""Attention blocks (``repro.models.attention``).
+
+GQA (global and sliding-window local layers, with the attention
+softcap): prefill, one-token decode over dense caches, dense rings,
+paged pools and ring-table window pools (each bf16 or quantized), and
+the speculative K1-token verify over paged pools.
+
+DeepSeek MLA: prefill and one-token decode over a dense cache or paged
+pools of the *materialised* per-head K (nope | shared rope, 192 wide at
+full size) and V (128 wide), as the reference caches them.
 
 Weights keep the reference's shapes flattened to 2-D matrices:
 ``wq`` (d, H*hd), ``wk``/``wv`` (d, Hkv*hd), ``wo`` (H*hd, d), which is
-``(d, H, hd)`` / ``(H, hd, d)`` row-major, so conversion is a reshape.
+``(d, H, hd)`` / ``(H, hd, d)`` row-major, so conversion is a reshape;
+MLA's ``wq_mla`` (d, H*qk), ``wkv_a`` (d, lora + rope), ``wkv_b``
+(lora, H*(nope + v)) and ``wo_mla`` (H*v, d) likewise.
 """
 from __future__ import annotations
 
@@ -222,3 +229,94 @@ def spec_decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
             q, k, v, cache_k, cache_v, block_tables, write_page, write_off,
             base, softcap=cfg.attn_softcap, page_size=ps)
     return out.reshape(b, k1, -1) @ p["wo"].to(xd)
+
+
+# ------------------------------------------------------------- MLA ------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, *, dtype):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    lora = m.kv_lora_rank
+    return {
+        "wq_mla": L.dense_init(gen, (d, h * qk), dtype=dtype, in_axis_size=d),
+        "wkv_a": L.dense_init(gen, (d, lora + m.qk_rope_head_dim),
+                              dtype=dtype, in_axis_size=d),
+        "wkv_b": L.dense_init(gen, (lora, h * (m.qk_nope_head_dim
+                                               + m.v_head_dim)),
+                              dtype=dtype, in_axis_size=lora),
+        "wo_mla": L.dense_init(gen, (h * m.v_head_dim, d), dtype=dtype,
+                               in_axis_size=h * m.v_head_dim),
+    }
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, rope):
+    """x (B, S, d) -> q (B, H, S, qk), K (B, H, S, qk) and V (B, H, S,
+    v) per head: q = [nope | rope'd rope]; K = [up-projected nope |
+    the shared rope'd key, broadcast over heads]; V up-projected from
+    the latent c_kv.  ``rope`` is ``L.rope_cache`` at qk_rope_head_dim,
+    broadcasting against (B, H, S, rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h, nope, lora = cfg.num_heads, m.qk_nope_head_dim, m.kv_lora_rank
+    xd = x.dtype
+    cos, sin = rope
+    q = _heads(x @ p["wq_mla"].to(xd), h)
+    q_rope = L.apply_rope(q[..., nope:], cos, sin)
+    kv_a = x @ p["wkv_a"].to(xd)                        # (B, S, lora+rope)
+    k_rope = L.apply_rope(kv_a[..., lora:][:, None], cos, sin)
+    kv = _heads(kv_a[..., :lora] @ p["wkv_b"].to(xd), h)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+    k_full = torch.cat([kv[..., :nope],
+                        k_rope.expand(b, h, s, m.qk_rope_head_dim)], dim=-1)
+    return q_full, k_full, kv[..., nope:].contiguous()
+
+
+def apply_mla(p, x: torch.Tensor, cfg: ModelConfig, rope, *,
+              plain: bool = False):
+    """Causal MLA over the full sequence.  x (B, S, d); ``rope`` is
+    ``L.rope_cache`` of positions 0..S-1 at qk_rope_head_dim.  Returns
+    (y, k, v) with the materialised K (B, H, S, qk) and V (B, H, S, v)
+    for the prefill cache."""
+    b, s, _ = x.shape
+    q, k, v = _mla_qkv(p, x, cfg, rope)
+    fn = flash_ref.flash_attention_ref if plain else flash_attention
+    out = fn(q, k, v, causal=True, scale=_mla_scale(cfg))
+    y = out.transpose(1, 2).reshape(b, s, -1) @ p["wo_mla"].to(x.dtype)
+    return y, k, v
+
+
+def decode_mla(p, x: torch.Tensor, cache_k: torch.Tensor,
+               cache_v: torch.Tensor, lengths: torch.Tensor,
+               cfg: ModelConfig, rope, *, block_tables=None,
+               cache_scales=None, plain: bool = False) -> torch.Tensor:
+    """One-token MLA decode.  x (B, 1, d); ``rope`` is ``L.rope_cache``
+    of ``lengths`` at qk_rope_head_dim, shaped (B, 1, rope/2).  The new
+    token's K and V are written into the cache IN PLACE (a dense cache
+    (B, H, S, qk|v) at row ``lengths``, or with ``block_tables`` paged
+    pools (H, P, ps, qk|v)), then the step attends over ``lengths + 1``
+    tokens.  Returns out (B, 1, d)."""
+    if cache_scales is not None:
+        raise NotImplementedError(
+            "MLA over int8/fp8 pools is not ported yet (ROADMAP.md queue "
+            "A, item 10: B5 at 192/128)")
+    # against (B, H, 1, rope): one more axis than decode_attn's heads
+    q, k, v = _mla_qkv(p, x, cfg, tuple(t[:, None] for t in rope))
+    q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]    # (B, H, qk|v)
+    eff_len = (lengths + 1).to(torch.int32)
+    kw = dict(scale=_mla_scale(cfg), plain=plain)
+    if block_tables is not None:
+        ps = cache_k.shape[2]
+        write_page, write_off = _page_coords(block_tables, lengths, ps)
+        out = paged_decode_update_attend(q, k, v, cache_k, cache_v,
+                                         block_tables, write_page,
+                                         write_off, eff_len, page_size=ps,
+                                         **kw)
+    else:
+        out = decode_update_attend(q, k, v, cache_k, cache_v, lengths,
+                                   eff_len, **kw)
+    return (out.reshape(x.shape[0], -1) @ p["wo_mla"].to(x.dtype))[:, None]

@@ -33,8 +33,9 @@ class Model:
                              f"asked on {dev}")
         return T.init_params(generator, self.cfg)
 
-    def prefill(self, params, tokens, cache_len: int):
-        return T.prefill(params, self.cfg, tokens, cache_len)
+    def prefill(self, params, tokens, cache_len: int, *,
+                plain: bool = False):
+        return T.prefill(params, self.cfg, tokens, cache_len, plain=plain)
 
     def forward_logits(self, params, tokens, *, plain: bool = False,
                        start: int = 0):
@@ -42,9 +43,9 @@ class Model:
                                 start=start)
 
     def decode_step(self, params, caches, tokens, lengths,
-                    block_tables=None):
+                    block_tables=None, *, plain: bool = False):
         return T.decode_step(params, self.cfg, caches, tokens, lengths,
-                             block_tables=block_tables)
+                             block_tables=block_tables, plain=plain)
 
     def spec_decode_step(self, params, caches, tokens, lengths,
                          block_tables):

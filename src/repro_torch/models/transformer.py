@@ -1,13 +1,17 @@
 """Decoder stack (``repro.models.transformer``, the branches serving
-takes for dense decoders of global and sliding-window attention layers:
-granite-8b, and gemma2-2b's alternating local/global pattern with
-softcaps, sandwich norms, a tanh-GELU MLP and a scaled embedding).
+takes for decoders of global and sliding-window attention layers:
+granite-8b; gemma2-2b's alternating local/global pattern with softcaps,
+sandwich norms, a tanh-GELU MLP and a scaled embedding; and
+deepseek-v2-lite-16b's MLA attention with a dense first layer and MoE
+layers after it).
 
 Parameters are a dict of tensors: ``embed`` (Vp, d), ``unembed``
 (d, Vp), ``final_norm`` (d,), and ``layers``, a list with one dict per
-layer (``ln1``, ``attn.{wq,wk,wv,wo}``, ``ln2``, ``mlp.{w_gate,w_up,
-w_down}``, and ``post_ln1``/``post_ln2`` with sandwich norms); layer
-``i`` has kind ``cfg.layer_kinds()[i]``.  A Python loop over the layers
+layer (``ln1``, ``attn.{wq,wk,wv,wo}`` or with MLA ``attn.{wq_mla,
+wkv_a,wkv_b,wo_mla}``, ``ln2``, ``mlp.{w_gate,w_up,w_down}`` or on an
+MoE layer ``moe.{router,we_gate,we_up,we_down,shared}``, and
+``post_ln1``/``post_ln2`` with sandwich norms); layer ``i`` has kind
+``cfg.layer_kinds()[i]``.  A Python loop over the layers
 takes the place of the reference's ``lax.scan`` over stacked segments.
 Weights are stored in the compute dtype; the reference stores f32 and
 casts at each use, which computes the same thing.
@@ -23,34 +27,44 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
-_DENSE_DEFAULTS = {
-    "family": "dense", "use_qk_norm": False, "rope_theta_local": None,
-    "moe": None, "moe_layers": "none", "mla": None, "ssm": None,
+_DEFAULTS = {
+    "use_qk_norm": False, "rope_theta_local": None, "ssm": None,
     "xlstm": None, "encoder_layers": 0, "frontend": None,
 }
+_FAMILIES = ("dense", "moe")
+_MOE_LAYERS = ("none", "all_but_first")
 _KINDS = ("global", "local")
 _ACTIVATIONS = ("silu", "gelu")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for any configuration outside the port so far."""
-    odd = {k: getattr(cfg, k) for k, v in _DENSE_DEFAULTS.items()
+    odd = {k: getattr(cfg, k) for k, v in _DEFAULTS.items()
            if getattr(cfg, k) != v}
+    if cfg.family not in _FAMILIES:
+        odd["family"] = cfg.family
+    if cfg.moe_layers not in _MOE_LAYERS:
+        odd["moe_layers"] = cfg.moe_layers
     if set(cfg.layer_kinds()) - set(_KINDS):
         odd["layer_pattern"] = cfg.layer_pattern
+    elif cfg.mla is not None and set(cfg.layer_kinds()) != {"global"}:
+        odd["layer_pattern"] = cfg.layer_pattern    # MLA is global only
     if cfg.mlp_activation not in _ACTIVATIONS:
         odd["mlp_activation"] = cfg.mlp_activation
     if cfg.d_ff <= 0:
         odd["d_ff"] = cfg.d_ff
     if odd:
         raise NotImplementedError(
-            f"{cfg.name}: {odd} are not ported yet — the port serves dense "
+            f"{cfg.name}: {odd} are not ported yet — the port serves "
             f"decoders of global and sliding-window (local) attention "
             f"layers with softcaps, sandwich norms and a gated SiLU or "
-            f"tanh-GELU MLP; still to port: qk-norm and rope_theta_local "
-            f"(gemma3), MoE/MLA, recurrent (mamba, xLSTM) layers, "
-            f"encoders and multimodal frontends (ROADMAP.md queue A)")
+            f"tanh-GELU MLP, and of global MLA layers with MoE on all but "
+            f"the first layer; still to port: qk-norm and rope_theta_local "
+            f"(gemma3), MoE on every layer or every other one, recurrent "
+            f"(mamba, xLSTM) layers, encoders and multimodal frontends "
+            f"(ROADMAP.md queue A)")
     dtype_of(cfg.dtype)
 
 
@@ -62,15 +76,20 @@ class SegmentPlan:
 
 def plan_segments(cfg: ModelConfig) -> List[SegmentPlan]:
     """The reference's segmentation (``repro`` transformer.py:50) for the
-    configs the port takes: the layer pattern as one block repeated as
-    often as it fits, then the truncated tail as a segment of its own.
-    It is the layout of ``repro``'s parameter tree that ``convert``
+    configs the port takes: the dense first layer of ``moe_layers=
+    "all_but_first"`` as a segment of its own, then the layer pattern as
+    one block repeated as often as it fits, then the truncated tail.  It
+    is the layout of ``repro``'s parameter tree that ``convert``
     reads."""
     check_supported(cfg)
-    descs = [(k, False) for k in cfg.layer_kinds()]
+    kinds = cfg.layer_kinds()
+    descs = [(k, cfg.is_moe_layer(i)) for i, k in enumerate(kinds)]
+    segs = []
+    if cfg.moe is not None and cfg.moe_layers == "all_but_first":
+        segs.append(SegmentPlan((descs[0],), 1))
+        descs = descs[1:]
     p = len(cfg.layer_pattern)
     reps = len(descs) // p
-    segs = []
     if reps:
         segs.append(SegmentPlan(tuple(descs[:p]), reps))
     if descs[reps * p:]:
@@ -88,11 +107,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     dev = gen.device
     embed, unembed = L.init_embed(gen, cfg, dtype=dt)
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         p = {"ln1": L.norm_param(cfg.d_model, device=dev, dtype=dt),
-             "attn": A.init_attn(gen, cfg, dtype=dt),
-             "ln2": L.norm_param(cfg.d_model, device=dev, dtype=dt),
-             "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)}
+             "attn": (A.init_mla(gen, cfg, dtype=dt) if cfg.mla is not None
+                      else A.init_attn(gen, cfg, dtype=dt)),
+             "ln2": L.norm_param(cfg.d_model, device=dev, dtype=dt)}
+        if cfg.is_moe_layer(i):
+            p["moe"] = M.init_moe(gen, cfg, dtype=dt)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)
         if cfg.use_post_norms:
             for name in ("post_ln1", "post_ln2"):
                 p[name] = L.norm_param(cfg.d_model, device=dev, dtype=dt)
@@ -131,9 +154,11 @@ def _residual(p, x: torch.Tensor, y: torch.Tensor, post: str, cfg,
 
 def _mlp_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                plain: bool = False) -> torch.Tensor:
+    """The FFN sublayer: the MLP, or on an MoE layer the experts."""
     h = L.apply_norm(p["ln2"], x, plain=plain)
-    return _residual(p, x, L.apply_mlp(p["mlp"], h, cfg.mlp_activation),
-                     "post_ln2", cfg, plain)
+    y = (M.apply_moe(p["moe"], h, cfg, plain=plain) if "moe" in p
+         else L.apply_mlp(p["mlp"], h, cfg.mlp_activation))
+    return _residual(p, x, y, "post_ln2", cfg, plain)
 
 
 def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -142,9 +167,14 @@ def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     """Full-sequence layer.  ``rope`` is the (cos, sin) pair of the
     sequence's positions.  Returns (x, cache): K/V padded to
     ``cache_len``, or the window's ring for a local layer whose window
-    is shorter (no cache when ``cache_len`` is None)."""
+    is shorter (no cache when ``cache_len`` is None); MLA's K and V are
+    the materialised per-head ones, of their own widths."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
-    y, k, v = A.apply_attn(p["attn"], h, cfg, rope, kind=kind, plain=plain)
+    if cfg.mla is not None:
+        y, k, v = A.apply_mla(p["attn"], h, cfg, rope, plain=plain)
+    else:
+        y, k, v = A.apply_attn(p["attn"], h, cfg, rope, kind=kind,
+                               plain=plain)
     x = _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
                    plain=plain)
     if cache_len is None:
@@ -160,21 +190,32 @@ def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        cfg: ModelConfig, kind: str, lengths: torch.Tensor,
-                       rope, block_tables=None) -> torch.Tensor:
+                       rope, block_tables=None, *,
+                       plain: bool = False) -> torch.Tensor:
     """One-token layer step, x: (B, 1, d).  A cache holding ``kp``/``vp``
     is a paged pool pair of the global group, ``kw``/``vw`` one of the
     window group (ring tables), either quantized when ``ks``/``vs``
     scale pools sit beside it; one holding ``k``/``v`` a dense slot
     cache, or the window's ring.  ``block_tables`` is the (B, T) table,
     or for a model with a window group the dict {"global", "window"}.
-    The new token's K/V is written into the cache in place."""
-    h = L.apply_norm(p["ln1"], x)
+    The new token's K/V is written into the cache in place.  ``plain``
+    takes the plain version of every kernel, on any device (MLA layers:
+    the replay that ``chip_smoke.py`` holds the served path against)."""
+    if plain and cfg.mla is None:
+        raise ValueError("plain decode is built for MLA layers")
+    h = L.apply_norm(p["ln1"], x, plain=plain)
     if isinstance(block_tables, dict):
         bt_g, bt_w = block_tables.get("global"), block_tables.get("window")
     else:
         bt_g, bt_w = block_tables, None
     scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
-    if "kw" in cache:
+    if cfg.mla is not None:
+        paged = "kp" in cache
+        y = A.decode_mla(p["attn"], h, cache["kp" if paged else "k"],
+                         cache["vp" if paged else "v"], lengths, cfg, rope,
+                         block_tables=bt_g if paged else None,
+                         cache_scales=scales, plain=plain)
+    elif "kw" in cache:
         y = A.decode_attn(p["attn"], h, cache["kw"], cache["vw"], lengths,
                           cfg, rope, kind=kind, block_tables=bt_w,
                           cache_scales=scales, windowed=True)
@@ -187,7 +228,8 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                 and cache["k"].shape[2] == cfg.window)
         y = A.decode_attn(p["attn"], h, cache["k"], cache["v"], lengths, cfg,
                           rope, kind=kind, ring=ring)
-    return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg), cfg)
+    return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
+                      plain=plain)
 
 
 def apply_layer_spec_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -201,6 +243,10 @@ def apply_layer_spec_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     if kind != "global":
         raise ValueError(f"spec decode supports global-attention layers "
                          f"only, got {kind!r}")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "speculative decode over MLA layers is not ported yet "
+            "(ROADMAP.md queue A, item 10: B6 at 192/128)")
     if "kp" not in cache:
         raise ValueError("spec decode requires paged caches")
     h = L.apply_norm(p["ln1"], x)
@@ -228,12 +274,17 @@ def _logits(params, x: torch.Tensor, cfg: ModelConfig, *,
     return logits
 
 
+def _rope_dim(cfg: ModelConfig) -> int:
+    """The columns RoPE rotates: the head, or MLA's rope part."""
+    return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
+
+
 def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
              cache_len: Optional[int], *, plain: bool):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     # every layer rotates the same positions: one cos/sin for the stack
     rope = L.rope_cache(torch.arange(tokens.shape[1], device=x.device),
-                        cfg.head_dim, cfg.rope_theta)
+                        _rope_dim(cfg), cfg.rope_theta)
     caches = []
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
         x, c = apply_layer_prefill(p, x, cfg, kind, cache_len, rope,
@@ -242,15 +293,17 @@ def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     return x, caches
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int):
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache_len: int,
+            *, plain: bool = False):
     """Full-sequence prefill.  tokens: (B, S).  Returns (last-position
     logits (B, Vp), per-layer caches {"k", "v"}: (B, Hkv, cache_len, hd),
     or (B, Hkv, window, hd) rings for local layers whose window is
-    shorter than ``cache_len``)."""
-    x, caches = _forward(params, cfg, tokens, cache_len, plain=False)
+    shorter than ``cache_len``; MLA's (B, H, cache_len, qk|v)).
+    ``plain`` takes the plain version of every kernel, on any device."""
+    x, caches = _forward(params, cfg, tokens, cache_len, plain=plain)
     # the norm kernel takes dense rows: copy the strided last position
     last = x[:, -1:].contiguous()
-    return _logits(params, last, cfg)[:, 0], caches
+    return _logits(params, last, cfg, plain=plain)[:, 0], caches
 
 
 def forward_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -265,19 +318,22 @@ def forward_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
-                lengths, block_tables=None) -> torch.Tensor:
+                lengths, block_tables=None, *,
+                plain: bool = False) -> torch.Tensor:
     """One decode step.  tokens (B,) int; lengths (B,) int32, tokens
     already cached.  Writes the step's K/V into ``caches`` in place and
     returns logits (B, Vp).  ``block_tables`` routes paged pools: a
-    (B, T) table, or {"global", "window"} with a window group."""
+    (B, T) table, or {"global", "window"} with a window group.
+    ``plain`` takes the plain version of every kernel, on any device
+    (MLA models)."""
     x = L.embed_tokens(params["embed"], tokens[:, None], cfg)
     # each slot's position is its length, the same in every layer
-    cos, sin = L.rope_cache(lengths, cfg.head_dim, cfg.rope_theta)
+    cos, sin = L.rope_cache(lengths, _rope_dim(cfg), cfg.rope_theta)
     rope = (cos[:, None, :], sin[:, None, :])
     for p, c, kind in zip(params["layers"], caches, cfg.layer_kinds()):
         x = apply_layer_decode(p, x, c, cfg, kind, lengths, rope,
-                               block_tables)
-    return _logits(params, x, cfg)[:, 0]
+                               block_tables, plain=plain)
+    return _logits(params, x, cfg, plain=plain)[:, 0]
 
 
 def spec_decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
@@ -299,16 +355,27 @@ def spec_decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
     return _logits(params, x, cfg)
 
 
+def kv_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(cached heads, K width, V width) per layer: MLA caches the
+    materialised K (nope + rope) and V of every query head."""
+    m = cfg.mla
+    if m is None:
+        return cfg.num_kv_heads, cfg.head_dim, cfg.head_dim
+    return (cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim,
+            m.v_head_dim)
+
+
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
                        device) -> List[Dict[str, torch.Tensor]]:
-    """Zeroed dense caches (B, Hkv, S, hd) per layer: S = cache_len, or
-    the window for a local layer whose window is shorter (its ring,
-    ``repro`` transformer.py:176)."""
+    """Zeroed dense caches (B, H, S, Dk|Dv) per layer (``kv_dims``): S =
+    cache_len, or the window for a local layer whose window is shorter
+    (its ring, ``repro`` transformer.py:176)."""
     dt = dtype_of(cfg.dtype)
+    h, dk, dv = kv_dims(cfg)
     caches = []
     for kind in cfg.layer_kinds():
         s = cfg.window if _ring_cache(cfg, kind, cache_len) else cache_len
-        shape = (batch, cfg.num_kv_heads, s, cfg.head_dim)
-        caches.append({"k": torch.zeros(shape, device=device, dtype=dt),
-                       "v": torch.zeros(shape, device=device, dtype=dt)})
+        caches.append({
+            "k": torch.zeros((batch, h, s, dk), device=device, dtype=dt),
+            "v": torch.zeros((batch, h, s, dv), device=device, dtype=dt)})
     return caches

@@ -40,6 +40,11 @@ prompt's, and each step first frees the pages the window slid past
 then ensures the write page.  The dense engine keeps such layers in
 rings of the window.
 
+MLA models (deepseek-v2-lite-16b) cache the materialised per-head K
+and V, of their own widths, in the pools and the dense caches alike;
+their int8/fp8 pools and their speculative decoding are refused until
+the kernels for them are ported.
+
 Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
 ``spec_k`` tokens per slot from the slot's own token history
 (``tok_hist``: prompt lookup, no draft model), verifies the committed
@@ -66,6 +71,7 @@ import torch
 from repro_torch.core import tuning
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.registry import Model
+from repro_torch.models.transformer import kv_dims
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.quant import resolve_kv_spec
 from repro_torch.serve import paging
@@ -127,6 +133,13 @@ class Engine:
             raise ValueError(f"spec_mode must be one of {SPEC_MODES}, "
                              f"got {sc.spec_mode!r}")
         self.spec = sc.spec_mode != "off"
+        if model.cfg.mla is not None and (self.spec
+                                          or sc.kv_dtype not in (None, "bf16")):
+            raise NotImplementedError(
+                f"{model.cfg.name}: MLA layers are served from bf16 pools "
+                f"without speculation so far; kv_dtype={sc.kv_dtype!r} and "
+                f"spec_mode={sc.spec_mode!r} arrive with B5 and B6 at head "
+                f"dims 192/128 (ROADMAP.md queue A, item 10)")
         if self.spec:
             if not sc.paged:
                 raise ValueError("spec_mode requires paged=True (rollback "
@@ -208,11 +221,12 @@ class Engine:
                 # first live global page per slot: the mark free_prefix
                 # advances from
                 self.win_first = np.zeros((slots,), np.int64)
+            heads, dk, dv = kv_dims(cfg)
             self.caches = paging.init_paged_caches(
-                cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, total,
-                self.page_size, device=dev, dtype=dtype_of(cfg.dtype),
-                kv_spec=self.kv_spec, window_layers=window_layers,
-                total_pages_window=total_w)
+                cfg.num_layers, heads, dk, total, self.page_size, device=dev,
+                dtype=dtype_of(cfg.dtype), kv_spec=self.kv_spec,
+                window_layers=window_layers, total_pages_window=total_w,
+                v_head_dim=dv)
         else:
             self.windowed = False
             self.caches = model.init_decode_caches(slots, sc.cache_len, dev)

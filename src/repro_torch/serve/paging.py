@@ -2,7 +2,8 @@
 (``repro.serve.paging``: the global group and the window group).
 
 Allocation is host-side bookkeeping; the pools are device tensors, one
-``kp``/``vp`` pair of shape (Hkv, P, ps, D) per global-attention layer,
+``kp``/``vp`` pair of shape (Hkv, P, ps, D) per global-attention layer
+(an MLA layer's V pool narrower than its K pool),
 in the model's dtype or, with a quantizing ``KVQuantSpec``, in int8/fp8
 beside a ``ks``/``vs`` pair of (Hkv, P) f32 scale pools.  Page 0 is
 reserved as the null/trash page: unallocated table entries point at it
@@ -289,9 +290,11 @@ def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
                       dtype: torch.dtype,
                       kv_spec: Optional[KVQuantSpec] = None,
                       window_layers: Collection[int] = (),
-                      total_pages_window: Optional[int] = None
+                      total_pages_window: Optional[int] = None,
+                      v_head_dim: Optional[int] = None
                       ) -> List[Dict[str, torch.Tensor]]:
-    """One zeroed pool pair (Hkv, P, ps, D) per layer, in ``dtype`` or
+    """One zeroed pool pair (Hkv, P, ps, D) per layer (the V pool
+    ``v_head_dim`` wide where it is given: MLA), in ``dtype`` or
     the spec's storage dtype: ``kp``/``vp`` over ``total_pages`` pages,
     or, for the layers in ``window_layers`` (the window group),
     ``kw``/``vw`` over ``total_pages_window``.  A quantizing spec adds
@@ -303,13 +306,17 @@ def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
         raise ValueError("window-group layers need total_pages_window")
     pool_dtype = kv_spec.storage if kv_spec is not None else dtype
     quantized = kv_spec is not None and kv_spec.quantized
+    dv = head_dim if v_head_dim is None else v_head_dim
     caches = []
     for i in range(num_layers):
         win = i in window_layers
         shape = (num_kv_heads, total_pages_window if win else total_pages,
-                 page_size, head_dim)
-        c = {name: torch.zeros(shape, device=device, dtype=pool_dtype)
-             for name in (("kw", "vw") if win else ("kp", "vp"))}
+                 page_size)
+        kname, vname = ("kw", "vw") if win else ("kp", "vp")
+        c = {kname: torch.zeros(shape + (head_dim,), device=device,
+                                dtype=pool_dtype),
+             vname: torch.zeros(shape + (dv,), device=device,
+                                dtype=pool_dtype)}
         if quantized:
             for name in ("ks", "vs"):
                 c[name] = torch.ones(shape[:2], device=device,

@@ -9,6 +9,10 @@ writes the new K/V rows (and scales) into the caller's tensors IN PLACE
 and returns only the attention output.  The re-quantizing page write is
 plain PyTorch, as it is plain ``jnp`` outside any kernel in the
 reference; fusing it into a kernel is later work (ROADMAP.md).
+
+``plain`` on the dense and the paged bf16 paths takes the kernel's
+plain version on any device: the replay that ``chip_smoke.py`` holds
+the served path against.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, paged_decode_attention, quant_paged_decode_attention,
     quant_spec_paged_decode_attention, quant_window_paged_decode_attention,
@@ -27,11 +32,13 @@ from repro_torch.serve.paging import raw_bytes
 def decode_update_attend(q, k_new, v_new, k_cache, v_cache, write_pos,
                          eff_len, *, window: Optional[int] = None,
                          softcap: Optional[float] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, D); k_new/v_new: (B, Hkv, D) rope'd; caches (B, Hkv, S,
-    D) updated in place at ``write_pos``; returns (B, Hq, D).  A position
-    past the cache (a finished slot parked at ``cache_len``) writes
-    nothing, as the reference's one-hot select does."""
+                         scale: Optional[float] = None,
+                         plain: bool = False) -> torch.Tensor:
+    """q: (B, Hq, Dk); k_new/v_new: (B, Hkv, Dk|Dv) rope'd; caches (B,
+    Hkv, S, Dk|Dv) updated in place at ``write_pos``; returns (B, Hq,
+    Dv).  A position past the cache (a finished slot parked at
+    ``cache_len``) writes nothing, as the reference's one-hot select
+    does."""
     s = k_cache.shape[2]
     rows = torch.arange(q.shape[0], device=q.device)
     keep = (write_pos >= s)[:, None, None]
@@ -39,8 +46,9 @@ def decode_update_attend(q, k_new, v_new, k_cache, v_cache, write_pos,
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         cur = cache[rows, :, pos]
         cache[rows, :, pos] = torch.where(keep, cur, new.to(cache.dtype))
-    return decode_attention(q, k_cache, v_cache, eff_len, window=window,
-                            softcap=softcap, scale=scale)
+    fn = dec_ref.decode_attention_ref if plain else decode_attention
+    return fn(q, k_cache, v_cache, eff_len, window=window, softcap=softcap,
+              scale=scale)
 
 
 def paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
@@ -48,14 +56,19 @@ def paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
                                *, window: Optional[int] = None,
                                softcap: Optional[float] = None,
                                scale: Optional[float] = None,
-                               page_size: Optional[int] = None
-                               ) -> torch.Tensor:
+                               page_size: Optional[int] = None,
+                               plain: bool = False) -> torch.Tensor:
     """Write each slot's new K/V row into ``pools[:, write_page,
-    write_off]`` in place, then paged decode.  Pools (Hkv, P, ps, D);
-    freed slots write into the null page 0 (trash, never read)."""
+    write_off]`` in place, then paged decode.  Pools (Hkv, P, ps,
+    Dk|Dv); freed slots write into the null page 0 (trash, never
+    read)."""
     page, off = write_page.long(), write_off.long()
     k_pages[:, page, off] = k_new.transpose(0, 1).to(k_pages.dtype)
     v_pages[:, page, off] = v_new.transpose(0, 1).to(v_pages.dtype)
+    if plain:
+        return dec_ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, eff_len, window=window,
+            softcap=softcap, scale=scale)
     return paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   eff_len, window=window, softcap=softcap,
                                   scale=scale, page_size=page_size)

@@ -15,11 +15,15 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.configs.base import MLAConfig
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.gmm import gmm as gmm_kern
+from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
@@ -334,5 +338,100 @@ def test_gemma2_engine_on_card_matches_cpu(cuda, mode):
         assert all(r.done and len(r.out) == 12 for r in reqs)
         if eng.paged:
             assert eng.stats()["window_prefix_frees"] > 0
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------ deepseek: B8 and MLA builds --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,k,n,sizes", [
+    (4, 64, 128, 128, "registry"),        # repro's example: masked rows
+    (3, 24, 96, 136, "edges"),            # sizes 0, C and between; ragged
+    (8, 8, 256, 192, "full"),             # the decode tile (C <= 8)
+    (2, 184, 64, 128, "full")])           # the largest prefill's C
+def test_gmm_kernel(cuda, dtype, e, c, k, n, sizes):
+    """B8 against its plain version: f32 at the op's 2e-4, bf16 outputs
+    at 2e-2; rows at or past each expert's size are exact zeros."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    lhs = torch.randn(e, c, k, device=cuda, generator=g).to(dtype)
+    rhs = torch.randn(e, k, n, device=cuda, generator=g).to(dtype)
+    gs = {"registry": torch.arange(e) * (c // (e - 1)),
+          "edges": torch.tensor([0, c, 7]),
+          "full": torch.full((e,), c)}[sizes]
+    gs = gs.to(torch.int32).to(cuda)
+    before = gmm_kern.KERNEL.launches
+    got = gmm_ops.gmm(lhs, rhs, gs)
+    assert gmm_kern.KERNEL.launches == before + 1
+    want = gmm_ref.gmm_ref(lhs, rhs, gs)
+    tol = dict(atol=2e-4, rtol=2e-4) if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    for i, size in enumerate(gs.tolist()):
+        assert not got[i, size:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_attention_kernels(cuda, dtype):
+    """B2, B3 and B4 at Dk 192 / Dv 128 over 16 query heads on 16 kv
+    heads, against their plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    h, dk, dv = 16, 192, 128
+    q = torch.randn(2, h, 130, dk, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, h, 130, dk, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, h, 130, dv, device=cuda, generator=g).to(dtype)
+    got = fa_ops.flash_attention(q, k, v, scale=dk ** -0.5)
+    want = fa_ref.flash_attention_ref(q, k, v, scale=dk ** -0.5)
+    assert got.shape == (2, h, 130, dv)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    b, s, ps = 4, 300, 64
+    qd = torch.randn(b, h, dk, device=cuda, generator=g).to(dtype)
+    kc = torch.randn(b, h, s, dk, device=cuda, generator=g).to(dtype)
+    vc = torch.randn(b, h, s, dv, device=cuda, generator=g).to(dtype)
+    lengths = torch.tensor([0, 1, 299, 300], dtype=torch.int32, device=cuda)
+    want = dec_ref.decode_attention_ref(qd, kc, vc, lengths,
+                                        return_residuals=True)
+    got = dec_ops.decode_attention(qd, kc, vc, lengths,
+                                   return_residuals=True)
+    assert got[0].shape == (b, h, dv)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
+    (kp, _), bt = _pools_from_caches(kc, kc, ps,
+                                     torch.Generator().manual_seed(0))
+    (vp, _), _ = _pools_from_caches(vc, vc, ps,
+                                    torch.Generator().manual_seed(0))
+    for page_size in (None, 16):
+        got = dec_ops.paged_decode_attention(
+            qd, kp, vp, bt, lengths, page_size=page_size,
+            return_residuals=True)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_deepseek_engine_on_card_matches_cpu(cuda, paged):
+    """The deepseek smoke pattern (dense first layer, then MoE layers of
+    8 experts top 2 with shared experts) at MLA's head dims 192/128,
+    float32: the same greedy tokens on the card (B2, B3/B4, B8) and on
+    the CPU (plain versions)."""
+    base = smoke_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(
+        base, d_model=256, num_heads=2, num_kv_heads=2, head_dim=128,
+        d_ff=512, dtype="float32",
+        mla=MLAConfig(kv_lora_rank=64, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=paged)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        before = gmm_kern.KERNEL.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (gmm_kern.KERNEL.launches > before) == (dev == "cuda")
         outs[dev] = [r.out for r in reqs]
     assert outs["cuda"] == outs["cpu"]

@@ -29,6 +29,7 @@ from repro_torch.kernels.decode_attention import paged as paged_kern
 from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.gmm import ops as gmm_ops  # noqa: F401  (registers B8)
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
 
@@ -127,12 +128,17 @@ def test_flash_edge_cases(sq, skv, causal, window, softcap, q_offset):
 
 
 def test_flash_unported_variants_raise():
-    q = torch.zeros(1, 2, 4, 16)
-    k = torch.zeros(1, 2, 4, 16)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        fa_ops.flash_attention(q, k, torch.zeros(1, 2, 4, 8))
+    """Dk != Dv (MLA) is ported: the plain version agrees with the
+    reference's there; a traced q_offset is still refused."""
+    q, k, v = _rand((1, 2, 4, 16), 0), _rand((1, 2, 4, 16), 1), \
+        _rand((1, 2, 4, 8), 2)
+    want = jflash_ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), causal=True)
+    got = fa_ops.flash_attention(_t(q), _t(k), _t(v))
+    assert got.shape == (1, 2, 4, 8)
+    _close(got, want, fa_ops.TOL)
     with pytest.raises(NotImplementedError, match="q_offset"):
-        fa_ops.flash_attention(q, k, k, q_offset=torch.tensor(2))
+        fa_ops.flash_attention(_t(q), _t(k), _t(k), q_offset=torch.tensor(2))
 
 
 def test_decode_zero_length_slot_and_window():
@@ -285,7 +291,7 @@ def test_kernel_launchers_refuse_shapes_they_were_not_built_for():
 
 def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
-    assert names == ["decode_attention", "flash_attention",
+    assert names == ["decode_attention", "flash_attention", "gmm",
                      "paged_decode_attention",
                      "quant_paged_decode_attention",
                      "quant_window_paged_decode_attention", "rmsnorm",
@@ -297,4 +303,4 @@ def test_every_kernel_has_a_source_and_a_build_key():
         assert "Replaces the TPU kernel" in text and "Bound on the H100" in text
         assert f'extern "C" int {k.symbol}' in text
         assert k.library_path().parent == build.BUILD_DIR
-    assert len({k.library_path() for k in build.KERNELS}) == 8
+    assert len({k.library_path() for k in build.KERNELS}) == 9

@@ -75,13 +75,20 @@ def _prefill_both(dtype, toks):
 
 
 def test_config_matches_reference():
-    """The port's config copy keeps every field of the reference's."""
+    """The port's config copy keeps every field of the reference's (the
+    MoE and MLA sub-configs field by field), at full and smoke size."""
+    ds = "deepseek-v2-lite-16b"
     for want, got in ((get_config("granite-8b"),
                        port_configs.get_config("granite-8b")),
                       (smoke_config("granite-8b", num_layers=2),
-                       port_smoke_config("granite-8b", num_layers=2))):
+                       port_smoke_config("granite-8b", num_layers=2)),
+                      (get_config(ds), port_configs.get_config(ds)),
+                      (smoke_config(ds), port_smoke_config(ds))):
         for f in dataclasses.fields(got):
-            assert getattr(got, f.name) == getattr(want, f.name), f.name
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            if dataclasses.is_dataclass(a):
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, f.name
     with pytest.raises(NotImplementedError, match="not ported"):
         port_configs.get_config("gemma3-4b")
     with pytest.raises(KeyError):
