@@ -21,7 +21,12 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    reference's example with masked rows, sizes 0 and C, the decode
    shape and the largest prefill's, timed beside ``torch.bmm``) and
    the Dk 192 / Dv 128 builds of the prefill, dense and paged decode
-   kernels (MLA);
+   kernels (MLA); then jamba-1.5-large-398b's: the selective scan of the
+   mamba layers (the reference's example, then B 1 and 2 x S 17, 64,
+   200 and 511 at d_inner 16384 and 16 states, bf16 with f32 A and D),
+   and the norm, prefill, dense and paged decode kernels (64 query heads
+   on 8 KV heads of 128) and the grouped matmul (16 experts of 8192 x
+   24576) at its shapes;
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -61,8 +66,18 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    own calls (same prefill groups, same decode batches, the served
    tokens and expert choices fed back, so each MoE call drops what it
    dropped when served; a replay routing by its own top-k is reported);
-10. trace five paged decode steps of each model for the card's busy
+10. free deepseek-v2-lite-16b and serve the same 12 requests on
+   ``jamba-1.5-large-398b`` at full width cut to 4 layers (an attention
+   layer with a dense MLP, then three mamba layers, the first and third
+   with 16 experts top-2 of d_ff 24,576; 23 B parameters, 46 GB; random
+   weights from a seed), paged and dense: checked as phase 9, with 1
+   launch of the mode's decode kernel and 6 of the grouped matmul per
+   decode step (and 6 per admitted group), and 3 of the selective scan
+   per admitted group and none in a decode step;
+11. trace five paged decode steps of each model for the card's busy
    share (reported, not checked).
+
+Each phase prints its wall time.
 
 It then prints a ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without
@@ -85,6 +100,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM: 80 GB HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM: dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12      # H100 SXM: dense int8 / fp8 tensor-core peak
+# exponentials: 16 ex2 per clock per SM on sm_90 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput) x 132 SMs x the 1,980 MHz
+# boost clock of the H100 SXM
+EXP_PER_S = 132 * 16 * 1.98e9
 # atol = rtol by the output's dtype, compared in f32.  Both sides read
 # the same inputs and sum in f32, in another order; bf16 outputs are
 # also rounded to 8 mantissa bits.  The decode kernels' residuals
@@ -112,6 +131,14 @@ G2_SOFTCAP = 50.0
 # value 128) over d_model 2048; 64 routed experts, top 6, of d_ff 1408
 DS_H, DS_DK, DS_DV = 16, 192, 128
 DS_E, DS_TOPK, DS_D, DS_FF = 64, 6, 2048, 1408
+# jamba-1.5-large-398b at full width, cut to 4 layers (attention, then
+# three mamba layers; MoE on layers 1 and 3): 64 query / 8 KV heads of
+# 128 over d_model 8192; mamba d_inner 16384 with 16 states; 16 experts
+# top-2 of d_ff 24576
+JB_LAYERS, JB_HQ, JB_HKV, JB_DM = 4, 64, 8, 8192
+JB_DI, JB_N, JB_E, JB_TOPK, JB_FF = 16384, 16, 16, 2, 24576
+# the scan's check lengths: below, at and off multiples of the chunk
+JB_SCAN_LENS = (17, 64, 200, 511)
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -141,12 +168,16 @@ class Smoke:
 
     def phase(self, name, fn, *args):
         print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:                       # report, go on, fail at end
             traceback.print_exc()
             self.failures.append(f"{name}: {traceback.format_exc(limit=1)}")
             return None
+        finally:
+            print(f"   ({name}: {time.perf_counter() - t0:.1f} s)",
+                  flush=True)
 
     def time_ms(self, fn, iters: int = 20) -> float:
         torch = self.torch
@@ -187,23 +218,23 @@ class Smoke:
         return err
 
     def timings(self, what, ms, plain_ms, nbytes, flops, library_ms,
-                ops_per_s=BF16_FLOPS_PER_S):
+                ops_per_s=BF16_FLOPS_PER_S, unit="GFLOP"):
         """Print a kernel's times beside the least time the card could
-        take (``ops_per_s``: the peak for the inputs' type); returns
-        (bound_ms, bound_by)."""
+        take (``ops_per_s``: the peak for the operations' type, counted
+        in ``unit``); returns (bound_ms, bound_by)."""
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / ops_per_s * 1e3
         by = "bytes" if t_bytes >= t_ops else "operations"
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         print(f"  {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library {lib}, bound {max(t_bytes, t_ops):.4f} ms "
-              f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+              f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} {unit})")
         return max(t_bytes, t_ops), by
 
     def record(self, name, source, replaces, err, ms, plain_ms, nbytes,
-               flops, library_ms, ops_per_s=BF16_FLOPS_PER_S):
+               flops, library_ms, ops_per_s=BF16_FLOPS_PER_S, unit="GFLOP"):
         bound, by = self.timings(name, ms, plain_ms, nbytes, flops,
-                                 library_ms, ops_per_s)
+                                 library_ms, ops_per_s, unit)
         self.kernels[name] = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
@@ -874,6 +905,170 @@ def check_mla_builds(s: Smoke) -> None:
                   nbytes + 4 * live_pages, flops, None)
 
 
+# ------------------------------------------- jamba-1.5-large kernels -----
+
+def check_mamba_scan(s: Smoke) -> None:
+    """B9 against its plain version, y and h_T: the reference's registry
+    example (B 2, S 64, d 32, 8 states, f32) and jamba's shapes (B 1 and
+    2 x S 17, 64, 200 and 511, d_inner 16384, 16 states; x, dt, B and C
+    in bf16, A and D in f32, as the mamba layer hands them over); timed
+    at the largest prefill group, B 2 x S 511.  No PyTorch call computes
+    a selective scan: no library time."""
+    torch = s.torch
+    from repro_torch.kernels.mamba_scan import ops, ref
+    softplus = torch.nn.functional.softplus
+    g = torch.Generator(device=s.dev).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=s.dev, generator=g)
+
+    b, n, d, n_st = 2, 64, 32, 8
+    args = (rnd(b, n, d), softplus(rnd(b, n, d)),
+            -torch.exp(0.5 * rnd(d, n_st)), rnd(b, n, n_st), rnd(b, n, n_st),
+            rnd(d))
+    s.compare(f"mamba_scan ({b}, {n}, {d}), {n_st} states, f32 (y, h_T)",
+              ops.mamba_scan(*args), ref.mamba_scan_ref(*args))
+    # jamba's A is S4D-real (-1 .. -16 per channel) and its dt small
+    a = -torch.arange(1, JB_N + 1, dtype=torch.float32,
+                      device=s.dev).expand(JB_DI, JB_N).contiguous()
+
+    def operands(b, n):
+        return (rnd(b, n, JB_DI).bfloat16(),
+                softplus(rnd(b, n, JB_DI) - 2.0).bfloat16(), a,
+                rnd(b, n, JB_N).bfloat16(), rnd(b, n, JB_N).bfloat16(),
+                rnd(JB_DI))
+
+    err = 0.0
+    for b in (1, 2):
+        for n in JB_SCAN_LENS:
+            args = operands(b, n)
+            err = max(err, s.compare(
+                f"mamba_scan ({b}, {n}, {JB_DI}), {JB_N} states, bf16 x/dt/"
+                f"B/C, f32 A/D (y, h_T)", ops.mamba_scan(*args),
+                ref.mamba_scan_ref(*args)))
+    b, n = 2, PROMPT_LENS[-1]
+    args = operands(b, n)
+    # x, dt and y in bf16, B and C rows, A, D and h_T in f32; one exp per
+    # (token, channel, state)
+    nbytes = (3 * b * n * JB_DI * 2 + 2 * b * n * JB_N * 2
+              + (JB_DI * JB_N + JB_DI + b * JB_DI * JB_N) * 4)
+    s.record("mamba_scan", "mamba_scan.cu",
+             "src/repro/kernels/mamba_scan/mamba_scan.py:52", err,
+             s.time_ms(lambda: ops.mamba_scan(*args)),
+             s.time_ms(lambda: ref.mamba_scan_ref(*args)), nbytes,
+             b * n * JB_DI * JB_N, None, EXP_PER_S, unit="G exp")
+
+
+def check_jamba_shapes(s: Smoke) -> None:
+    """B1, B2, B3 and B4 at jamba's shapes (d_model 8192; 64 query heads
+    on 8 KV heads of 128, a GQA group of 8) and B8 at its expert shapes
+    (16 experts of 8192 x 24576: 6.4 GB of weights per call), against
+    their plain versions; their times go into each kernel's record
+    under "jamba"."""
+    torch = s.torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.gmm import ops as gops
+    from repro_torch.kernels.gmm import ref as gref
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.models.moe import _capacity
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=s.dev).manual_seed(12)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=s.dev, generator=g,
+                           dtype=torch.bfloat16)
+
+    # B1: the largest prefill group, 2 x 511 rows of 8192
+    b, n = 2, PROMPT_LENS[-1]
+    x, w = rnd(b * n, JB_DM), 0.1 * rnd(JB_DM)
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    err = s.compare(f"rmsnorm ({b * n}, {JB_DM}) bf16",
+                    rops.rmsnorm(x, w, **kw), rref.rmsnorm_ref(x, w, **kw))
+    s.record_also("rmsnorm", "jamba", err,
+                  s.time_ms(lambda: rops.rmsnorm(x, w, **kw)),
+                  s.time_ms(lambda: rref.rmsnorm_ref(x, w, **kw)),
+                  2 * x.numel() * 2 + 2 * JB_DM, 4 * x.numel(),
+                  s.time_ms(lambda: torch.nn.functional.rms_norm(
+                      x, (JB_DM,), w + 1.0, 1e-6)))
+    # B2: B 2 x S 511, 64/8 heads of 128, causal
+    q, k, v = rnd(b, JB_HQ, n, 128), rnd(b, JB_HKV, n, 128), \
+        rnd(b, JB_HKV, n, 128)
+    err = s.compare(f"flash ({b}, {JB_HQ}/{JB_HKV}, {n}, 128) causal bf16",
+                    fops.flash_attention(q, k, v),
+                    fref.flash_attention_ref(q, k, v))
+    s.record_also("flash_attention", "jamba", err,
+                  s.time_ms(lambda: fops.flash_attention(q, k, v)),
+                  s.time_ms(lambda: fref.flash_attention_ref(q, k, v)),
+                  2 * (q.numel() + 2 * k.numel() + q.numel()),
+                  4 * b * JB_HQ * 128 * n * (n + 1) // 2,
+                  s.time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                         enable_gqa=True)))
+    del q, k, v
+    # B3 and B4: 8 slots, lengths 1..1024, a group of 8
+    heads = dict(hq=JB_HQ, hkv=JB_HKV, d=128)
+    qd, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS, **heads)
+    dkw = dict(return_residuals=True)
+    got = ops.decode_attention(qd, kc, vc, ln, **dkw)
+    want = ref.decode_attention_ref(qd, kc, vc, ln, **dkw)
+    s.compare("decode residuals, 64/8 heads of 128, lengths 1..1024", got,
+              want)
+    err = s.compare("decode group 8 output acc / l", _normalized(got),
+                    _normalized(want))
+    nbytes, flops = _decode_cost(DECODE_LENGTHS, **heads)
+    mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+    s.record_also("decode_attention", "jamba", err,
+                  s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
+                                                         **dkw)),
+                  s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
+                                                             **dkw)),
+                  nbytes, flops,
+                  s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
+                                         attn_mask=mask, enable_gqa=True)))
+    kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
+    got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **dkw)
+    want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **dkw)
+    s.compare("paged residuals, 64/8 heads of 128, page 64", got, want)
+    err = s.compare("paged group 8 output acc / l", _normalized(got),
+                    _normalized(want))
+    live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    s.record_also("paged_decode_attention", "jamba", err,
+                  s.time_ms(lambda: ops.paged_decode_attention(
+                      qd, kp, vp, bt, ln, **dkw)),
+                  s.time_ms(lambda: ref.paged_decode_attention_ref(
+                      qd, kp, vp, bt, ln, **dkw)),
+                  nbytes + 4 * live_pages, flops, None)
+    del qd, kc, vc, kp, vp
+    # B8: decode (C 8 at 8 slots) gate/up and down, and the largest
+    # prefill group's gate/up (C 160 for 2 x 511 tokens)
+    c_dec = _capacity(SLOTS, JB_E, JB_TOPK, 1.25)
+    c_pre = _capacity(b * n, JB_E, JB_TOPK, 1.25)
+    print(f"  capacity: {c_dec} rows per expert at decode ({SLOTS} slots), "
+          f"{c_pre} at the largest prefill ({b} x {n} tokens)")
+
+    def run(c, kk, nn, what):
+        lhs, rhs = rnd(JB_E, c, kk), rnd(JB_E, kk, nn)
+        gs = torch.full((JB_E,), c, dtype=torch.int32, device=s.dev)
+        err = s.compare(f"gmm {what} ({JB_E}, {c}, {kk}) @ ({JB_E}, {kk}, "
+                        f"{nn}) bf16", gops.gmm(lhs, rhs, gs),
+                        gref.gmm_ref(lhs, rhs, gs))
+        nbytes = 2 * (lhs.numel() + rhs.numel() + JB_E * c * nn) + 4 * JB_E
+        return err, (s.time_ms(lambda: gops.gmm(lhs, rhs, gs)),
+                     s.time_ms(lambda: gref.gmm_ref(lhs, rhs, gs)),
+                     nbytes, 2 * JB_E * c * kk * nn,
+                     s.time_ms(lambda: torch.bmm(lhs, rhs)))
+
+    err, times = run(c_dec, JB_DM, JB_FF, "jamba decode gate/up")
+    s.record_also("gmm", "jamba", err, *times)
+    _, times = run(c_dec, JB_FF, JB_DM, "jamba decode down")
+    s.timings("gmm (jamba decode down projection)", *times)
+    err, times = run(c_pre, JB_DM, JB_FF, "jamba prefill gate/up")
+    s.record_also("gmm", "jamba prefill", err, *times)
+
+
 # ------------------------------------------------------------ serving -----
 
 def _requests(vocab: int, prompt_lens=PROMPT_LENS):
@@ -1102,7 +1297,7 @@ def traced_busy_share(s: Smoke, model, params, cache_len=CACHE_LEN,
     for _ in range(PROFILED_STEPS[1] - PROFILED_STEPS[0]):
         engine.step()                     # each step ends in a sync
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms = _device_busy_ms(prof)
+    busy_ms = _device_busy_ms(prof, PROFILED_STEPS[1] - PROFILED_STEPS[0])
     return None if busy_ms is None else busy_ms / wall_ms
 
 
@@ -1119,12 +1314,17 @@ def _profiler(torch):
     return prof
 
 
-def _device_busy_ms(prof):
+def _device_busy_ms(prof, steps: int):
     """Summed kernel time of the traced window, or None when the trace
-    holds no device time (then the share is "not measured")."""
+    holds no device time (then the share is "not measured"); prints the
+    six kernels that took the most of it, per step."""
     prof.stop()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
+    rows = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
+                   for e in prof.key_averages()), reverse=True)
+    for us, name in rows[:6]:
+        if us > 0:
+            print(f"    {us / 1e3 / steps:8.3f} ms per step  {name[:100]}")
+    total_us = sum(us for us, _ in rows)
     return total_us / 1e3 if total_us > 0 else None
 
 
@@ -1162,7 +1362,8 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
     kernel in ``per_step`` launched exactly that many times per decode
     step (plus ``per_group[k]`` per admitted group, for a kernel that
     prefill runs too) and none in ``kernels_idle`` ever (nor B8 for a
-    model without experts), that a paged run's allocator audit is clean
+    model without experts, nor B9 for one without mamba layers), that a
+    paged run's allocator audit is clean
     at the end and, with a window group, that pages behind the window
     were freed; and the teacher-forced gap (reported only where
     ``teacher_checked`` is false: a quantized pool is not the bf16
@@ -1194,6 +1395,8 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
                 + (f" and {g} per admitted group" if g else "")
                 + f" ({st['launches'][kname]} = {n} x {st['decode_steps']}"
                 + (f" + {g} x {st['groups']}" if g else "") + ")")
+    if "mamba" not in model.cfg.layer_kinds():
+        kernels_idle = tuple(kernels_idle) + ("mamba_scan",)
     if model.cfg.moe is None:
         kernels_idle = tuple(kernels_idle) + ("gmm",)
     else:
@@ -1370,8 +1573,8 @@ def run_serving(s: Smoke):
 def run_traces(s: Smoke):
     """The card's busy share over paged decode steps of each model,
     fresh weights from the same seed; last, since tracing slows every
-    later step (deepseek-v2-lite-16b's is traced first, then gemma2-2b's
-    and granite-8b's, each a lower bound)."""
+    later step (deepseek-v2-lite-16b's is traced first, then gemma2-2b's,
+    granite-8b's and jamba-1.5-large-398b's, each a lower bound)."""
     torch = s.torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -1379,8 +1582,10 @@ def run_traces(s: Smoke):
     for arch, shape in (("deepseek-v2-lite-16b", {}),
                         ("gemma2-2b", dict(cache_len=G2_CACHE_LEN,
                                            prompt_lens=G2_PROMPT_LENS)),
-                        ("granite-8b", {})):
-        model = build_model(get_config(arch))
+                        ("granite-8b", {}),
+                        ("jamba-1.5-large-398b", {})):
+        model = build_model(_jamba_config() if arch.startswith("jamba")
+                            else get_config(arch))
         params = model.init(torch.Generator(device=s.dev).manual_seed(0),
                             device=s.dev)
         share = traced_busy_share(s, model, params, **shape)
@@ -1514,6 +1719,84 @@ def run_serving_deepseek(s: Smoke):
     return dict(stats, tokens_agree=agree)
 
 
+def _jamba_config():
+    """jamba-1.5-large-398b at full width, cut to its first 4 layers:
+    one 8-layer period is 90.5 GB in bf16, more than the card holds;
+    4 layers are the least depth with every layer combination it has
+    (attention with a dense MLP, mamba with MoE, mamba with a dense
+    MLP)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                               num_layers=JB_LAYERS)
+
+
+def run_serving_jamba(s: Smoke):
+    """jamba-1.5-large-398b at full width, 4 layers (attention, then
+    three mamba layers, MoE of 16 experts top-2 on layers 1 and 3),
+    served paged (B4) and dense (B3), B8 on every MoE layer and B9 on
+    every mamba layer's prefill, held to a plain replay of its own
+    calls."""
+    import gc
+    torch = s.torch
+    from repro_torch.models.registry import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    s.check(held < 1.0, f"the earlier models' weights and pools are freed "
+                        f"({held:.3f} GiB still allocated)")
+    cfg = _jamba_config()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                        device=s.dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    kinds = cfg.layer_kinds()
+    n_attn, n_mamba = kinds.count("global"), kinds.count("mamba")
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    m = cfg.moe
+    print(f"  jamba-1.5-large-398b: {cfg.num_layers} of its 72 layers "
+          f"({kinds}; MoE on {n_moe}: {m.num_experts} experts top-"
+          f"{m.top_k}, d_ff {m.d_ff_expert}), d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"mamba d_inner {cfg.ssm.expand * cfg.d_model} with "
+          f"{cfg.ssm.d_state} states, {n / 1e9:.3f} B parameters "
+          f"({nbytes / 1e9:.2f} GB), random from seed 0 "
+          f"({time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+    runs, stats = {}, {}
+    decode = ("decode_attention", "paged_decode_attention",
+              "window_paged_decode_attention",
+              "quant_paged_decode_attention",
+              "quant_window_paged_decode_attention",
+              "spec_paged_decode_attention")
+
+    def run(name, mode, decode_kernel):
+        print(f"== serve jamba-1.5-large-398b, {name}", flush=True)
+        per_step = {decode_kernel: n_attn, "gmm": 3 * n_moe, "mamba_scan": 0}
+        runs[name], stats[name] = check_serving(
+            s, model, params, f"jamba {name}", mode, per_step,
+            tuple(k for k in decode if k != decode_kernel),
+            prefill=("rmsnorm", "flash_attention", "gmm", "mamba_scan"),
+            per_group={"gmm": 3 * n_moe, "mamba_scan": n_mamba},
+            replay=True)
+        for kname in ("rmsnorm", "flash_attention", "gmm", decode_kernel):
+            s.kernels[kname]["jamba"]["launches"] = \
+                stats[name]["launches"][kname]
+
+    run("paged", dict(paged=True), "paged_decode_attention")
+    run("dense", dict(paged=False), "decode_attention")
+    agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
+    print(f"  jamba dense and paged agree on {agree['dense_paged']} of "
+          f"{stats['paged']['tokens']} tokens")
+    del params
+    torch.cuda.empty_cache()
+    return dict(stats, tokens_agree=agree)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1542,6 +1825,7 @@ def main() -> int:
              f"a checkout of the repository")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     s = Smoke(torch)
 
     print("== card", flush=True)
@@ -1558,6 +1842,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as _d  # noqa: F401
     from repro_torch.kernels.flash_attention import ops as _f  # noqa: F401
     from repro_torch.kernels.gmm import ops as _g  # noqa: F401
+    from repro_torch.kernels.mamba_scan import ops as _m  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _r  # noqa: F401
     secs = s.phase("build", build.build_all)
     if secs is not None:
@@ -1571,7 +1856,9 @@ def main() -> int:
                      ("head-dim-256 builds (gemma2 shapes)",
                       check_head_dim_256),
                      ("gmm (deepseek shapes)", check_gmm),
-                     ("192/128 builds (deepseek shapes)", check_mla_builds)):
+                     ("192/128 builds (deepseek shapes)", check_mla_builds),
+                     ("mamba_scan (jamba shapes)", check_mamba_scan),
+                     ("B1-B4 and gmm (jamba shapes)", check_jamba_shapes)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
@@ -1583,6 +1870,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_ds = s.phase("serve deepseek-v2-lite-16b at full width",
                          run_serving_deepseek, s)
+    serving_jb = s.phase("serve jamba-1.5-large-398b at full width, "
+                         f"{JB_LAYERS} layers", run_serving_jamba, s)
     traces = s.phase("trace the card over paged decode steps", run_traces, s)
 
     for k in s.kernels.values():
@@ -1595,8 +1884,11 @@ def main() -> int:
         print(json.dumps({"serving_gemma2": serving_g2}))
     if serving_ds is not None:
         print(json.dumps({"serving_deepseek": serving_ds}))
+    if serving_jb is not None:
+        print(json.dumps({"serving_jamba": serving_jb}))
     if traces is not None:
         print(json.dumps({"device_busy_share": traces}))
+    print(f"== total {time.perf_counter() - t_start:.1f} s, builds included")
     if s.failures:
         _die("failed:\n  " + "\n  ".join(s.failures))
     print(json.dumps({"kernels": list(s.kernels.values())}))

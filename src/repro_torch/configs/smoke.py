@@ -1,16 +1,17 @@
 """Reduced same-family configs for CPU tests (``repro.configs.smoke``).
 
 Same layer pattern, tiny widths, the reference's window of 16 for
-sliding-window configs, and its MLA and MoE shrink rules (with the
-leading dense layer of ``moe_layers="all_but_first"`` kept).  The
-SSM/xLSTM rules arrive with the slices that port those families.
+sliding-window configs, and its MLA, MoE and SSM shrink rules (with
+the leading dense layer of ``moe_layers="all_but_first"`` kept).  The
+xLSTM rule arrives with the slice that ports that family.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 
 
 def smoke_config(arch_id: str, *, num_layers: int = 0) -> ModelConfig:
@@ -32,6 +33,8 @@ def smoke_config(arch_id: str, *, num_layers: int = 0) -> ModelConfig:
             d_ff_shared=128 if cfg.moe.num_shared_experts else 0,
             dense_residual=cfg.moe.dense_residual,
             capacity_factor=2.0)
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2)
     if cfg.window is not None:
         kw["window"] = 16
     return dataclasses.replace(cfg, **kw)

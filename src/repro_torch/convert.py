@@ -11,7 +11,11 @@ times; gemma2: a (local, global) block repeated 13 times, with the
 sandwich norms ``post_ln1``/``post_ln2``; deepseek: a dense first MLA
 layer, then one MLA + MoE layer repeated 26 times, its ``moe`` leaf
 holding the router, the stacked expert weights and the shared
-experts' MLP).
+experts' MLP; jamba: the 8-layer block of one attention and seven mamba
+layers, MoE on the odd positions (``every_2``), repeated, then the
+tail, each mamba layer's ``mamba`` leaf holding its projections, conv
+and SSM parameters).  The router and mamba's ``ssm.F32_PARAMS`` stay in
+f32, as the reference computes with them.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.models.ssm import F32_PARAMS
 from repro_torch.models.transformer import plan_segments
 
 
@@ -72,6 +77,10 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                 p[name] = mlp(m[name], r)
         return p
 
+    def mamba(m, r):
+        return {name: t(leaf[r], dtype=torch.float32 if name in F32_PARAMS
+                        else None) for name, leaf in m.items()}
+
     layers = []
     for seg, plan in zip(segments, plans):
         n = np.asarray(seg[0]["ln1"]).shape[0]
@@ -81,7 +90,10 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
         for r in range(n):
             for blk in seg:
                 layer = {name: t(blk[name][r]) for name in norms}
-                layer["attn"] = attn(blk["attn"], r)
+                if "mamba" in blk:
+                    layer["mamba"] = mamba(blk["mamba"], r)
+                else:
+                    layer["attn"] = attn(blk["attn"], r)
                 if "moe" in blk:
                     layer["moe"] = moe(blk["moe"], r)
                 else:

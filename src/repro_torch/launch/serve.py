@@ -18,6 +18,15 @@ its 27 layers), paged or dense, bf16 pools:
       --arch deepseek-v2-lite-16b --paged --prompts 12 --prompt-len 511 \
       --slots 8 --cache-len 1024
 
+jamba-1.5-large-398b (global attention and mamba layers, 16 experts
+top-2 on every other layer; the selective-scan kernel on every mamba
+prefill), paged or dense, bf16 pools; the full 72 layers do not fit one
+card (``chip_smoke.py`` serves a 4-layer cut of it):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --smoke --paged --page-size 4 \
+      --device cpu
+
 From an int8 pool, speculating 4 tokens per step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \

@@ -132,7 +132,7 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, lengths: torch.Tensor,
                 cfg: ModelConfig, rope, *, kind: str = "global",
                 ring: bool = False, block_tables=None, cache_scales=None,
-                windowed: bool = False) -> torch.Tensor:
+                windowed: bool = False, plain: bool = False) -> torch.Tensor:
     """One-token decode.  x: (B, 1, d); ``rope`` is ``L.rope_cache`` of
     ``lengths``, shaped (B, 1, hd/2).  The new token's K/V is written
     into the cache IN PLACE, then the step attends over ``lengths + 1``
@@ -148,7 +148,12 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
 
     ``cache_scales`` (ks, vs), the (Hkv, P) scale pools, marks the pools
     quantized: the write re-quantizes the page and the quantized kernel
-    reads it.  Returns out (B, 1, d)."""
+    reads it.  ``plain`` takes the kernel's plain version on any device,
+    over a dense cache or ring or a bf16 pool of the global group.
+    Returns out (B, 1, d)."""
+    if plain and (windowed or cache_scales is not None):
+        raise ValueError("plain decode is built for dense caches and bf16 "
+                         "pools of the global group")
     xd = x.dtype
     q = (x[:, 0] @ p["wq"].to(xd)).view(x.shape[0], cfg.num_heads, -1)
     k = (x[:, 0] @ p["wk"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
@@ -185,15 +190,18 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
                       cache_scales[1], block_tables, write_page, write_off,
                       eff_len, page_size=ps, **kw)
         else:
+            if plain:
+                kw["plain"] = True
             out = fn(q, k, v, cache_k, cache_v, block_tables, write_page,
                      write_off, eff_len, page_size=ps, **kw)
     elif ring:
         w = cache_k.shape[2]
         out = decode_update_attend(q, k, v, cache_k, cache_v, lengths % w,
-                                   eff_len.clamp(max=w), **kw)
+                                   eff_len.clamp(max=w), plain=plain, **kw)
     else:
         out = decode_update_attend(q, k, v, cache_k, cache_v, lengths,
-                                   eff_len, window=_window(cfg, kind), **kw)
+                                   eff_len, window=_window(cfg, kind),
+                                   plain=plain, **kw)
     return (out.reshape(x.shape[0], -1) @ p["wo"].to(xd))[:, None, :]
 
 

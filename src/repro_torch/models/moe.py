@@ -56,6 +56,18 @@ def stop_counting_drops() -> None:
 
 # ------------------------------------------------------------- params ---
 
+def _expert_stack(gen: torch.Generator, e: int, shape, *, dtype,
+                  in_axis_size: int) -> torch.Tensor:
+    """(E, *shape) weights drawn expert by expert: the f32 draw of a
+    whole stack would be a transient twice the stack's bf16 size (12.9
+    GB for one of jamba's)."""
+    w = torch.empty((e, *shape), dtype=dtype, device=gen.device)
+    for i in range(e):
+        w[i] = L.dense_init(gen, shape, dtype=dtype,
+                            in_axis_size=in_axis_size)
+    return w
+
+
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, dtype):
     """The reference's laws (normal / sqrt(fan_in)).  The router stays
     in f32, as the reference computes with it (routing is where a bf16
@@ -63,11 +75,12 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, *, dtype):
     m = cfg.moe
     d, e, ff = cfg.d_model, m.num_experts, m.d_ff_expert
     p = {"router": L.dense_init(gen, (d, e), dtype=torch.float32),
-         "we_gate": L.dense_init(gen, (e, d, ff), dtype=dtype,
-                                 in_axis_size=d),
-         "we_up": L.dense_init(gen, (e, d, ff), dtype=dtype, in_axis_size=d),
-         "we_down": L.dense_init(gen, (e, ff, d), dtype=dtype,
-                                 in_axis_size=ff)}
+         "we_gate": _expert_stack(gen, e, (d, ff), dtype=dtype,
+                                  in_axis_size=d),
+         "we_up": _expert_stack(gen, e, (d, ff), dtype=dtype,
+                                in_axis_size=d),
+         "we_down": _expert_stack(gen, e, (ff, d), dtype=dtype,
+                                  in_axis_size=ff)}
     if m.num_shared_experts > 0:
         p["shared"] = L.init_mlp(gen, d, m.d_ff_shared, dtype=dtype)
     if m.dense_residual:

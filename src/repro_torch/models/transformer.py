@@ -1,20 +1,25 @@
 """Decoder stack (``repro.models.transformer``, the branches serving
 takes for decoders of global and sliding-window attention layers:
 granite-8b; gemma2-2b's alternating local/global pattern with softcaps,
-sandwich norms, a tanh-GELU MLP and a scaled embedding; and
+sandwich norms, a tanh-GELU MLP and a scaled embedding;
 deepseek-v2-lite-16b's MLA attention with a dense first layer and MoE
-layers after it).
+layers after it; and jamba-1.5's hybrid of global attention and mamba
+layers with MoE on every other layer).
 
 Parameters are a dict of tensors: ``embed`` (Vp, d), ``unembed``
 (d, Vp), ``final_norm`` (d,), and ``layers``, a list with one dict per
 layer (``ln1``, ``attn.{wq,wk,wv,wo}`` or with MLA ``attn.{wq_mla,
-wkv_a,wkv_b,wo_mla}``, ``ln2``, ``mlp.{w_gate,w_up,w_down}`` or on an
-MoE layer ``moe.{router,we_gate,we_up,we_down,shared}``, and
-``post_ln1``/``post_ln2`` with sandwich norms); layer ``i`` has kind
-``cfg.layer_kinds()[i]``.  A Python loop over the layers
-takes the place of the reference's ``lax.scan`` over stacked segments.
-Weights are stored in the compute dtype; the reference stores f32 and
-casts at each use, which computes the same thing.
+wkv_a,wkv_b,wo_mla}`` or on a mamba layer ``mamba.{in_proj,conv_w,
+conv_b,x_proj,dt_proj,dt_bias,a_log,d_skip,out_proj}``, ``ln2``,
+``mlp.{w_gate,w_up,w_down}`` or on an MoE layer ``moe.{router,we_gate,
+we_up,we_down,shared}``, and ``post_ln1``/``post_ln2`` with sandwich
+norms); layer ``i`` has kind ``cfg.layer_kinds()[i]``.  A Python loop
+over the layers takes the place of the reference's ``lax.scan`` over
+stacked segments.  Weights are stored in the compute dtype; the
+reference stores f32 and casts at each use, which computes the same
+thing.  Where the reference computes with a weight in f32 instead (the
+MoE router; mamba's ``models/ssm.py::F32_PARAMS``), the port keeps it
+in f32.
 """
 from __future__ import annotations
 
@@ -28,14 +33,15 @@ from repro_torch.core.device import dtype_of
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 _DEFAULTS = {
-    "use_qk_norm": False, "rope_theta_local": None, "ssm": None,
-    "xlstm": None, "encoder_layers": 0, "frontend": None,
+    "use_qk_norm": False, "rope_theta_local": None, "xlstm": None,
+    "encoder_layers": 0, "frontend": None,
 }
-_FAMILIES = ("dense", "moe")
-_MOE_LAYERS = ("none", "all_but_first")
-_KINDS = ("global", "local")
+_FAMILIES = ("dense", "moe", "hybrid")
+_MOE_LAYERS = ("none", "all_but_first", "every_2")
+_KINDS = ("global", "local", "mamba")
 _ACTIVATIONS = ("silu", "gelu")
 
 
@@ -51,6 +57,8 @@ def check_supported(cfg: ModelConfig) -> None:
         odd["layer_pattern"] = cfg.layer_pattern
     elif cfg.mla is not None and set(cfg.layer_kinds()) != {"global"}:
         odd["layer_pattern"] = cfg.layer_pattern    # MLA is global only
+    elif ("mamba" in cfg.layer_kinds()) != (cfg.ssm is not None):
+        odd["ssm"] = cfg.ssm                        # mamba layers need it
     if cfg.mlp_activation not in _ACTIVATIONS:
         odd["mlp_activation"] = cfg.mlp_activation
     if cfg.d_ff <= 0:
@@ -60,11 +68,11 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {odd} are not ported yet — the port serves "
             f"decoders of global and sliding-window (local) attention "
             f"layers with softcaps, sandwich norms and a gated SiLU or "
-            f"tanh-GELU MLP, and of global MLA layers with MoE on all but "
-            f"the first layer; still to port: qk-norm and rope_theta_local "
-            f"(gemma3), MoE on every layer or every other one, recurrent "
-            f"(mamba, xLSTM) layers, encoders and multimodal frontends "
-            f"(ROADMAP.md queue A)")
+            f"tanh-GELU MLP, of global MLA layers with MoE on all but the "
+            f"first layer, and of global attention and mamba layers with "
+            f"MoE on every other layer; still to port: qk-norm and "
+            f"rope_theta_local (gemma3), MoE on every layer, xLSTM layers, "
+            f"encoders and multimodal frontends (ROADMAP.md queue A)")
     dtype_of(cfg.dtype)
 
 
@@ -78,9 +86,10 @@ def plan_segments(cfg: ModelConfig) -> List[SegmentPlan]:
     """The reference's segmentation (``repro`` transformer.py:50) for the
     configs the port takes: the dense first layer of ``moe_layers=
     "all_but_first"`` as a segment of its own, then the layer pattern as
-    one block repeated as often as it fits, then the truncated tail.  It
-    is the layout of ``repro``'s parameter tree that ``convert``
-    reads."""
+    one block repeated as often as it fits (twice the pattern where
+    ``every_2`` MoE meets an odd pattern, so that the block repeats),
+    then the truncated tail.  It is the layout of ``repro``'s parameter
+    tree that ``convert`` reads."""
     check_supported(cfg)
     kinds = cfg.layer_kinds()
     descs = [(k, cfg.is_moe_layer(i)) for i, k in enumerate(kinds)]
@@ -89,6 +98,8 @@ def plan_segments(cfg: ModelConfig) -> List[SegmentPlan]:
         segs.append(SegmentPlan((descs[0],), 1))
         descs = descs[1:]
     p = len(cfg.layer_pattern)
+    if cfg.moe is not None and cfg.moe_layers == "every_2" and p % 2:
+        p *= 2
     reps = len(descs) // p
     if reps:
         segs.append(SegmentPlan(tuple(descs[:p]), reps))
@@ -107,11 +118,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     dev = gen.device
     embed, unembed = L.init_embed(gen, cfg, dtype=dt)
     layers = []
-    for i in range(cfg.num_layers):
+    for i, kind in enumerate(cfg.layer_kinds()):
         p = {"ln1": L.norm_param(cfg.d_model, device=dev, dtype=dt),
-             "attn": (A.init_mla(gen, cfg, dtype=dt) if cfg.mla is not None
-                      else A.init_attn(gen, cfg, dtype=dt)),
              "ln2": L.norm_param(cfg.d_model, device=dev, dtype=dt)}
+        if kind == "mamba":
+            p["mamba"] = S.init_mamba(gen, cfg, dtype=dt)
+        elif cfg.mla is not None:
+            p["attn"] = A.init_mla(gen, cfg, dtype=dt)
+        else:
+            p["attn"] = A.init_attn(gen, cfg, dtype=dt)
         if cfg.is_moe_layer(i):
             p["moe"] = M.init_moe(gen, cfg, dtype=dt)
         else:
@@ -168,8 +183,15 @@ def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     sequence's positions.  Returns (x, cache): K/V padded to
     ``cache_len``, or the window's ring for a local layer whose window
     is shorter (no cache when ``cache_len`` is None); MLA's K and V are
-    the materialised per-head ones, of their own widths."""
+    the materialised per-head ones, of their own widths; a mamba layer's
+    cache is its decode state {"h", "conv"} after the sequence."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
+    if kind == "mamba":
+        y, cache = S.apply_mamba(p["mamba"], h, cfg, return_cache=True,
+                                 plain=plain)
+        x = _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
+                       plain=plain)
+        return x, (cache if cache_len is not None else None)
     if cfg.mla is not None:
         y, k, v = A.apply_mla(p["attn"], h, cfg, rope, plain=plain)
     else:
@@ -196,14 +218,19 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     is a paged pool pair of the global group, ``kw``/``vw`` one of the
     window group (ring tables), either quantized when ``ks``/``vs``
     scale pools sit beside it; one holding ``k``/``v`` a dense slot
-    cache, or the window's ring.  ``block_tables`` is the (B, T) table,
-    or for a model with a window group the dict {"global", "window"}.
-    The new token's K/V is written into the cache in place.  ``plain``
-    takes the plain version of every kernel, on any device (MLA layers:
-    the replay that ``chip_smoke.py`` holds the served path against)."""
-    if plain and cfg.mla is None:
-        raise ValueError("plain decode is built for MLA layers")
+    cache, or the window's ring; a mamba layer's holds its state
+    {"h", "conv"}, slot-major in both engines.  ``block_tables`` is the
+    (B, T) table, or for a model with a window group the dict {"global",
+    "window"}.  The new token's K/V (or state) is written into the cache
+    in place.  ``plain`` takes the plain version of every kernel, on any
+    device, for global layers over bf16 pools or dense caches and for
+    mamba layers (the replay that ``chip_smoke.py`` holds the served
+    path against)."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
+    if kind == "mamba":
+        y = S.decode_mamba(p["mamba"], h, cache, cfg)
+        return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
+                          plain=plain)
     if isinstance(block_tables, dict):
         bt_g, bt_w = block_tables.get("global"), block_tables.get("window")
     else:
@@ -218,16 +245,16 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     elif "kw" in cache:
         y = A.decode_attn(p["attn"], h, cache["kw"], cache["vw"], lengths,
                           cfg, rope, kind=kind, block_tables=bt_w,
-                          cache_scales=scales, windowed=True)
+                          cache_scales=scales, windowed=True, plain=plain)
     elif "kp" in cache:
         y = A.decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
                           cfg, rope, kind=kind, block_tables=bt_g,
-                          cache_scales=scales)
+                          cache_scales=scales, plain=plain)
     else:
         ring = (kind == "local" and cfg.window is not None
                 and cache["k"].shape[2] == cfg.window)
         y = A.decode_attn(p["attn"], h, cache["k"], cache["v"], lengths, cfg,
-                          rope, kind=kind, ring=ring)
+                          rope, kind=kind, ring=ring, plain=plain)
     return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
                       plain=plain)
 
@@ -367,13 +394,18 @@ def kv_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
                        device) -> List[Dict[str, torch.Tensor]]:
-    """Zeroed dense caches (B, H, S, Dk|Dv) per layer (``kv_dims``): S =
-    cache_len, or the window for a local layer whose window is shorter
-    (its ring, ``repro`` transformer.py:176)."""
+    """Zeroed dense caches per layer kind (``repro`` transformer.py:160):
+    K/V (B, H, S, Dk|Dv) (``kv_dims``), S = cache_len, or the window for
+    a local layer whose window is shorter (its ring); a mamba layer's
+    state {"h": (B, d_inner, d_state) f32, "conv": (B, d_conv - 1,
+    d_inner)}."""
     dt = dtype_of(cfg.dtype)
     h, dk, dv = kv_dims(cfg)
     caches = []
     for kind in cfg.layer_kinds():
+        if kind == "mamba":
+            caches.append(S.mamba_cache(cfg, batch, dt, device))
+            continue
         s = cfg.window if _ring_cache(cfg, kind, cache_len) else cache_len
         caches.append({
             "k": torch.zeros((batch, h, s, dk), device=device, dtype=dt),

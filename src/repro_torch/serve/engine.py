@@ -45,6 +45,16 @@ and V, of their own widths, in the pools and the dense caches alike;
 their int8/fp8 pools and their speculative decoding are refused until
 the kernels for them are ported.
 
+Hybrid models with mamba layers (jamba-1.5) keep each mamba layer's
+state (``h`` and the conv tail) dense and slot-major in both engines.
+Every decode step updates every slot's state, idle ones too;
+admission overwrites the whole state of the slots it fills, so a
+re-admitted slot (after preemption, or a new request) starts from its
+own prefill alone.  Their int8/fp8 pools are refused until the
+quantized scatter for hybrid models is ported, and speculation is
+refused as for every recurrent layer: a batched verify cannot roll the
+state back.
+
 Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
 ``spec_k`` tokens per slot from the slot's own token history
 (``tok_hist``: prompt lookup, no draft model), verifies the committed
@@ -71,6 +81,7 @@ import torch
 from repro_torch.core import tuning
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.registry import Model
+from repro_torch.models.ssm import mamba_cache
 from repro_torch.models.transformer import kv_dims
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.quant import resolve_kv_spec
@@ -133,6 +144,14 @@ class Engine:
             raise ValueError(f"spec_mode must be one of {SPEC_MODES}, "
                              f"got {sc.spec_mode!r}")
         self.spec = sc.spec_mode != "off"
+        recurrent = [i for i, k in enumerate(model.cfg.layer_kinds())
+                     if k == "mamba"]
+        if recurrent and sc.kv_dtype not in (None, "bf16"):
+            raise NotImplementedError(
+                f"{model.cfg.name}: models with mamba layers are served from "
+                f"bf16 pools so far; kv_dtype={sc.kv_dtype!r} arrives with "
+                f"the quantized pools and scatter for hybrid models "
+                f"(ROADMAP.md queue A, item 11)")
         if model.cfg.mla is not None and (self.spec
                                           or sc.kv_dtype not in (None, "bf16")):
             raise NotImplementedError(
@@ -222,11 +241,13 @@ class Engine:
                 # advances from
                 self.win_first = np.zeros((slots,), np.int64)
             heads, dk, dv = kv_dims(cfg)
+            dt = dtype_of(cfg.dtype)
             self.caches = paging.init_paged_caches(
                 cfg.num_layers, heads, dk, total, self.page_size, device=dev,
-                dtype=dtype_of(cfg.dtype), kv_spec=self.kv_spec,
-                window_layers=window_layers, total_pages_window=total_w,
-                v_head_dim=dv)
+                dtype=dt, kv_spec=self.kv_spec, window_layers=window_layers,
+                total_pages_window=total_w, v_head_dim=dv,
+                recurrent={i: mamba_cache(cfg, slots, dt, dev)
+                           for i in recurrent})
         else:
             self.windowed = False
             self.caches = model.init_decode_caches(slots, sc.cache_len, dev)

@@ -17,11 +17,12 @@ Sliding-window layers whose window is shorter than the cache form the
 over their own page pool, addressed through ring block tables of width
 ``window_table_width`` (global page ``g`` at column ``g % T_w``), from
 which ``free_prefix`` eagerly returns the pages the window slid past.
-Fault quarantine arrives with a later slice.
+Recurrent layers (mamba) keep their state dense and slot-major beside
+the pools.  Fault quarantine arrives with a later slice.
 """
 from __future__ import annotations
 
-from typing import Collection, Dict, List, Optional, Sequence, Set
+from typing import Collection, Dict, List, Mapping, Optional, Sequence, Set
 
 import torch
 
@@ -291,24 +292,32 @@ def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
                       kv_spec: Optional[KVQuantSpec] = None,
                       window_layers: Collection[int] = (),
                       total_pages_window: Optional[int] = None,
-                      v_head_dim: Optional[int] = None
+                      v_head_dim: Optional[int] = None,
+                      recurrent: Optional[Mapping[
+                          int, Dict[str, torch.Tensor]]] = None
                       ) -> List[Dict[str, torch.Tensor]]:
-    """One zeroed pool pair (Hkv, P, ps, D) per layer (the V pool
-    ``v_head_dim`` wide where it is given: MLA), in ``dtype`` or
+    """One zeroed pool pair (Hkv, P, ps, D) per attention layer (the V
+    pool ``v_head_dim`` wide where it is given: MLA), in ``dtype`` or
     the spec's storage dtype: ``kp``/``vp`` over ``total_pages`` pages,
     or, for the layers in ``window_layers`` (the window group),
     ``kw``/``vw`` over ``total_pages_window``.  A quantizing spec adds
     ``ks``/``vs`` (Hkv, P) f32 scale pools of the layer's group,
     ones-initialized: a zero pool dequantizes to zeros under any scale,
     and a unit scale keeps dequantization total before the first
-    write."""
+    write.  The layers in ``recurrent`` (index -> zeroed state leaves,
+    a mamba layer's ``h`` and ``conv``) are not paged: their leaves are
+    taken as they are, dense and slot-major (``repro`` paging.py:464)."""
     if window_layers and total_pages_window is None:
         raise ValueError("window-group layers need total_pages_window")
     pool_dtype = kv_spec.storage if kv_spec is not None else dtype
     quantized = kv_spec is not None and kv_spec.quantized
     dv = head_dim if v_head_dim is None else v_head_dim
+    recurrent = recurrent or {}
     caches = []
     for i in range(num_layers):
+        if i in recurrent:
+            caches.append(dict(recurrent[i]))
+            continue
         win = i in window_layers
         shape = (num_kv_heads, total_pages_window if win else total_pages,
                  page_size)
@@ -395,23 +404,24 @@ def scatter_prefill(caches: List[Dict[str, torch.Tensor]],
     for each prompt's live window pages, so only the window's tail
     reaches real pages (``plens`` (k,) the prompt lengths, ``window``
     the model's).  Quantized pools are quantized per (head, page);
-    dense caches take rows ``slot_idx`` (k,).
+    dense leaves of any name (K/V caches and rings, a mamba layer's
+    ``h`` and ``conv``) take rows ``slot_idx`` (k,), so an admitted slot
+    holds only its own request's state.
     """
     for c, one in zip(caches, cache1):
-        for kind in ("k", "v"):
-            scales = c.get(f"{kind}s")
-            if f"{kind}p" in c:
-                pool = c[f"{kind}p"]
+        for name, leaf in one.items():
+            scales = c.get(f"{name}s")
+            if f"{name}p" in c:
+                pool = c[f"{name}p"]
                 _scatter_blocks(pool, scales, _page_blocks(
-                    one[kind], page_rows.shape[1], pool.shape[2]),
-                    page_rows)
-            elif f"{kind}w" in c:
-                pool = c[f"{kind}w"]
+                    leaf, page_rows.shape[1], pool.shape[2]), page_rows)
+            elif f"{name}w" in c:
+                pool = c[f"{name}w"]
                 _scatter_blocks(pool, scales, _unring_window(
-                    one[kind], page_rows_w.shape[1], pool.shape[2], window,
+                    leaf, page_rows_w.shape[1], pool.shape[2], window,
                     plens), page_rows_w)
             else:
-                c[kind][slot_idx] = one[kind].to(c[kind].dtype)
+                c[name][slot_idx] = leaf.to(c[name].dtype)
 
 
 def paged_bytes_per_slot(caches: List[Dict[str, torch.Tensor]],

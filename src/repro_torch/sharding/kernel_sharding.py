@@ -1,7 +1,7 @@
 """Fused cache-write + decode attention: the no-mesh branches of
 ``repro.sharding.kernel_sharding`` (``sharded_decode_update_attend``,
 ``sharded_paged_decode_update_attend``, their quantized, sliding-window
-and speculative variants).  The mesh branches arrive with the
+and speculative variants, and ``sharded_mamba_scan``).  The mesh branches arrive with the
 distribution slice.
 
 The reference returns fresh caches (JAX arrays are immutable); the port
@@ -10,9 +10,9 @@ and returns only the attention output.  The re-quantizing page write is
 plain PyTorch, as it is plain ``jnp`` outside any kernel in the
 reference; fusing it into a kernel is later work (ROADMAP.md).
 
-``plain`` on the dense and the paged bf16 paths takes the kernel's
-plain version on any device: the replay that ``chip_smoke.py`` holds
-the served path against.
+``plain`` on the dense and the paged bf16 paths and on the scan takes
+the kernel's plain version on any device: the replay that
+``chip_smoke.py`` holds the served path against.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ from repro_torch.kernels.decode_attention.ops import (
     decode_attention, paged_decode_attention, quant_paged_decode_attention,
     quant_spec_paged_decode_attention, quant_window_paged_decode_attention,
     spec_paged_decode_attention, window_paged_decode_attention)
+from repro_torch.kernels.mamba_scan import ref as scan_ref
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.quant.blockwise import quantize_absmax
 from repro_torch.serve.paging import raw_bytes
 
@@ -199,3 +201,15 @@ def quant_spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
     return quant_spec_paged_decode_attention(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, base_len,
         window=window, softcap=softcap, scale=scale, page_size=page_size)
+
+
+def sharded_mamba_scan(x, dt, A, Bm, Cm, D, *, plain: bool = False):
+    """x/dt: (B, S, d_inner); A: (d_inner, n); Bm/Cm: (B, S, n); D:
+    (d_inner,) -> (y, h_T) (``repro`` kernel_sharding.py:733, its
+    no-mesh branch; on a mesh the scan is channel-parallel and needs no
+    collective).  The kernel takes dense rows: strided slices of the
+    projections are copied first."""
+    args = tuple(t.contiguous() for t in (x, dt, A, Bm, Cm, D))
+    if plain:
+        return scan_ref.mamba_scan_ref(*args)
+    return mamba_scan(*args)

@@ -24,6 +24,9 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gmm import gmm as gmm_kern
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.gmm import ref as gmm_ref
+from repro_torch.kernels.mamba_scan import mamba_scan as scan_kern
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
@@ -433,5 +436,65 @@ def test_deepseek_engine_on_card_matches_cpu(cuda, paged):
         eng.run_to_completion(reqs)
         assert all(r.done and len(r.out) == 12 for r in reqs)
         assert (gmm_kern.KERNEL.launches > before) == (dev == "cuda")
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+# -------------------------------------------------- jamba: B9 (the scan) --
+
+@pytest.mark.parametrize("b,s,d,n,dtype", [
+    (2, 64, 32, 8, torch.float32),          # repro's registry example
+    (1, 17, 16384, 16, torch.bfloat16),     # jamba: S below the chunk
+    (2, 64, 16384, 16, torch.bfloat16),     # S a multiple of the chunk
+    (1, 200, 16384, 16, torch.bfloat16),    # S off a multiple
+    (2, 511, 16384, 16, torch.bfloat16)])   # the largest prefill group
+def test_mamba_scan_kernel(cuda, b, s, d, n, dtype):
+    """B9 against its plain version: f32 outputs (h_T, and y for f32
+    inputs) at the op's 1e-4, bf16 y at 2e-2; x/dt/Bm/Cm in ``dtype``,
+    A and D in f32, as the mamba layer hands them over."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g)
+
+    x, bm, cm = rnd(b, s, d).to(dtype), rnd(b, s, n).to(dtype), \
+        rnd(b, s, n).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, s, d) - 2.0).to(dtype)
+    a = -torch.exp(0.5 * rnd(d, n))
+    dsk = rnd(d)
+    before = scan_kern.KERNEL.launches
+    y, h = scan_ops.mamba_scan(x, dt, a, bm, cm, dsk)
+    assert scan_kern.KERNEL.launches == before + 1
+    wy, wh = scan_ref.mamba_scan_ref(x, dt, a, bm, cm, dsk)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = scan_ops.TOL if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(y.float(), wy.float(), **tol)
+    torch.testing.assert_close(h, wh, **scan_ops.TOL)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_jamba_engine_on_card_matches_cpu(cuda, paged):
+    """The jamba smoke pattern cut to 4 layers (attention, then mamba
+    layers with 8 experts top 2 on every other one) at widths the
+    kernels take, float32: the same greedy tokens on the card (B1, B2,
+    B3/B4, B8, B9 at every prefill) and on the CPU (plain versions)."""
+    cfg = dataclasses.replace(
+        smoke_config("jamba-1.5-large-398b"), num_layers=4, d_model=256,
+        num_heads=2, num_kv_heads=2, head_dim=128, d_ff=512,
+        dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=paged)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        before = scan_kern.KERNEL.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (scan_kern.KERNEL.launches > before) == (dev == "cuda")
         outs[dev] = [r.out for r in reqs]
     assert outs["cuda"] == outs["cpu"]

@@ -1,6 +1,6 @@
 """The port's kernels on the serving path (rmsnorm, flash prefill,
 dense decode, paged decode, sliding-window paged decode and its
-quantized mode).
+quantized mode, the selective scan).
 
 On the CPU: each public op (which takes the plain PyTorch version for a
 CPU tensor) against the JAX op's reference under ``target("generic")``,
@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.gmm import ops as gmm_ops  # noqa: F401  (registers B8)
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
 
@@ -82,6 +83,8 @@ _PORT_OPS = {
             q, k, v, ks, vs, bt, ln, window=p["window"],
             softcap=p["softcap"], scale=p["scale"],
             page_size=p["page_size"], return_residuals=True),
+    "mamba_scan": lambda x, dt, a, bm, cm, d, **p: scan_ops.mamba_scan(
+        x, dt, a, bm, cm, d),
 }
 
 
@@ -93,8 +96,8 @@ def test_registry_example_matches_reference(name):
         want = op.ref_call(operands, params)
     got = _PORT_OPS[name](*(_t(a) for a in operands), **params)
     _close(got, want, op.tol)
-    tol = {"rmsnorm": rms_ops.TOL, "flash_attention": fa_ops.TOL}.get(
-        name, dec_ops.TOL)
+    tol = {"rmsnorm": rms_ops.TOL, "flash_attention": fa_ops.TOL,
+           "mamba_scan": scan_ops.TOL}.get(name, dec_ops.TOL)
     assert tol == op.tol
 
 
@@ -292,7 +295,7 @@ def test_kernel_launchers_refuse_shapes_they_were_not_built_for():
 def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
     assert names == ["decode_attention", "flash_attention", "gmm",
-                     "paged_decode_attention",
+                     "mamba_scan", "paged_decode_attention",
                      "quant_paged_decode_attention",
                      "quant_window_paged_decode_attention", "rmsnorm",
                      "spec_paged_decode_attention",
@@ -303,4 +306,4 @@ def test_every_kernel_has_a_source_and_a_build_key():
         assert "Replaces the TPU kernel" in text and "Bound on the H100" in text
         assert f'extern "C" int {k.symbol}' in text
         assert k.library_path().parent == build.BUILD_DIR
-    assert len({k.library_path() for k in build.KERNELS}) == 9
+    assert len({k.library_path() for k in build.KERNELS}) == 10

@@ -98,7 +98,7 @@ def test_config_matches_reference():
 def test_unported_layer_kinds_raise():
     cfg = port_smoke_config("granite-8b", num_layers=2)
     for change in (dict(rope_theta_local=10_000.0), dict(use_qk_norm=True),
-                   dict(layer_pattern=("mamba", "global")),
+                   dict(layer_pattern=("mlstm", "global")),
                    dict(mlp_activation="gelu_ungated"),
                    dict(dtype="float16")):
         with pytest.raises(NotImplementedError):
@@ -227,6 +227,26 @@ def test_forward_logits_last_position_is_prefill():
     torch.testing.assert_close(full[:, -1], last, atol=1e-5, rtol=1e-5)
     plain = pmodel.forward_logits(pparams, toks, plain=True)
     torch.testing.assert_close(plain, full, atol=0, rtol=0)
+
+
+def test_logits_rounded_to_bf16_equal_the_reference():
+    """The documented deviation of ``L.unembed``: in bf16 the reference
+    rounds the logits to bf16, the port keeps the f32 sums of the same
+    bf16 operands.  On the same hidden states the port's logits, rounded
+    to bf16, are the reference's bit for bit (at d_model 64; at widths
+    of thousands an f32 sum near a rounding boundary can land one bf16
+    step apart), and unrounded they differ by up to half a step."""
+    from repro.models import transformer as JT
+    model, params, pmodel, pparams = _models("bfloat16")
+    x = np.random.default_rng(0).standard_normal((B, S, 64)).astype(
+        np.float32)
+    with ctx.target("generic"):
+        want = _np(JT._logits(params, jnp.asarray(x, jnp.bfloat16),
+                              model.cfg))
+    got = PT._logits(pparams, torch.from_numpy(x).bfloat16(), pmodel.cfg)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.bfloat16().float().numpy(), want)
+    assert float(np.abs(got.numpy() - want).max()) > 0
 
 
 def test_init_draws_the_reference_laws():
