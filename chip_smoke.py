@@ -26,7 +26,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    200 and 511 at d_inner 16384 and 16 states, bf16 with f32 A and D),
    and the norm, prefill, dense and paged decode kernels (64 query heads
    on 8 KV heads of 128) and the grouped matmul (16 experts of 8192 x
-   24576) at its shapes;
+   24576) at its shapes; then xlstm-1.3b's: the mLSTM scan with its
+   final state (the reference's example, then B 1 and 2 x S 1, 17, 64,
+   200 and 511 at 4 heads of Dk = Dv = 1024, bf16 with f32 gates);
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -54,7 +56,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    the window freed during the run and the allocator audit clean at the
    end (paged modes), the teacher-forced gap checked for bf16 and
    reported for int8/fp8, and the dense/paged token agreement
-   reported;
+   reported, and for each request whose dense and paged tokens differ,
+   at the first token where they do, the top-2 logit margins each run
+   served there and a plain forward's over the common prefix;
 9. free gemma2-2b and serve the same 12 requests as granite on
    ``deepseek-v2-lite-16b`` at full width and depth (27 MLA layers,
    the first dense, then 64 routed experts top-6 and 2 shared experts
@@ -74,7 +78,16 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    launch of the mode's decode kernel and 6 of the grouped matmul per
    decode step (and 6 per admitted group), and 3 of the selective scan
    per admitted group and none in a decode step;
-11. trace five paged decode steps of each model for the card's busy
+11. free jamba-1.5-large-398b and serve the same 12 requests on
+   ``xlstm-1.3b`` at full width and depth (48 layers: seven mLSTM, then
+   one sLSTM, six times; no attention layer; 3.6 B parameters, random
+   from a seed), paged and dense: checked as phase 4, with 42 launches
+   of the mLSTM scan per admitted group (every mLSTM layer's prefill,
+   with its state output) and none in a decode step, and no attention
+   kernel launched; then ``Model.loss`` of one batch of 2 x 512 tokens
+   through the kernels (the mLSTM scan once per mLSTM layer) and
+   through their plain versions, the two within XL_LOSS_TOL;
+12. trace five paged decode steps of each model for the card's busy
    share (reported, not checked).
 
 Each phase prints its wall time.
@@ -87,6 +100,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -104,6 +118,9 @@ INT8_OPS_PER_S = 1979e12      # H100 SXM: dense int8 / fp8 tensor-core peak
 # Guide, arithmetic instruction throughput) x 132 SMs x the 1,980 MHz
 # boost clock of the H100 SXM
 EXP_PER_S = 132 * 16 * 1.98e9
+# f32 outside the tensor cores: 128 lanes per SM x 132 SMs x 1,980 MHz,
+# an FMA counted as 2 operations (NVIDIA's data sheet: 67 TFLOP/s)
+F32_FLOPS_PER_S = 67e12
 # atol = rtol by the output's dtype, compared in f32.  Both sides read
 # the same inputs and sum in f32, in another order; bf16 outputs are
 # also rounded to 8 mantissa bits.  The decode kernels' residuals
@@ -139,6 +156,32 @@ JB_LAYERS, JB_HQ, JB_HKV, JB_DM = 4, 64, 8, 8192
 JB_DI, JB_N, JB_E, JB_TOPK, JB_FF = 16384, 16, 16, 2, 24576
 # the scan's check lengths: below, at and off multiples of the chunk
 JB_SCAN_LENS = (17, 64, 200, 511)
+# xlstm-1.3b at full width and depth: 48 layers (seven mLSTM, then one
+# sLSTM, six times), d_model 2048, mLSTM d_inner 4096 in 4 heads of
+# 1024, so B10 runs at Dk = Dv = 1024
+XL_H, XL_D = 4, 1024
+# the mLSTM scan's check lengths: one step, off and at multiples of its
+# chunk of 8, and the longest prompt
+XL_SCAN_LENS = (1, 17, 64, 200, 511)
+XL_LOSS_B, XL_LOSS_S = 2, 512      # Model.loss: one batch of 2 x 512
+# xlstm-1.3b in bf16 with random weights is chaotic: its sLSTM gate
+# weights are drawn with fan-in 4 (the reference's law for the (4, d, d)
+# stack), so the gates' pre-activations spread with a standard deviation
+# near 12 and the exponential input gate picks, almost as an argmax over
+# time, which step a cell remembers; a one-ulp bf16 difference anywhere
+# can flip that pick.  Measured on the card, the plain version alone
+# gives logits about 4 apart between prefill + decode and one forward
+# over the same tokens, in bf16, and 0.008 apart in f32.  So the
+# teacher-forced gap and the loss are checked on the same weights in
+# f32 (the kernels' f32 builds), and reported for the bf16 runs.
+XL_DTYPES = ("bfloat16", "float32")
+# |f32 loss through the kernels - through their plain versions|: the
+# two sum in another order only; at full depth each position's logits
+# stay within about 0.03 of each other (measured), and the loss is a
+# mean over 1,024 positions of a log-sum-exp minus one logit.
+XL_LOSS_TOL = 1e-3
+# the registry example's tolerance (repro.kernels.mlstm_scan.ops), f32
+XL_TOL = 2e-4
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -195,15 +238,16 @@ class Smoke:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
-    def compare(self, what: str, got, want) -> float:
+    def compare(self, what: str, got, want, tol_f32=TOL_F32) -> float:
         """Max abs difference over the outputs, in f32; checks each
-        output at the tolerance of its dtype."""
+        output at the tolerance of its dtype (``tol_f32`` for f32
+        outputs: an op's own where it states one)."""
         torch = self.torch
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, worst, ok, tols = 0.0, 0.0, True, set()
         for g, w in zip(got, want):
-            tol = TOL_F32 if g.dtype == torch.float32 else TOL_BF16
+            tol = tol_f32 if g.dtype == torch.float32 else TOL_BF16
             tols.add(tol)
             g, w = g.float(), w.float()
             ok &= g.shape == w.shape and bool(torch.isfinite(g).all())
@@ -1069,6 +1113,83 @@ def check_jamba_shapes(s: Smoke) -> None:
     s.record_also("gmm", "jamba prefill", err, *times)
 
 
+# ------------------------------------------------- xlstm-1.3b kernels -----
+
+def _with_state(res):
+    """(h, (C, n, m)) -> (h, C, n, m)."""
+    h, state = res
+    return (h,) + tuple(state)
+
+
+def check_mlstm_scan(s: Smoke) -> None:
+    """B10 against its plain version, h and the final state (C, n, m):
+    the reference's registry example (B 1, 2 heads, S 64, Dk = Dv = 32,
+    f32, at the op's tolerance of 2e-4) and xlstm-1.3b's shapes (B 1 and
+    2 x S 1, 17, 64, 200 and 511, 4 heads of Dk = Dv = 1024; q, k and v
+    in bf16 and the gates in f32, as the mLSTM layer hands them over);
+    timed with its state output at the largest prefill group, B 2 x S
+    511.  No PyTorch call computes an mLSTM recurrence: no library
+    time.  Also B1 at the mLSTM head norm's shape, 2 x 511 rows of
+    4096, into its record under "xlstm"."""
+    torch = s.torch
+    from repro_torch.kernels.mlstm_scan import ops, ref
+    g = torch.Generator(device=s.dev).manual_seed(13)
+
+    def operands(b, n, h, d, dt):
+        def rnd(*shape):
+            return torch.randn(*shape, device=s.dev, generator=g)
+        q, k, v = (rnd(b, h, n, d).to(dt) for _ in range(3))
+        return q, k, v, rnd(b, h, n), rnd(b, h, n) + 2.0
+
+    args = operands(1, 64, 2, 32, torch.float32)
+    s.compare("mlstm_scan (1, 2, 64, 32), f32 (h, C, n, m)",
+              _with_state(ops.mlstm_scan(*args, return_state=True)),
+              _with_state(ref.mlstm_scan_ref(*args, return_state=True)),
+              tol_f32=XL_TOL)
+    err = 0.0
+    for b in (1, 2):
+        for n in XL_SCAN_LENS:
+            args = operands(b, n, XL_H, XL_D, torch.bfloat16)
+            err = max(err, s.compare(
+                f"mlstm_scan ({b}, {XL_H}, {n}, {XL_D}), bf16 q/k/v, f32 "
+                f"gates (h, C, n, m)",
+                _with_state(ops.mlstm_scan(*args, return_state=True)),
+                _with_state(ref.mlstm_scan_ref(*args, return_state=True)),
+                tol_f32=XL_TOL))
+    b, n = 2, PROMPT_LENS[-1]
+    # B1 at the mLSTM head norm of the largest prefill group: 2 x 511
+    # rows of d_inner 4096
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    x = torch.randn(b * n, XL_H * XL_D, device=s.dev,
+                    generator=g).bfloat16()
+    w = (0.1 * torch.randn(XL_H * XL_D, device=s.dev, generator=g)).bfloat16()
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    s.record_also("rmsnorm", "xlstm", s.compare(
+        f"rmsnorm ({b * n}, {XL_H * XL_D}) bf16", rops.rmsnorm(x, w, **kw),
+        rref.rmsnorm_ref(x, w, **kw)),
+        s.time_ms(lambda: rops.rmsnorm(x, w, **kw)),
+        s.time_ms(lambda: rref.rmsnorm_ref(x, w, **kw)),
+        2 * x.numel() * 2 + 2 * w.numel(), 4 * x.numel(),
+        s.time_ms(lambda: torch.nn.functional.rms_norm(
+            x, (x.shape[1],), w + 1.0, 1e-6)))
+    args = operands(b, n, XL_H, XL_D, torch.bfloat16)
+    bh = b * XL_H
+    # q, k, v and h in bf16, the two f32 gates, the f32 state (C, n, m)
+    # written once; 5 f32 operations per element of C and per row of n
+    # in every step of every head (a multiply and an FMA to update it, an
+    # FMA for the numerator or n . q)
+    nbytes = (4 * bh * n * XL_D * 2 + 2 * bh * n * 4
+              + bh * (XL_D * XL_D + XL_D + 1) * 4)
+    s.record("mlstm_scan", "mlstm_scan.cu",
+             "src/repro/kernels/mlstm_scan/mlstm_scan.py:58", err,
+             s.time_ms(lambda: ops.mlstm_scan(*args, return_state=True)),
+             s.time_ms(lambda: ref.mlstm_scan_ref(*args, return_state=True),
+                       iters=5),
+             nbytes, 5 * bh * n * (XL_D * XL_D + XL_D), None,
+             F32_FLOPS_PER_S)
+
+
 # ------------------------------------------------------------ serving -----
 
 def _requests(vocab: int, prompt_lens=PROMPT_LENS):
@@ -1111,6 +1232,48 @@ class _Recorder:
                                         block_tables)
         self.calls.append(logits.argmax(-1))
         return logits
+
+
+class _Top2(_Recorder):
+    """The served model, keeping every call's two largest logits per
+    row (on the card: no sync) and, through the engine, which request
+    each decode row served; ``by_request`` maps them to (request,
+    emitted token) after the run."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.engine, self.prefills, self.decodes = None, [], []
+
+    def prefill(self, params, tokens, cache_len):
+        logits, caches = self.model.prefill(params, tokens, cache_len)
+        self.prefills.append((tokens, logits.topk(2, dim=-1)))
+        return logits, caches
+
+    def decode_step(self, params, caches, tokens, lengths,
+                    block_tables=None):
+        logits = self.model.decode_step(params, caches, tokens, lengths,
+                                        block_tables)
+        rows = [(slot, r.rid, len(r.out))
+                for slot, r in enumerate(self.engine.active) if r is not None]
+        self.decodes.append((rows, logits.topk(2, dim=-1)))
+        return logits
+
+    def by_request(self, reqs):
+        """{(rid, emitted index): (top logit, second logit, top token,
+        second token)}; a prefill row is matched by its tokens."""
+        out = {}
+        for tokens, (v, i) in self.prefills:
+            for row, vals, ids in zip(tokens.tolist(), v.tolist(),
+                                      i.tolist()):
+                for r in reqs:
+                    j = len(row) - len(r.tokens)
+                    if j >= 0 and r.tokens + r.out[:j] == row:
+                        out[(r.rid, j)] = (*vals, *ids)
+        for rows, (v, i) in self.decodes:
+            v, i = v.tolist(), i.tolist()
+            for slot, rid, j in rows:
+                out[(rid, j)] = (*v[slot], *i[slot])
+        return out
 
 
 class _Replayer(_Recorder):
@@ -1164,12 +1327,13 @@ class _Replayer(_Recorder):
 
 
 def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
-          prompt_lens=PROMPT_LENS, record=False, **mode):
+          prompt_lens=PROMPT_LENS, record=False, margins=False, **mode):
     """Drive the engine over the 12 requests in a serving ``mode``
     (ServeConfig fields); returns (requests, stats).  ``record`` keeps
     every call's sampled tokens in ``stats["calls"]`` for the replay;
-    an MoE model's dropped assignments are counted on the card and read
-    after the run."""
+    ``margins`` every emitted token's two largest served logits in
+    ``stats["top2"]`` (``_Top2.by_request``); an MoE model's dropped
+    assignments are counted on the card and read after the run."""
     torch = s.torch
     from repro_torch.core.build import KERNELS
     from repro_torch.models import moe
@@ -1178,8 +1342,11 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
     sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=cache_len,
                                 max_new_tokens=MAX_NEW, page_size=PAGE,
                                 **mode)
-    served = _Recorder(model) if record else model
+    served = _Recorder(model) if record else \
+        _Top2(model) if margins else model
     engine = engine_mod.Engine(served, params, sc, device=s.dev)
+    if margins:
+        served.engine = engine
     real_route = moe._route
     if record:
         moe._route = served.route(real_route)
@@ -1252,6 +1419,9 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
         stats["moe_dropped"] = int(drops)
     if record:
         stats["calls"] = (served.calls, served.routes)
+    if margins:
+        stats["top2"] = served.by_request(reqs)
+        served.engine = None
     if engine.paged:
         stats["kv_dtype"] = (None if engine.kv_spec is None
                              else engine.kv_spec.dtype)
@@ -1355,15 +1525,16 @@ def teacher_gap(s: Smoke, model, params, reqs):
 def check_serving(s: Smoke, model, params, name: str, mode: dict,
                   per_step, kernels_idle=(), teacher_checked=True,
                   prefill=("rmsnorm", "flash_attention"), per_group=None,
-                  replay=False, **shape):
+                  replay=False, margins=False, **shape):
     """Serve the 12 requests in ``mode`` (``shape``: the cache length and
     prompt lengths, if not granite's); check completion, the one-sync
     contract, that the prefill kernels launched, that each decode
     kernel in ``per_step`` launched exactly that many times per decode
     step (plus ``per_group[k]`` per admitted group, for a kernel that
     prefill runs too) and none in ``kernels_idle`` ever (nor B8 for a
-    model without experts, nor B9 for one without mamba layers), that a
-    paged run's allocator audit is clean
+    model without experts, nor B9 for one without mamba layers, nor B10
+    for one without mLSTM layers), that a paged run's allocator audit is
+    clean
     at the end and, with a window group, that pages behind the window
     were freed; and the teacher-forced gap (reported only where
     ``teacher_checked`` is false: a quantized pool is not the bf16
@@ -1372,7 +1543,8 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
     torch = s.torch
     per_group = per_group or {}
     t0 = time.perf_counter()
-    reqs, st = serve(s, model, params, record=replay, **shape, **mode)
+    reqs, st = serve(s, model, params, record=replay, margins=margins,
+                     **shape, **mode)
     print(f"  served {len(reqs)} requests in {st['wall_s']:.3f} s "
           f"({time.perf_counter() - t0:.3f} s with set-up): "
           f"{st['tokens']} tokens, {st['tok_per_s']:.1f} tok/s, "
@@ -1397,6 +1569,8 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
                 + (f" + {g} x {st['groups']}" if g else "") + ")")
     if "mamba" not in model.cfg.layer_kinds():
         kernels_idle = tuple(kernels_idle) + ("mamba_scan",)
+    if "mlstm" not in model.cfg.layer_kinds():
+        kernels_idle = tuple(kernels_idle) + ("mlstm_scan",)
     if model.cfg.moe is None:
         kernels_idle = tuple(kernels_idle) + ("gmm",)
     else:
@@ -1574,7 +1748,8 @@ def run_traces(s: Smoke):
     """The card's busy share over paged decode steps of each model,
     fresh weights from the same seed; last, since tracing slows every
     later step (deepseek-v2-lite-16b's is traced first, then gemma2-2b's,
-    granite-8b's and jamba-1.5-large-398b's, each a lower bound)."""
+    granite-8b's, jamba-1.5-large-398b's and xlstm-1.3b's, each a lower
+    bound)."""
     torch = s.torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -1583,7 +1758,8 @@ def run_traces(s: Smoke):
                         ("gemma2-2b", dict(cache_len=G2_CACHE_LEN,
                                            prompt_lens=G2_PROMPT_LENS)),
                         ("granite-8b", {}),
-                        ("jamba-1.5-large-398b", {})):
+                        ("jamba-1.5-large-398b", {}),
+                        ("xlstm-1.3b", {})):
         model = build_model(_jamba_config() if arch.startswith("jamba")
                             else get_config(arch))
         params = model.init(torch.Generator(device=s.dev).manual_seed(0),
@@ -1641,11 +1817,15 @@ def run_serving_gemma2(s: Smoke):
 
     run("paged", dict(paged=True),
         {"paged_decode_attention": n_global,
-         "window_paged_decode_attention": n_local})
-    run("dense", dict(paged=False), {"decode_attention": cfg.num_layers})
+         "window_paged_decode_attention": n_local}, margins=True)
+    run("dense", dict(paged=False), {"decode_attention": cfg.num_layers},
+        margins=True)
     agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
     print(f"  gemma2 dense and paged agree on {agree['dense_paged']} of "
           f"{stats['paged']['tokens']} tokens")
+    divergences = first_divergences(
+        s, model, params, runs["paged"], runs["dense"],
+        stats["paged"].pop("top2"), stats["dense"].pop("top2"))
     for kv in ("int8", "fp8_e4m3"):
         resolve_kv_spec(kv, s.dev, strict=True)
         run(kv, dict(paged=True, kv_dtype=kv),
@@ -1657,7 +1837,58 @@ def run_serving_gemma2(s: Smoke):
               f"{agree[f'{kv}_paged']} of {stats[kv]['tokens']} tokens")
     del params
     torch.cuda.empty_cache()
-    return dict(stats, tokens_agree=agree)
+    return dict(stats, tokens_agree=agree, divergences=divergences)
+
+
+def first_divergences(s: Smoke, model, params, paged, dense, top_p, top_d):
+    """For each request whose paged and dense tokens differ, at the first
+    token where they do: the margin between the two largest logits each
+    run served there, and, from a plain forward over the common prefix,
+    its own top-2 margin and the gap between the logits of the two
+    tokens the runs chose, beside the bf16 spacing at the top logit (8
+    significant bits).  Reported, not checked: the teacher-forced gap
+    already holds every served token to TEACHER_GAP of the plain
+    argmax.  Returns the rows."""
+    import math
+    torch = s.torch
+    rows = []
+    with torch.no_grad():
+        for rp, rd in zip(paged, dense):
+            j = next((i for i, (a, b) in enumerate(zip(rp.out, rd.out))
+                      if a != b), None)
+            if j is None:
+                continue
+            seq = rp.tokens + rp.out[:j]
+            lg = model.forward_logits(params, torch.tensor([seq], device=s.dev),
+                                      plain=True, start=len(seq) - 1)[0, 0]
+            v, i = lg.topk(2)
+            top = float(v[0])
+            ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 0.0
+            tp, td = top_p[(rp.rid, j)], top_d[(rd.rid, j)]
+            row = {"request": rp.rid, "token": j, "paged_token": rp.out[j],
+                   "dense_token": rd.out[j],
+                   "paged_margin": tp[0] - tp[1],
+                   "dense_margin": td[0] - td[1],
+                   "plain_margin": top - float(v[1]),
+                   "plain_top2": [int(i[0]), int(i[1])],
+                   "plain_gap_between_chosen": abs(
+                       float(lg[rp.out[j]]) - float(lg[rd.out[j]])),
+                   "plain_top_logit": top, "bf16_spacing_at_top": ulp}
+            rows.append(row)
+            print(f"  request {rp.rid}: first differs at emitted token {j} "
+                  f"(paged {rp.out[j]}, dense {rd.out[j]}; plain top-2 "
+                  f"{row['plain_top2']}): served top-2 margin paged "
+                  f"{row['paged_margin']:.4f}, dense "
+                  f"{row['dense_margin']:.4f}; plain top-2 margin "
+                  f"{row['plain_margin']:.4f}, plain gap between the two "
+                  f"chosen {row['plain_gap_between_chosen']:.4f} logits "
+                  f"(top logit {top:.3f}, bf16 spacing there {ulp:.4f})")
+    if rows:
+        widest = max(r["plain_gap_between_chosen"] for r in rows)
+        print(f"  {len(rows)} requests diverge; the widest plain gap between "
+              f"the two chosen tokens is {widest:.4f} logits "
+              f"(teacher-forced tolerance {TEACHER_GAP})")
+    return rows
 
 
 def run_serving_deepseek(s: Smoke):
@@ -1797,6 +2028,137 @@ def run_serving_jamba(s: Smoke):
     return dict(stats, tokens_agree=agree)
 
 
+def run_serving_xlstm(s: Smoke):
+    """xlstm-1.3b at full width and depth (48 layers: seven mLSTM, then
+    one sLSTM, six times; no attention layer), served paged and dense in
+    bf16 and again, on the same weights, in f32 (XL_DTYPES): B10 with its
+    state output on every mLSTM layer of every prefill (42 launches per
+    admitted group), none in a decode step (the one-token recurrences are
+    plain PyTorch); then ``Model.loss`` of one batch through the kernels
+    and through their plain versions.  The teacher-forced gap and the
+    loss are checked in f32 and reported in bf16 (see XL_DTYPES)."""
+    import dataclasses
+    import gc
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    s.check(held < 1.0, f"the earlier models' weights and pools are freed "
+                        f"({held:.3f} GiB still allocated)")
+    idle = ("flash_attention", "decode_attention", "paged_decode_attention",
+            "window_paged_decode_attention", "quant_paged_decode_attention",
+            "quant_window_paged_decode_attention",
+            "spec_paged_decode_attention")
+    out, paged_runs = {}, {}
+    for dt in XL_DTYPES:
+        cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype=dt)
+        checked = dt == "float32"
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                            device=s.dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        kinds = cfg.layer_kinds()
+        n_mlstm = kinds.count("mlstm")
+        print(f"  xlstm-1.3b in {dt}: {cfg.num_layers} layers ({n_mlstm} "
+              f"mLSTM, {kinds.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+              f"mLSTM heads {XL_H} of {XL_D}, {n / 1e9:.3f} B parameters "
+              f"({nbytes / 1e9:.2f} GB), random from seed 0 "
+              f"({time.perf_counter() - t0:.2f} s)")
+        runs, stats = {}, {}
+        for mode in ("paged", "dense"):
+            name = f"{mode} {dt}"
+            print(f"== serve xlstm-1.3b, {name}", flush=True)
+            runs[mode], stats[mode] = check_serving(
+                s, model, params, f"xlstm {name}",
+                dict(paged=mode == "paged"), {"mlstm_scan": 0}, idle,
+                teacher_checked=checked, prefill=("rmsnorm", "mlstm_scan"),
+                per_group={"mlstm_scan": n_mlstm})
+        agree = _agree(runs["paged"], runs["dense"])
+        print(f"  xlstm {dt}: dense and paged agree on {agree} of "
+              f"{stats['paged']['tokens']} tokens")
+        print(f"== xlstm-1.3b Model.loss, {dt}", flush=True)
+        loss = xlstm_loss(s, model, params, XL_LOSS_TOL if checked else None)
+        out[dt] = dict(stats, tokens_agree={"dense_paged": agree}, loss=loss)
+        paged_runs[dt] = runs["paged"]
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["bf16_f32_paged_tokens_agree"] = _agree(*paged_runs.values())
+    print(f"  xlstm paged: bf16 and f32 agree on "
+          f"{out['bf16_f32_paged_tokens_agree']} of "
+          f"{out[XL_DTYPES[0]]['paged']['tokens']} tokens")
+    return out
+
+
+def xlstm_loss(s: Smoke, model, params, tol):
+    """``Model.loss`` of one batch of XL_LOSS_B x XL_LOSS_S random tokens
+    and labels: through the kernels (the counts set to 0 just before and
+    read just after: B10 once per mLSTM layer, without its state output,
+    and B1), then through their plain versions (no launch); the two
+    losses within ``tol``, or reported where it is None."""
+    torch = s.torch
+    from repro_torch.core.build import KERNELS
+    g = torch.Generator(device=s.dev).manual_seed(5)
+    batch = {name: torch.randint(0, model.cfg.vocab_size,
+                                 (XL_LOSS_B, XL_LOSS_S), device=s.dev,
+                                 generator=g)
+             for name in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, got = model.loss(params, batch)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    _, want = model.loss(params, batch, plain=True)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    dt = model.cfg.dtype
+    n_mlstm = model.cfg.layer_kinds().count("mlstm")
+    s.check(launches["mlstm_scan"] == n_mlstm,
+            f"xlstm loss ({dt}): mlstm_scan launched once per mLSTM layer "
+            f"({launches['mlstm_scan']} = {n_mlstm})")
+    s.check(launches["rmsnorm"] > 0, f"xlstm loss ({dt}): rmsnorm launched "
+                                     f"{launches['rmsnorm']} times")
+    others = {k: n for k, n in launches.items()
+              if k not in ("mlstm_scan", "rmsnorm") and n}
+    s.check(not others, f"xlstm loss ({dt}): no other kernel launched "
+                        f"({others})")
+    s.check(all(k.launches == launches[k.name] for k in KERNELS),
+            f"xlstm loss ({dt}): the plain loss launched no kernel")
+    for kname in ("mlstm_scan", "rmsnorm"):
+        s.kernels[kname]["launches_by_path"][f"xlstm loss {dt}"] = \
+            launches[kname]
+    got = {k: float(v) for k, v in got.items()}
+    want = {k: float(v) for k, v in want.items()}
+    diff = {k: abs(got[k] - want[k]) for k in got}
+    s.check(all(map(math.isfinite, list(got.values()) + list(
+        want.values()))), f"xlstm loss ({dt}): every metric finite")
+    what = (f"xlstm loss ({dt}) of a {XL_LOSS_B} x {XL_LOSS_S} batch: "
+            f"{got['loss']:.6f} through the kernels, {want['loss']:.6f} "
+            f"through their plain versions, |diff| {diff['loss']:.3e}")
+    if tol is None:
+        print(f"  {what} (reported)")
+    else:
+        s.check(diff["loss"] <= tol, f"{what} <= {tol}")
+    print(f"  xlstm loss ({dt}): {1e3 * t_kern:.1f} ms through the kernels, "
+          f"{1e3 * t_plain:.1f} ms through the plain versions (wall, "
+          f"synchronised); peak memory {peak:.2f} GiB")
+    return {"metrics": got, "plain_metrics": want, "abs_diff": diff,
+            "ms": 1e3 * t_kern, "plain_ms": 1e3 * t_plain,
+            "peak_gib": peak, "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1843,6 +2205,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as _f  # noqa: F401
     from repro_torch.kernels.gmm import ops as _g  # noqa: F401
     from repro_torch.kernels.mamba_scan import ops as _m  # noqa: F401
+    from repro_torch.kernels.mlstm_scan import ops as _x  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _r  # noqa: F401
     secs = s.phase("build", build.build_all)
     if secs is not None:
@@ -1858,7 +2221,8 @@ def main() -> int:
                      ("gmm (deepseek shapes)", check_gmm),
                      ("192/128 builds (deepseek shapes)", check_mla_builds),
                      ("mamba_scan (jamba shapes)", check_mamba_scan),
-                     ("B1-B4 and gmm (jamba shapes)", check_jamba_shapes)):
+                     ("B1-B4 and gmm (jamba shapes)", check_jamba_shapes),
+                     ("mlstm_scan (xlstm shapes)", check_mlstm_scan)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
@@ -1872,6 +2236,8 @@ def main() -> int:
                          run_serving_deepseek, s)
     serving_jb = s.phase("serve jamba-1.5-large-398b at full width, "
                          f"{JB_LAYERS} layers", run_serving_jamba, s)
+    serving_xl = s.phase("serve xlstm-1.3b at full width and depth, and "
+                         "its loss", run_serving_xlstm, s)
     traces = s.phase("trace the card over paged decode steps", run_traces, s)
 
     for k in s.kernels.values():
@@ -1886,6 +2252,8 @@ def main() -> int:
         print(json.dumps({"serving_deepseek": serving_ds}))
     if serving_jb is not None:
         print(json.dumps({"serving_jamba": serving_jb}))
+    if serving_xl is not None:
+        print(json.dumps({"serving_xlstm": serving_xl}))
     if traces is not None:
         print(json.dumps({"device_busy_share": traces}))
     print(f"== total {time.perf_counter() - t_start:.1f} s, builds included")

@@ -1,9 +1,8 @@
 """Reduced same-family configs for CPU tests (``repro.configs.smoke``).
 
 Same layer pattern, tiny widths, the reference's window of 16 for
-sliding-window configs, and its MLA, MoE and SSM shrink rules (with
-the leading dense layer of ``moe_layers="all_but_first"`` kept).  The
-xLSTM rule arrives with the slice that ports that family.
+sliding-window configs, and its MLA, MoE, SSM and xLSTM shrink rules
+(with the leading dense layer of ``moe_layers="all_but_first"`` kept).
 """
 from __future__ import annotations
 
@@ -11,7 +10,7 @@ import dataclasses
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import (MLAConfig, ModelConfig, MoEConfig,
-                                      SSMConfig)
+                                      SSMConfig, XLSTMConfig)
 
 
 def smoke_config(arch_id: str, *, num_layers: int = 0) -> ModelConfig:
@@ -35,6 +34,8 @@ def smoke_config(arch_id: str, *, num_layers: int = 0) -> ModelConfig:
             capacity_factor=2.0)
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=8, d_conv=4, expand=2)
+    if cfg.xlstm is not None:
+        kw["xlstm"] = XLSTMConfig(num_heads=2, conv_width=4)
     if cfg.window is not None:
         kw["window"] = 16
     return dataclasses.replace(cfg, **kw)

@@ -14,8 +14,11 @@ holding the router, the stacked expert weights and the shared
 experts' MLP; jamba: the 8-layer block of one attention and seven mamba
 layers, MoE on the odd positions (``every_2``), repeated, then the
 tail, each mamba layer's ``mamba`` leaf holding its projections, conv
-and SSM parameters).  The router and mamba's ``ssm.F32_PARAMS`` stay in
-f32, as the reference computes with them.
+and SSM parameters; xlstm: the 8-layer block of seven mLSTM layers and
+one sLSTM layer, repeated, each with ``ln1`` and its ``mlstm`` or
+``slstm`` leaf and no FFN sublayer, the sLSTM's gated FFN under
+``ffn``).  The router, mamba's ``ssm.F32_PARAMS`` and the xLSTM gates'
+``xlstm.F32_PARAMS`` stay in f32, as the reference computes with them.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
-from repro_torch.models.ssm import F32_PARAMS
+from repro_torch.models import ssm, xlstm
 from repro_torch.models.transformer import plan_segments
 
 
@@ -77,9 +80,11 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                 p[name] = mlp(m[name], r)
         return p
 
-    def mamba(m, r):
-        return {name: t(leaf[r], dtype=torch.float32 if name in F32_PARAMS
-                        else None) for name, leaf in m.items()}
+    def mixer(m, r, f32_params):
+        """A recurrent layer's leaves (an sLSTM's ``ffn`` is an MLP)."""
+        return {name: mlp(leaf, r) if isinstance(leaf, dict) else
+                t(leaf[r], dtype=torch.float32 if name in f32_params
+                  else None) for name, leaf in m.items()}
 
     layers = []
     for seg, plan in zip(segments, plans):
@@ -89,14 +94,18 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                              f"{cfg.num_layers} layers ({plan.reps})")
         for r in range(n):
             for blk in seg:
-                layer = {name: t(blk[name][r]) for name in norms}
+                layer = {name: t(blk[name][r]) for name in norms
+                         if name in blk}
                 if "mamba" in blk:
-                    layer["mamba"] = mamba(blk["mamba"], r)
+                    layer["mamba"] = mixer(blk["mamba"], r, ssm.F32_PARAMS)
+                elif "mlstm" in blk or "slstm" in blk:
+                    kind = "mlstm" if "mlstm" in blk else "slstm"
+                    layer[kind] = mixer(blk[kind], r, xlstm.F32_PARAMS)
                 else:
                     layer["attn"] = attn(blk["attn"], r)
                 if "moe" in blk:
                     layer["moe"] = moe(blk["moe"], r)
-                else:
+                elif "mlp" in blk:
                     layer["mlp"] = mlp(blk["mlp"], r)
                 layers.append(layer)
     return {"embed": t(tree["embed"]["table"]),

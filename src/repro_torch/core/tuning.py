@@ -7,8 +7,8 @@ refuses others); the decode kernels take ``block_kv`` at run time, up
 to 64 tokens.  The grouped matmul keeps the reference's parameter
 names; its N and K tiles are compiled in, and its capacity tile has a
 second build of 8 rows for decode (``kernels/gmm/gmm.py``).  The
-selective scan's time chunk (the steps staged in shared memory per
-pass) is compiled in too.
+selective scan's and the mLSTM scan's time chunks (the steps staged in
+shared memory per pass) are compiled in too.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ TABLE = {
     ("gmm", "block_n"): 128,
     ("gmm", "block_k"): 32,
     ("mamba_scan", "chunk"): 32,
+    ("mlstm_scan", "chunk"): 8,
 }
 
 

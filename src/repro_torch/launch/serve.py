@@ -27,6 +27,16 @@ card (``chip_smoke.py`` serves a 4-layer cut of it):
       --arch jamba-1.5-large-398b --smoke --paged --page-size 4 \
       --device cpu
 
+xlstm-1.3b (48 recurrent layers, seven mLSTM then one sLSTM per
+period, no attention layer: the mLSTM scan kernel on every mLSTM
+prefill, the one-token recurrences in plain PyTorch), paged or dense,
+at full width and depth on the card or at smoke size on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --paged --prompts 12 --prompt-len 511 --slots 8 --cache-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --smoke --paged --page-size 4 --device cpu
+
 From an int8 pool, speculating 4 tokens per step:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \

@@ -17,9 +17,11 @@ indexing, ``nonzero`` or ``.item()``, so a call never waits for the
 card.
 
 DeepSeek's always-on shared experts are one wider gated MLP beside the
-routed ones; arctic's dense residual MLP is another.  The load-balance
-and router z losses arrive with training, the expert-parallel mesh path
-with distribution (ROADMAP.md, queue A).
+routed ones; arctic's dense residual MLP is another.  With
+``return_aux`` a call also returns the load-balance and router z losses
+of its tokens (the reference's ``_aux_losses``), which the training
+loss weighs in; the expert-parallel mesh path arrives with
+distribution (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -179,12 +181,26 @@ def _expert_ffn(buf_e: torch.Tensor, wg, wu, wd, activation: str, *,
     return fn((act * h_u.float()).to(buf_e.dtype), wd, gs)
 
 
+def _aux_losses(router_w: torch.Tensor, x_flat: torch.Tensor,
+                counts: torch.Tensor, e: int, k: int):
+    """Switch-style load balance and the router z-loss of one call's
+    tokens (``repro`` moe.py:173): e * sum(assignment share x mean
+    router probability) over the experts, with every assignment counted
+    (dropped ones too), and the mean squared logsumexp of the f32
+    router logits."""
+    logits = x_flat.float() @ router_w.float()
+    frac = counts.float() / max(x_flat.shape[0] * k, 1)
+    lb = e * (frac * torch.softmax(logits, dim=-1).mean(0)).sum()
+    z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    return {"load_balance": lb, "router_z": z}
+
+
 def _moe_tokens_local(p, x_flat: torch.Tensor, cfg: ModelConfig, c: int, *,
-                      plain: bool = False) -> torch.Tensor:
+                      plain: bool = False, return_aux: bool = False):
     m = cfg.moe
     e, k = m.num_experts, m.top_k
     gates, idx = _route(p["router"], x_flat, k)
-    pos, _ = _positions(idx, e)
+    pos, counts = _positions(idx, e)
     dest, keep, n_rows = _dests(idx, pos, c, e)
     if _drops is not None and _drops.device == x_flat.device:
         _drops.add_((~keep).sum())
@@ -195,23 +211,29 @@ def _moe_tokens_local(p, x_flat: torch.Tensor, cfg: ModelConfig, c: int, *,
                       cfg.mlp_activation, plain=plain)
     y_buf = torch.cat([y_e.reshape(n_rows, -1),
                        y_e.new_zeros((1, y_e.shape[-1]))])
-    return _gather_combine(y_buf, gates, dest, keep)
+    y = _gather_combine(y_buf, gates, dest, keep)
+    if not return_aux:
+        return y
+    return y, _aux_losses(p["router"], x_flat, counts, e, k)
 
 
 # ------------------------------------------------------------- public ---
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
-              plain: bool = False) -> torch.Tensor:
+              plain: bool = False, return_aux: bool = False):
     """x (B, S, d) -> (B, S, d): the routed experts at the capacity of
-    B * S tokens, plus the shared experts or the dense residual MLP.
+    B * S tokens, plus the shared experts or the dense residual MLP;
+    with ``return_aux`` also the call's {"load_balance", "router_z"}.
     ``plain`` takes the grouped matmul's plain version on any device."""
     m = cfg.moe
     b, s, d = x.shape
     c = _capacity(b * s, m.num_experts, m.top_k, m.capacity_factor)
-    y = _moe_tokens_local(p, x.reshape(b * s, d), cfg, c,
-                          plain=plain).view(b, s, d).to(x.dtype)
+    res = _moe_tokens_local(p, x.reshape(b * s, d), cfg, c, plain=plain,
+                            return_aux=return_aux)
+    y_flat, aux = res if return_aux else (res, None)
+    y = y_flat.view(b, s, d).to(x.dtype)
     if m.num_shared_experts > 0:
         y = y + L.apply_mlp(p["shared"], x, cfg.mlp_activation)
     if m.dense_residual:
         y = y + L.apply_mlp(p["dense"], x, cfg.mlp_activation)
-    return y
+    return (y, aux) if return_aux else y

@@ -1,5 +1,5 @@
 """Model facade (``repro.models.registry``): one object per architecture
-bundling init and the serving modes."""
+bundling init, the serving modes and the training loss (forward)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +41,14 @@ class Model:
                        start: int = 0):
         return T.forward_logits(params, self.cfg, tokens, plain=plain,
                                 start=start)
+
+    def loss(self, params, batch, *, plain: bool = False):
+        """(loss, metrics) of a batch {"tokens", "labels"} (B, S): the
+        training forward and its loss, without a backward (that arrives
+        with training, ROADMAP.md queue A); metrics "loss", "ce",
+        "z_loss", "load_balance" and "router_z", as the reference's."""
+        with torch.no_grad():
+            return T.forward_train(params, self.cfg, batch, plain=plain)
 
     def decode_step(self, params, caches, tokens, lengths,
                     block_tables=None, *, plain: bool = False):

@@ -84,6 +84,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return y, (xp[:, s:, :] if width > 1 else None)
 
 
+def _conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The last ``width - 1`` rows of x (B, S, d), zero-padded on the
+    left when S is shorter: the causal conv's decode state after x."""
+    w, s = width - 1, x.shape[1]
+    tail = x[:, s - w:, :] if s >= w else F.pad(x, (0, 0, w - s, 0))
+    return tail.contiguous()
+
+
 def _ssm_inputs(p, x_c: torch.Tensor, cfg: ModelConfig):
     """(B, S, di) conv output -> (dt f32, b f32, c f32, A f32)."""
     _, n, _, dt_rank = _dims(cfg)
@@ -116,12 +124,7 @@ def apply_mamba(p, x: torch.Tensor, cfg: ModelConfig, *,
     out = y.to(xd) @ p["out_proj"].to(xd)
     if not return_cache:
         return out, h_t
-    s = x.shape[1]
-    if s >= d_conv - 1:
-        tail = x_in[:, s - (d_conv - 1):, :]
-    else:
-        tail = F.pad(x_in, (0, 0, d_conv - 1 - s, 0))
-    return out, {"h": h_t, "conv": tail.contiguous()}
+    return out, {"h": h_t, "conv": _conv_tail(x_in, d_conv)}
 
 
 def mamba_cache(cfg: ModelConfig, batch: int, dtype,

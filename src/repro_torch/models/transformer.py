@@ -3,23 +3,28 @@ takes for decoders of global and sliding-window attention layers:
 granite-8b; gemma2-2b's alternating local/global pattern with softcaps,
 sandwich norms, a tanh-GELU MLP and a scaled embedding;
 deepseek-v2-lite-16b's MLA attention with a dense first layer and MoE
-layers after it; and jamba-1.5's hybrid of global attention and mamba
-layers with MoE on every other layer).
+layers after it; jamba-1.5's hybrid of global attention and mamba
+layers with MoE on every other layer; and xlstm-1.3b's recurrent stack
+of mLSTM and sLSTM blocks, which subsume the feed-forward), and the
+full-sequence forward with the training loss (``forward_train``,
+forward only).
 
 Parameters are a dict of tensors: ``embed`` (Vp, d), ``unembed``
 (d, Vp), ``final_norm`` (d,), and ``layers``, a list with one dict per
 layer (``ln1``, ``attn.{wq,wk,wv,wo}`` or with MLA ``attn.{wq_mla,
 wkv_a,wkv_b,wo_mla}`` or on a mamba layer ``mamba.{in_proj,conv_w,
-conv_b,x_proj,dt_proj,dt_bias,a_log,d_skip,out_proj}``, ``ln2``,
-``mlp.{w_gate,w_up,w_down}`` or on an MoE layer ``moe.{router,we_gate,
-we_up,we_down,shared}``, and ``post_ln1``/``post_ln2`` with sandwich
-norms); layer ``i`` has kind ``cfg.layer_kinds()[i]``.  A Python loop
+conv_b,x_proj,dt_proj,dt_bias,a_log,d_skip,out_proj}`` or on an xLSTM
+layer ``mlstm.{...}`` / ``slstm.{...}`` (``models/xlstm.py``), then,
+except on an xLSTM layer, ``ln2`` and ``mlp.{w_gate,w_up,w_down}`` or
+on an MoE layer ``moe.{router,we_gate,we_up,we_down,shared}``, and
+``post_ln1``/``post_ln2`` with sandwich norms); layer ``i`` has kind
+``cfg.layer_kinds()[i]``.  A Python loop
 over the layers takes the place of the reference's ``lax.scan`` over
 stacked segments.  Weights are stored in the compute dtype; the
 reference stores f32 and casts at each use, which computes the same
 thing.  Where the reference computes with a weight in f32 instead (the
-MoE router; mamba's ``models/ssm.py::F32_PARAMS``), the port keeps it
-in f32.
+MoE router; mamba's ``models/ssm.py::F32_PARAMS``; the xLSTM gates'
+``models/xlstm.py::F32_PARAMS``), the port keeps it in f32.
 """
 from __future__ import annotations
 
@@ -34,14 +39,22 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models import xlstm as X
+
+Z_LOSS_WEIGHT = 1e-4
+ROUTER_Z_WEIGHT = 1e-3
 
 _DEFAULTS = {
-    "use_qk_norm": False, "rope_theta_local": None, "xlstm": None,
+    "use_qk_norm": False, "rope_theta_local": None,
     "encoder_layers": 0, "frontend": None,
 }
-_FAMILIES = ("dense", "moe", "hybrid")
+_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 _MOE_LAYERS = ("none", "all_but_first", "every_2")
-_KINDS = ("global", "local", "mamba")
+_KINDS = ("global", "local", "mamba", "mlstm", "slstm")
+_XLSTM_KINDS = ("mlstm", "slstm")
+#: Layer kinds whose cache is a recurrent state, dense and slot-major in
+#: both engines, instead of K/V.
+RECURRENT_KINDS = ("mamba",) + _XLSTM_KINDS
 _ACTIVATIONS = ("silu", "gelu")
 
 
@@ -59,21 +72,31 @@ def check_supported(cfg: ModelConfig) -> None:
         odd["layer_pattern"] = cfg.layer_pattern    # MLA is global only
     elif ("mamba" in cfg.layer_kinds()) != (cfg.ssm is not None):
         odd["ssm"] = cfg.ssm                        # mamba layers need it
+    elif (bool(set(cfg.layer_kinds()) & set(_XLSTM_KINDS))
+          != (cfg.xlstm is not None)):
+        odd["xlstm"] = cfg.xlstm                    # xLSTM layers need it
     if cfg.mlp_activation not in _ACTIVATIONS:
         odd["mlp_activation"] = cfg.mlp_activation
-    if cfg.d_ff <= 0:
-        odd["d_ff"] = cfg.d_ff
+    if cfg.d_ff <= 0 and set(cfg.layer_kinds()) - set(_XLSTM_KINDS):
+        odd["d_ff"] = cfg.d_ff          # only xLSTM blocks have no FFN
     if odd:
         raise NotImplementedError(
             f"{cfg.name}: {odd} are not ported yet — the port serves "
             f"decoders of global and sliding-window (local) attention "
             f"layers with softcaps, sandwich norms and a gated SiLU or "
             f"tanh-GELU MLP, of global MLA layers with MoE on all but the "
-            f"first layer, and of global attention and mamba layers with "
-            f"MoE on every other layer; still to port: qk-norm and "
-            f"rope_theta_local (gemma3), MoE on every layer, xLSTM layers, "
-            f"encoders and multimodal frontends (ROADMAP.md queue A)")
+            f"first layer, of global attention and mamba layers with "
+            f"MoE on every other layer, and of mLSTM and sLSTM layers; "
+            f"still to port: qk-norm and rope_theta_local (gemma3), MoE "
+            f"on every layer, encoders and multimodal frontends "
+            f"(ROADMAP.md queue A)")
     dtype_of(cfg.dtype)
+
+
+def _has_ffn(kind: str) -> bool:
+    """Whether a layer has the FFN sublayer: an xLSTM block subsumes it
+    (``repro`` transformer.py:78)."""
+    return kind not in _XLSTM_KINDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,21 +142,25 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     embed, unembed = L.init_embed(gen, cfg, dtype=dt)
     layers = []
     for i, kind in enumerate(cfg.layer_kinds()):
-        p = {"ln1": L.norm_param(cfg.d_model, device=dev, dtype=dt),
-             "ln2": L.norm_param(cfg.d_model, device=dev, dtype=dt)}
+        p = {"ln1": L.norm_param(cfg.d_model, device=dev, dtype=dt)}
         if kind == "mamba":
             p["mamba"] = S.init_mamba(gen, cfg, dtype=dt)
+        elif kind in _XLSTM_KINDS:
+            init = X.init_mlstm if kind == "mlstm" else X.init_slstm
+            p[kind] = init(gen, cfg, dtype=dt)
         elif cfg.mla is not None:
             p["attn"] = A.init_mla(gen, cfg, dtype=dt)
         else:
             p["attn"] = A.init_attn(gen, cfg, dtype=dt)
-        if cfg.is_moe_layer(i):
-            p["moe"] = M.init_moe(gen, cfg, dtype=dt)
-        else:
-            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)
-        if cfg.use_post_norms:
-            for name in ("post_ln1", "post_ln2"):
-                p[name] = L.norm_param(cfg.d_model, device=dev, dtype=dt)
+        norms = ["post_ln1"] if cfg.use_post_norms else []
+        if _has_ffn(kind):
+            norms += ["ln2", "post_ln2"] if cfg.use_post_norms else ["ln2"]
+            if cfg.is_moe_layer(i):
+                p["moe"] = M.init_moe(gen, cfg, dtype=dt)
+            else:
+                p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)
+        for name in norms:
+            p[name] = L.norm_param(cfg.d_model, device=dev, dtype=dt)
         layers.append(p)
     return {"embed": embed, "unembed": unembed,
             "final_norm": L.norm_param(cfg.d_model, device=dev, dtype=dt),
@@ -168,37 +195,63 @@ def _residual(p, x: torch.Tensor, y: torch.Tensor, post: str, cfg,
 
 
 def _mlp_block(p, x: torch.Tensor, cfg: ModelConfig, *,
-               plain: bool = False) -> torch.Tensor:
-    """The FFN sublayer: the MLP, or on an MoE layer the experts."""
+               plain: bool = False, aux=None) -> torch.Tensor:
+    """The FFN sublayer: the MLP, or on an MoE layer the experts, whose
+    load-balance and router z losses are added into ``aux`` where one
+    is given; none on an xLSTM layer (it has no ``ln2``)."""
+    if "ln2" not in p:
+        return x
     h = L.apply_norm(p["ln2"], x, plain=plain)
-    y = (M.apply_moe(p["moe"], h, cfg, plain=plain) if "moe" in p
-         else L.apply_mlp(p["mlp"], h, cfg.mlp_activation))
+    if "moe" not in p:
+        y = L.apply_mlp(p["mlp"], h, cfg.mlp_activation)
+    elif aux is None:
+        y = M.apply_moe(p["moe"], h, cfg, plain=plain)
+    else:
+        y, a = M.apply_moe(p["moe"], h, cfg, plain=plain, return_aux=True)
+        for name in aux:
+            aux[name] = aux[name] + a[name]
     return _residual(p, x, y, "post_ln2", cfg, plain)
+
+
+def _recurrent_mixer(p, h: torch.Tensor, cfg: ModelConfig, kind: str,
+                     want_cache: bool, plain: bool):
+    """A recurrent layer's mixer over the whole sequence: (y, its decode
+    state after the sequence, or None unless ``want_cache``)."""
+    if kind == "mamba":
+        y, cache = S.apply_mamba(p["mamba"], h, cfg, return_cache=True,
+                                 plain=plain)
+        return y, (cache if want_cache else None)
+    fn = X.apply_mlstm if kind == "mlstm" else X.apply_slstm
+    res = fn(p[kind], h, cfg, return_cache=want_cache, plain=plain)
+    return res if want_cache else (res, None)
 
 
 def apply_layer_prefill(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                         cache_len: Optional[int], rope, *,
-                        plain: bool = False):
+                        plain: bool = False, aux=None):
     """Full-sequence layer.  ``rope`` is the (cos, sin) pair of the
     sequence's positions.  Returns (x, cache): K/V padded to
     ``cache_len``, or the window's ring for a local layer whose window
-    is shorter (no cache when ``cache_len`` is None); MLA's K and V are
-    the materialised per-head ones, of their own widths; a mamba layer's
-    cache is its decode state {"h", "conv"} after the sequence."""
+    is shorter (no cache when ``cache_len`` is None: the training
+    forward, whose MoE layers add their losses into ``aux``); MLA's K
+    and V are the materialised per-head ones, of their own widths; a
+    recurrent layer's cache is its decode state after the sequence
+    (mamba {"h", "conv"}, mLSTM {"C", "n", "m", "conv"}, sLSTM {"c",
+    "n", "m", "h", "conv"})."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
-    if kind == "mamba":
-        y, cache = S.apply_mamba(p["mamba"], h, cfg, return_cache=True,
-                                 plain=plain)
+    if kind in RECURRENT_KINDS:
+        y, cache = _recurrent_mixer(p, h, cfg, kind, cache_len is not None,
+                                    plain)
         x = _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
-                       plain=plain)
-        return x, (cache if cache_len is not None else None)
+                       plain=plain, aux=aux)
+        return x, cache
     if cfg.mla is not None:
         y, k, v = A.apply_mla(p["attn"], h, cfg, rope, plain=plain)
     else:
         y, k, v = A.apply_attn(p["attn"], h, cfg, rope, kind=kind,
                                plain=plain)
     x = _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
-                   plain=plain)
+                   plain=plain, aux=aux)
     if cache_len is None:
         return x, None
     if _ring_cache(cfg, kind, cache_len):
@@ -218,17 +271,22 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     is a paged pool pair of the global group, ``kw``/``vw`` one of the
     window group (ring tables), either quantized when ``ks``/``vs``
     scale pools sit beside it; one holding ``k``/``v`` a dense slot
-    cache, or the window's ring; a mamba layer's holds its state
-    {"h", "conv"}, slot-major in both engines.  ``block_tables`` is the
+    cache, or the window's ring; a recurrent layer's holds its state
+    (``apply_layer_prefill``), slot-major in both engines.  ``block_tables`` is the
     (B, T) table, or for a model with a window group the dict {"global",
     "window"}.  The new token's K/V (or state) is written into the cache
     in place.  ``plain`` takes the plain version of every kernel, on any
     device, for global layers over bf16 pools or dense caches and for
-    mamba layers (the replay that ``chip_smoke.py`` holds the served
+    recurrent layers (the replay that ``chip_smoke.py`` holds the served
     path against)."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
-    if kind == "mamba":
-        y = S.decode_mamba(p["mamba"], h, cache, cfg)
+    if kind in RECURRENT_KINDS:
+        if kind == "mamba":
+            y = S.decode_mamba(p["mamba"], h, cache, cfg)
+        elif kind == "mlstm":
+            y = X.decode_mlstm(p["mlstm"], h, cache, cfg, plain=plain)
+        else:
+            y = X.decode_slstm(p["slstm"], h, cache, cfg, plain=plain)
         return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
                           plain=plain)
     if isinstance(block_tables, dict):
@@ -307,7 +365,7 @@ def _rope_dim(cfg: ModelConfig) -> int:
 
 
 def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-             cache_len: Optional[int], *, plain: bool):
+             cache_len: Optional[int], *, plain: bool, aux=None):
     x = L.embed_tokens(params["embed"], tokens, cfg)
     # every layer rotates the same positions: one cos/sin for the stack
     rope = L.rope_cache(torch.arange(tokens.shape[1], device=x.device),
@@ -315,7 +373,7 @@ def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     caches = []
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
         x, c = apply_layer_prefill(p, x, cfg, kind, cache_len, rope,
-                                   plain=plain)
+                                   plain=plain, aux=aux)
         caches.append(c)
     return x, caches
 
@@ -342,6 +400,40 @@ def forward_logits(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     version of every kernel, on any device."""
     x, _ = _forward(params, cfg, tokens, None, plain=plain)
     return _logits(params, x[:, start:].contiguous(), cfg, plain=plain)
+
+
+def forward_train(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  *, plain: bool = False):
+    """The training loss, forward only (``repro`` transformer.py:569):
+    batch {"tokens", "labels"} (B, S) int.  Returns (loss, metrics):
+    the mean cross-entropy over the padded vocabulary (its tail masked
+    at -1e30 by ``_logits``), the z-loss ``Z_LOSS_WEIGHT`` mean(lse^2),
+    and the MoE layers' load-balance (weighted by ``aux_loss_weight``)
+    and router z (``ROUTER_Z_WEIGHT``) losses summed over the layers;
+    every metric a 0-d f32 tensor, under the reference's names.  Every
+    label counts (the reference masks only a vision prefix, which the
+    port refuses).  ``plain`` takes the plain version of every kernel,
+    on any device."""
+    extra = sorted(set(batch) - {"tokens", "labels"})
+    if extra:
+        raise NotImplementedError(
+            f"{cfg.name}: batch inputs {extra} are not ported yet (the "
+            f"vision splice and the encoder: ROADMAP.md queue A)")
+    tokens, labels = batch["tokens"], batch["labels"]
+    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = {"load_balance": zero, "router_z": zero}
+    x, _ = _forward(params, cfg, tokens, None, plain=plain, aux=aux)
+    logits = _logits(params, x, cfg, plain=plain)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    ce = (lse - ll).mean()
+    z_loss = Z_LOSS_WEIGHT * (lse ** 2).mean()
+    moe_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    loss = (ce + z_loss + moe_w * aux["load_balance"]
+            + ROUTER_Z_WEIGHT * aux["router_z"])
+    return loss, {"loss": loss, "ce": ce, "z_loss": z_loss,
+                  "load_balance": aux["load_balance"],
+                  "router_z": aux["router_z"]}
 
 
 def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
@@ -396,18 +488,27 @@ def init_decode_caches(cfg: ModelConfig, batch: int, cache_len: int,
                        device) -> List[Dict[str, torch.Tensor]]:
     """Zeroed dense caches per layer kind (``repro`` transformer.py:160):
     K/V (B, H, S, Dk|Dv) (``kv_dims``), S = cache_len, or the window for
-    a local layer whose window is shorter (its ring); a mamba layer's
-    state {"h": (B, d_inner, d_state) f32, "conv": (B, d_conv - 1,
-    d_inner)}."""
+    a local layer whose window is shorter (its ring); a recurrent layer's
+    empty state (``recurrent_cache``)."""
     dt = dtype_of(cfg.dtype)
     h, dk, dv = kv_dims(cfg)
     caches = []
     for kind in cfg.layer_kinds():
-        if kind == "mamba":
-            caches.append(S.mamba_cache(cfg, batch, dt, device))
+        if kind in RECURRENT_KINDS:
+            caches.append(recurrent_cache(cfg, kind, batch, dt, device))
             continue
         s = cfg.window if _ring_cache(cfg, kind, cache_len) else cache_len
         caches.append({
             "k": torch.zeros((batch, h, s, dk), device=device, dtype=dt),
             "v": torch.zeros((batch, h, s, dv), device=device, dtype=dt)})
     return caches
+
+
+def recurrent_cache(cfg: ModelConfig, kind: str, batch: int, dtype,
+                    device) -> Dict[str, torch.Tensor]:
+    """A recurrent layer's empty decode state for ``batch`` slots: mamba
+    {"h", "conv"}, mLSTM {"C", "n", "m", "conv"}, sLSTM {"c", "n", "m",
+    "h", "conv"} (the stabilisers m at ``xlstm.M_EMPTY``)."""
+    fn = {"mamba": S.mamba_cache, "mlstm": X.mlstm_cache,
+          "slstm": X.slstm_cache}[kind]
+    return fn(cfg, batch, dtype, device)

@@ -45,15 +45,19 @@ and V, of their own widths, in the pools and the dense caches alike;
 their int8/fp8 pools and their speculative decoding are refused until
 the kernels for them are ported.
 
-Hybrid models with mamba layers (jamba-1.5) keep each mamba layer's
-state (``h`` and the conv tail) dense and slot-major in both engines.
-Every decode step updates every slot's state, idle ones too;
-admission overwrites the whole state of the slots it fills, so a
-re-admitted slot (after preemption, or a new request) starts from its
-own prefill alone.  Their int8/fp8 pools are refused until the
-quantized scatter for hybrid models is ported, and speculation is
-refused as for every recurrent layer: a batched verify cannot roll the
-state back.
+Models with recurrent layers (jamba-1.5's mamba layers; xlstm-1.3b's
+mLSTM and sLSTM layers) keep each such layer's state (mamba ``h``;
+mLSTM ``C``, ``n``, ``m``; sLSTM ``c``, ``n``, ``m``, ``h``; and the
+conv tail) dense and slot-major in both engines.  Every decode step
+updates every slot's state, idle ones too; admission overwrites the
+whole state of the slots it fills, so a re-admitted slot (after
+preemption, or a new request) starts from its own prefill alone.  A
+model with no attention layer (xlstm-1.3b) has no page pool that any
+kernel reads, yet the paged engine keeps its block tables, allocator
+and preemption as for any other model, as the reference's does.  Their
+int8/fp8 pools are refused until the quantized scatter for recurrent
+models is ported, and speculation is refused as for every recurrent
+layer: a batched verify cannot roll the state back.
 
 Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
 ``spec_k`` tokens per slot from the slot's own token history
@@ -81,8 +85,8 @@ import torch
 from repro_torch.core import tuning
 from repro_torch.core.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.models.registry import Model
-from repro_torch.models.ssm import mamba_cache
-from repro_torch.models.transformer import kv_dims
+from repro_torch.models.transformer import (RECURRENT_KINDS, kv_dims,
+                                            recurrent_cache)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.quant import resolve_kv_spec
 from repro_torch.serve import paging
@@ -144,14 +148,15 @@ class Engine:
             raise ValueError(f"spec_mode must be one of {SPEC_MODES}, "
                              f"got {sc.spec_mode!r}")
         self.spec = sc.spec_mode != "off"
-        recurrent = [i for i, k in enumerate(model.cfg.layer_kinds())
-                     if k == "mamba"]
+        kinds = model.cfg.layer_kinds()
+        recurrent = [i for i, k in enumerate(kinds) if k in RECURRENT_KINDS]
         if recurrent and sc.kv_dtype not in (None, "bf16"):
             raise NotImplementedError(
-                f"{model.cfg.name}: models with mamba layers are served from "
-                f"bf16 pools so far; kv_dtype={sc.kv_dtype!r} arrives with "
-                f"the quantized pools and scatter for hybrid models "
-                f"(ROADMAP.md queue A, item 11)")
+                f"{model.cfg.name}: models with recurrent (mamba, mLSTM, "
+                f"sLSTM) layers are served from bf16 pools so far; "
+                f"kv_dtype={sc.kv_dtype!r} arrives with the quantized pools "
+                f"and scatter for recurrent models (ROADMAP.md queue A, "
+                f"item 11)")
         if model.cfg.mla is not None and (self.spec
                                           or sc.kv_dtype not in (None, "bf16")):
             raise NotImplementedError(
@@ -171,11 +176,10 @@ class Engine:
                     f"{sc.temperature} breaks; set temperature=0.0")
             if sc.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {sc.spec_k}")
-            kinds = set(model.cfg.layer_kinds())
-            if kinds - {"global"}:
+            if set(kinds) - {"global"}:
                 raise ValueError(
                     f"spec_mode supports attention-only decoder models "
-                    f"(global attention); layer kinds {sorted(kinds)} "
+                    f"(global attention); layer kinds {sorted(set(kinds))} "
                     f"include state that a batched verify cannot roll back")
         if sc.kv_dtype is not None and not sc.paged:
             raise ValueError("kv_dtype requires paged=True (only paged "
@@ -221,7 +225,6 @@ class Engine:
             # the window group: local layers whose window is shorter
             # than the cache page through ring tables over their own
             # pool, O(window) pages per slot
-            kinds = cfg.layer_kinds()
             self.window = cfg.window
             self.windowed = bool("local" in kinds and cfg.window
                                  and cfg.window < sc.cache_len)
@@ -246,7 +249,7 @@ class Engine:
                 cfg.num_layers, heads, dk, total, self.page_size, device=dev,
                 dtype=dt, kv_spec=self.kv_spec, window_layers=window_layers,
                 total_pages_window=total_w, v_head_dim=dv,
-                recurrent={i: mamba_cache(cfg, slots, dt, dev)
+                recurrent={i: recurrent_cache(cfg, kinds[i], slots, dt, dev)
                            for i in recurrent})
         else:
             self.windowed = False

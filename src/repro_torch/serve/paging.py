@@ -17,8 +17,9 @@ Sliding-window layers whose window is shorter than the cache form the
 over their own page pool, addressed through ring block tables of width
 ``window_table_width`` (global page ``g`` at column ``g % T_w``), from
 which ``free_prefix`` eagerly returns the pages the window slid past.
-Recurrent layers (mamba) keep their state dense and slot-major beside
-the pools.  Fault quarantine arrives with a later slice.
+Recurrent layers (mamba, mLSTM, sLSTM) keep their state dense and
+slot-major beside the pools; a model of recurrent layers alone has no
+pool, yet its block tables and allocator are kept as for any other.  Fault quarantine arrives with a later slice.
 """
 from __future__ import annotations
 
@@ -304,8 +305,8 @@ def init_paged_caches(num_layers: int, num_kv_heads: int, head_dim: int,
     ``ks``/``vs`` (Hkv, P) f32 scale pools of the layer's group,
     ones-initialized: a zero pool dequantizes to zeros under any scale,
     and a unit scale keeps dequantization total before the first
-    write.  The layers in ``recurrent`` (index -> zeroed state leaves,
-    a mamba layer's ``h`` and ``conv``) are not paged: their leaves are
+    write.  The layers in ``recurrent`` (index -> empty state leaves:
+    ``transformer.recurrent_cache``) are not paged: their leaves are
     taken as they are, dense and slot-major (``repro`` paging.py:464)."""
     if window_layers and total_pages_window is None:
         raise ValueError("window-group layers need total_pages_window")
@@ -404,8 +405,8 @@ def scatter_prefill(caches: List[Dict[str, torch.Tensor]],
     for each prompt's live window pages, so only the window's tail
     reaches real pages (``plens`` (k,) the prompt lengths, ``window``
     the model's).  Quantized pools are quantized per (head, page);
-    dense leaves of any name (K/V caches and rings, a mamba layer's
-    ``h`` and ``conv``) take rows ``slot_idx`` (k,), so an admitted slot
+    dense leaves of any name (K/V caches and rings, a recurrent layer's
+    state) take rows ``slot_idx`` (k,), so an admitted slot
     holds only its own request's state.
     """
     for c, one in zip(caches, cache1):

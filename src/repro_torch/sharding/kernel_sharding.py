@@ -1,7 +1,8 @@
 """Fused cache-write + decode attention: the no-mesh branches of
 ``repro.sharding.kernel_sharding`` (``sharded_decode_update_attend``,
 ``sharded_paged_decode_update_attend``, their quantized, sliding-window
-and speculative variants, and ``sharded_mamba_scan``).  The mesh branches arrive with the
+and speculative variants, ``sharded_mamba_scan`` and
+``sharded_mlstm_scan``).  The mesh branches arrive with the
 distribution slice.
 
 The reference returns fresh caches (JAX arrays are immutable); the port
@@ -27,6 +28,8 @@ from repro_torch.kernels.decode_attention.ops import (
     spec_paged_decode_attention, window_paged_decode_attention)
 from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.mlstm_scan import ref as mlstm_ref
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
 from repro_torch.quant.blockwise import quantize_absmax
 from repro_torch.serve.paging import raw_bytes
 
@@ -213,3 +216,15 @@ def sharded_mamba_scan(x, dt, A, Bm, Cm, D, *, plain: bool = False):
     if plain:
         return scan_ref.mamba_scan_ref(*args)
     return mamba_scan(*args)
+
+
+def sharded_mlstm_scan(q, k, v, i_gate, f_gate, *, return_state: bool = False,
+                       plain: bool = False):
+    """q/k: (B, H, S, Dk); v: (B, H, S, Dv); gates: (B, H, S) -> h, or
+    (h, (C, n, m)) with ``return_state`` (``repro``
+    kernel_sharding.py:762, its no-mesh branch; on a mesh the value
+    columns or the heads split, as the kernel's CTAs split the columns).
+    The kernel takes dense rows: strided head views are copied first."""
+    args = tuple(t.contiguous() for t in (q, k, v, i_gate, f_gate))
+    fn = mlstm_ref.mlstm_scan_ref if plain else mlstm_scan
+    return fn(*args, return_state=return_state)

@@ -27,6 +27,9 @@ from repro_torch.kernels.gmm import ref as gmm_ref
 from repro_torch.kernels.mamba_scan import mamba_scan as scan_kern
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mamba_scan import ref as scan_ref
+from repro_torch.kernels.mlstm_scan import mlstm_scan as mlstm_kern
+from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+from repro_torch.kernels.mlstm_scan import ref as mlstm_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
@@ -498,3 +501,86 @@ def test_jamba_engine_on_card_matches_cpu(cuda, paged):
         assert (scan_kern.KERNEL.launches > before) == (dev == "cuda")
         outs[dev] = [r.out for r in reqs]
     assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------------ xlstm: B10 (mLSTM scan) --
+
+@pytest.mark.parametrize("b,h,s,dk,dtype", [
+    (1, 2, 64, 32, torch.float32),          # repro's registry example
+    (1, 4, 1, 1024, torch.bfloat16),        # one step
+    (1, 4, 17, 1024, torch.bfloat16),       # S off a multiple of the chunk
+    (2, 4, 64, 1024, torch.bfloat16),       # S a multiple of the chunk
+    (1, 4, 200, 1024, torch.float32),
+    (2, 4, 511, 1024, torch.bfloat16)])     # the largest prefill group
+def test_mlstm_scan_kernel(cuda, b, h, s, dk, dtype):
+    """B10 against its plain version, h and the final state (C, n, m):
+    f32 outputs (the state, and h of f32 inputs) at the op's 2e-4, bf16
+    h at 2e-2; q/k/v in ``dtype``, the gates in f32, as the mLSTM layer
+    hands them over; one launch with the state and one without."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g)
+
+    q, k, v = (rnd(b, h, s, dk).to(dtype) for _ in range(3))
+    ig, fg = rnd(b, h, s), rnd(b, h, s) + 2.0
+    before = mlstm_kern.KERNEL.launches
+    out, (c, n, m) = mlstm_ops.mlstm_scan(q, k, v, ig, fg, return_state=True)
+    alone = mlstm_ops.mlstm_scan(q, k, v, ig, fg)
+    assert mlstm_kern.KERNEL.launches == before + 2
+    want, (wc, wn, wm) = mlstm_ref.mlstm_scan_ref(q, k, v, ig, fg,
+                                                  return_state=True)
+    assert out.dtype == dtype and c.dtype == torch.float32
+    tol = mlstm_ops.TOL if dtype == torch.float32 \
+        else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(alone, out, atol=0, rtol=0)
+    for got, ref in ((c, wc), (n, wn), (m, wm)):
+        torch.testing.assert_close(got, ref, **mlstm_ops.TOL)
+
+
+def _xlstm_card_config():
+    """The xlstm smoke pattern (seven mLSTM layers, then an sLSTM one)
+    at widths the kernels take: d_model 32 and 2 heads give mLSTM heads
+    of 32, a build of B10; float32."""
+    return dataclasses.replace(smoke_config("xlstm-1.3b"), num_layers=8,
+                               d_model=32, dtype="float32")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_xlstm_engine_on_card_matches_cpu(cuda, paged):
+    """The same greedy tokens on the card (B1, and B10 at every prefill
+    with its state output) and on the CPU (plain versions)."""
+    model = build_model(_xlstm_card_config())
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=paged)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        before = mlstm_kern.KERNEL.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (mlstm_kern.KERNEL.launches > before) == (dev == "cuda")
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_xlstm_loss_on_card_matches_its_plain_version(cuda):
+    """``Model.loss`` through B1 and B10 (without its state output) and
+    through the plain versions, on the card, float32."""
+    model = build_model(_xlstm_card_config())
+    params = _to(model.init(torch.Generator().manual_seed(0), device="cpu"),
+                 "cuda")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    batch = {name: torch.randint(0, 256, (2, 40), device=cuda, generator=g)
+             for name in ("tokens", "labels")}
+    before = mlstm_kern.KERNEL.launches
+    _, got = model.loss(params, batch)
+    assert mlstm_kern.KERNEL.launches == before + 7
+    _, want = model.loss(params, batch, plain=True)
+    assert mlstm_kern.KERNEL.launches == before + 7
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], **mlstm_ops.TOL)

@@ -1,6 +1,6 @@
 """The port's kernels on the serving path (rmsnorm, flash prefill,
 dense decode, paged decode, sliding-window paged decode and its
-quantized mode, the selective scan).
+quantized mode, the selective scan, the mLSTM scan).
 
 On the CPU: each public op (which takes the plain PyTorch version for a
 CPU tensor) against the JAX op's reference under ``target("generic")``,
@@ -31,6 +31,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.gmm import ops as gmm_ops  # noqa: F401  (registers B8)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
+from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
 
@@ -85,6 +86,8 @@ _PORT_OPS = {
             page_size=p["page_size"], return_residuals=True),
     "mamba_scan": lambda x, dt, a, bm, cm, d, **p: scan_ops.mamba_scan(
         x, dt, a, bm, cm, d),
+    "mlstm_scan": lambda q, k, v, ig, fg, **p: mlstm_ops.mlstm_scan(
+        q, k, v, ig, fg),
 }
 
 
@@ -97,7 +100,8 @@ def test_registry_example_matches_reference(name):
     got = _PORT_OPS[name](*(_t(a) for a in operands), **params)
     _close(got, want, op.tol)
     tol = {"rmsnorm": rms_ops.TOL, "flash_attention": fa_ops.TOL,
-           "mamba_scan": scan_ops.TOL}.get(name, dec_ops.TOL)
+           "mamba_scan": scan_ops.TOL,
+           "mlstm_scan": mlstm_ops.TOL}.get(name, dec_ops.TOL)
     assert tol == op.tol
 
 
@@ -295,7 +299,7 @@ def test_kernel_launchers_refuse_shapes_they_were_not_built_for():
 def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
     assert names == ["decode_attention", "flash_attention", "gmm",
-                     "mamba_scan", "paged_decode_attention",
+                     "mamba_scan", "mlstm_scan", "paged_decode_attention",
                      "quant_paged_decode_attention",
                      "quant_window_paged_decode_attention", "rmsnorm",
                      "spec_paged_decode_attention",
@@ -306,4 +310,4 @@ def test_every_kernel_has_a_source_and_a_build_key():
         assert "Replaces the TPU kernel" in text and "Bound on the H100" in text
         assert f'extern "C" int {k.symbol}' in text
         assert k.library_path().parent == build.BUILD_DIR
-    assert len({k.library_path() for k in build.KERNELS}) == 10
+    assert len({k.library_path() for k in build.KERNELS}) == 11
