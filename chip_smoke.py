@@ -29,6 +29,16 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    24576) at its shapes; then xlstm-1.3b's: the mLSTM scan with its
    final state (the reference's example, then B 1 and 2 x S 1, 17, 64,
    200 and 511 at 4 heads of Dk = Dv = 1024, bf16 with f32 gates);
+   then the portable runtime against the native twins
+   (``repro_torch.bench.parity``, with every launch count set to 0
+   before it and read after): B1 and B2, written against the device
+   runtime ``csrc/rt/``, bit-identical to their hard-coded twins B11a
+   and B11b at granite's, gemma2's, jamba's and the reference's parity
+   shapes, all four within tolerance of the plain versions, their SASS
+   opcode histograms, registers and times in turns printed; B1 and B2
+   built for the generic target within tolerance; the runtime test
+   kernel's order-free outcomes held to the plain atomics for both
+   targets, and a generic build of ``atomic_inc`` refused;
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -1190,6 +1200,101 @@ def check_mlstm_scan(s: Smoke) -> None:
              F32_FLOPS_PER_S)
 
 
+# ----------------------------------- portable runtime vs native twins -----
+
+#: twin pairs: portable kernel -> (native kernel, its source, the TPU
+#: kernel it replaces)
+TWINS = {
+    "rmsnorm": ("rmsnorm_native", "native/rmsnorm_native.cu",
+                "src/repro/kernels/rmsnorm/native.py:20"),
+    "flash_attention": ("flash_attention_native",
+                        "native/flash_attention_native.cu",
+                        "src/repro/kernels/flash_attention/native.py:88")}
+PARITY_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_native",
+                  "flash_attention_native", "rt_selftest",
+                  "rt_selftest_portable")
+
+
+def _twin_cost(s: Smoke, c):
+    """(bytes, operations, peak of their type, library ms) of a parity
+    case, on its inputs: each input read once, the output written once;
+    rmsnorm 4 flops an element, attention 4 D per live (q, k) pair."""
+    torch = s.torch
+    e = 4 if c["dtype"] == "float32" else 2
+    peak = F32_FLOPS_PER_S if e == 4 else BF16_FLOPS_PER_S
+    if c["pair"] == "rmsnorm":
+        rows, d = c["shape"]
+        x, w = c["args"]
+        return (2 * rows * d * e + d * e, 4 * rows * d, peak,
+                s.time_ms(lambda: torch.nn.functional.rms_norm(
+                    x, (d,), w + 1.0, 1e-6)))
+    b, hq, hkv, n, d = c["shape"]
+    q, k, v, masks = c["args"]
+    window = masks.get("window") or n
+    pairs = sum(min(i + 1, window) for i in range(n))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = None if masks else s.time_ms(       # SDPA takes no softcap
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    return (2 * b * hq * n * d * e + 2 * b * hkv * n * d * e,
+            4 * b * hq * d * pairs, peak, lib)
+
+
+def run_parity(s: Smoke) -> None:
+    """The paper's native-vs-portable comparison on the card, through
+    its entry point ``repro_torch.bench.parity.run``, with every launch
+    count set to 0 just before it and read just after: each of its
+    checks becomes one of this run's, and B11a, B11b and the runtime
+    test kernel get their records (the twins' times measured in turns
+    with their portable members, the library call's here)."""
+    from repro_torch.bench import parity
+    from repro_torch.core.build import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+    res = parity.run(s.dev)
+    launches = {k.name: k.launches for k in KERNELS}
+    parity.report(res)
+    s.check(res["stub_refused"], "a generic build of atomic_inc is refused "
+            f"with \"{parity.STUB}\"")
+    for name in PARITY_KERNELS:
+        s.check(launches[name] > 0, f"parity path: {name} launched "
+                f"{launches[name]} times")
+    for c in res["cases"]:
+        what = f"{c['pair']} {c['case']} {tuple(c['shape'])} {c['dtype']}"
+        s.check(c["bit_identical"], f"{what}: the native twin is "
+                "bit-identical to the portable kernel")
+        for side in ("portable", "native", "generic"):
+            s.check(c[f"ok_{side}"], f"{what}: {side} within "
+                    f"{c['tol']:g} of the plain version (max abs diff "
+                    f"{c[f'err_{side}']:.3e})")
+        name, source, replaces = TWINS[c["pair"]]
+        nbytes, flops, peak, lib = _twin_cost(s, c)
+        args = (c["err_native"], c["ms_native"], c["ms_plain"], nbytes,
+                flops, lib)
+        if c["case"] == "granite":
+            s.record(name, source, replaces, *args, ops_per_s=peak)
+            s.kernels[name]["launches_by_path"]["parity"] = launches[name]
+            s.kernels[name]["portable_ms"] = c["ms_portable"]
+        else:
+            s.record_also(name, c["case"], *args, ops_per_s=peak)
+            s.kernels[name][c["case"]]["portable_ms"] = c["ms_portable"]
+    for r in res["selftest"]:
+        s.check(r["ok"], f"runtime test kernel ({r['target']}, {r['build']}, "
+                f"{r['teams']} teams, {r['total']} items): order-free "
+                f"outcomes equal the plain atomics' {r['mismatches'] or ''}")
+    r = next(r for r in res["selftest"] if r["teams"] > 7
+             and r["build"] == "with target part")
+    # parts, counters, old values of the increments, team sums and
+    # maxes, a reciprocal per thread, and the staged copy in and out
+    nbytes = 4 * (2 * r["teams"] + 8 + r["total"] + 2 * r["teams"]) + \
+        4 * r["teams"] * 128 + 2 * 16 * r["teams"] * 128
+    s.record("rt_selftest", "rt_selftest.cu", "tests/test_runtime.py:43",
+             0.0 if r["ok"] else float("nan"), r["ms"], r["plain_ms"],
+             nbytes, 0, None)
+    s.kernels["rt_selftest"]["test"] = True
+    s.kernels["rt_selftest"]["launches_by_path"]["parity"] = \
+        launches["rt_selftest"]
+
+
 # ------------------------------------------------------------ serving -----
 
 def _requests(vocab: int, prompt_lens=PROMPT_LENS):
@@ -2207,9 +2312,14 @@ def main() -> int:
     from repro_torch.kernels.mamba_scan import ops as _m  # noqa: F401
     from repro_torch.kernels.mlstm_scan import ops as _x  # noqa: F401
     from repro_torch.kernels.rmsnorm import ops as _r  # noqa: F401
-    secs = s.phase("build", build.build_all)
+    # ... and so do B11's, the runtime test kernel's and the generic
+    # builds of the parity path
+    from repro_torch.bench import parity
+    secs = s.phase("build", build.build_all, parity.generic_jobs())
     if secs is not None:
-        print(f"  {len(build.KERNELS)} kernels built by nvcc in {secs:.2f} s "
+        print(f"  {len(build.KERNELS)} kernels (and "
+              f"{len(parity.generic_jobs())} generic builds) built by nvcc "
+              f"in {secs:.2f} s "
               f"into {build.BUILD_DIR.relative_to(ROOT)}")
     for name, fn in (("rmsnorm", check_rmsnorm), ("flash", check_flash),
                      ("decode", check_decode), ("paged", check_paged),
@@ -2224,6 +2334,7 @@ def main() -> int:
                      ("B1-B4 and gmm (jamba shapes)", check_jamba_shapes),
                      ("mlstm_scan (xlstm shapes)", check_mlstm_scan)):
         s.phase(f"kernel {name} against its plain version", fn, s)
+    s.phase("portable runtime against native twins", run_parity, s)
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
         _die("failed before serving:\n  " + "\n  ".join(s.failures))

@@ -1,7 +1,9 @@
 #!/usr/bin/env bash
 # Registers, shared memory and spills of every kernel of the PyTorch
 # port, as ptxas reports them: compiles each src/repro_torch/csrc/*.cu
-# with the port's nvcc flags plus -Xptxas -v into a throw-away object.
+# and csrc/native/*.cu with the port's nvcc flags for the card (the
+# sm_90a target part of the device runtime, csrc/rt/) plus -Xptxas -v
+# into a throw-away object.
 # Needs the CUDA toolkit (nvcc on PATH or under $CUDA_HOME).
 #
 #   scripts/torch_ptxas.sh [source.cu ...]
@@ -12,7 +14,7 @@ CSRC=src/repro_torch/csrc
 OUT=$(mktemp -d)
 trap 'rm -rf "$OUT"' EXIT
 srcs=("$@")
-[ ${#srcs[@]} -gt 0 ] || srcs=("$CSRC"/*.cu)
+[ ${#srcs[@]} -gt 0 ] || srcs=("$CSRC"/*.cu "$CSRC"/native/*.cu)
 for src in "${srcs[@]}"; do
   echo "== $(basename "$src")"
   "$NVCC" -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \

@@ -1,6 +1,9 @@
 // Flash attention forward (prefill): online-softmax blocked attention
 // with GQA, causal / sliding-window / tanh-softcap masks, a static q
-// offset, ragged lengths, and fully masked rows written as 0.
+// offset, ragged lengths, and fully masked rows written as 0.  Written
+// against the device runtime (rt/runtime.cuh): the portable member of
+// the twin pair whose native member is native/flash_attention_native.cu
+// (B11b).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py (flash_attention_fwd, body _fa_kernel).
@@ -14,16 +17,17 @@
 // first kernel is far from either: it runs the math as f32 FMA on the
 // CUDA cores, not on the tensor cores; mma.sync, then wgmma and TMA, are
 // later PRs' work.
-// Design: one 256-thread CTA per (batch, q head, 64-row q tile); the
-// TPU's sequential kv grid axis becomes a loop inside the CTA, carrying
-// (m, l, acc) in shared memory and registers.  Q, K and V tiles are
-// staged in shared memory as f32 by stage_tile (16-byte loads, all in
-// flight together; K and Q rows padded to d + 1 floats so the 16
-// threads of a half-warp hit 16 banks); each thread owns a 4 x 4 block
-// of the score tile and a 4 x (dv/16) block of the output.  KV tiles that lie
-// wholly after the causal bound or before the window are skipped, as
-// the reference's `needed` predicate does.
+// Design: one 256-thread team per (batch, q head, 64-row q tile); the
+// TPU's sequential kv grid axis becomes a loop inside the team, carrying
+// (m, l, acc) in carve-outs of the shared arena and in registers.  Q, K
+// and V tiles are staged in shared memory as f32 by stage_tile (16-byte
+// loads, all in flight together; K and Q rows padded to d + 1 floats so
+// the 16 threads of a half-warp hit 16 banks); each thread owns a 4 x 4
+// block of the score tile and a 4 x (dv/16) block of the output.  KV
+// tiles that lie wholly after the causal bound or before the window are
+// skipped, as the reference's `needed` predicate does.
 #include "common.cuh"
+#include "rt/runtime.cuh"
 
 namespace {
 
@@ -46,19 +50,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int window, float softcap, int q_offset) {
   constexpr int LD = DK + 1;
   constexpr int DC = DV / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;             // BQ x LD, pre-scaled
-  float* sK = sQ + BQ * LD;     // BK x LD
-  float* sV = sK + BK * LD;     // BK x DV
-  float* sS = sV + BK * DV;     // BQ x LDS: scores, then probabilities
-  float* sM = sS + BQ * LDS;    // running row max
-  float* sL = sM + BQ;          // running row sum
-  float* sA = sL + BQ;          // this step's rescale factor per row
+  rt::Arena arena;
+  float* sQ = arena.alloc_shared<float>(BQ * LD);   // pre-scaled
+  float* sK = arena.alloc_shared<float>(BK * LD);
+  float* sV = arena.alloc_shared<float>(BK * DV);
+  float* sS = arena.alloc_shared<float>(BQ * LDS);  // scores, then probs
+  float* sM = arena.alloc_shared<float>(BQ);        // running row max
+  float* sL = arena.alloc_shared<float>(BQ);        // running row sum
+  float* sA = arena.alloc_shared<float>(BQ);        // this step's rescale
 
-  const int tid = threadIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = rt::thread_id();
+  const int h = rt::team_id(1), b = rt::team_id(2);
   const int kvh = h / (hq / hkv);
-  const int q0 = blockIdx.x * BQ;     // first q row (local)
+  const int q0 = rt::team_id(0) * BQ;  // first q row (local)
   const int qpos0 = q0 + q_offset;    // its global position
   const T* qb = q + static_cast<size_t>(b * hq + h) * sq * DK;
   const T* kb = k + static_cast<size_t>(b * hkv + kvh) * skv * DK;
@@ -90,12 +94,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid / 32, lane = tid % 32;
   for (int it = lo; it < hi; ++it) {
     const int k0 = it * BK;
-    __syncthreads();  // the previous step's readers of sK/sV/sS are done
+    rt::barrier();  // the previous step's readers of sK/sV/sS are done
     repro::stage_tile<T, BK, DK, NT>(kb + static_cast<size_t>(k0) * DK, sK,
                                      LD, skv - k0);
     repro::stage_tile<T, BK, DV, NT>(vb + static_cast<size_t>(k0) * DV, sV,
                                      DV, skv - k0);
-    __syncthreads();
+    rt::barrier();
 
     float s[4][4];
 #pragma unroll
@@ -127,21 +131,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sS[r * LDS + cc] = ok ? x : repro::NEG_INF;
       }
     }
-    __syncthreads();
+    rt::barrier();
 
     // online softmax: each warp owns 8 rows, each lane 2 columns
     for (int rr = 0; rr < BQ / (NT / 32); ++rr) {
       const int r = warp * (BQ / (NT / 32)) + rr;
       const float x0 = sS[r * LDS + lane], x1 = sS[r * LDS + lane + 32];
       const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, repro::warp_max(fmaxf(x0, x1)));
+      const float m_new =
+          fmaxf(m_old, rt::warp_reduce_max(fmaxf(x0, x1)));
       // a row with no live key so far keeps p = 0 (exp(0) would be 1)
       const bool live = m_new > repro::NEG_INF / 2;
       const float p0 = live ? expf(x0 - m_new) : 0.f;
       const float p1 = live ? expf(x1 - m_new) : 0.f;
       sS[r * LDS + lane] = p0;
       sS[r * LDS + lane + 32] = p1;
-      const float sum = repro::warp_sum(p0 + p1);
+      const float sum = rt::warp_reduce_sum(p0 + p1);
       if (lane == 0) {
         const float alpha = live ? expf(m_old - m_new) : 0.f;
         sA[r] = alpha;
@@ -149,7 +154,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sM[r] = m_new;
       }
     }
-    __syncthreads();
+    rt::barrier();
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -169,7 +174,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
     }
   }
-  __syncthreads();
+  rt::barrier();
 
   T* ob = o + static_cast<size_t>(b * hq + h) * sq * DV;
 #pragma unroll
@@ -178,6 +183,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (q0 + r >= sq) continue;
     float l = sL[r];
     l = l == 0.f ? 1.f : l;  // fully masked rows come out as 0
+    // An exact division where the reference's finalize takes
+    // rt.approx_reciprocal: multiplying by rt::approx_reciprocal(l)
+    // moved the served tokens' teacher-forced gaps on the card past
+    // their 0.05-logit limit (PERF.md §6).
 #pragma unroll
     for (int j = 0; j < DC; ++j)
       ob[static_cast<size_t>(q0 + r) * DV + tx + 16 * j] =

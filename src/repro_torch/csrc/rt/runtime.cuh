@@ -1,0 +1,102 @@
+// The device runtime: the facade the port's portable kernels are written
+// against, the CUDA counterpart of src/repro/core/runtime.py
+// (DeviceRuntime) with intrinsics.py, atomics.py and memory.py.
+//
+// Common part, portable CUDA: teams and threads, static_partition,
+// block-level reductions, the team's shared-memory arena (memory.cuh)
+// and the portable atomics (atomics.cuh).  Target part, chosen at
+// compile time by the flags that the active target context gives
+// (src/repro_torch/core/targets/*.py, compiler_params):
+//
+//   targets/sm90.cuh     default, the `declare variant match(device=
+//                        {arch(nvptx64)})` of this port: warp shuffles,
+//                        rcp.approx, native atomicInc, cp.async;
+//   targets/generic.cuh  -DREPRO_RT_TARGET_GENERIC: no intrinsic at all;
+//                        reductions through shared memory, an exact
+//                        reciprocal, and atomic_inc / make_async_copy
+//                        that fail to compile where they are called.
+//
+// Every function is __forceinline__, so a kernel written against the
+// facade compiles to the instructions it would hold if it were written
+// against CUDA directly (src/repro_torch/bench/parity.py compares them).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "rt/atomics.cuh"
+#include "rt/memory.cuh"
+#if defined(REPRO_RT_TARGET_GENERIC)
+#include "rt/targets/generic.cuh"
+#else
+#include "rt/targets/sm90.cuh"
+#endif
+
+namespace rt {
+
+// -- teams and threads (omp_get_team_num, omp_get_thread_num, barrier) --
+// A team is a CTA; axis 0, 1, 2 are the grid's x, y, z.
+__device__ __forceinline__ unsigned team_id(int axis = 0) {
+  return axis == 0 ? blockIdx.x : axis == 1 ? blockIdx.y : blockIdx.z;
+}
+
+__device__ __forceinline__ unsigned num_teams(int axis = 0) {
+  return axis == 0 ? gridDim.x : axis == 1 ? gridDim.y : gridDim.z;
+}
+
+__device__ __forceinline__ unsigned thread_id() { return threadIdx.x; }
+
+__device__ __forceinline__ void barrier() { __syncthreads(); }
+
+// -- worksharing (#pragma omp for schedule(static)) --------------------
+// [lo, hi) owned by `team`, as DeviceRuntime.static_partition computes
+// it on the host; lo may pass total for the last teams (an empty range).
+struct Range {
+  int lo, hi;
+};
+
+__host__ __device__ __forceinline__ Range static_partition(int total,
+                                                           int teams,
+                                                           int team) {
+  const int chunk = (total + teams - 1) / teams;
+  const int lo = team * chunk;
+  return {lo, lo + chunk < total ? lo + chunk : total};
+}
+
+// -- block-level reductions --------------------------------------------
+// Floats of the arena a reduction over a 1-D team of `nt` threads needs
+// (one per warp).
+__host__ __device__ constexpr int reduce_scratch(int nt) { return nt / 32; }
+
+// The sum over the team of NT threads, returned to every thread: the
+// target's warp reduction, one hop through `scratch`, the first warp's
+// reduction of the partials.  Every thread of the team must call it.
+template <int NT>
+__device__ __forceinline__ float reduce_sum(float v, float* scratch) {
+  v = warp_reduce_sum(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float p = threadIdx.x < NT / 32 ? scratch[threadIdx.x] : 0.f;
+    p = warp_reduce_sum(p);
+    if (threadIdx.x == 0) scratch[0] = p;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+template <int NT>
+__device__ __forceinline__ float reduce_max(float v, float* scratch) {
+  v = warp_reduce_max(v);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const float neg_inf = __int_as_float(static_cast<int>(0xff800000u));
+    float p = threadIdx.x < NT / 32 ? scratch[threadIdx.x] : neg_inf;
+    p = warp_reduce_max(p);
+    if (threadIdx.x == 0) scratch[0] = p;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+}  // namespace rt

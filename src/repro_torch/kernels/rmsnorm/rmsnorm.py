@@ -1,4 +1,6 @@
-"""Launcher of the CUDA RMSNorm kernel (``csrc/rmsnorm.cu``)."""
+"""Launcher of the CUDA RMSNorm kernel (``csrc/rmsnorm.cu``, written
+against the device runtime), and of its native twin's, which takes the
+same arguments (``native.py``)."""
 from __future__ import annotations
 
 import ctypes
@@ -15,14 +17,15 @@ KERNEL = CudaKernel(
 
 
 def rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, *, eps: float,
-                weight_offset: float) -> torch.Tensor:
+                weight_offset: float,
+                kernel: CudaKernel = KERNEL) -> torch.Tensor:
     d = x.shape[-1]
     if w.shape != (d,) or w.dtype != x.dtype:
         raise ValueError(f"rmsnorm: w must be ({d},) {x.dtype}, got "
                          f"{tuple(w.shape)} {w.dtype}")
     check_cuda("rmsnorm", x, w)
     y = torch.empty_like(x)
-    KERNEL.launch(ptr(x), ptr(w), ptr(y), x.numel() // max(d, 1), d,
+    kernel.launch(ptr(x), ptr(w), ptr(y), x.numel() // max(d, 1), d,
                   float(eps), float(weight_offset), dtype_code(x),
                   stream_of(x))
     return y

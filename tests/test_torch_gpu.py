@@ -17,8 +17,11 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.configs.smoke import smoke_config
+from repro_torch.core import selftest
+from repro_torch.core.context import target
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention import ref as dec_ref
+from repro_torch.kernels.flash_attention import native as fa_native
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gmm import gmm as gmm_kern
@@ -30,6 +33,7 @@ from repro_torch.kernels.mamba_scan import ref as scan_ref
 from repro_torch.kernels.mlstm_scan import mlstm_scan as mlstm_kern
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
 from repro_torch.kernels.mlstm_scan import ref as mlstm_ref
+from repro_torch.kernels.rmsnorm import native as rms_native
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
@@ -584,3 +588,94 @@ def test_xlstm_loss_on_card_matches_its_plain_version(cuda):
     assert mlstm_kern.KERNEL.launches == before + 7
     for name in want:
         torch.testing.assert_close(got[name], want[name], **mlstm_ops.TOL)
+
+
+# ------------------------------------- the device runtime and B11 -----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(37, 4096), (3, 100), (256, 512)])
+def test_rmsnorm_twins_are_bit_identical(cuda, dtype, rows, d):
+    """B11a (hard-coded CUDA) against B1 (written against the device
+    runtime): the same arithmetic in the same order, so equal bits."""
+    x = torch.randn(rows, d, device=cuda).to(dtype)
+    w = (0.1 * torch.randn(d, device=cuda)).to(dtype)
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    before = rms_native.KERNEL.launches
+    got = rms_native.rmsnorm_native(x, w, **kw)
+    assert rms_native.KERNEL.launches == before + 1
+    assert torch.equal(got, rms_ops.rmsnorm(x, w, **kw))
+    torch.testing.assert_close(got.float(),
+                               rms_ref.rmsnorm_ref(x, w, **kw).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,d,window,softcap", [
+    (130, 64, None, None), (200, 128, 32, 30.0), (77, 256, None, 50.0),
+    (300, 256, 128, 50.0)])
+def test_flash_twins_are_bit_identical(cuda, dtype, s, d, window, softcap):
+    """B11b against B2: GQA 8/2, causal, window and softcap; the native
+    twin hard-codes the approximate reciprocal that B2 takes from the
+    runtime."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, h, s, d, device=cuda, generator=g).to(dtype)
+               for h in (8, 2, 2))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    before = fa_native.KERNEL.launches
+    got = fa_native.flash_attention_native(q, k, v, **kw)
+    assert fa_native.KERNEL.launches == before + 1
+    assert torch.equal(got, fa_ops.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(
+        got.float(), fa_ref.flash_attention_ref(q, k, v, **kw).float(),
+        **_tol(dtype))
+
+
+@pytest.mark.parametrize("teams,total,bound", [
+    (7, 1000, 6), (132, 8192, 254), (40, 100, 0)])
+def test_runtime_test_kernel_outcomes(cuda, teams, total, bound):
+    """Teams, static_partition, arena carve-outs, block reductions and
+    every atomic under contention, held to the plain atomics by the
+    outcomes that do not depend on the order; the portable part also
+    on the generic target."""
+    want = selftest.plain(teams, total, bound)
+    for portable in (False, True):
+        got = selftest.launch(teams, total, bound, portable=portable,
+                              device=cuda)
+        assert selftest.mismatches(got, want, total, bound) == []
+    with target("generic"):
+        got = selftest.launch(teams, total, bound, portable=True,
+                              device=cuda)
+    assert selftest.mismatches(got, want, total, bound) == []
+
+
+def test_generic_build_of_atomic_inc_fails_to_compile(cuda):
+    """Listing 4: the generic target provides no atomic_inc, so a source
+    that calls it does not build, and says why."""
+    with target("generic"):
+        with pytest.raises(RuntimeError,
+                           match="target dependent implementation missing"):
+            selftest.KERNEL.build()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_builds_of_b1_and_b2(cuda, dtype):
+    """B1 and B2 built for the generic target (reductions through shared
+    memory, an exact reciprocal) against their plain versions."""
+    x = torch.randn(37, 4096, device=cuda).to(dtype)
+    w = (0.1 * torch.randn(4096, device=cuda)).to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, h, 200, 128, device=cuda, generator=g).to(dtype)
+               for h in (8, 2, 2))
+    kw = dict(causal=True, window=64, softcap=30.0)
+    with target("generic"):
+        rms_before = rms_kern.KERNEL.launches
+        got_rms = rms_ops.rmsnorm(x, w, eps=1e-6, weight_offset=1.0)
+        got_fa = fa_ops.flash_attention(q, k, v, **kw)
+        assert rms_kern.KERNEL.launches == rms_before + 1
+    torch.testing.assert_close(
+        got_rms.float(),
+        rms_ref.rmsnorm_ref(x, w, eps=1e-6, weight_offset=1.0).float(),
+        **_tol(dtype))
+    torch.testing.assert_close(
+        got_fa.float(), fa_ref.flash_attention_ref(q, k, v, **kw).float(),
+        **_tol(dtype))

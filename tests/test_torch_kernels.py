@@ -22,16 +22,19 @@ from repro.kernels import registry as R
 from repro.kernels.decode_attention import paged as jpaged
 from repro.kernels.decode_attention import ref as jdec_ref
 from repro.kernels.flash_attention import ref as jflash_ref
-from repro_torch.core import build, tuning
+from repro_torch.core import build, selftest, tuning  # noqa: F401
+from repro_torch.core.context import target
 from repro_torch.kernels.decode_attention import decode_attention as dec_kern
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention import paged as paged_kern
 from repro_torch.kernels.decode_attention import ref as dec_ref
 from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+from repro_torch.kernels.flash_attention import native as fa_native  # noqa
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.gmm import ops as gmm_ops  # noqa: F401  (registers B8)
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
+from repro_torch.kernels.rmsnorm import native as rms_native  # noqa: F401
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
 
@@ -298,16 +301,20 @@ def test_kernel_launchers_refuse_shapes_they_were_not_built_for():
 
 def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
-    assert names == ["decode_attention", "flash_attention", "gmm",
+    assert names == ["decode_attention", "flash_attention",
+                     "flash_attention_native", "gmm",
                      "mamba_scan", "mlstm_scan", "paged_decode_attention",
                      "quant_paged_decode_attention",
                      "quant_window_paged_decode_attention", "rmsnorm",
+                     "rmsnorm_native", "rt_selftest", "rt_selftest_portable",
                      "spec_paged_decode_attention",
                      "window_paged_decode_attention"]
-    for k in build.KERNELS:
-        assert k.source.is_file()
-        text = k.source.read_text()
-        assert "Replaces the TPU kernel" in text and "Bound on the H100" in text
-        assert f'extern "C" int {k.symbol}' in text
-        assert k.library_path().parent == build.BUILD_DIR
-    assert len({k.library_path() for k in build.KERNELS}) == 11
+    with target("cuda", isa="sm_90a"):      # the card's build keys
+        for k in build.KERNELS:
+            assert k.source.is_file()
+            text = k.source.read_text()
+            assert ("Replaces the TPU kernel" in text
+                    and "Bound on the H100" in text)
+            assert f'extern "C" int {k.symbol}' in text
+            assert k.library_path().parent == build.BUILD_DIR
+        assert len({k.library_path() for k in build.KERNELS}) == 15
