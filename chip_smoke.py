@@ -38,7 +38,17 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    opcode histograms, registers and times in turns printed; B1 and B2
    built for the generic target within tolerance; the runtime test
    kernel's order-free outcomes held to the plain atomics for both
-   targets, and a generic build of ``atomic_inc`` refused;
+   targets (every thread holding its team's sum and max), and a generic
+   build of ``atomic_inc`` refused; the SPEC ACCEL stand-ins' twins
+   (B12-B15, each one source built against ``csrc/rt/`` and against
+   ``csrc/native/rt_native.cuh``) compared the same way at the
+   reference's and the card's shapes;
+   then the SPEC ACCEL stand-ins on the device runtime
+   (``repro_torch.bench.spec_accel``, every launch count set to 0
+   before it and read after): postencil, polbm, pomriq and pep and
+   their native builds, each launched, native and portable bit for bit
+   and each build (and the generic one) within tolerance of its plain
+   version, at both shapes; the reference's Fig. 2 rows printed;
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -1266,6 +1276,8 @@ def run_parity(s: Smoke) -> None:
             s.check(c[f"ok_{side}"], f"{what}: {side} within "
                     f"{c['tol']:g} of the plain version (max abs diff "
                     f"{c[f'err_{side}']:.3e})")
+        if c["pair"] not in TWINS:
+            continue        # the stand-ins: recorded on their own path
         name, source, replaces = TWINS[c["pair"]]
         nbytes, flops, peak, lib = _twin_cost(s, c)
         args = (c["err_native"], c["ms_native"], c["ms_plain"], nbytes,
@@ -1293,6 +1305,55 @@ def run_parity(s: Smoke) -> None:
     s.kernels["rt_selftest"]["test"] = True
     s.kernels["rt_selftest"]["launches_by_path"]["parity"] = \
         launches["rt_selftest"]
+
+
+# ----------------------------------- SPEC ACCEL stand-ins on the runtime ----
+
+def run_spec_accel(s: Smoke) -> None:
+    """The stand-ins B12-B15 through their entry point
+    ``repro_torch.bench.spec_accel.run``, with every launch count set to
+    0 just before it and read just after: each of its checks becomes one
+    of this run's, and each of the eight kernels gets its record (the
+    card's shape as the main one, the reference's beside it), per
+    launch: a postencil call is ``iters`` launches, so its times are the
+    call's over that count."""
+    from repro_torch.bench import spec_accel
+    from repro_torch.core.build import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+    res = spec_accel.run(s.dev)
+    launches = {k.name: k.launches for k in KERNELS}
+    spec_accel.report(res)
+    # portable build -> native build, one source each
+    twins = {p.name: n.name for p, n in spec_accel.TWINS.values()}
+    for name, native in twins.items():
+        for k in (name, native):
+            s.check(launches[k] > 0, f"SPEC ACCEL path: {k} launched "
+                    f"{launches[k]} times")
+    # the card's shape first: it makes each kernel's main record
+    for c in sorted(res["cases"], key=lambda c: c["case"] != "card"):
+        what = f"{c['bench']} {c['case']} {tuple(c['shape'])}"
+        s.check(c["bit_identical"], f"{what}: native and portable builds "
+                "bit-identical")
+        for side in ("native", "portable", "generic"):
+            s.check(c[f"ok_{side}"], f"{what}: {side} within atol "
+                    f"{c['tol']:.3g}, rtol {c['rtol']:g} of the plain "
+                    f"version (max abs diff {c[f'err_{side}']:.3e})")
+        n = c["launches_per_call"]
+        lib = None if c["ms_library"] is None else c["ms_library"] / n
+        for name, side in ((c["pair"], "portable"),
+                           (twins[c["pair"]], "native")):
+            args = (c[f"err_{side}"], c[f"ms_{side}"] / n, c["ms_plain"] / n,
+                    c["bytes"], c["ops"], lib, c["ops_per_s"])
+            if c["case"] == "card":
+                s.record(name, f"spec_accel/{c['pair']}.cu",
+                         spec_accel.REPLACES[c["bench"]], *args,
+                         unit=c["unit"])
+                s.kernels[name]["launches_by_path"]["spec_accel"] = \
+                    launches[name]
+                s.kernels[name]["generic_ms"] = c["ms_generic"] / n
+            else:
+                s.record_also(name, c["case"], *args)
 
 
 # ------------------------------------------------------------ serving -----
@@ -2335,6 +2396,8 @@ def main() -> int:
                      ("mlstm_scan (xlstm shapes)", check_mlstm_scan)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     s.phase("portable runtime against native twins", run_parity, s)
+    s.phase("SPEC ACCEL stand-ins on the device runtime", run_spec_accel, s)
+    torch.cuda.empty_cache()
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
         _die("failed before serving:\n  " + "\n  ".join(s.failures))

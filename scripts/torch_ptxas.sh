@@ -1,9 +1,11 @@
 #!/usr/bin/env bash
 # Registers, shared memory and spills of every kernel of the PyTorch
-# port, as ptxas reports them: compiles each src/repro_torch/csrc/*.cu
-# and csrc/native/*.cu with the port's nvcc flags for the card (the
-# sm_90a target part of the device runtime, csrc/rt/) plus -Xptxas -v
-# into a throw-away object.
+# port, as ptxas reports them: compiles each src/repro_torch/csrc/*.cu,
+# csrc/native/*.cu and csrc/spec_accel/*.cu with the port's nvcc flags
+# for the card (the sm_90a target part of the device runtime, csrc/rt/)
+# plus -Xptxas -v into a throw-away object; each spec_accel source a
+# second time with -DREPRO_RT_NATIVE (its native build, against
+# csrc/native/rt_native.cuh).
 # Needs the CUDA toolkit (nvcc on PATH or under $CUDA_HOME).
 #
 #   scripts/torch_ptxas.sh [source.cu ...]
@@ -14,10 +16,17 @@ CSRC=src/repro_torch/csrc
 OUT=$(mktemp -d)
 trap 'rm -rf "$OUT"' EXIT
 srcs=("$@")
-[ ${#srcs[@]} -gt 0 ] || srcs=("$CSRC"/*.cu "$CSRC"/native/*.cu)
-for src in "${srcs[@]}"; do
-  echo "== $(basename "$src")"
-  "$NVCC" -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+[ ${#srcs[@]} -gt 0 ] ||
+  srcs=("$CSRC"/*.cu "$CSRC"/native/*.cu "$CSRC"/spec_accel/*.cu)
+ptxas() {  # source, extra flags...
+  local src=$1
+  shift
+  echo "== $(basename "$src") $*"
+  "$NVCC" -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 "$@" \
     -Xptxas -v -I "$CSRC" -c -o "$OUT/$(basename "$src").o" "$src" 2>&1 |
-    grep -E "Compiling entry|Used|spill" | sed 's/^ptxas info *: *//'
+    grep -E "Compiling entry|Used|spill|error" | sed 's/^ptxas info *: *//'
+}
+for src in "${srcs[@]}"; do
+  ptxas "$src"
+  case "$src" in */spec_accel/*) ptxas "$src" -DREPRO_RT_NATIVE ;; esac
 done

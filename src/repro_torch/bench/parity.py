@@ -5,23 +5,28 @@
 
 For each twin pair, B1 (``csrc/rmsnorm.cu``, written against the device
 runtime ``csrc/rt/``) against B11a (``csrc/native/rmsnorm_native.cu``,
-hard-coded CUDA), and B2 (``csrc/flash_attention.cu``) against B11b
-(``csrc/native/flash_attention_native.cu``):
+hard-coded CUDA), B2 (``csrc/flash_attention.cu``) against B11b
+(``csrc/native/flash_attention_native.cu``), and the two builds of each
+SPEC ACCEL stand-in B12-B15 (``csrc/spec_accel/*.cu``, one source
+against ``csrc/rt/`` and against ``csrc/native/rt_native.cuh``;
+``bench/spec_accel.py``):
 
 1. both libraries are dumped with ``cuobjdump -sass`` and each kernel
    instantiation's opcode histogram (addresses, registers and operands
    stripped: the CUDA form of "metadata stripped") is compared with its
    twin's, beside each side's registers (``cuobjdump -res-usage``);
-2. at the serving paths' shapes and at the reference's parity shapes,
-   the two outputs must be bit-identical, and each within the op's
+2. at the serving paths' shapes and at the reference's parity shapes
+   (the stand-ins: at the reference's shapes and at a card shape), the
+   two outputs must be bit-identical, and each within the op's
    tolerance of its plain version;
 3. the two are timed in turns in this one process (median of
-   ``ITERS`` launches each, L2 flushed before each launch), since
-   register allocation moves with small source changes; the generic
-   build and the plain version take their turns too.
+   ``timing.ITERS`` launches each, L2 flushed before each, the order
+   alternating from turn to turn), since register allocation moves
+   with small source changes; the generic build and the plain version
+   take their turns too.
 
-B1 and B2 are also built for the ``generic`` target (the same sources
-on a target that provides no intrinsic: the port of
+B1, B2 and the stand-ins are also built for the ``generic`` target
+(the same sources on a target that provides no intrinsic: the port of
 ``examples/new_target.py``), held to their plain versions and timed in
 the same turns; and the runtime's test kernel (``core/selftest.py``) is
 run for both targets and held to the plain atomics, after a generic
@@ -36,7 +41,6 @@ import collections
 import contextlib
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -46,6 +50,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.bench import spec_accel
+from repro_torch.bench.timing import time_in_turns, under
 from repro_torch.core import build, selftest
 from repro_torch.core.context import context_for, target
 from repro_torch.core.runtime import DeviceRuntime
@@ -58,7 +64,6 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
 
-ITERS = 20
 #: the bf16 outputs' tolerance (atol = rtol): both sides sum in f32, in
 #: another order, and round to bf16's 8 bits; f32 outputs take the op's
 TOL_BF16 = 2e-2
@@ -192,34 +197,6 @@ def compare_sass(pair: str, portable: build.CudaKernel,
 
 # ------------------------------------------------------------- numbers ----
 
-def _under(arch: str, fn):
-    def call():
-        with target(arch):
-            return fn()
-    return call
-
-
-def time_in_turns(fns, flush: torch.Tensor, iters: int = ITERS):
-    """Median ms of each of ``fns``, launched in turns (each after an L2
-    flush), ``iters`` times each after one warm-up call."""
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    events = [[] for _ in fns]
-    for _ in range(iters):
-        for ev, fn in zip(events, fns):
-            flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            ev.append((a, b))
-    torch.cuda.synchronize()
-    return [statistics.median(a.elapsed_time(b) for a, b in ev)
-            for ev in events]
-
-
 def _err(got: torch.Tensor, want: torch.Tensor, tol: float) -> Tuple[float,
                                                                      bool]:
     g, w = got.float(), want.float()
@@ -231,7 +208,7 @@ def _err(got: torch.Tensor, want: torch.Tensor, tol: float) -> Tuple[float,
 def _case(pair, label, shape, dtype, args, portable, native, plain, tol,
           flush, failures) -> dict:
     out_p, out_n = portable(), native()
-    out_g = _under("generic", portable)()
+    out_g = under("generic", portable)()
     want = plain()
     torch.cuda.synchronize()
     tol = tol if dtype == torch.float32 else TOL_BF16
@@ -249,7 +226,7 @@ def _case(pair, label, shape, dtype, args, portable, native, plain, tol,
             failures.append(f"{what}: {msg} (tol {tol:g})")
     del out_p, out_n, out_g, want
     ms_p, ms_n, ms_g, ms_plain = time_in_turns(
-        [portable, native, _under("generic", portable), plain], flush)
+        [portable, native, under("generic", portable), plain], flush)
     return {"pair": pair, "case": label, "shape": list(shape),
             "dtype": str(dtype).split(".")[-1], "bit_identical": same,
             "tol": tol, "err_portable": err_p, "err_native": err_n,
@@ -293,6 +270,8 @@ def run(device="cuda") -> dict:
     res["sass"] = (compare_sass("rmsnorm", rms_kern.KERNEL, rms_native.KERNEL)
                    + compare_sass("flash_attention", fa_kern.KERNEL,
                                   fa_native.KERNEL))
+    for portable, native in spec_accel.TWINS.values():
+        res["sass"] += compare_sass(portable.name, portable, native)
 
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
@@ -315,7 +294,9 @@ def run(device="cuda") -> dict:
             lambda: fa_native.flash_attention_native(q, k, v, **masks),
             lambda: fa_ref.flash_attention_ref(q, k, v, **masks),
             fa_ops.TOL["atol"], flush, failures))
-    res["cases"] = cases
+    spec = spec_accel.cases(dev, flush)
+    failures.extend(m for c in spec for m in spec_accel.failures_of(c))
+    res["cases"] = cases + spec
 
     runs = []
     for teams, total, bound in SELFTEST_CASES:
@@ -344,10 +325,11 @@ def run(device="cuda") -> dict:
 
 def generic_jobs() -> List[Tuple[build.CudaKernel, DeviceRuntime]]:
     """The builds the parity run needs beyond each kernel's for the
-    card: B1, B2 and the runtime test kernel's portable part for the
-    generic target."""
+    card: B1, B2, the runtime test kernel's portable part and the
+    stand-ins' portable builds for the generic target."""
     return [(k, GENERIC) for k in (rms_kern.KERNEL, fa_kern.KERNEL,
-                                   selftest.PORTABLE)]
+                                   selftest.PORTABLE)] + \
+        spec_accel.generic_jobs()
 
 
 def report(res: dict) -> None:

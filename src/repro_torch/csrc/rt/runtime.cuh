@@ -70,6 +70,10 @@ __host__ __device__ constexpr int reduce_scratch(int nt) { return nt / 32; }
 // The sum over the team of NT threads, returned to every thread: the
 // target's warp reduction, one hop through `scratch`, the first warp's
 // reduction of the partials.  Every thread of the team must call it.
+// Every thread reads the result from scratch[0] after the call's last
+// barrier, so a carve-out passed to rt::reduce_* may be reused (by
+// another reduction, or written at all) only after a barrier that
+// follows the call: two reductions in a row take a carve-out each.
 template <int NT>
 __device__ __forceinline__ float reduce_sum(float v, float* scratch) {
   v = warp_reduce_sum(v);

@@ -15,7 +15,9 @@
 // contended seq_cst atomics on a handful of words serialize in L2.
 // Design: team t takes items [lo, hi) of rt::static_partition(total,
 // teams, t), one item per thread per pass; item i has key(i) in
-// [0, 1000).  Thread j of team t also takes rt::approx_reciprocal of
+// [0, 1000).  The team's sum and max are two reductions, each on its
+// own carve-out (the runtime's contract), and every thread checks that
+// it received what thread 0 stores.  Thread j of team t also takes rt::approx_reciprocal of
 // t * NT + j + 1, an integer, so the host can hold it to 1/x.  Built
 // twice from this source: with RT_SELFTEST_TARGET the target part's
 // intrinsics (atomic_inc, make_async_copy) are exercised too, and that
@@ -29,7 +31,10 @@ namespace {
 constexpr int NT = 128;
 
 // counters[], in the order core/selftest.py names them
-enum { ADD, MAX, MIN, CAS, WINS, EXCH, EXCH_OLDS, ARENA_ERRS, N_COUNTERS };
+enum {
+  ADD, MAX, MIN, CAS, WINS, EXCH, EXCH_OLDS, ARENA_ERRS, REDUCE_ERRS,
+  N_COUNTERS
+};
 
 __device__ __forceinline__ int key_of(int i) {
   return static_cast<int>(static_cast<unsigned>(i) * 2654435761u % 1000u);
@@ -42,7 +47,9 @@ selftest_kernel(int total, unsigned bound, int* __restrict__ parts,
                 float* __restrict__ recips, const int4* __restrict__ src,
                 int4* __restrict__ copied) {
   rt::Arena arena;
-  float* red = arena.alloc_shared<float>(rt::reduce_scratch(NT));
+  float* red_sum = arena.alloc_shared<float>(rt::reduce_scratch(NT));
+  float* red_max = arena.alloc_shared<float>(rt::reduce_scratch(NT));
+  float* seen = arena.alloc_shared<float>(4);  // 4: keeps 16-byte offsets
   int* ids = arena.alloc_shared<int>(NT);
   const int team = rt::team_id(0), teams = rt::num_teams(0);
   const int tid = rt::thread_id();
@@ -71,12 +78,18 @@ selftest_kernel(int total, unsigned bound, int* __restrict__ parts,
     inc_olds[i] = rt::atomic_inc(inc, bound);
 #endif
   }
-  sum = rt::reduce_sum<NT>(sum, red);
-  mx = rt::reduce_max<NT>(mx, red);
+  sum = rt::reduce_sum<NT>(sum, red_sum);
+  mx = rt::reduce_max<NT>(mx, red_max);
   if (tid == 0) {
     team_sums[team] = sum;
     team_maxes[team] = mx;
+    seen[0] = sum;
+    seen[1] = mx;
   }
+  rt::barrier();
+  // every thread received the team's results, as thread 0 holds them
+  if (sum != seen[0] || mx != seen[1])
+    rt::atomic_add(&counters[REDUCE_ERRS], 1);
   // the reductions wrote their carve-out; this one must be untouched
   const int nb = (tid + 1) % NT;
   if (ids[nb] != team * NT + nb) rt::atomic_add(&counters[ARENA_ERRS], 1);
@@ -92,15 +105,17 @@ selftest_kernel(int total, unsigned bound, int* __restrict__ parts,
 
 }  // namespace
 
-// Arena bytes: the reduction's floats, NT ids, then NT int4 of staging
-// (16-byte aligned: 4 * 4 + 4 * 128 is a multiple of 16).
+// Arena bytes: the two reductions' floats, 4 floats for thread 0's
+// results, NT ids, then NT int4 of staging (16-byte aligned: 3 * 4 * 4
+// + 4 * 128 is a multiple of 16).
 extern "C" int rt_selftest(int teams, int total, unsigned bound, int* parts,
                            int* counters, unsigned* inc, unsigned* inc_olds,
                            float* team_sums, float* team_maxes,
                            float* recips, const void* src, void* copied,
                            void* stream) {
   if (teams <= 0) return cudaErrorInvalidValue;
-  size_t bytes = rt::reduce_scratch(NT) * sizeof(float) + NT * sizeof(int);
+  size_t bytes = (2 * rt::reduce_scratch(NT) + 4) * sizeof(float) +
+                 NT * sizeof(int);
 #if RT_SELFTEST_TARGET
   bytes += NT * sizeof(int4);
 #endif

@@ -1,5 +1,6 @@
 """The port's boundaries: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port's entry points refuse to
+neither JAX nor the JAX package (``repro``, and the reference's
+``benchmarks``, every module of which imports both), and the port's entry points refuse to
 run on a machine without a card unless the caller names the CPU."""
 from __future__ import annotations
 
@@ -48,17 +49,19 @@ def test_no_import_of_jax_or_the_jax_package(path):
     roots = set(_imported_roots(path))
     assert "jax" not in roots and "jaxlib" not in roots, path
     assert "repro" not in roots, path          # repro_torch is fine
+    assert "benchmarks" not in roots, path
 
 
 def test_import_walk_sees_what_it_must_refuse(tmp_path):
     """The walk itself catches every spelling it is asked to refuse."""
     src = ("import jax.numpy as jnp\nfrom repro.serve import Engine\n"
            "import importlib\nimportlib.import_module('repro.models')\n"
-           "from repro_torch import configs\n")
+           "from repro_torch import configs\n"
+           "from benchmarks.spec_accel import postencil\n")
     tmp = tmp_path / "probe.py"
     tmp.write_text(src)
     assert set(_imported_roots(tmp)) == {"jax", "repro", "importlib",
-                                         "repro_torch"}
+                                         "repro_torch", "benchmarks"}
 
 
 def _no_card(monkeypatch):

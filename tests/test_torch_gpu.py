@@ -15,6 +15,8 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.bench import spec_accel as sa
+from repro_torch.bench import spec_accel_ref as sa_ref
 from repro_torch.configs.base import MLAConfig
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.core import selftest
@@ -679,3 +681,27 @@ def test_generic_builds_of_b1_and_b2(cuda, dtype):
     torch.testing.assert_close(
         got_fa.float(), fa_ref.flash_attention_ref(q, k, v, **kw).float(),
         **_tol(dtype))
+
+
+@pytest.mark.parametrize("label", ["reference", "card"])
+@pytest.mark.parametrize("name", sa_ref.NAMES)
+def test_spec_accel_twins_and_generic_build(cuda, name, label):
+    """A SPEC ACCEL stand-in's two builds of one source bit for bit, and
+    each of them and the generic build within the stated tolerance of
+    the plain version, at the reference's and the card's shapes."""
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in sa_ref.inputs(name, label, seed=1))
+    fn, plain = sa.FUNCS[name]
+    portable, native = sa.TWINS[name]
+    before = (portable.launches, native.launches)
+    got, got_native = fn(*args), fn(*args, native=True)
+    with target("generic"):
+        got_generic = fn(*args)
+    n = sa.LAUNCHES[name]
+    assert (portable.launches, native.launches) == (before[0] + 2 * n,
+                                                    before[1] + n)
+    want = plain(*args)
+    assert torch.equal(got, got_native)
+    atol, rtol = sa.tolerance(name, args, want)
+    for out in (got, got_native, got_generic):
+        torch.testing.assert_close(out, want, atol=atol, rtol=rtol)

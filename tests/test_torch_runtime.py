@@ -410,8 +410,8 @@ def test_selftest_plain_replay(teams, total, bound):
     got = selftest.launch(teams, total, bound, device="cpu")
     keys = [selftest.key_of(i) for i in range(total)]
     c = got["counters"]
-    assert (c["add"], c["max"], c["min"], c["wins"]) == (
-        sum(keys), max(keys), min(keys), 1)
+    assert (c["add"], c["max"], c["min"], c["wins"], c["reduce_errs"]) == (
+        sum(keys), max(keys), min(keys), 1, 0)
     assert c["exch_olds"] + c["exch"] == -1 + sum(keys)
     assert got["inc"] == total % (bound + 1)
     counts = np.bincount(got["inc_olds"], minlength=bound + 1)
@@ -424,11 +424,12 @@ def test_selftest_plain_replay(teams, total, bound):
 
 def test_selftest_checker_catches_order_free_faults():
     want = selftest.plain(7, 1000, 6)
-    for fault in ("wins", "add", "inc", "copied", "team_sums", "recip"):
+    for fault in ("wins", "add", "reduce_errs", "inc", "copied", "team_sums",
+                  "recip"):
         got = {k: (dict(v) if isinstance(v, dict) else
                    v.clone() if torch.is_tensor(v) else list(v)
                    if isinstance(v, list) else v) for k, v in want.items()}
-        if fault in ("wins", "add"):
+        if fault in ("wins", "add", "reduce_errs"):
             got["counters"][fault] += 1
         elif fault == "inc":
             got["inc_olds"][0] = 5
