@@ -40,15 +40,20 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    kernel's order-free outcomes held to the plain atomics for both
    targets (every thread holding its team's sum and max), and a generic
    build of ``atomic_inc`` refused; the SPEC ACCEL stand-ins' twins
-   (B12-B15, each one source built against ``csrc/rt/`` and against
+   (B12-B17, each one source built against ``csrc/rt/`` and against
    ``csrc/native/rt_native.cuh``) compared the same way at the
-   reference's and the card's shapes;
+   reference's and the card's shapes, and miniQMC's (B18-B19) by their
+   SASS;
    then the SPEC ACCEL stand-ins on the device runtime
    (``repro_torch.bench.spec_accel``, every launch count set to 0
-   before it and read after): postencil, polbm, pomriq and pep and
-   their native builds, each launched, native and portable bit for bit
-   and each build (and the generic one) within tolerance of its plain
-   version, at both shapes; the reference's Fig. 2 rows printed;
+   before it and read after): postencil, polbm, pomriq, pep, pcg and
+   pbt and their native builds, each launched, native and portable bit
+   for bit and each build (and the generic one) within tolerance of its
+   plain version, at both shapes; the reference's Fig. 2 rows printed;
+   then miniQMC's two hot regions on the device runtime
+   (``repro_torch.bench.miniqmc``, the same way): evaluate_vgh and
+   evaluate_det_ratios and their native builds, checked as the
+   stand-ins, the paper's Table 1 rows printed;
 4. serve 12 greedy requests through ``repro_torch.serve.Engine`` on
    ``granite-8b`` at full width (36 layers, random weights from a seed)
    with paged KV; every kernel of the path must have launched, the host
@@ -1309,26 +1314,24 @@ def run_parity(s: Smoke) -> None:
 
 # ----------------------------------- SPEC ACCEL stand-ins on the runtime ----
 
-def run_spec_accel(s: Smoke) -> None:
-    """The stand-ins B12-B15 through their entry point
-    ``repro_torch.bench.spec_accel.run``, with every launch count set to
-    0 just before it and read just after: each of its checks becomes one
-    of this run's, and each of the eight kernels gets its record (the
-    card's shape as the main one, the reference's beside it), per
-    launch: a postencil call is ``iters`` launches, so its times are the
-    call's over that count."""
-    from repro_torch.bench import spec_accel
-    from repro_torch.core.build import KERNELS
+def _standin_path(s: Smoke, bench, path: str) -> None:
+    """A stand-in path's entry point ``bench.run`` (``bench`` is
+    ``repro_torch.bench.spec_accel`` or ``.miniqmc``), with every launch
+    count set to 0 just before it and read just after, and its report
+    printed.  Each of its checks becomes one of this run's, and each
+    kernel of ``bench.TWINS`` gets its record (the card's shape as the
+    main one, the reference's beside it), per launch."""
+    from repro_torch.core.build import CSRC, KERNELS
     for k in KERNELS:
         k.launches = 0
-    res = spec_accel.run(s.dev)
+    res = bench.run(s.dev)
     launches = {k.name: k.launches for k in KERNELS}
-    spec_accel.report(res)
+    bench.report(res)
     # portable build -> native build, one source each
-    twins = {p.name: n.name for p, n in spec_accel.TWINS.values()}
+    twins = {p.name: n for p, n in bench.TWINS.values()}
     for name, native in twins.items():
-        for k in (name, native):
-            s.check(launches[k] > 0, f"SPEC ACCEL path: {k} launched "
+        for k in (name, native.name):
+            s.check(launches[k] > 0, f"{path} path: {k} launched "
                     f"{launches[k]} times")
     # the card's shape first: it makes each kernel's main record
     for c in sorted(res["cases"], key=lambda c: c["case"] != "card"):
@@ -1339,21 +1342,35 @@ def run_spec_accel(s: Smoke) -> None:
             s.check(c[f"ok_{side}"], f"{what}: {side} within atol "
                     f"{c['tol']:.3g}, rtol {c['rtol']:g} of the plain "
                     f"version (max abs diff {c[f'err_{side}']:.3e})")
-        n = c["launches_per_call"]
-        lib = None if c["ms_library"] is None else c["ms_library"] / n
-        for name, side in ((c["pair"], "portable"),
-                           (twins[c["pair"]], "native")):
-            args = (c[f"err_{side}"], c[f"ms_{side}"] / n, c["ms_plain"] / n,
-                    c["bytes"], c["ops"], lib, c["ops_per_s"])
+        one = c["launch_ms"]
+        native = twins[c["pair"]]
+        for name, side in ((c["pair"], "portable"), (native.name, "native")):
+            args = (c[f"err_{side}"], one[side], one["plain"], c["bytes"],
+                    c["ops"], one["library"], c["ops_per_s"])
             if c["case"] == "card":
-                s.record(name, f"spec_accel/{c['pair']}.cu",
-                         spec_accel.REPLACES[c["bench"]], *args,
-                         unit=c["unit"])
-                s.kernels[name]["launches_by_path"]["spec_accel"] = \
-                    launches[name]
-                s.kernels[name]["generic_ms"] = c["ms_generic"] / n
+                s.record(name, native.source.relative_to(CSRC).as_posix(),
+                         bench.REPLACES[c["bench"]], *args, unit=c["unit"])
+                s.kernels[name]["launches_by_path"][path] = launches[name]
+                s.kernels[name]["generic_ms"] = one["generic"]
             else:
                 s.record_also(name, c["case"], *args)
+
+
+def run_spec_accel(s: Smoke) -> None:
+    """The stand-ins B12-B17 through their entry point
+    ``repro_torch.bench.spec_accel.run``: each of the twelve kernels'
+    times are one launch's (postencil's sweep, pcg's SpMV, timed on
+    their own; the library call's over a call's launches)."""
+    from repro_torch.bench import spec_accel
+    _standin_path(s, spec_accel, "spec_accel")
+
+
+def run_miniqmc(s: Smoke) -> None:
+    """miniQMC's regions B18-B19 through their entry point
+    ``repro_torch.bench.miniqmc.run`` (the paper's Table 1): each call
+    is one launch; the four kernels' times are medians of its calls."""
+    from repro_torch.bench import miniqmc
+    _standin_path(s, miniqmc, "miniqmc")
 
 
 # ------------------------------------------------------------ serving -----
@@ -2397,6 +2414,7 @@ def main() -> int:
         s.phase(f"kernel {name} against its plain version", fn, s)
     s.phase("portable runtime against native twins", run_parity, s)
     s.phase("SPEC ACCEL stand-ins on the device runtime", run_spec_accel, s)
+    s.phase("miniQMC regions on the device runtime", run_miniqmc, s)
     torch.cuda.empty_cache()
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless

@@ -1,11 +1,11 @@
 #!/usr/bin/env bash
 # Registers, shared memory and spills of every kernel of the PyTorch
 # port, as ptxas reports them: compiles each src/repro_torch/csrc/*.cu,
-# csrc/native/*.cu and csrc/spec_accel/*.cu with the port's nvcc flags
-# for the card (the sm_90a target part of the device runtime, csrc/rt/)
-# plus -Xptxas -v into a throw-away object; each spec_accel source a
-# second time with -DREPRO_RT_NATIVE (its native build, against
-# csrc/native/rt_native.cuh).
+# csrc/native/*.cu, csrc/spec_accel/*.cu and csrc/miniqmc/*.cu with the
+# port's nvcc flags for the card (the sm_90a target part of the device
+# runtime, csrc/rt/) plus -Xptxas -v into a throw-away object; each
+# spec_accel and miniqmc source a second time with -DREPRO_RT_NATIVE
+# (its native build, against csrc/native/rt_native.cuh).
 # Needs the CUDA toolkit (nvcc on PATH or under $CUDA_HOME).
 #
 #   scripts/torch_ptxas.sh [source.cu ...]
@@ -17,7 +17,8 @@ OUT=$(mktemp -d)
 trap 'rm -rf "$OUT"' EXIT
 srcs=("$@")
 [ ${#srcs[@]} -gt 0 ] ||
-  srcs=("$CSRC"/*.cu "$CSRC"/native/*.cu "$CSRC"/spec_accel/*.cu)
+  srcs=("$CSRC"/*.cu "$CSRC"/native/*.cu "$CSRC"/spec_accel/*.cu
+    "$CSRC"/miniqmc/*.cu)
 ptxas() {  # source, extra flags...
   local src=$1
   shift
@@ -28,5 +29,5 @@ ptxas() {  # source, extra flags...
 }
 for src in "${srcs[@]}"; do
   ptxas "$src"
-  case "$src" in */spec_accel/*) ptxas "$src" -DREPRO_RT_NATIVE ;; esac
+  case "$src" in */spec_accel/* | */miniqmc/*) ptxas "$src" -DREPRO_RT_NATIVE ;; esac
 done

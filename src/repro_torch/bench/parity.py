@@ -7,9 +7,11 @@ For each twin pair, B1 (``csrc/rmsnorm.cu``, written against the device
 runtime ``csrc/rt/``) against B11a (``csrc/native/rmsnorm_native.cu``,
 hard-coded CUDA), B2 (``csrc/flash_attention.cu``) against B11b
 (``csrc/native/flash_attention_native.cu``), and the two builds of each
-SPEC ACCEL stand-in B12-B15 (``csrc/spec_accel/*.cu``, one source
+SPEC ACCEL stand-in B12-B17 (``csrc/spec_accel/*.cu``, one source
 against ``csrc/rt/`` and against ``csrc/native/rt_native.cuh``;
-``bench/spec_accel.py``):
+``bench/spec_accel.py``) and of miniQMC's regions B18-B19
+(``csrc/miniqmc/*.cu``, ``bench/miniqmc.py``, which holds their bits and
+times on its own path):
 
 1. both libraries are dumped with ``cuobjdump -sass`` and each kernel
    instantiation's opcode histogram (addresses, registers and operands
@@ -25,12 +27,13 @@ against ``csrc/rt/`` and against ``csrc/native/rt_native.cuh``;
    with small source changes; the generic build and the plain version
    take their turns too.
 
-B1, B2 and the stand-ins are also built for the ``generic`` target
-(the same sources on a target that provides no intrinsic: the port of
-``examples/new_target.py``), held to their plain versions and timed in
-the same turns; and the runtime's test kernel (``core/selftest.py``) is
-run for both targets and held to the plain atomics, after a generic
-build of its target part has been refused with the stub's message.
+B1, B2, the stand-ins and the regions are also built for the
+``generic`` target (the same sources on a target that provides no
+intrinsic: the port of ``examples/new_target.py``), and all but the
+regions held to their plain versions and timed in the same turns; and
+the runtime's test kernel (``core/selftest.py``) is run for both
+targets and held to the plain atomics, after a generic build of its
+target part has been refused with the stub's message.
 
 Exits 1, after printing every result, if any check fails.  Needs a
 CUDA card and the CUDA toolkit (``nvcc``, ``cuobjdump``, ``cu++filt``).
@@ -50,7 +53,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.bench import spec_accel
+from repro_torch.bench import miniqmc, spec_accel
 from repro_torch.bench.timing import time_in_turns, under
 from repro_torch.core import build, selftest
 from repro_torch.core.context import context_for, target
@@ -270,7 +273,8 @@ def run(device="cuda") -> dict:
     res["sass"] = (compare_sass("rmsnorm", rms_kern.KERNEL, rms_native.KERNEL)
                    + compare_sass("flash_attention", fa_kern.KERNEL,
                                   fa_native.KERNEL))
-    for portable, native in spec_accel.TWINS.values():
+    for portable, native in [*spec_accel.TWINS.values(),
+                             *miniqmc.TWINS.values()]:
         res["sass"] += compare_sass(portable.name, portable, native)
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -326,10 +330,10 @@ def run(device="cuda") -> dict:
 def generic_jobs() -> List[Tuple[build.CudaKernel, DeviceRuntime]]:
     """The builds the parity run needs beyond each kernel's for the
     card: B1, B2, the runtime test kernel's portable part and the
-    stand-ins' portable builds for the generic target."""
+    stand-ins' and regions' portable builds for the generic target."""
     return [(k, GENERIC) for k in (rms_kern.KERNEL, fa_kern.KERNEL,
                                    selftest.PORTABLE)] + \
-        spec_accel.generic_jobs()
+        spec_accel.generic_jobs() + miniqmc.generic_jobs()
 
 
 def report(res: dict) -> None:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the SPEC ACCEL stand-ins B12-B15, their
+"""Plain PyTorch versions of the SPEC ACCEL stand-ins B12-B17, their
 inputs and their shapes (the counterpart of the bodies and ``_inputs``
 of ``benchmarks/spec_accel.py``).
 
@@ -12,27 +12,33 @@ be).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 
 #: the stand-ins of this slice, in the reference's order
-NAMES = ("503.postencil", "504.polbm", "514.pomriq", "552.pep")
+NAMES = ("503.postencil", "504.polbm", "514.pomriq", "552.pep", "554.pcg",
+         "570.pbt")
 #: (name, label) -> shape: the reference's ``_inputs``; a card shape
 #: with the same block laws, large enough that one launch is not
 #: launch-bound (chosen to time the runtime, not taken from SPEC ACCEL);
 #: and a small legal shape off the reference's for the CPU tests.
-#: postencil (h, w); polbm (h, w, 9); pomriq (nx, nk); pep n seeds.
+#: postencil (h, w); polbm (h, w, 9); pomriq (nx, nk); pep n seeds;
+#: pcg n unknowns; pbt (nb systems, n unknowns).
 SHAPES: Dict[str, Dict[str, tuple]] = {
     "reference": {"503.postencil": (256, 256), "504.polbm": (128, 128, 9),
-                  "514.pomriq": (512, 512), "552.pep": (1 << 14,)},
+                  "514.pomriq": (512, 512), "552.pep": (1 << 14,),
+                  "554.pcg": (1024,), "570.pbt": (8, 512)},
     "card": {"503.postencil": (8192, 8192), "504.polbm": (2048, 2048, 9),
-             "514.pomriq": (262144, 2048), "552.pep": (1 << 26,)},
+             "514.pomriq": (262144, 2048), "552.pep": (1 << 26,),
+             "554.pcg": (1 << 24,), "570.pbt": (65536, 512)},
     "small": {"503.postencil": (128, 192), "504.polbm": (64, 96, 9),
-              "514.pomriq": (256, 384), "552.pep": (1 << 12,)},
+              "514.pomriq": (256, 384), "552.pep": (1 << 12,),
+              "554.pcg": (1000,), "570.pbt": (5, 300)},
 }
 ITERS = 4                       # postencil's sweeps, the reference's
+CG_ITERS = 8                    # pcg's iterations, the reference's
 #: the D2Q9 velocities (column 0 moves axis 0) and weights, as the
 #: reference's _D2Q9 and _W9
 D2Q9 = np.array([(0, 0), (1, 0), (-1, 0), (0, 1), (0, -1),
@@ -48,7 +54,9 @@ def inputs(name: str, label: str, seed: int = 0) -> Tuple[np.ndarray, ...]:
     """The stand-in's operands at ``SHAPES[label][name]`` as numpy
     arrays, from ``seed``: postencil x ~ N(0, 1); polbm f ~ U(0.5,
     1.5); pomriq x, k ~ N(0, 1) (n, 3) and phi ~ N(0, 1); pep the seeds
-    0 .. n - 1 (int32)."""
+    0 .. n - 1 (int32); pcg diag 2 + U(0, 1), off ~ U(0, 0.4) and
+    b ~ N(0, 1), each (n,); pbt lower and upper ~ U(0, 0.4), diag 2 +
+    U(0, 1) and rhs ~ N(0, 1), each (nb, n)."""
     shape = SHAPES[label][name]
     rng = np.random.default_rng(seed)
     if name == "503.postencil":
@@ -62,6 +70,15 @@ def inputs(name: str, label: str, seed: int = 0) -> Tuple[np.ndarray, ...]:
                 rng.standard_normal(nk, dtype=np.float32))
     if name == "552.pep":
         return (np.arange(shape[0], dtype=np.int32),)
+    if name == "554.pcg":
+        off = (0.4 * rng.random(shape)).astype(np.float32)
+        diag = (2.0 + rng.random(shape)).astype(np.float32)
+        return (diag, off, rng.standard_normal(shape, dtype=np.float32))
+    if name == "570.pbt":
+        lo = (0.4 * rng.random(shape)).astype(np.float32)
+        up = (0.4 * rng.random(shape)).astype(np.float32)
+        diag = (2.0 + rng.random(shape)).astype(np.float32)
+        return (lo, diag, up, rng.standard_normal(shape, dtype=np.float32))
     raise KeyError(name)
 
 
@@ -135,3 +152,67 @@ def pep_ref(seeds: torch.Tensor) -> torch.Tensor:
     z = z.view(-1, PEP_BLOCK)
     return torch.stack([z.sum(dim=1), (z * z).sum(dim=1),
                         z.max(dim=1).values, z.abs().sum(dim=1)], dim=1)
+
+
+def pcg_spmv_ref(diag: torch.Tensor, off: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """y = diag x + off (x_{i+1} + x_{i-1}), zero past both ends: the
+    reference's operator, A[i, i+1] = off_i and A[i+1, i] = off_{i+1},
+    which is not symmetric (and is not symmetrised here)."""
+    zero = x.new_zeros(1)
+    up = torch.cat([x[1:], zero])
+    down = torch.cat([zero, x[:-1]])
+    return diag * x + off * (up + down)
+
+
+def cg(spmv: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+       iters: int = CG_ITERS) -> torch.Tensor:
+    """``iters`` CG iterations from x = 0 on A x = b, A applied by
+    ``spmv``, as the reference's loop: the scalars stay 0-d tensors on
+    b's device, so nothing waits on the host."""
+    x = torch.zeros_like(b)
+    r = b - spmv(x)
+    p = r
+    rs = torch.dot(r, r)
+    for _ in range(iters):
+        ap = spmv(p)
+        alpha = rs / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = torch.dot(r, r)
+        p = r + (rs_new / rs) * p
+        rs = rs_new
+    return x
+
+
+def pcg_ref(diag: torch.Tensor, off: torch.Tensor, b: torch.Tensor,
+            iters: int = CG_ITERS) -> torch.Tensor:
+    """:func:`cg` with the operator of :func:`pcg_spmv_ref`."""
+    return cg(lambda v: pcg_spmv_ref(diag, off, v), b, iters)
+
+
+def pbt_sweeps(lower: torch.Tensor, diag: torch.Tensor, upper: torch.Tensor,
+               rhs: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x, cp, dp), each (nb, n): the Thomas forward sweep m = d_i -
+    l_i cp_{i-1}, cp_i = u_i / m, dp_i = (r_i - l_i dp_{i-1}) / m, then
+    x_{n-1} = dp_{n-1}, x_i = dp_i - cp_i x_{i+1}; column by column over
+    all systems at once, as the reference's loops (on (n, nb) copies,
+    so that each column is contiguous)."""
+    lo, di, up, rh = (t.t().contiguous() for t in (lower, diag, upper, rhs))
+    cp, dp = [up[0] / di[0]], [rh[0] / di[0]]
+    for i in range(1, rh.shape[0]):
+        m = di[i] - lo[i] * cp[-1]
+        cp.append(up[i] / m)
+        dp.append((rh[i] - lo[i] * dp[-1]) / m)
+    x = [dp[-1]]
+    for i in range(rh.shape[0] - 2, -1, -1):
+        x.append(dp[i] - cp[i] * x[-1])
+    return (torch.stack(x[::-1], dim=1), torch.stack(cp, dim=1),
+            torch.stack(dp, dim=1))
+
+
+def pbt_ref(lower: torch.Tensor, diag: torch.Tensor, upper: torch.Tensor,
+            rhs: torch.Tensor) -> torch.Tensor:
+    """The solutions x (nb, n) of the batched Thomas solves."""
+    return pbt_sweeps(lower, diag, upper, rhs)[0]

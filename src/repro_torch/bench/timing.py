@@ -1,8 +1,8 @@
 """Times on the card in turns, for comparisons made inside one process
-(``bench/parity.py``, ``bench/spec_accel.py``): CUDA events around each
-call, the L2 flushed before each, and the order of the functions
-alternating from one turn to the next, so that neither side always
-launches first."""
+(``bench/parity.py``, ``bench/spec_accel.py``, ``bench/miniqmc.py``):
+CUDA events around each call, the L2 flushed before each, and the order
+of the functions alternating from one turn to the next, so that neither
+side always launches first."""
 from __future__ import annotations
 
 import statistics
@@ -30,9 +30,9 @@ def turn_order(n: int, turn: int) -> List[int]:
     return order if turn % 2 == 0 else order[::-1]
 
 
-def time_in_turns(fns: Sequence[Callable], flush: torch.Tensor,
-                  iters: int = ITERS) -> List[float]:
-    """Median ms of each of ``fns`` over ``iters`` turns, each call after
+def times_in_turns(fns: Sequence[Callable], flush: torch.Tensor,
+                   iters: int = ITERS) -> List[List[float]]:
+    """Every ms of each of ``fns`` over ``iters`` turns, each call after
     an L2 flush (``flush.zero_()``), the order alternating by
     :func:`turn_order`; one warm-up call each first."""
     for fn in fns:
@@ -49,5 +49,11 @@ def time_in_turns(fns: Sequence[Callable], flush: torch.Tensor,
             b.record()
             events[i].append((a, b))
     torch.cuda.synchronize()
-    return [statistics.median(a.elapsed_time(b) for a, b in ev)
-            for ev in events]
+    return [[a.elapsed_time(b) for a, b in ev] for ev in events]
+
+
+def time_in_turns(fns: Sequence[Callable], flush: torch.Tensor,
+                  iters: int = ITERS) -> List[float]:
+    """The median ms of each of ``fns`` by :func:`times_in_turns`."""
+    return [statistics.median(ms)
+            for ms in times_in_turns(fns, flush, iters)]

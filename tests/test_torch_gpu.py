@@ -15,8 +15,11 @@ import dataclasses
 import pytest
 import torch
 
+from repro_torch.bench import miniqmc as mq
+from repro_torch.bench import miniqmc_ref as mq_ref
 from repro_torch.bench import spec_accel as sa
 from repro_torch.bench import spec_accel_ref as sa_ref
+from repro_torch.bench.standin import outputs
 from repro_torch.configs.base import MLAConfig
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.core import selftest
@@ -705,3 +708,43 @@ def test_spec_accel_twins_and_generic_build(cuda, name, label):
     atol, rtol = sa.tolerance(name, args, want)
     for out in (got, got_native, got_generic):
         torch.testing.assert_close(out, want, atol=atol, rtol=rtol)
+
+
+def test_pbt_sweeps_on_the_card(cuda):
+    """pbt's kernel writes the forward sweep's cp and dp as the
+    reference's does: each within the stated tolerance of the plain
+    sweeps at the reference's shape, the native build bit for bit."""
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in sa_ref.inputs("570.pbt", "reference", seed=2))
+    got = sa.pbt_sweeps(*args)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, sa.pbt_sweeps(*args, native=True)))
+    for g, w in zip(got, sa_ref.pbt_sweeps(*args)):
+        torch.testing.assert_close(g, w, atol=1e-5 * float(w.abs().max()),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("label", ["reference", "card"])
+@pytest.mark.parametrize("name", mq_ref.NAMES)
+def test_miniqmc_twins_and_generic_build(cuda, name, label):
+    """A miniQMC region's two builds of one source bit for bit, and each
+    of them and the generic build within the stated tolerance of the
+    plain version, at the reference's and the card's shapes."""
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in mq_ref.inputs(name, label, seed=1))
+    fn, plain = mq.FUNCS[name]
+    portable, native = mq.TWINS[name]
+    before = (portable.launches, native.launches)
+    got, got_native = fn(*args), fn(*args, native=True)
+    with target("generic"):
+        got_generic = fn(*args)
+    assert (portable.launches, native.launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    want = outputs(plain(*args))
+    atol, rtol = mq.tolerance(name, args, want)
+    assert all(torch.equal(a, b)
+               for a, b in zip(outputs(got), outputs(got_native)))
+    for out in (got, got_native, got_generic):
+        assert len(outputs(out)) == len(want)
+        for o, w in zip(outputs(out), want):
+            torch.testing.assert_close(o, w, atol=atol, rtol=rtol)

@@ -22,7 +22,8 @@ from repro.kernels import registry as R
 from repro.kernels.decode_attention import paged as jpaged
 from repro.kernels.decode_attention import ref as jdec_ref
 from repro.kernels.flash_attention import ref as jflash_ref
-from repro_torch.bench import spec_accel  # noqa: F401  (registers B12-B15)
+from repro_torch.bench import miniqmc  # noqa: F401  (registers B18-B19)
+from repro_torch.bench import spec_accel  # noqa: F401  (registers B12-B17)
 from repro_torch.core import build, selftest, tuning  # noqa: F401
 from repro_torch.core.context import target
 from repro_torch.kernels.decode_attention import decode_attention as dec_kern
@@ -302,9 +303,12 @@ def test_kernel_launchers_refuse_shapes_they_were_not_built_for():
 
 def test_every_kernel_has_a_source_and_a_build_key():
     names = sorted(k.name for k in build.KERNELS)
-    assert names == ["decode_attention", "flash_attention",
+    assert names == ["decode_attention", "evaluate_det_ratios",
+                     "evaluate_det_ratios_native", "evaluate_vgh",
+                     "evaluate_vgh_native", "flash_attention",
                      "flash_attention_native", "gmm",
                      "mamba_scan", "mlstm_scan", "paged_decode_attention",
+                     "pbt", "pbt_native", "pcg", "pcg_native",
                      "pep", "pep_native", "polbm", "polbm_native",
                      "pomriq", "pomriq_native", "postencil",
                      "postencil_native", "quant_paged_decode_attention",
@@ -320,4 +324,4 @@ def test_every_kernel_has_a_source_and_a_build_key():
                     and "Bound on the H100" in text)
             assert f'extern "C" int {k.symbol}' in text
             assert k.library_path().parent == build.BUILD_DIR
-        assert len({k.library_path() for k in build.KERNELS}) == 23
+        assert len({k.library_path() for k in build.KERNELS}) == 31

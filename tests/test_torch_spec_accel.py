@@ -1,4 +1,4 @@
-"""The SPEC ACCEL stand-ins B12-B15 of the port on the CPU, against the
+"""The SPEC ACCEL stand-ins B12-B17 of the port on the CPU, against the
 reference's (``benchmarks/spec_accel.py``).
 
 The same inputs, drawn with numpy from a seed in the distributions of
@@ -8,7 +8,9 @@ through the port's public function on the CPU, which takes the plain
 version (``bench/spec_accel_ref.py``); at the reference's shapes and at
 another legal shape each.  The tolerances are ``bench/spec_accel.py``'s
 ``tolerance``, derived there.  Then the launchers' refusals, the pep
-hash on the whole int32 range, the bench's refusal without a card, and
+hash on the whole int32 range, pcg's operator (the reference's, not
+symmetric) and pbt's sweeps against dense float64 algebra, the bench's
+refusal without a card, and
 the stand-in sources: written against the runtime facade, reaching it
 only through the ``REPRO_RT_NATIVE`` switch.  The kernels run on the
 card only (``tests/test_torch_gpu.py``, ``python -m
@@ -34,8 +36,12 @@ from repro_torch.bench import timing
 from repro_torch.core import build
 
 JAX_FNS = {"503.postencil": jsa.postencil, "504.polbm": jsa.polbm,
-           "514.pomriq": jsa.pomriq, "552.pep": jsa.pep}
-SOURCES = ("postencil.cu", "polbm.cu", "pomriq.cu", "pep.cu")
+           "514.pomriq": jsa.pomriq, "552.pep": jsa.pep, "554.pcg": jsa.pcg,
+           "570.pbt": jsa.pbt}
+SOURCES = ("postencil.cu", "polbm.cu", "pomriq.cu", "pep.cu", "pcg.cu",
+           "pbt.cu")
+#: the sources that stage nothing in the shared arena
+NO_ARENA = ("polbm.cu", "pcg.cu", "pbt.cu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -128,6 +134,51 @@ def test_polbm_streams_periodically_along_each_velocity():
                                    atol=1e-7, rtol=0)
 
 
+def _tridiagonal(lower, diag, upper):
+    """The dense float64 matrix with ``diag`` on the diagonal, row i's
+    ``lower[i]`` left of it and ``upper[i]`` right of it."""
+    n = diag.shape[0]
+    a = np.diag(diag.astype(np.float64))
+    a[np.arange(1, n), np.arange(n - 1)] = lower[1:]
+    a[np.arange(n - 1), np.arange(1, n)] = upper[:-1]
+    return a
+
+
+def test_pcg_operator_is_the_references_and_not_symmetric():
+    """pcg's SpMV applies the matrix whose row i is diag_i on the
+    diagonal and off_i on both sides, so A[i, i+1] = off_i but A[i+1, i]
+    = off_{i+1}: the reference's operator, not symmetrised.  CG's 8
+    iterations still leave a small residual on the reference's inputs."""
+    diag, off, b = ref.inputs("554.pcg", "small", seed=4)
+    a = _tridiagonal(off, diag, off)
+    assert a[0, 1] == off[0] and a[1, 0] == off[1] and off[0] != off[1]
+    assert not np.allclose(a, a.T)
+    x = np.random.default_rng(4).standard_normal(diag.shape[0])
+    got = sa.pcg_spmv(*map(torch.from_numpy, (diag, off)),
+                      torch.from_numpy(x.astype(np.float32)))
+    np.testing.assert_allclose(got.numpy(), a @ x.astype(np.float32),
+                               atol=1e-6, rtol=1e-6)
+    sol = sa.pcg(*map(torch.from_numpy, (diag, off, b))).double().numpy()
+    assert np.linalg.norm(a @ sol - b) < 1e-3 * np.linalg.norm(b)
+    assert sa.pcg(*map(torch.from_numpy, (diag, off, b)), 0).abs().max() == 0
+
+
+def test_pbt_sweeps_solve_each_system():
+    """Each row of x solves its tridiagonal system, and cp, dp are the
+    forward sweep's: x_{n-1} = dp_{n-1}, x_i = dp_i - cp_i x_{i+1}."""
+    lo, di, up, rh = ref.inputs("570.pbt", "small", seed=6)
+    x, cp, dp = sa.pbt_sweeps(*map(torch.from_numpy, (lo, di, up, rh)))
+    for k in range(rh.shape[0]):
+        a = _tridiagonal(lo[k], di[k], up[k])
+        np.testing.assert_allclose(x[k].double().numpy(),
+                                   np.linalg.solve(a, rh[k]), atol=1e-5)
+    np.testing.assert_allclose(cp[:, 0], up[:, 0] / di[:, 0], rtol=1e-7)
+    assert torch.equal(x[:, -1], dp[:, -1])
+    torch.testing.assert_close(x[:, :-1], dp[:, :-1] - cp[:, :-1] * x[:, 1:],
+                               atol=1e-6, rtol=0)
+    assert torch.equal(sa.pbt(*map(torch.from_numpy, (lo, di, up, rh))), x)
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: sa.postencil(torch.zeros(100, 64)), "multiple of 64"),
     (lambda: sa.postencil(torch.zeros(64, 64, dtype=torch.float64)),
@@ -143,9 +194,26 @@ def test_polbm_streams_periodically_along_each_velocity():
                        torch.zeros(64)), r"phi \(nk,\)"),
     (lambda: sa.pep(torch.arange(100, dtype=torch.int32)), "multiple of 256"),
     (lambda: sa.pep(torch.arange(256)), "int32"),
+    (lambda: sa.pcg(torch.ones(8), torch.ones(8), torch.ones(9)), r"\(n,\)"),
+    (lambda: sa.pcg(torch.ones(0), torch.ones(0), torch.ones(0)), "n >= 1"),
+    (lambda: sa.pcg(torch.ones(8, 1), torch.ones(8, 1), torch.ones(8, 1)),
+     r"\(n,\)"),
+    (lambda: sa.pcg(*(torch.ones(8, dtype=torch.float64),) * 3), "float32"),
+    (lambda: sa.pcg(torch.ones(8), torch.ones(8), torch.ones(8), -1),
+     "iters"),
+    (lambda: sa.pcg_spmv(torch.ones(8), torch.ones(7), torch.ones(8)),
+     r"\(n,\)"),
+    (lambda: sa.pbt(*(torch.ones(4, 8),) * 3, torch.ones(4, 9)),
+     "one shape"),
+    (lambda: sa.pbt(*(torch.ones(8),) * 4), r"\(nb, n\)"),
+    (lambda: sa.pbt(*(torch.ones(0, 8),) * 4), "nb, n >= 1"),
+    (lambda: sa.pbt(*(torch.ones(4, 8, dtype=torch.float64),) * 4),
+     "float32"),
 ], ids=["postencil_h", "postencil_dtype", "postencil_iters", "polbm_q",
         "polbm_h", "pomriq_nx", "pomriq_nk", "pomriq_phi", "pep_n",
-        "pep_dtype"])
+        "pep_dtype", "pcg_n", "pcg_empty", "pcg_rank", "pcg_dtype",
+        "pcg_iters", "pcg_spmv_n", "pbt_shape", "pbt_rank", "pbt_empty",
+        "pbt_dtype"])
 def test_launchers_refuse_what_the_kernels_do_not_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
@@ -162,13 +230,16 @@ def test_bench_runs_on_the_card_only(monkeypatch):
 
 def test_cost_counts_the_bound_of_one_launch():
     """The bounds of the card shapes, from the code's bytes and
-    operations: postencil 8192^2 reads and writes 256 MiB a sweep."""
+    operations: postencil 8192^2 reads and writes 256 MiB a sweep; pcg's
+    SpMV at 2^24 moves 268 MB, pbt at (65536, 512) 0.94 GB."""
     card = {name: tuple(torch.empty(s, device="meta") for s in shapes)
             for name, shapes in (
                 ("503.postencil", [(8192, 8192)]),
                 ("504.polbm", [(2048, 2048, 9)]),
                 ("514.pomriq", [(262144, 3), (2048, 3), (2048,)]),
-                ("552.pep", [(1 << 26,)]))}
+                ("552.pep", [(1 << 26,)]),
+                ("554.pcg", [(1 << 24,)] * 3),
+                ("570.pbt", [(65536, 512)] * 4))}
     got = {name: sa.cost(name, args) for name, args in card.items()}
     assert got["503.postencil"]["bytes"] == 2 * 256 * 2 ** 20
     assert got["503.postencil"]["bound_ms"] == pytest.approx(0.1602, 1e-3)
@@ -177,6 +248,11 @@ def test_cost_counts_the_bound_of_one_launch():
     assert got["552.pep"]["bound_ms"] == pytest.approx(0.0814, 1e-3)
     assert got["514.pomriq"]["bound_by"] == "operations"
     assert got["514.pomriq"]["ops"] == 262144 * 2048
+    assert got["554.pcg"]["bytes"] == 16 << 24
+    assert got["554.pcg"]["bound_ms"] == pytest.approx(0.0801, 1e-3)
+    assert got["570.pbt"]["bytes"] == 28 * 65536 * 512
+    assert got["570.pbt"]["bound_by"] == "bytes"
+    assert got["570.pbt"]["bound_ms"] == pytest.approx(0.2805, 1e-3)
 
 
 def test_turns_alternate_their_order():
@@ -198,7 +274,7 @@ def test_stand_ins_reach_the_runtime_only_through_the_switch():
         code = _code(build.CSRC / "spec_accel" / name)
         assert switch in code, name
         assert code.count("#include") == 3, name      # common.cuh too
-        assert "rt::Arena" in code or name == "polbm.cu", name
+        assert ("rt::Arena" in code) != (name in NO_ARENA), name
         for direct in ("blockIdx", "threadIdx", "__shared__", "__shfl",
                        "__syncthreads", "__cosf", "__logf"):
             assert direct not in code, (name, direct)
