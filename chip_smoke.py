@@ -12,7 +12,12 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    the shapes the serving paths give it and at edge cases, and time the
    kernel, the plain version and, where one exists, the PyTorch library
    call that computes the same function (a yardstick the port never
-   calls), beside the least time the card could take: granite-8b's
+   calls), beside the least time the card could take; the flash
+   kernel's bf16 (tensor-core) body is also held to its operand-rounding
+   model (``flash_attention_bf16_operands``) at TOL_OPERANDS, tighter than
+   TOL_BF16, and by the share of its bf16 outputs that differ from the
+   model's (at most ``MODEL_MISMATCH``), which a control build of B2
+   with one P term fewer must exceed, at every head-dim build: granite-8b's
    shapes (head dim 128), then gemma2-2b's (head dim 256): the
    sliding-window kernels over ring tables (bf16, int8, fp8) and the
    head-dim-256 builds of the prefill, dense, paged and quantized
@@ -35,10 +40,14 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    runtime ``csrc/rt/``, bit-identical to their hard-coded twins B11a
    and B11b at granite's, gemma2's, jamba's and the reference's parity
    shapes, all four within tolerance of the plain versions, their SASS
-   opcode histograms, registers and times in turns printed; B1 and B2
+   opcode histograms, registers and times in turns printed; HMMA
+   instructions in every bf16 build of B2, B11b and B8 and none in B2's
+   generic build; B1 and B2
    built for the generic target within tolerance; the runtime test
    kernel's order-free outcomes held to the plain atomics for both
-   targets (every thread holding its team's sum and max), and a generic
+   targets (every thread holding its team's sum and max, every warp's
+   tensor-core product of two bf16 tiles and its quad reductions
+   exact), and a generic
    build of ``atomic_inc`` refused; the SPEC ACCEL stand-ins' twins
    (B12-B17, each one source built against ``csrc/rt/`` and against
    ``csrc/native/rt_native.cuh``) compared the same way at the
@@ -59,7 +68,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    with paged KV; every kernel of the path must have launched, the host
    must have synchronised once per decode step and once per admitted
    prompt-length group, and every emitted token must be within 0.05
-   logits of the argmax of a plain-path forward over the same tokens;
+   logits of the argmax of a plain-path forward over the same tokens
+   (the share of emitted tokens that are not that argmax is printed for
+   every served run);
 5. the same requests through the dense KV cache, checked the same way;
 6. the same requests from int8 and from fp8-e4m3 page pools (fp8
    resolved strictly, so it can never quietly become int8), with the
@@ -126,6 +137,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -151,6 +163,15 @@ F32_FLOPS_PER_S = 67e12
 # also rounded to 8 mantissa bits.  The decode kernels' residuals
 # (acc, m, l) and their normalised output are f32.
 TOL_F32, TOL_BF16 = 1e-4, 2e-2
+# B2's bf16 body against its operand-rounding model (kernels/
+# flash_attention/ref.py flash_attention_bf16_operands), atol = rtol: the
+# two round the same operands (P into the same bf16 terms too), so they
+# part by a bf16 output rounding that a few f32 ulps flip and, rarely, a
+# p whose bf16 rounding flips; a misplaced fragment moves outputs by far
+# more.  One P term fewer moves them by about an output's bf16 ulp, inside
+# this tolerance: ref.MODEL_MISMATCH, a share of differing outputs, is
+# the check that sees it (operands_model).
+TOL_OPERANDS = 1e-2
 TEACHER_GAP = 0.05            # logits: emitted token vs the plain argmax
 PROMPT_LENS = (17, 64, 200, 511)
 N_REQUESTS, MAX_NEW, SLOTS, CACHE_LEN, PAGE = 12, 32, 8, 1024, 64
@@ -263,16 +284,18 @@ class Smoke:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
-    def compare(self, what: str, got, want, tol_f32=TOL_F32) -> float:
+    def compare(self, what: str, got, want, tol_f32=TOL_F32,
+                tol_bf16=TOL_BF16) -> float:
         """Max abs difference over the outputs, in f32; checks each
         output at the tolerance of its dtype (``tol_f32`` for f32
-        outputs: an op's own where it states one)."""
+        outputs: an op's own where it states one; ``tol_bf16`` for the
+        others)."""
         torch = self.torch
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, worst, ok, tols = 0.0, 0.0, True, set()
         for g, w in zip(got, want):
-            tol = tol_f32 if g.dtype == torch.float32 else TOL_BF16
+            tol = tol_f32 if g.dtype == torch.float32 else tol_bf16
             tols.add(tol)
             g, w = g.float(), w.float()
             ok &= g.shape == w.shape and bool(torch.isfinite(g).all())
@@ -362,13 +385,17 @@ def check_flash(s: Smoke) -> None:
     main = qkv(4, 512)
     err = s.compare("flash (4, 32/8, 512, 128) causal bf16",
                     ops.flash_attention(*main), ref.flash_attention_ref(*main))
+    operands_model(s, "flash (4, 32/8, 512, 128) causal bf16", main, {})
     for what, args, kw in (
             ("ragged S = 200", qkv(4, 200), {}),
             ("S = 130, window 32, softcap 30", qkv(2, 130), dict(
                 window=32, softcap=30.0)),
-            ("S = 77 f32, head dim 64", qkv(1, 77, torch.float32, 64), {})):
+            ("S = 77 f32, head dim 64", qkv(1, 77, torch.float32, 64), {}),
+            ("S = 300 bf16, head dim 64", qkv(2, 300, d=64), {})):
         s.compare(f"flash {what}", ops.flash_attention(*args, **kw),
                   ref.flash_attention_ref(*args, **kw))
+        if args[0].dtype == torch.bfloat16:
+            operands_model(s, f"flash {what}", args, kw)
     def cost(b, sq):                   # causal: sq (sq + 1) / 2 pairs
         return (2 * b * 32 * sq * 128 * 2 + 2 * b * 8 * sq * 128 * 2,
                 4 * b * 32 * 128 * sq * (sq + 1) // 2)
@@ -385,6 +412,52 @@ def check_flash(s: Smoke) -> None:
     s.record("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:116", err,
              *times(main))
+
+
+def flash_p_terms_kernel(terms: int):
+    """B2 with ``terms`` bf16 terms of P in place of the kernel's
+    ``ref.P_TERMS``: its source with the line that sets them rewritten,
+    under ``build/variants/``, bound as a kernel of its own."""
+    from repro_torch.core.build import CSRC, CudaKernel
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+    line = f"constexpr int P_TERMS = {ref.P_TERMS};"
+    src = (CSRC / "flash_attention.cu").read_text()
+    if src.count(line) != 1:
+        raise ValueError(f"flash_attention.cu does not hold {line!r} once")
+    path = ROOT / "build" / "variants" / f"flash_attention_p{terms}.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(src.replace(line, f"constexpr int P_TERMS = {terms};"))
+    return CudaKernel(f"flash_attention_p{terms}",
+                      os.path.relpath(path, CSRC), fa.KERNEL.symbol,
+                      fa.KERNEL.argtypes)
+
+
+def operands_model(s: Smoke, what, args, kw) -> float:
+    """B2's bf16 body against its operand-rounding model: within
+    TOL_OPERANDS, and with at most ``ref.MODEL_MISMATCH`` of its bf16
+    outputs differing from the model's, a share that the control (B2
+    built with one P term fewer, ``s.flash_control``) must exceed, or the
+    check could not tell the precision the kernel ships; returns the max
+    abs difference."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops, ref
+    got = ops.flash_attention(*args, **kw)
+    want = ref.flash_attention_bf16_operands(*args, **kw)
+    err = s.compare(f"{what} against the operand-rounding model", got,
+                    want, tol_bf16=TOL_OPERANDS)
+    shipped, fa.KERNEL = fa.KERNEL, s.flash_control
+    try:
+        control = ops.flash_attention(*args, **kw)
+    finally:
+        fa.KERNEL = shipped
+    share = ref.model_mismatch(got, want)
+    ctl = ref.model_mismatch(control, want)
+    s.check(share <= ref.MODEL_MISMATCH < ctl,
+            f"{what}: {share:.5f} of the outputs differ from the model "
+            f"(<= {ref.MODEL_MISMATCH}); {ctl:.5f} of the control's, with "
+            f"{ref.P_TERMS - 1} P term (> {ref.MODEL_MISMATCH})")
+    return err
 
 
 def _decode_operands(s: Smoke, lengths, hq=32, hkv=8, d=128,
@@ -748,19 +821,27 @@ def check_head_dim_256(s: Smoke) -> None:
     one, err = qkv(1), 0.0
     for what, window in (("global", None), ("local", G2_WINDOW)):
         kw = dict(window=window, softcap=G2_SOFTCAP)
-        err = max(err, s.compare(
-            f"flash (1, 8/4, {G2_FLASH_S}, 256) causal, softcap 50, {what}",
-            fops.flash_attention(*one, **kw),
-            fref.flash_attention_ref(*one, **kw)))
+        what = f"flash (1, 8/4, {G2_FLASH_S}, 256) causal, softcap 50, {what}"
+        err = max(err, s.compare(what, fops.flash_attention(*one, **kw),
+                                 fref.flash_attention_ref(*one, **kw)))
+        operands_model(s, what, one, kw)
     three = qkv(3)
     kw = dict(window=G2_WINDOW, softcap=G2_SOFTCAP)
     n = G2_FLASH_S
     pairs = sum(min(i + 1, G2_WINDOW) for i in range(n))
+    cost = (2 * 3 * G2_HQ * n * G2_D * 2 + 2 * 3 * G2_HKV * n * G2_D * 2,
+            4 * 3 * G2_HQ * G2_D * pairs)
     s.record_also("flash_attention", "gemma2", err,
                   s.time_ms(lambda: fops.flash_attention(*three, **kw)),
                   s.time_ms(lambda: fref.flash_attention_ref(*three, **kw)),
-                  2 * 3 * G2_HQ * n * G2_D * 2 + 2 * 3 * G2_HKV * n * G2_D * 2,
-                  4 * 3 * G2_HQ * G2_D * pairs, None)
+                  *cost, None)
+    # the softcap's share: the same launch without it (its 3 x 8 x pairs
+    # accurate tanhf run on the FMA pipe)
+    s.timings("flash_attention (gemma2 without the softcap)",
+              s.time_ms(lambda: fops.flash_attention(
+                  *three, window=G2_WINDOW)),
+              s.time_ms(lambda: fref.flash_attention_ref(
+                  *three, window=G2_WINDOW)), *cost, None)
 
     # B3 (dense, and the ring of a local layer) and B4 over cache 8192
     q, kc, vc, ln = _decode_operands(s, G2_LENGTHS, s_len=G2_CACHE_LEN,
@@ -919,6 +1000,8 @@ def check_mla_builds(s: Smoke) -> None:
     err = s.compare(f"flash ({b}, 16/16, {n}, 192/128) causal bf16",
                     fops.flash_attention(q, k, v, scale=scale),
                     fref.flash_attention_ref(q, k, v, scale=scale))
+    operands_model(s, f"flash ({b}, 16/16, {n}, 192/128) causal bf16",
+                   (q, k, v), dict(scale=scale))
     pairs = n * (n + 1) // 2
     s.record_also("flash_attention", "deepseek", err,
                   s.time_ms(lambda: fops.flash_attention(q, k, v,
@@ -1068,6 +1151,8 @@ def check_jamba_shapes(s: Smoke) -> None:
     err = s.compare(f"flash ({b}, {JB_HQ}/{JB_HKV}, {n}, 128) causal bf16",
                     fops.flash_attention(q, k, v),
                     fref.flash_attention_ref(q, k, v))
+    operands_model(s, f"flash ({b}, {JB_HQ}/{JB_HKV}, {n}, 128) causal bf16",
+                   (q, k, v), {})
     s.record_also("flash_attention", "jamba", err,
                   s.time_ms(lambda: fops.flash_attention(q, k, v)),
                   s.time_ms(lambda: fref.flash_attention_ref(q, k, v)),
@@ -1294,6 +1379,12 @@ def run_parity(s: Smoke) -> None:
         else:
             s.record_also(name, c["case"], *args, ops_per_s=peak)
             s.kernels[name][c["case"]]["portable_ms"] = c["ms_portable"]
+    for r in res["hmma"]:
+        want = "none" if r["target"] == "generic" else "HMMA in each"
+        s.check(not parity.hmma_failures([r]),
+                f"{r['build']} ({r['target']}): {want} of its bf16 "
+                f"instantiations (" + ", ".join(
+                    f"{k} {n}" for k, n in r["bf16"].items()) + ")")
     for r in res["selftest"]:
         s.check(r["ok"], f"runtime test kernel ({r['target']}, {r['build']}, "
                 f"{r['teams']} teams, {r['total']} items): order-free "
@@ -1464,7 +1555,8 @@ class _Replayer(_Recorder):
     answered with the served tokens, so that the engine admits,
     schedules and pages exactly as it served; keeps the largest
     (argmax logit - served token's logit) over the slots each call
-    emitted for.  Given the served expert choices (``routes``), every
+    emitted for, and counts the emitted tokens and those that were not
+    the plain argmax.  Given the served expert choices (``routes``), every
     MoE call takes them too, with gates from its own router
     probabilities, and counts the choices its own top-k would have
     made otherwise."""
@@ -1473,7 +1565,7 @@ class _Replayer(_Recorder):
         super().__init__(model)
         self.calls, self.routes = calls, routes
         self.i, self.r, self.engine, self.worst = 0, 0, None, None
-        self.flips = 0
+        self.flips, self.emitted, self.flipped = 0, 0, 0
 
     def route(self, real):
         def forced(router_w, x_flat, k):
@@ -1491,7 +1583,10 @@ class _Replayer(_Recorder):
         self.i += 1
         gap = logits.max(-1).values - logits.gather(
             1, forced[:, None].long())[:, 0]
-        gap = gap.where(emitting, gap.new_zeros(())).max()
+        gap = gap.where(emitting, gap.new_zeros(()))
+        self.emitted = self.emitted + emitting.sum()
+        self.flipped = self.flipped + (gap > 0).sum()
+        gap = gap.max()
         self.worst = gap if self.worst is None else self.worst.maximum(gap)
         return logits.new_zeros(logits.shape).scatter_(
             1, forced[:, None].long(), 1.0)
@@ -1685,9 +1780,10 @@ def teacher_gap(s: Smoke, model, params, reqs):
     """Largest (argmax logit - emitted token's logit) over every emitted
     token, from a plain-path forward over prompt + outputs; returns it
     and where it was (request, index of the emitted token: 0 is the
-    prefill's sample)."""
+    prefill's sample), the emitted tokens and how many of them were not
+    the plain forward's argmax (gap > 0)."""
     torch = s.torch
-    worst, where = 0.0, None
+    worst, where, tokens, flipped = 0.0, None, 0, 0
     with torch.no_grad():
         for r in reqs:
             seq = torch.tensor([r.tokens + r.out[:-1]], device=s.dev)
@@ -1699,10 +1795,12 @@ def teacher_gap(s: Smoke, model, params, reqs):
             got = rows[torch.arange(len(r.out), device=s.dev),
                        torch.tensor(r.out, device=s.dev)]
             gaps = rows.max(-1).values - got
+            tokens += len(r.out)
+            flipped += int((gaps > 0).sum())
             if float(gaps.max()) > worst:
                 worst = float(gaps.max())
                 where = (r.rid, int(gaps.argmax()))
-    return worst, where
+    return worst, where, tokens, flipped
 
 
 def check_serving(s: Smoke, model, params, name: str, mode: dict,
@@ -1782,14 +1880,14 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
         # the served expert choices too: at a near tie the plain path's
         # rounding can pick another expert, and past capacity that
         # reorders which assignments drop (reported below, unchecked)
-        gap, dropped, flips = replay_gap(s, model, params, calls, routes,
-                                         **shape, **mode)
+        gap, dropped, flips, tokens, flipped = replay_gap(
+            s, model, params, calls, routes, **shape, **mode)
         s.check(dropped == st["moe_dropped"],
                 f"{name}: the replay on the served expert choices dropped "
                 f"the served {st['moe_dropped']} assignments ({dropped}); "
                 f"its own top-k differed in {flips} choices")
-        free, free_dropped, _ = replay_gap(s, model, params, calls, None,
-                                           **shape, **mode)
+        free, free_dropped, *_ = replay_gap(s, model, params, calls, None,
+                                            **shape, **mode)
         st.update(replay_routing_flips=flips, free_replay_gap=free,
                   free_replay_moe_dropped=free_dropped)
         print(f"  {name}: a replay routing by its own top-k dropped "
@@ -1797,10 +1895,13 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
               f"(reported)")
         where = None
     else:
-        gap, where = teacher_gap(s, model, params, reqs)
+        gap, where, tokens, flipped = teacher_gap(s, model, params, reqs)
     st["teacher_gap"], st["teacher_gap_at"] = gap, where
+    st["teacher_tokens"], st["teacher_flipped"] = tokens, flipped
     at = "" if where is None else \
         f", request {where[0]}, emitted token {where[1]}"
+    print(f"  {name}: {flipped} of {tokens} emitted tokens "
+          f"({flipped / tokens:.4f}) are not the plain argmax")
     if teacher_checked:
         s.check(gap <= TEACHER_GAP,
                 f"{name}: every emitted token within {TEACHER_GAP} logits "
@@ -1828,7 +1929,8 @@ def replay_gap(s: Smoke, model, params, calls, routes=None,
     call's own token count as served) and, given ``routes``, the same
     expert choices, so the same assignments drop.  Returns (largest
     gap, the replay's dropped assignments, the expert choices its own
-    routing would have changed)."""
+    routing would have changed, the emitted tokens, and those not the
+    replay's argmax)."""
     from repro_torch.core.build import KERNELS
     from repro_torch.models import moe
     from repro_torch.serve import engine as engine_mod
@@ -1858,7 +1960,8 @@ def replay_gap(s: Smoke, model, params, calls, routes=None,
                 f"({replayer.r})")
     s.check(all(k.launches == 0 for k in KERNELS),
             "replay launched no kernel (plain versions only)")
-    return float(replayer.worst), int(drops), int(replayer.flips)
+    return (float(replayer.worst), int(drops), int(replayer.flips),
+            int(replayer.emitted), int(replayer.flipped))
 
 
 def _agree(a, b) -> int:
@@ -2372,6 +2475,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     s = Smoke(torch)
+    # built with the rest: the control of the operand-model check
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    s.flash_control = flash_p_terms_kernel(flash_ref.P_TERMS - 1)
 
     print("== card", flush=True)
     kind = torch.cuda.get_device_name(0)

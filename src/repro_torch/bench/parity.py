@@ -27,6 +27,10 @@ times on its own path):
    with small source changes; the generic build and the plain version
    take their turns too.
 
+4. the tensor-core builds, B2's and B11b's bf16 bodies and B8's, must
+   hold HMMA instructions in their SASS, and B2's generic build none
+   (:func:`hmma_counts`).
+
 B1, B2, the stand-ins and the regions are also built for the
 ``generic`` target (the same sources on a target that provides no
 intrinsic: the port of ``examples/new_target.py``), and all but the
@@ -62,6 +66,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.kernels.flash_attention import native as fa_native
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.gmm import gmm as gmm_kern
 from repro_torch.kernels.rmsnorm import native as rms_native
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
@@ -80,11 +85,13 @@ RMS_CASES = (("granite", 4096, 4096, torch.bfloat16),
              ("parity", 256, 512, torch.float32))
 #: flash: (label, B, Hq, Hkv, S, D, dtype, masks), all causal:
 #: granite's prefill, gemma2's (window 4096, softcap 50) and
-#: benchmarks/parity.py's (1, 4, 512, 64) over 2 KV heads in f32
+#: benchmarks/parity.py's (1, 4, 512, 64) over 2 KV heads in f32 and in
+#: bf16 (the tensor-core body's head-dim-64 build)
 FLASH_CASES = (("granite", 4, 32, 8, 512, 128, torch.bfloat16, {}),
                ("gemma2", 3, 8, 4, 6000, 256, torch.bfloat16,
                 dict(window=4096, softcap=50.0)),
-               ("parity", 1, 4, 2, 512, 64, torch.float32, {}))
+               ("parity", 1, 4, 2, 512, 64, torch.float32, {}),
+               ("parity bf16", 1, 4, 2, 512, 64, torch.bfloat16, {}))
 #: runtime test kernel: (teams, total, bound): the reference's
 #: partition of 1000 over 7 teams, then 132 teams under contention
 SELFTEST_CASES = ((7, 1000, 6), (132, 8192, 254))
@@ -143,13 +150,13 @@ def instantiation(demangled: str) -> Tuple[str, Tuple[str, ...]]:
     """``void (anonymous namespace)::k<float, 64, 64>(...)`` -> (name,
     key): the template arguments, the repeated width of an equal-dim
     build once, so a portable ``<T, 64, 64>`` meets a native
-    ``<T, 64>``."""
+    ``<T, 64>`` (and a bf16 ``<64, 64>`` a native ``<64>``)."""
     m = _TEMPLATE.search(demangled)
     if m is None:
         return demangled, ()
     args = tuple(a.strip() for a in m.group(2).split(","))
-    if len(args) == 3 and args[1] == args[2]:
-        args = args[:2]
+    if len(args) >= 2 and args[-1] == args[-2]:
+        args = args[:-1]
     return m.group(1), args
 
 
@@ -170,6 +177,67 @@ def kernels_of(lib: Path) -> Dict[Tuple[str, ...], dict]:
         out[key] = {"kernel": f"{name}<{', '.join(key)}>",
                     "hist": hists[mangled], **usage[mangled]}
     return out
+
+
+_NAME = re.compile(r"(\w+)(?:<[^<>]*>)?\(")
+
+
+def tensor_core_counts(sass_text: str, demangled: List[str]
+                       ) -> Dict[str, Dict[str, int]]:
+    """HMMA instructions of each kernel in ``cuobjdump -sass`` text
+    (``demangled``: its kernels' names, in the text's order), split by
+    element type: {"bf16": {kernel: count}, "f32": {...}}; an
+    instantiation with ``float`` among its template arguments is f32,
+    any other bf16."""
+    hists = opcode_histograms(sass_text)
+    out = {"bf16": {}, "f32": {}}
+    for mangled, dem in zip(hists, demangled):
+        name, key = instantiation(dem)
+        if not key:
+            m = _NAME.search(name)
+            name = m.group(1) if m else name
+        label = f"{name}<{', '.join(key)}>" if key else name
+        n = sum(c for op, c in hists[mangled].items()
+                if op.split(".")[0] == "HMMA")
+        out["f32" if "float" in key else "bf16"][label] = n
+    return out
+
+
+#: (kernel, target) of each build whose bf16 body is meant for the tensor
+#: cores, and B2's generic build, which must not use them
+TENSOR_CORE_BUILDS = ((fa_kern.KERNEL, "cuda"), (fa_native.KERNEL, "cuda"),
+                      (gmm_kern.KERNEL, "cuda"), (fa_kern.KERNEL, "generic"))
+
+
+def hmma_counts() -> List[dict]:
+    """Each of TENSOR_CORE_BUILDS, built if it is not, with its
+    instantiations' HMMA counts (:func:`tensor_core_counts`)."""
+    rows = []
+    for kernel, arch in TENSOR_CORE_BUILDS:
+        lib = kernel.build(GENERIC if arch == "generic" else None)
+        sass = _run([_tool("cuobjdump"), "-sass", str(lib)])
+        names = list(opcode_histograms(sass))
+        dem = _run([_tool("cu++filt"), *names]).splitlines()
+        rows.append({"build": kernel.name, "target": arch,
+                     **tensor_core_counts(sass, dem)})
+    return rows
+
+
+def hmma_failures(rows: List[dict]) -> List[str]:
+    """What :func:`hmma_counts`'s rows break: a bf16 instantiation of a
+    card build without HMMA, an instantiation of the generic build with
+    one, or a build with no bf16 instantiation at all."""
+    bad = []
+    for r in rows:
+        what = f"{r['build']} ({r['target']})"
+        if not r["bf16"]:
+            bad.append(f"{what}: no bf16 instantiation")
+        for kname, n in r["bf16"].items():
+            if (n == 0) == (r["target"] != "generic"):
+                bad.append(f"{what}: {kname} holds {n} HMMA")
+        if r["target"] == "generic" and any(r["f32"].values()):
+            bad.append(f"{what}: an f32 instantiation holds HMMA")
+    return bad
 
 
 def compare_sass(pair: str, portable: build.CudaKernel,
@@ -193,6 +261,8 @@ def compare_sass(pair: str, portable: build.CudaKernel,
             # an instantiation without a twin has no diff to show
             "diff": {op: [ha[op], hb[op]] for op in sorted(set(ha) | set(hb))
                      if ha[op] != hb[op]} if a and b else None,
+            "hmma": [sum(c for op, c in h.items() if op.split(".")[0] == "HMMA")
+                     for h in (ha, hb)],
             **{f: [a[f] if a else None, b[f] if b else None]
                for f in ("regs", "shared", "local")}})
     return rows
@@ -276,6 +346,8 @@ def run(device="cuda") -> dict:
     for portable, native in [*spec_accel.TWINS.values(),
                              *miniqmc.TWINS.values()]:
         res["sass"] += compare_sass(portable.name, portable, native)
+    res["hmma"] = hmma_counts()
+    failures.extend(f"tensor cores: {m}" for m in hmma_failures(res["hmma"]))
 
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
@@ -346,9 +418,14 @@ def report(res: dict) -> None:
             f"{op} {a}/{b}" for op, (a, b) in r["diff"].items()) or "none")
         print(f"  SASS {r['native'] or '-'} | {r['portable'] or '-'}: "
               f"instructions native/portable {r['instructions'][0]}/"
-              f"{r['instructions'][1]}, registers {r['regs'][0]}/"
+              f"{r['instructions'][1]}, HMMA {r['hmma'][0]}/"
+              f"{r['hmma'][1]}, registers {r['regs'][0]}/"
               f"{r['regs'][1]}, static shared {r['shared'][0]}/"
               f"{r['shared'][1]} B; diff {diff}")
+    for r in res["hmma"]:
+        print(f"  HMMA in {r['build']} ({r['target']}): bf16 "
+              + ", ".join(f"{k} {n}" for k, n in r["bf16"].items())
+              + "; f32 " + ", ".join(f"{k} {n}" for k, n in r["f32"].items()))
     for c in res["cases"]:
         print(f"  {c['pair']} {c['case']} {tuple(c['shape'])} {c['dtype']}: "
               f"bit-identical {c['bit_identical']}; ms portable "

@@ -11,7 +11,11 @@ depend on the order: the sum of the adds, the max and the min, exactly
 one winning cas, the exchanged values' total, the wraparound
 increment's final value and the count of each captured old value, and
 each team's partition, sum and max, which every thread of the team
-must have received (``reduce_errs``, counted by the kernel, is 0); and
+must have received (``reduce_errs``, counted by the kernel, is 0); each
+warp's tensor-core product of two 16 x 16 bf16 tiles of small integers
+(``rt::mma_bf16_m16n8k16`` with B loaded by every ``rt::load_matrix_*``
+form) and its quad reductions (width 4), whose wrong outputs the kernel
+counts (``mma_errs``, ``quad_errs``: 0 on both targets); and
 ``approx_reciprocal`` (the
 hardware's on the card's target, a division on the generic one) within
 ``RECIP_REL_ERR`` of 1/x.
@@ -35,9 +39,9 @@ from repro_torch.core.runtime import DeviceRuntime
 NT = 128                       # threads per team (csrc/rt_selftest.cu)
 #: counters[] of the kernel, in its order
 COUNTERS = ("add", "max", "min", "cas", "wins", "exch", "exch_olds",
-            "arena_errs", "reduce_errs")
+            "arena_errs", "reduce_errs", "mma_errs", "quad_errs")
 #: their values before the kernel
-INITIAL = (0, -1, 1 << 30, -1, 0, -1, 0, 0, 0)
+INITIAL = (0, -1, 1 << 30, -1, 0, -1, 0, 0, 0, 0, 0)
 #: approx_reciprocal's relative error bound: rcp.approx.ftz.f32 is within
 #: 1 ulp (2^-23) of 1/x (PTX ISA), and a division is correctly rounded
 RECIP_REL_ERR = 2.0 ** -22
@@ -161,7 +165,8 @@ def mismatches(got: Dict[str, object], want: Dict[str, object],
     ``want`` (:func:`plain`) differ; empty when they agree."""
     bad = []
     g, w = got["counters"], want["counters"]
-    for name in ("add", "max", "min", "arena_errs", "reduce_errs"):
+    for name in ("add", "max", "min", "arena_errs", "reduce_errs",
+                 "mma_errs", "quad_errs"):
         if g[name] != w[name]:
             bad.append(f"{name}: {g[name]} (plain {w[name]})")
     if g["wins"] != 1 or w["wins"] != 1 or not 0 <= g["cas"] < total:

@@ -39,6 +39,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch does
 }
 
+// Two floats rounded to bf16 (nearest even) in one 32-bit word, the
+// first in the low half: a row pair of an mma fragment.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -85,10 +92,15 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
 }
 
 // Raise a kernel's dynamic shared-memory cap once per instantiation;
-// above 48 KB a launch without it is refused.
+// when its static and dynamic shared memory pass 48 KB together, a
+// launch without it is refused (the generic target's warp rows are
+// static).
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (bytes + attr.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }

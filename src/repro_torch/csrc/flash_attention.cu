@@ -13,19 +13,37 @@
 //
 // Bound on the H100: bytes for prompts up to about 740 tokens, then
 // operations (causal, 32/8 heads of 128: 0.4 S flops per byte moved,
-// 205 at S = 512, against the card's bf16 ridge of 295).  This
-// first kernel is far from either: it runs the math as f32 FMA on the
-// CUDA cores, not on the tensor cores; mma.sync, then wgmma and TMA, are
-// later PRs' work.
-// Design: one 256-thread team per (batch, q head, 64-row q tile); the
-// TPU's sequential kv grid axis becomes a loop inside the team, carrying
-// (m, l, acc) in carve-outs of the shared arena and in registers.  Q, K
-// and V tiles are staged in shared memory as f32 by stage_tile (16-byte
-// loads, all in flight together; K and Q rows padded to d + 1 floats so
-// the 16 threads of a half-warp hit 16 banks); each thread owns a 4 x 4
-// block of the score tile and a 4 x (dv/16) block of the output.  KV
-// tiles that lie wholly after the causal bound or before the window are
-// skipped, as the reference's `needed` predicate does.
+// 205 at S = 512, against the card's bf16 ridge of 295).
+//
+// Two bodies, chosen by the element type.  bf16 runs on the tensor
+// cores, FlashAttention-2's shape: one team of 4 warps per (batch, q
+// head, 64-row q tile), each warp owning 16 q rows; the TPU's sequential
+// kv grid axis becomes a loop over 64-key tiles inside the team.  Q (bf16,
+// unscaled) and a two-stage ring of K and V tiles sit in the arena, rows
+// padded by 16 bytes so the 8 rows of an ldmatrix hit 32 distinct banks;
+// tile i + 1 is copied by rt::make_async_copy while tile i is computed.
+// S = Q K^T comes from rt::mma_bf16_m16n8k16 in f32 registers and is
+// multiplied by the scale in f32 (the reference scales q in f32 before an
+// f32 dot: rounding q * scale to bf16 would add a rounding), then
+// softcapped (tanhf) and masked on the fragments; the online softmax runs
+// per row in registers, reduced over the row's quad (rt::warp_reduce_*
+// with width 4).  P goes to bf16 straight from the S accumulators (an
+// m16n8 C layout is the next m16n8k16's A layout), as P_TERMS terms:
+// P_hi = bf16(p), then P_lo = bf16(p - P_hi), each multiplied by V, so
+// P keeps about 16 of its bits (PERF.md §6 gives the served
+// paths' teacher-forced gaps with one, two and three terms); l sums p in
+// f32.  O += P V takes V's B fragments by ldmatrix.trans and stays in
+// f32 registers.  Q's A fragments stay in
+// registers at head dims up to 128 and are re-read from the arena each
+// tile at 192 and 256.  On the generic target the copies are plain
+// 16-byte loads (it has no async copy) and the product goes through
+// shared memory.  f32 keeps the CUDA-core body below (tensor cores would
+// round to TF32), one 256-thread team per q tile with Q, K and V staged
+// as f32 and each thread owning a 4 x 4 block of scores.  KV tiles that
+// lie wholly after the causal bound or before the window are skipped in
+// both, as the reference's `needed` predicate does.
+#include <type_traits>
+
 #include "common.cuh"
 #include "rt/runtime.cuh"
 
@@ -194,6 +212,307 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ the bf16 body -------
+
+using bf16 = __nv_bfloat16;
+// P as bf16 terms, a product each: 2 keeps about 16 bits of P.  The
+// twin (native/flash_attention_native.cu) and the operand-rounding model
+// (kernels/flash_attention/ref.py) repeat it; chip_smoke.py builds this
+// source with 1 as the control its check against the model must refuse.
+constexpr int P_TERMS = 2;
+constexpr int NW = 4;         // warps per team, 16 q rows each
+constexpr int NTM = NW * 32;  // threads per team
+
+template <int DK, int DV>
+constexpr size_t mma_smem_bytes() {  // Q, then two K and two V tiles
+  return (static_cast<size_t>(BQ) * (DK + 8) + 2 * BK * (DK + 8) +
+          2 * BK * (DV + 8)) * sizeof(bf16);
+}
+
+// 16 bytes from global to the arena: asynchronously where the target
+// has it, a plain load and store on the generic target.
+template <typename E>
+__device__ __forceinline__ void copy16(E* dst, const E* src) {
+  if constexpr (rt::has_async_copy)
+    rt::make_async_copy(dst, src);
+  else
+    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+template <typename E>
+__device__ __forceinline__ void copies_landed() {
+  if constexpr (rt::has_async_copy) rt::wait_async_copies<E>();
+}
+
+// The first `rows` rows of a ROWS x D bf16 tile (row stride D) into the
+// arena at row stride D + 8; rows past `rows` become 0, so a masked key's
+// p = 0 never meets a NaN of stale memory in P V.
+template <int ROWS, int D>
+__device__ __forceinline__ void stage(const bf16* __restrict__ src,
+                                      bf16* dst, int rows) {
+  constexpr int PER_ROW = D / 8;  // 16-byte chunks a row
+  static_assert(ROWS * PER_ROW % NTM == 0, "tile shape");
+#pragma unroll
+  for (int i = 0; i < ROWS * PER_ROW / NTM; ++i) {
+    const int idx = rt::thread_id() + i * NTM;
+    const int r = idx / PER_ROW, c = idx % PER_ROW * 8;
+    bf16* d = dst + r * (D + 8) + c;
+    if (r < rows)
+      copy16(d, src + static_cast<size_t>(r) * D + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A lane's keys and rows for the mask: key k0 + 8 j + (e & 1) (k0
+// already holds the lane's 2 t) against row qp[e >> 1].
+struct Bounds {
+  int k0, skv, causal, window;
+  int qp[2];
+};
+
+// x = scale * s, softcapped (CAP) and masked (EDGE) in place, and the
+// rows' maxima taken, over a lane's S fragments.
+template <bool CAP, bool EDGE, int NS>
+__device__ __forceinline__ void scale_mask(float (&s)[NS][4], float (&mx)[2],
+                                           float scale, float softcap,
+                                           const Bounds& bd) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kp = bd.k0 + 8 * j + (e & 1);
+      const int row = e >> 1;
+      float x = s[j][e] * scale;
+      if constexpr (CAP) x = softcap * tanhf(x / softcap);
+      if constexpr (EDGE) {
+        bool ok = kp < bd.skv;
+        if (bd.causal) ok = ok && bd.qp[row] >= kp;
+        if (bd.window > 0) ok = ok && bd.qp[row] - kp < bd.window;
+        x = ok ? x : repro::NEG_INF;
+      }
+      s[j][e] = x;
+      mx[row] = fmaxf(mx[row], x);
+    }
+  }
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(NTM)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int hq,
+                 int hkv, int sq, int skv, float scale, int causal,
+                 int window, float softcap, int q_offset) {
+  constexpr int LQ = DK + 8, LV = DV + 8;  // arena row strides
+  constexpr int KQ = DK / 16;              // k16 steps of Q K^T
+  constexpr int NS = BK / 8;               // n8 tiles of S a warp
+  constexpr int NO = DV / 8;               // n8 tiles of O a warp
+  constexpr bool Q_REGS = DK <= 128;       // Q's fragments kept
+  rt::Arena arena;
+  bf16* sQ = arena.alloc_shared<bf16>(BQ * LQ);
+  bf16* sK = arena.alloc_shared<bf16>(2 * BK * LQ);
+  bf16* sV = arena.alloc_shared<bf16>(2 * BK * LV);
+
+  const int tid = rt::thread_id(), warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row and column pair
+  const int h = rt::team_id(1), b = rt::team_id(2);
+  const int kvh = h / (hq / hkv);
+  const int q0 = rt::team_id(0) * BQ;  // first q row (local)
+  const int qpos0 = q0 + q_offset;    // its global position
+  const bf16* qb = q + static_cast<size_t>(b * hq + h) * sq * DK;
+  const bf16* kb = k + static_cast<size_t>(b * hkv + kvh) * skv * DK;
+  const bf16* vb = v + static_cast<size_t>(b * hkv + kvh) * skv * DV;
+
+  // kv tiles that can hold an unmasked key for some row of this q tile
+  int hi = (skv + BK - 1) / BK;
+  if (causal) hi = min(hi, (qpos0 + BQ - 1) / BK + 1);
+  int lo = 0;
+  if (window > 0) {
+    const int t0 = qpos0 - window - (BK - 1);  // tiles with k_start <= t0 are dead
+    lo = t0 >= 0 ? t0 / BK + 1 : 0;
+  }
+
+  stage<BQ, DK>(qb + static_cast<size_t>(q0) * DK, sQ, sq - q0);
+  if (lo < hi) {
+    stage<BK, DK>(kb + static_cast<size_t>(lo) * BK * DK, sK, skv - lo * BK);
+    stage<BK, DV>(vb + static_cast<size_t>(lo) * BK * DV, sV, skv - lo * BK);
+  }
+  copies_landed<bf16>();
+  rt::barrier();
+
+  // this lane's rows of the warp's 16: r and r + 8
+  const int r = warp * 16 + g;
+  const int qp[2] = {qpos0 + r, qpos0 + r + 8};
+  // ldmatrix row addresses: Q's A tiles, K's B tiles (keys on rows),
+  // V's B tiles by .trans (keys on rows)
+  const bf16* qa = sQ + (warp * 16 + lane % 16) * LQ + lane / 16 * 8;
+  const int krow = lane % 8 + lane / 16 * 8, kcol = lane / 8 % 2 * 8;
+  const int vrow = lane % 16, vcol = lane / 16 * 8;
+  unsigned qf[Q_REGS ? KQ : 1][4];
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) rt::load_matrix_x4(qf[kk], qa + kk * 16);
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {repro::NEG_INF, repro::NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = lo; it < hi; ++it) {
+    const int st = (it - lo) & 1, k0 = it * BK;
+    copies_landed<bf16>();
+    rt::barrier();  // tile it landed; every warp is done with tile it - 1
+    if (it + 1 < hi) {
+      stage<BK, DK>(kb + static_cast<size_t>(k0 + BK) * DK,
+                    sK + (st ^ 1) * BK * LQ, skv - k0 - BK);
+      stage<BK, DV>(vb + static_cast<size_t>(k0 + BK) * DV,
+                    sV + (st ^ 1) * BK * LV, skv - k0 - BK);
+    }
+    const bf16* cK = sK + st * BK * LQ;
+    const bf16* cV = sV + st * BK * LV;
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      unsigned a[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        rt::load_matrix_x4(a, qa + kk * 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        unsigned kf[4];
+        rt::load_matrix_x4(kf, cK + (16 * j + krow) * LQ + kk * 16 + kcol);
+        const unsigned b0[2] = {kf[0], kf[1]}, b1[2] = {kf[2], kf[3]};
+        rt::mma_bf16_m16n8k16(s[2 * j], a, b0);
+        rt::mma_bf16_m16n8k16(s[2 * j + 1], a, b1);
+      }
+    }
+
+    // scale, softcap and mask on the fragments; this tile's row maxima.
+    // The mask is tested only where some key of the tile is out of some
+    // row's bound (edge): elsewhere it would keep every score as it is.
+    const int w0 = qpos0 + warp * 16;  // the warp's first row
+    const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > w0) ||
+                      (window > 0 && w0 + 15 - k0 >= window);
+    float mx[2] = {repro::NEG_INF, repro::NEG_INF};
+    const Bounds bd{k0 + 2 * t, skv, causal, window, {qp[0], qp[1]}};
+    if (softcap > 0.f) {
+      if (edge)
+        scale_mask<true, true>(s, mx, scale, softcap, bd);
+      else
+        scale_mask<true, false>(s, mx, scale, softcap, bd);
+    } else {
+      if (edge)
+        scale_mask<false, true>(s, mx, scale, softcap, bd);
+      else
+        scale_mask<false, false>(s, mx, scale, softcap, bd);
+    }
+    float alpha[2];
+    bool live[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], rt::warp_reduce_max(mx[i], 4));
+      // a row with no live key so far keeps p = 0 (exp(0) would be 1)
+      live[i] = m_new > repro::NEG_INF / 2;
+      alpha[i] = live[i] ? expf(m[i] - m_new) : 0.f;
+      m[i] = m_new;
+    }
+    // P as P_TERMS bf16 terms, the A fragments of the four k16 steps of
+    // P V: the first rounds p, each next one what the earlier left (the
+    // remainder is exact in f32); l sums p itself, in f32
+    unsigned pf[P_TERMS][NS][2];
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float r0 = live[i] ? expf(s[j][2 * i] - m[i]) : 0.f;
+        float r1 = live[i] ? expf(s[j][2 * i + 1] - m[i]) : 0.f;
+        sum[i] += r0;
+        sum[i] += r1;
+#pragma unroll
+        for (int u = 0; u < P_TERMS; ++u) {
+          pf[u][j][i] = repro::pack_bf16(r0, r1);
+          r0 -= __uint_as_float(pf[u][j][i] << 16);
+          r1 -= __uint_as_float(pf[u][j][i] & 0xffff0000u);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + sum[i];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NO / 2; ++j) {
+        unsigned vf[4];
+        rt::load_matrix_x4_trans(vf, cV + (16 * kk + vrow) * LV + 16 * j + vcol);
+        const unsigned b0[2] = {vf[0], vf[1]}, b1[2] = {vf[2], vf[3]};
+#pragma unroll
+        for (int u = 0; u < P_TERMS; ++u) {
+          const unsigned a[4] = {pf[u][2 * kk][0], pf[u][2 * kk][1],
+                                 pf[u][2 * kk + 1][0], pf[u][2 * kk + 1][1]};
+          rt::mma_bf16_m16n8k16(acc[2 * j], a, b0);
+          rt::mma_bf16_m16n8k16(acc[2 * j + 1], a, b1);
+        }
+      }
+    }
+  }
+
+  bf16* ob = o + static_cast<size_t>(b * hq + h) * sq * DV;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r + 8 * i;
+    float li = rt::warp_reduce_sum(l[i], 4);  // the row's quad
+    if (row >= sq) continue;
+    li = li == 0.f ? 1.f : li;  // fully masked rows come out as 0
+    // An exact division where the reference's finalize takes
+    // rt.approx_reciprocal: multiplying by rt::approx_reciprocal(l)
+    // moved the served tokens' teacher-forced gaps on the card past
+    // their 0.05-logit limit (PERF.md §6).
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<unsigned*>(ob + static_cast<size_t>(row) * DV +
+                                   8 * j + 2 * t) =
+          repro::pack_bf16(acc[j][2 * i] / li, acc[j][2 * i + 1] / li);
+  }
+}
+
+template <int DK, int DV>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       int b, int hq, int hkv, int sq, int skv, float scale,
+                       int causal, int window, float softcap, int q_offset,
+                       cudaStream_t stream) {
+  const size_t bytes = mma_smem_bytes<DK, DV>();
+  static const cudaError_t attr =
+      repro::allow_smem(flash_mma_kernel<DK, DV>, bytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
+  flash_mma_kernel<DK, DV><<<grid, NTM, bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), hq, hkv, sq, skv,
+      scale, causal, window, softcap, q_offset);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------- dispatch -------
+
 template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int hq, int hkv, int sq, int skv, float scale,
@@ -211,25 +530,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// f32 takes the CUDA-core body, bf16 the tensor-core one.
+template <typename T, int DK, int DV>
+cudaError_t launch_dtype(const void* q, const void* k, const void* v,
+                         void* o, int b, int hq, int hkv, int sq, int skv,
+                         float scale, int causal, int window, float softcap,
+                         int q_offset, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<float, DK, DV>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                                 causal, window, softcap, q_offset, stream);
+  else
+    return launch_mma<DK, DV>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
+                              window, softcap, q_offset, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_d(int d, int dv, const void* q, const void* k,
                        const void* v,
                        void* o, int b, int hq, int hkv, int sq, int skv,
                        float scale, int causal, int window, float softcap,
                        int q_offset, cudaStream_t stream) {
-  if (d == 192 && dv == 128)  // MLA: 149 KB of shared memory
-    return launch<T, 192, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale,
-                               causal, window, softcap, q_offset, stream);
+  if (d == 192 && dv == 128)  // MLA: f32 149 KB of shared memory, bf16 109
+    return launch_dtype<T, 192, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                                     causal, window, softcap, q_offset,
+                                     stream);
   if (dv != d) return cudaErrorInvalidValue;
   if (d == 64)
-    return launch<T, 64, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal,
-                             window, softcap, q_offset, stream);
+    return launch_dtype<T, 64, 64>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                                   causal, window, softcap, q_offset, stream);
   if (d == 128)
-    return launch<T, 128, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale,
-                               causal, window, softcap, q_offset, stream);
-  if (d == 256)  // 214.5 KB of shared memory: under the 227 KB opt-in cap
-    return launch<T, 256, 256>(q, k, v, o, b, hq, hkv, sq, skv, scale,
-                               causal, window, softcap, q_offset, stream);
+    return launch_dtype<T, 128, 128>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                                     causal, window, softcap, q_offset,
+                                     stream);
+  if (d == 256)  // f32 214.5 KB, bf16 165 KB: under the 227 KB opt-in cap
+    return launch_dtype<T, 256, 256>(q, k, v, o, b, hq, hkv, sq, skv, scale,
+                                     causal, window, softcap, q_offset,
+                                     stream);
   return cudaErrorInvalidValue;
 }
 

@@ -10,11 +10,37 @@
 //
 //   targets/sm90.cuh     default, the `declare variant match(device=
 //                        {arch(nvptx64)})` of this port: warp shuffles,
-//                        rcp.approx, native atomicInc, cp.async;
+//                        rcp.approx, native atomicInc, cp.async, and the
+//                        tensor core (mma.sync, ldmatrix);
 //   targets/generic.cuh  -DREPRO_RT_TARGET_GENERIC: no intrinsic at all;
-//                        reductions through shared memory, an exact
-//                        reciprocal, and atomic_inc / make_async_copy
-//                        that fail to compile where they are called.
+//                        reductions and the warp matrix product through
+//                        shared memory, an exact reciprocal, and
+//                        atomic_inc / make_async_copy that fail to compile
+//                        where they are called (has_async_copy is false).
+//
+// The warp matrix intrinsics, for a warp's lane l, g = l / 4, t = l % 4
+// (the PTX ISA's layouts of mma.m16n8k16 and ldmatrix.m8n8):
+//
+//   mma_bf16_m16n8k16(d, a, b)   d += A B: A 16 x 16 bf16, B 16 x 8 bf16,
+//                                d 16 x 8 f32.  a[0] holds A(g, 2t..2t+1),
+//                                a[1] A(g+8, 2t..), a[2] A(g, 2t+8..),
+//                                a[3] A(g+8, 2t+8..); b[0] B(2t..2t+1, g),
+//                                b[1] B(2t+8.., g); d[0..1] C(g, 2t..2t+1),
+//                                d[2..3] C(g+8, 2t..2t+1) (the low half of
+//                                a word is the lower index).  So the C
+//                                layout of two n-adjacent products is the
+//                                A layout of the next k16 step.
+//   load_matrix_x4(r, p)         ldmatrix of four 8 x 8 b16 tiles from the
+//   load_matrix_x2(r, p)         arena: lane l passes p, the address of row
+//                                l % 8 of tile l / 8 (16 bytes, 16-byte
+//                                aligned; x2 reads lanes 0-15's); r[i] gets
+//                                tile i's (g, 2t..2t+1).
+//   load_matrix_x4_trans(r, p)   the same tiles transposed: r[i] gets tile
+//   load_matrix_x2_trans(r, p)   i's (2t, g) low and (2t+1, g) high, the B
+//                                fragment of a row-major (k, n) tile.
+//
+// warp_reduce_sum/max(v, width) reduce over aligned groups of `width`
+// lanes: width 4 is the quad that holds one row of an mma's C tile.
 //
 // Every function is __forceinline__, so a kernel written against the
 // facade compiles to the instructions it would hold if it were written

@@ -85,19 +85,57 @@ def test_rmsnorm_kernel(cuda, dtype, rows, d):
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
+#: B2's cases: (Sq, Skv, Dk, Dv, window, softcap, q_offset), all causal
+FLASH_CASES = [
+    (200, 200, 128, 128, None, None, 0), (64, 64, 128, 128, None, None, 0),
+    (130, 130, 64, 64, 32, 30.0, 0), (300, 300, 256, 256, None, 50.0, 0),
+    (300, 300, 256, 256, 128, 50.0, 0), (130, 130, 192, 128, None, None, 0),
+    (77, 200, 128, 128, None, None, 123), (37, 100, 192, 128, 40, None, 63)]
+#: B2's bf16 body against its operand-rounding model (kernels/
+#: flash_attention/ref.py): the two round the same operands, so they part
+#: by a bf16 output rounding that a few f32 ulps flip and, rarely, by a p
+#: whose bf16 rounding flips: half of TOL_BF16, where a misplaced
+#: fragment moves outputs by far more
+TOL_OPERANDS = dict(atol=1e-2, rtol=1e-2)
+
+
+def _flash_operands(cuda, dtype, sq, skv, dk, dv, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(2, 8, sq, dk, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 2, skv, dk, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, 2, skv, dv, device=cuda, generator=g).to(dtype)
+    return q, k, v
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,d,window,softcap", [
-    (200, 128, None, None), (64, 128, None, None), (130, 64, 32, 30.0),
-    (300, 256, None, 50.0), (300, 256, 128, 50.0)])
-def test_flash_kernel(cuda, dtype, sq, d, window, softcap):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(2, 8, sq, d, device=cuda, generator=g).to(dtype)
-    k = torch.randn(2, 2, sq, d, device=cuda, generator=g).to(dtype)
-    v = torch.randn(2, 2, sq, d, device=cuda, generator=g).to(dtype)
-    kw = dict(causal=True, window=window, softcap=softcap)
+@pytest.mark.parametrize("sq,skv,dk,dv,window,softcap,q_offset",
+                         FLASH_CASES)
+def test_flash_kernel(cuda, dtype, sq, skv, dk, dv, window, softcap,
+                      q_offset):
+    q, k, v = _flash_operands(cuda, dtype, sq, skv, dk, dv)
+    kw = dict(causal=True, window=window, softcap=softcap,
+              scale=dk ** -0.5, q_offset=q_offset)
     got = fa_ops.flash_attention(q, k, v, **kw)
     want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    assert got.shape == (2, 8, sq, dv)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("sq,skv,dk,dv,window,softcap,q_offset",
+                         FLASH_CASES)
+def test_flash_kernel_matches_rounding_model(cuda, sq, skv, dk, dv, window,
+                                             softcap, q_offset):
+    """The tensor-core body (bf16) against the plain model of what it
+    rounds, at TOL_OPERANDS, and with at most MODEL_MISMATCH of its
+    outputs differing from the model's (one P term fewer changes about a
+    third of them: tests/test_torch_flash_rounding.py)."""
+    q, k, v = _flash_operands(cuda, torch.bfloat16, sq, skv, dk, dv)
+    kw = dict(causal=True, window=window, softcap=softcap,
+              scale=dk ** -0.5, q_offset=q_offset)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = fa_ref.flash_attention_bf16_operands(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_OPERANDS)
+    assert fa_ref.model_mismatch(got, want) <= fa_ref.MODEL_MISMATCH
 
 
 def _pools_from_caches(kc, vc, ps, gen):
@@ -364,7 +402,10 @@ def test_gemma2_engine_on_card_matches_cpu(cuda, mode):
     (4, 64, 128, 128, "registry"),        # repro's example: masked rows
     (3, 24, 96, 136, "edges"),            # sizes 0, C and between; ragged
     (8, 8, 256, 192, "full"),             # the decode tile (C <= 8)
-    (2, 184, 64, 128, "full")])           # the largest prefill's C
+    (4, 8, 520, 200, "registry"),         # jamba-like decode: N % 128, K % 16
+    (3, 3, 96, 136, "edges"),             # decode, C 3: sizes 0, C, 7
+    (2, 184, 64, 128, "full"),            # the largest prefill's C
+    (3, 160, 264, 392, "full")])          # jamba's prefill C, N % 128
 def test_gmm_kernel(cuda, dtype, e, c, k, n, sizes):
     """B8 against its plain version: f32 at the op's 2e-4, bf16 outputs
     at 2e-2; rows at or past each expert's size are exact zeros."""
@@ -651,6 +692,35 @@ def test_runtime_test_kernel_outcomes(cuda, teams, total, bound):
         got = selftest.launch(teams, total, bound, portable=True,
                               device=cuda)
     assert selftest.mismatches(got, want, total, bound) == []
+
+
+def test_runtime_warp_product_on_both_targets(cuda):
+    """The test kernel's tensor-core product (rt::mma_bf16_m16n8k16 over
+    every rt::load_matrix_* form) and quad reductions count no wrong
+    output on the card's target nor on the generic one, whose product
+    and loads go through shared memory."""
+    got = selftest.launch(7, 1000, 6, portable=True, device=cuda)
+    with target("generic"):
+        got_generic = selftest.launch(7, 1000, 6, portable=True, device=cuda)
+    for arch, res in (("cuda", got), ("generic", got_generic)):
+        assert res["counters"]["mma_errs"] == 0, arch
+        assert res["counters"]["quad_errs"] == 0, arch
+
+
+def test_tensor_core_builds_hold_hmma(cuda):
+    """B2's bf16 builds (all four head dims), B11b's and B8's hold HMMA
+    instructions in their SASS; B2's generic build holds none."""
+    from repro_torch.bench import parity
+    counts = parity.hmma_counts()
+    mma = {(r["build"], r["target"]): r for r in counts}
+    for build, n_inst in (("flash_attention", 4),
+                          ("flash_attention_native", 3), ("gmm", 2)):
+        r = mma[(build, "cuda")]
+        assert len(r["bf16"]) == n_inst, r
+        assert all(n > 0 for n in r["bf16"].values()), r
+    generic = mma[("flash_attention", "generic")]
+    assert len(generic["bf16"]) == 4
+    assert sum(generic["bf16"].values()) == 0, generic
 
 
 def test_generic_build_of_atomic_inc_fails_to_compile(cuda):

@@ -424,12 +424,12 @@ def test_selftest_plain_replay(teams, total, bound):
 
 def test_selftest_checker_catches_order_free_faults():
     want = selftest.plain(7, 1000, 6)
-    for fault in ("wins", "add", "reduce_errs", "inc", "copied", "team_sums",
-                  "recip"):
+    for fault in ("wins", "add", "reduce_errs", "mma_errs", "quad_errs",
+                  "inc", "copied", "team_sums", "recip"):
         got = {k: (dict(v) if isinstance(v, dict) else
                    v.clone() if torch.is_tensor(v) else list(v)
                    if isinstance(v, list) else v) for k, v in want.items()}
-        if fault in ("wins", "add", "reduce_errs"):
+        if fault in ("wins", "add", "reduce_errs", "mma_errs", "quad_errs"):
             got["counters"][fault] += 1
         elif fault == "inc":
             got["inc_olds"][0] = 5
@@ -485,3 +485,47 @@ def test_parity_reads_opcodes_registers_and_instantiations():
     assert parity.instantiation(
         "void (anonymous namespace)::flash_native_kernel<float, 64>"
         "(const T1 *)")[1] == ("float", "64")
+    assert parity.instantiation(
+        "void (anonymous namespace)::flash_mma_kernel<64, 64>"
+        "(const __nv_bfloat16 *)") == ("flash_mma_kernel", ("64",))
+    assert parity.instantiation(
+        "void (anonymous namespace)::flash_native_mma_kernel<64>"
+        "(const __nv_bfloat16 *)") == ("flash_native_mma_kernel", ("64",))
+
+
+MMA_SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_116flash_mma_kernelILi64ELi64EEEvPK13__nv_bfloat16
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R16, R4, R14, R16 ;
+\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64ELi64EEEvPKT_
+        /*0000*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : _ZN12_GLOBAL__N_114gmm_mma_kernelEPK13__nv_bfloat16
+        /*0000*/              @!P0 HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+"""
+MMA_NAMES = [
+    "void (anonymous namespace)::flash_mma_kernel<64, 64>(const "
+    "__nv_bfloat16 *)",
+    "void (anonymous namespace)::flash_fwd_kernel<float, 64, 64>(const "
+    "T1 *)",
+    "void (anonymous namespace)::gmm_mma_kernel(const __nv_bfloat16 *)"]
+
+
+def test_parity_counts_hmma_by_instantiation():
+    """The tensor-core check's reader: HMMA (any modifiers, predicated
+    or not) per kernel, split into bf16 and f32 instantiations; and what
+    it fails on: a card build's bf16 kernel without HMMA, a generic one
+    with any."""
+    got = parity.tensor_core_counts(MMA_SASS, MMA_NAMES)
+    assert got == {"bf16": {"flash_mma_kernel<64>": 2, "gmm_mma_kernel": 1},
+                   "f32": {"flash_fwd_kernel<float, 64>": 0}}
+    card = {"build": "b", "target": "cuda", **got}
+    assert parity.hmma_failures([card]) == []
+    assert parity.hmma_failures([dict(card, target="generic")]) == [
+        "b (generic): flash_mma_kernel<64> holds 2 HMMA",
+        "b (generic): gmm_mma_kernel holds 1 HMMA"]
+    zero = dict(card, bf16={"flash_mma_kernel<64>": 0})
+    assert parity.hmma_failures([zero]) == [
+        "b (cuda): flash_mma_kernel<64> holds 0 HMMA"]
+    assert parity.hmma_failures([dict(card, bf16={})]) == [
+        "b (cuda): no bf16 instantiation"]
