@@ -17,7 +17,12 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    model (``flash_attention_bf16_operands``) at TOL_OPERANDS, tighter than
    TOL_BF16, and by the share of its bf16 outputs that differ from the
    model's (at most ``MODEL_MISMATCH``), which a control build of B2
-   with one P term fewer must exceed, at every head-dim build: granite-8b's
+   with one P term fewer must exceed, at every head-dim build; the
+   dense decode kernel (B3) at the split count it is served with and at
+   SPLIT_CHECK splits is held to its split plain version
+   (``decode_attention_ref(chunk=...)``) and, as a control, at one split
+   to the unsplit plain version, with m of every launch bit for bit, at
+   each of its shapes: granite-8b's
    shapes (head dim 128), then gemma2-2b's (head dim 256): the
    sliding-window kernels over ring tables (bf16, int8, fp8) and the
    head-dim-256 builds of the prefill, dense, paged and quantized
@@ -173,6 +178,9 @@ TOL_F32, TOL_BF16 = 1e-4, 2e-2
 # the check that sees it (operands_model).
 TOL_OPERANDS = 1e-2
 TEACHER_GAP = 0.05            # logits: emitted token vs the plain argmax
+# B3 is also held and timed at this many splits at every shape, so that
+# its merge runs where the served count is 1 (caches of 1024 rows)
+SPLIT_CHECK = 8
 PROMPT_LENS = (17, 64, 200, 511)
 N_REQUESTS, MAX_NEW, SLOTS, CACHE_LEN, PAGE = 12, 32, 8, 1024, 64
 DECODE_LENGTHS = (1, 64, 200, 333, 511, 700, 900, 1024)
@@ -487,11 +495,56 @@ def _normalized(res):
     return acc / l.clamp_min(1e-30)[..., None]
 
 
+def check_split_decode(s: Smoke, what, q, kc, vc, ln, **kw):
+    """B3 at the split count it is served with (``decode_splits``) and at
+    SPLIT_CHECK splits, each against its split plain version
+    (``decode_attention_ref(chunk=...)``, its rounding model), its
+    one-split launch (the control: the unsplit kernel's arithmetic)
+    against the unsplit plain version, and m of every launch bit for
+    bit (each score is computed alike whatever the split); prints the
+    counts.  Returns the served launch's residuals."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import ops, ref
+    n_rows = kc.shape[2]
+    served = dk.decode_splits(n_rows)
+    one = ops.decode_attention(q, kc, vc, ln, return_residuals=True,
+                               splits=1, **kw)
+    s.compare(f"{what}, one split (the control), against the plain "
+              f"version", one, ref.decode_attention_ref(
+                  q, kc, vc, ln, return_residuals=True, **kw))
+    got = one
+    for n in sorted({served, SPLIT_CHECK} - {1}):
+        chunk = dk.split_chunk(n_rows, n)
+        res = ops.decode_attention(q, kc, vc, ln, return_residuals=True,
+                                   splits=n, **kw)
+        s.compare(f"{what}, {n} splits of {chunk} rows"
+                  f"{' (served)' if n == served else ''}, against the split "
+                  f"plain version", res, ref.decode_attention_ref(
+                      q, kc, vc, ln, return_residuals=True, chunk=chunk,
+                      **kw))
+        s.check(bool(s.torch.equal(res[1], one[1])),
+                f"{what}: m of {n} splits equals m of one split bit for bit")
+        if n == served:
+            got = res
+    print(f"  {what}: served with {served} split(s) of "
+          f"{dk.split_chunk(n_rows, served)} cache rows")
+    return got
+
+
+def _split_timings(s: Smoke, what, fn, plain, nbytes, flops, library):
+    """B3's time at one split (the control) and at SPLIT_CHECK splits
+    beside its record (``fn(splits)`` launches it)."""
+    for n in (1, SPLIT_CHECK):
+        s.timings(f"decode_attention ({what}, {n} split{'s' * (n > 1)})",
+                  s.time_ms(lambda: fn(n)), plain, nbytes, flops, library)
+
+
 def check_decode(s: Smoke) -> None:
     torch = s.torch
     from repro_torch.kernels.decode_attention import ops, ref
     q, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS)
-    got = ops.decode_attention(q, kc, vc, ln, return_residuals=True)
+    got = check_split_decode(s, "decode (B 8, 32/8 x 128, lengths "
+                                "1..1024)", q, kc, vc, ln)
     want = ref.decode_attention_ref(q, kc, vc, ln, return_residuals=True)
     s.compare("decode residuals (acc, m, l), B = 8, lengths 1..1024",
               got, want)
@@ -503,19 +556,24 @@ def check_decode(s: Smoke) -> None:
                                    softcap=30.0, return_residuals=True),
               ref.decode_attention_ref(q0, kc0, vc0, ln0, window=100,
                                        softcap=30.0, return_residuals=True))
+    check_split_decode(s, "decode with an empty slot, window 100, softcap "
+                          "30", q0, kc0, vc0, ln0, window=100, softcap=30.0)
     mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
             < ln[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes, flops = _decode_cost(DECODE_LENGTHS)
+    plain_ms = s.time_ms(lambda: ref.decode_attention_ref(
+        q, kc, vc, ln, return_residuals=True))
+    library_ms = s.time_ms(lambda: sdpa(q[:, :, None], kc, vc,
+                                        attn_mask=mask, enable_gqa=True))
     s.record("decode_attention", "decode_attention.cu",
              "src/repro/kernels/decode_attention/decode_attention.py:118",
              err, s.time_ms(lambda: ops.decode_attention(
                  q, kc, vc, ln, return_residuals=True)),
-             s.time_ms(lambda: ref.decode_attention_ref(
-                 q, kc, vc, ln, return_residuals=True)),
-             nbytes, flops,
-             s.time_ms(lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask,
-                                    enable_gqa=True)))
+             plain_ms, nbytes, flops, library_ms)
+    _split_timings(s, "granite", lambda n: ops.decode_attention(
+        q, kc, vc, ln, return_residuals=True, splits=n), plain_ms, nbytes,
+        flops, library_ms)
 
 
 def _pages(s: Smoke, kc, vc, lengths, ps):
@@ -849,7 +907,8 @@ def check_head_dim_256(s: Smoke) -> None:
     kw = dict(softcap=G2_SOFTCAP)
     want = ref.decode_attention_ref(q, kc, vc, ln, return_residuals=True,
                                     **kw)
-    got = ops.decode_attention(q, kc, vc, ln, return_residuals=True, **kw)
+    got = check_split_decode(s, "decode (B 8, 8/4 x 256, cache 8192, "
+                                "softcap 50)", q, kc, vc, ln, **kw)
     s.compare("decode residuals, 8/4 heads of 256, cache 8192", got, want)
     err = s.compare("decode output acc / l", _normalized(got),
                     _normalized(want))
@@ -861,13 +920,20 @@ def check_head_dim_256(s: Smoke) -> None:
                                    **kw),
               ref.decode_attention_ref(q, *ring, ring_ln,
                                        return_residuals=True, **kw))
+    check_split_decode(s, "decode over a ring of 4096", q, *ring, ring_ln,
+                       **kw)
+    check_split_decode(s, "decode, cache 8192, window 4096 (early splits "
+                          "empty)", q, kc, vc, ln, window=G2_WINDOW, **kw)
     nbytes, flops = _decode_cost(G2_LENGTHS, **G2)
+    plain_ms = s.time_ms(lambda: ref.decode_attention_ref(
+        q, kc, vc, ln, return_residuals=True, **kw))
     s.record_also("decode_attention", "gemma2", err,
                   s.time_ms(lambda: ops.decode_attention(
                       q, kc, vc, ln, return_residuals=True, **kw)),
-                  s.time_ms(lambda: ref.decode_attention_ref(
-                      q, kc, vc, ln, return_residuals=True, **kw)),
-                  nbytes, flops, None)
+                  plain_ms, nbytes, flops, None)
+    _split_timings(s, "gemma2", lambda n: ops.decode_attention(
+        q, kc, vc, ln, return_residuals=True, splits=n, **kw), plain_ms,
+        nbytes, flops, None)
     kp, vp, bt = _pages(s, kc, vc, G2_LENGTHS, PAGE)
     got = ops.paged_decode_attention(q, kp, vp, bt, ln,
                                      return_residuals=True, **kw)
@@ -1019,7 +1085,8 @@ def check_mla_builds(s: Smoke) -> None:
         rnd(SLOTS, DS_H, CACHE_LEN, DS_DV)
     ln = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=s.dev)
     kw = dict(scale=scale, return_residuals=True)
-    got = ops.decode_attention(qd, kc, vc, ln, **kw)
+    got = check_split_decode(s, "decode (B 8, 16/16 x 192/128, lengths "
+                                "1..1024)", qd, kc, vc, ln, scale=scale)
     want = ref.decode_attention_ref(qd, kc, vc, ln, **kw)
     s.compare("decode residuals, 16/16 heads of 192/128, lengths 1..1024",
               got, want)
@@ -1031,14 +1098,17 @@ def check_mla_builds(s: Smoke) -> None:
     flops = 2 * DS_H * (DS_DK + DS_DV) * live
     mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
             < ln[:, None])[:, None, None, :]
+    plain_ms = s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
+                                                          **kw))
+    library_ms = s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
+                                        attn_mask=mask, scale=scale))
     s.record_also("decode_attention", "deepseek", err,
                   s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
                                                          **kw)),
-                  s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
-                                                             **kw)),
-                  nbytes, flops,
-                  s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
-                                         attn_mask=mask, scale=scale)))
+                  plain_ms, nbytes, flops, library_ms)
+    _split_timings(s, "deepseek", lambda n: ops.decode_attention(
+        qd, kc, vc, ln, splits=n, **kw), plain_ms, nbytes, flops,
+        library_ms)
     kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
     got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **kw)
     want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **kw)
@@ -1165,7 +1235,8 @@ def check_jamba_shapes(s: Smoke) -> None:
     heads = dict(hq=JB_HQ, hkv=JB_HKV, d=128)
     qd, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS, **heads)
     dkw = dict(return_residuals=True)
-    got = ops.decode_attention(qd, kc, vc, ln, **dkw)
+    got = check_split_decode(s, "decode (B 8, 64/8 x 128, lengths "
+                                "1..1024)", qd, kc, vc, ln)
     want = ref.decode_attention_ref(qd, kc, vc, ln, **dkw)
     s.compare("decode residuals, 64/8 heads of 128, lengths 1..1024", got,
               want)
@@ -1174,14 +1245,17 @@ def check_jamba_shapes(s: Smoke) -> None:
     nbytes, flops = _decode_cost(DECODE_LENGTHS, **heads)
     mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
             < ln[:, None])[:, None, None, :]
+    plain_ms = s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
+                                                          **dkw))
+    library_ms = s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
+                                        attn_mask=mask, enable_gqa=True))
     s.record_also("decode_attention", "jamba", err,
                   s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
                                                          **dkw)),
-                  s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
-                                                             **dkw)),
-                  nbytes, flops,
-                  s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
-                                         attn_mask=mask, enable_gqa=True)))
+                  plain_ms, nbytes, flops, library_ms)
+    _split_timings(s, "jamba", lambda n: ops.decode_attention(
+        qd, kc, vc, ln, splits=n, **dkw), plain_ms, nbytes, flops,
+        library_ms)
     kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
     got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **dkw)
     want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **dkw)

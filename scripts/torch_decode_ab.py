@@ -1,42 +1,77 @@
 #!/usr/bin/env python3
 """Time the port's one-token decode kernels (dense B3, paged B4, and the
 sliding-window B7) at granite-8b's and gemma2-2b's serving shapes, for
-the ``repro_torch`` package found under ``--src``.
+the ``repro_torch`` package found under ``--src``, and keep their
+outputs (and B5's, B6's and B7q's) for a bit-for-bit comparison.
 
 Register allocation of these kernels moves with small source changes,
 so compare two versions only inside one call on one card, in turns:
 
-    python3 scripts/torch_decode_ab.py --src build/parent/src --tag parent
+    python3 scripts/torch_decode_ab.py --src build/parent/src --tag parent \\
+        --save build/ab_parent.pt
+    python3 scripts/torch_decode_ab.py --src src --tag change \\
+        --save build/ab_change.pt
     python3 scripts/torch_decode_ab.py --src src --tag change
-    python3 scripts/torch_decode_ab.py --src src --tag change
     python3 scripts/torch_decode_ab.py --src build/parent/src --tag parent
+    python3 scripts/torch_decode_ab.py --compare build/ab_parent.pt \\
+        build/ab_change.pt
 
-Each run builds its kernels into its own checkout's ``build/`` and
-prints one JSON line of medians (ms, CUDA events, 50 launches, L2
-flushed between them).
+Each run builds its kernels into its own checkout's ``build/``, spins
+the card for about a second (a process's first timings otherwise ran
+slow) and prints one JSON line of medians (ms, CUDA events, 50
+launches, L2 flushed between them, then about 0.1 ms of waiting on the
+card, so that the host has queued the call before the card reaches the
+start event and the events time the card alone).  B3 runs with the
+package's own split rule and, where its ``decode_attention`` takes
+``splits``, also with one split and with 8 ("one split": a package
+without the argument has only the unsplit kernel, so its "one split" is
+its plain call); only the one-split outputs are kept.  ``--compare``
+prints, for every output the two files share, whether they are equal
+bit for bit, and exits 1 if any is not.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import sys
 from pathlib import Path
 
 
+def compare(a: str, b: str) -> int:
+    import torch
+    x, y = torch.load(a), torch.load(b)
+    same = {k: all(torch.equal(p, q) for p, q in zip(x[k], y[k]))
+            for k in sorted(set(x) & set(y))}
+    print(json.dumps({"bit_identical": same}))
+    return 0 if all(same.values()) else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default="src")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--save", help="keep every output in this file")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="compare two --save files and exit")
     args = ap.parse_args()
+    if args.compare:
+        return compare(*args.compare)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     from repro_torch.kernels.decode_attention import ops
+    from repro_torch.quant import resolve_kv_spec
     from repro_torch.serve.paging import live_window_pages, window_table_width
 
     dev = torch.device("cuda")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # a process's first timings ran slow: spin about a second
+    torch.cuda._sleep(2_000_000_000)
     g = torch.Generator(device=dev).manual_seed(0)
+    one_split = ({"splits": 1} if "splits" in inspect.signature(
+        ops.decode_attention).parameters else {})
+    outputs = {}
 
     def time_ms(fn, iters=50):
         fn()
@@ -44,6 +79,7 @@ def main() -> int:
         pairs = []
         for _ in range(iters):
             flush.zero_()
+            torch.cuda._sleep(200_000)  # about 0.1 ms: the call is queued
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -52,6 +88,10 @@ def main() -> int:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+    def keep(key, fn):
+        outputs[key] = tuple(t.cpu() for t in fn())
+        return fn
 
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=g).bfloat16()
@@ -71,6 +111,7 @@ def main() -> int:
             pools.append(pool)
         return pools[0], pools[1], bt.to(dev)
 
+    int8 = resolve_kv_spec("int8", dev, strict=True)
     out = {"tag": args.tag, "card": torch.cuda.get_device_name(0)}
     for name, hq, hkv, d, s_len, lengths in (
             ("granite", 32, 8, 128, 1024, (1, 64, 200, 333, 511, 700, 900,
@@ -83,13 +124,30 @@ def main() -> int:
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
         out[f"B3 {name}"] = time_ms(lambda: ops.decode_attention(
             q, kc, vc, ln, return_residuals=True))
+        out[f"B3 {name} one split"] = time_ms(keep(
+            f"B3 {name} one split", lambda: ops.decode_attention(
+                q, kc, vc, ln, return_residuals=True, **one_split)))
+        if one_split:
+            out[f"B3 {name} 8 splits"] = time_ms(
+                lambda: ops.decode_attention(q, kc, vc, ln,
+                                             return_residuals=True, splits=8))
         kp, vp, bt = paged(kc, vc, lengths)
-        out[f"B4 {name}"] = time_ms(lambda: ops.paged_decode_attention(
-            q, kp, vp, bt, ln, return_residuals=True))
+        out[f"B4 {name}"] = time_ms(keep(
+            f"B4 {name}", lambda: ops.paged_decode_attention(
+                q, kp, vp, bt, ln, return_residuals=True)))
+        (kq, ks), (vq, vs) = int8.quantize_pages(kp), int8.quantize_pages(vp)
+        keep(f"B5 {name} int8", lambda: ops.quant_paged_decode_attention(
+            q, kq, vq, ks, vs, bt, ln, return_residuals=True))
+        if name == "granite":
+            qs = rnd(len(lengths), 5, hq, d)
+            base = ln.clamp(max=s_len - 5) - 1
+            keep("B6 granite k1 5", lambda: ops.spec_paged_decode_attention(
+                qs, kp, vp, bt, base, return_residuals=True))
         if name == "gemma2":
             window, ps = 4096, 64
             tw = window_table_width(window, ps)
-            perm = (torch.randperm(len(lengths) * tw) + 1).tolist()
+            perm = (torch.randperm(len(lengths) * tw, generator=torch
+                                   .Generator().manual_seed(2)) + 1).tolist()
             rt = torch.zeros(len(lengths), tw, dtype=torch.int32)
             for i, n in enumerate(lengths):
                 for gp in live_window_pages(n, window, ps):
@@ -97,10 +155,19 @@ def main() -> int:
             wk, wv = rnd(hkv, 1 + len(lengths) * tw, ps, d), \
                 rnd(hkv, 1 + len(lengths) * tw, ps, d)
             rt = rt.to(dev)
-            out["B7 gemma2"] = time_ms(
-                lambda: ops.window_paged_decode_attention(
+            out["B7 gemma2"] = time_ms(keep(
+                "B7 gemma2", lambda: ops.window_paged_decode_attention(
                     q, wk, wv, rt, ln, window=window, softcap=50.0,
-                    return_residuals=True))
+                    return_residuals=True)))
+            (wkq, wks), (wvq, wvs) = (int8.quantize_pages(wk),
+                                      int8.quantize_pages(wv))
+            keep("B7q gemma2 int8",
+                 lambda: ops.quant_window_paged_decode_attention(
+                     q, wkq, wvq, wks, wvs, rt, ln, window=window,
+                     softcap=50.0, return_residuals=True))
+    if args.save:
+        Path(args.save).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, args.save)
     print(json.dumps(out))
     return 0
 

@@ -20,7 +20,8 @@
 // (row, token) pair against the row's own causal horizon, run the
 // online-softmax update (one warp per row), and accumulate P V in
 // registers.  The outputs are the unnormalized residuals (acc, m, l) of
-// the reference's contract.
+// the reference's contract.  B3 runs the same arithmetic through the
+// split-KV helpers at the end of this file.
 #pragma once
 
 #include "common.cuh"
@@ -314,4 +315,303 @@ inline bool paged_args_ok(const PagedArgs& a) {
          a.page_size % a.bk == 0 && a.n_pages >= 1;
 }
 
+// ---------------------------------------------------------------------
+// Split-KV one-token decode (B3, csrc/decode_attention.cu).  The paged
+// kernels above do not use these yet.
+//
+// A CTA serves one (batch row, kv head) and one split of its cache: rows
+// [j * chunk, (j + 1) * chunk), chunk a whole number of blocks.  Its
+// per-block arithmetic is decode_block's, term for term (the scores'
+// fmaf over the key columns in order, the softcap's tanhf, the warp
+// softmax with the same lanes, P V in token order), so a split that is
+// its row's only live one gives the bits of the unsplit kernel.  What
+// differs is where the bytes go: K and V are staged in their storage
+// type by 16-byte cp.async copies, the next block's while this one
+// computes (two stages when both fit), and the rows of a CTA (the
+// group) size shared memory and acc[] through G.  Several live splits
+// leave partials (acc, m, l), and the last of them to finish merges
+// them in split order (split_merge).
+
+// cp.async: 16 bytes global -> shared, through L2 only.
+__device__ __forceinline__ void cp_async16(void* dst_shared,
+                                           const void* src_global) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src_global)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for every copy group this thread committed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The most splits a row may have: the merge keeps one weight per (row,
+// split) in the score tile (G x BK_MAX floats).
+constexpr int MAX_SPLITS = BK_MAX;
+
+// The split kernel's shared memory: the K and V stages in T (the key's
+// 16-byte chunks swizzled by token, so that 8 neighbouring tokens read
+// one chunk column from 8 distinct bank groups), the scaled query rows,
+// the score tile, the rows' running (m, l), the block's rescale factors
+// and the merge flag.  Two stages where they fit the 227 KB a CTA may
+// take, else one (f32 at head dim 256).
+template <typename T, int DK, int DV>
+__host__ __device__ constexpr int split_stages() {
+  return 2 * BK_MAX * (DK + DV) * sizeof(T) <= 200 * 1024 ? 2 : 1;
+}
+
+template <typename T, int DK, int DV, int G>
+__host__ __device__ constexpr size_t split_smem_bytes() {
+  return static_cast<size_t>(split_stages<T, DK, DV>()) * BK_MAX *
+             (DK + DV) * sizeof(T) +
+         sizeof(float) * (G * DK + G * BK_MAX + 3 * G) + 16;
+}
+
+template <typename T, int DK, int DV, int G>
+struct SplitSmem {
+  static constexpr int STAGES = split_stages<T, DK, DV>();
+  T* k;       // STAGES x BK_MAX x DK, chunks swizzled (k_chunk)
+  T* v;       // STAGES x BK_MAX x DV
+  float* q;   // G x DK, pre-scaled
+  float* s;   // G x BK_MAX: scores, then probabilities; merge weights
+  float* m;   // running max per row
+  float* l;   // running sum per row
+  float* a;   // this block's rescale factor per row
+  int* flag;  // this CTA merges
+  __device__ explicit SplitSmem(unsigned char* base) {
+    k = reinterpret_cast<T*>(base);
+    v = k + STAGES * BK_MAX * DK;
+    q = reinterpret_cast<float*>(v + STAGES * BK_MAX * DV);
+    s = q + G * DK;
+    m = s + G * BK_MAX;
+    l = m + G;
+    a = l + G;
+    flag = reinterpret_cast<int*>(a + G);
+  }
+  // 16-byte chunk c of token t's key row in stage `st`
+  __device__ uint4* k_chunk(int st, int t, int c) const {
+    constexpr int CH = DK * sizeof(T) / 16;
+    return reinterpret_cast<uint4*>(k + st * BK_MAX * DK) + t * CH +
+           (c ^ (t & 7));
+  }
+};
+
+// Issue the copies of `rows` K/V rows (a block) into stage `st`.
+template <typename T, int DK, int DV, int G>
+__device__ __forceinline__ void split_stage(const SplitSmem<T, DK, DV, G>& sm,
+                                            int st, const T* kblk,
+                                            const T* vblk, int rows) {
+  constexpr int KCH = DK * sizeof(T) / 16, VCH = DV * sizeof(T) / 16;
+  static_assert(KCH % 8 == 0 && VCH >= 1, "16-byte rows");
+  const uint4* ks = reinterpret_cast<const uint4*>(kblk);
+  const uint4* vs = reinterpret_cast<const uint4*>(vblk);
+  uint4* vd = reinterpret_cast<uint4*>(sm.v + st * BK_MAX * DV);
+  for (int i = threadIdx.x; i < rows * KCH; i += DV)
+    cp_async16(sm.k_chunk(st, i / KCH, i % KCH), ks + i);
+  for (int i = threadIdx.x; i < rows * VCH; i += DV)
+    cp_async16(vd + i, vs + i);
+  cp_async_commit();
+}
+
+// decode_init for the split kernel: the scaled query rows (rows past n
+// zeroed) and the reset running state.
+template <typename T, int DK, int DV, int G>
+__device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const T* q,
+                           size_t row0, int n, float scale, float acc[G]) {
+  for (int i = threadIdx.x; i < G * DK; i += DV)
+    sm.q[i] = i / DK < n ? to_f32(q[row0 * DK + i]) * scale : 0.f;
+  if (threadIdx.x < G) {
+    sm.m[threadIdx.x] = NEG_INF;
+    sm.l[threadIdx.x] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < G; ++i) acc[i] = 0.f;
+}
+
+// One block of stage `st`, decode_block's arithmetic: tokens k_start ..
+// k_start + rows - 1, masked at `length` and by the window.  Scores:
+// DV / BK_MAX threads a token, each over every (DV / BK_MAX)-th row,
+// reading the key a 16-byte chunk at a time and the query rows as
+// broadcasts.
+template <typename T, int DK, int DV, int G>
+__device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
+                            int rows, int k_start, int n, int length,
+                            int window, float softcap, float acc[G]) {
+  constexpr int VEC = 16 / sizeof(T), CH = DK / VEC;
+  constexpr int TPT = DV / BK_MAX;             // threads a token
+  constexpr int RPT = (G + TPT - 1) / TPT;     // rows a thread
+  constexpr int NW = DV / 32;
+  static_assert(DV % BK_MAX == 0, "a whole number of threads a token");
+  const int tid = threadIdx.x;
+  const int t = tid % BK_MAX, r0 = tid / BK_MAX;
+  if (r0 < n) {
+    float x[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) x[i] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < CH; ++c) {
+      const uint4 raw = *sm.k_chunk(st, t, c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+      float kv[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) kv[j] = to_f32(e[j]);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        if (r0 + i * TPT >= G) break;
+        const float* qr = sm.q + (r0 + i * TPT) * DK + c * VEC;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) x[i] = fmaf(qr[j], kv[j], x[i]);
+      }
+    }
+    const int kp = k_start + t;
+    bool ok = t < rows && kp < length;
+    if (window > 0) ok = ok && (length - 1 - kp) < window;
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int gi = r0 + i * TPT;
+      if (gi >= n) break;
+      float y = x[i];
+      if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+      sm.s[gi * BK_MAX + t] = ok ? y : NEG_INF;
+    }
+  }
+  __syncthreads();
+  const int warp = tid / 32, lane = tid % 32;
+  for (int gi = warp; gi < n; gi += NW) {
+    float* sr = sm.s + gi * BK_MAX;
+    const float x0 = sr[lane], x1 = sr[lane + 32];
+    const float m_old = sm.m[gi];
+    const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+    const bool live = m_new > NEG_INF / 2;
+    const float p0 = live ? expf(x0 - m_new) : 0.f;
+    const float p1 = live ? expf(x1 - m_new) : 0.f;
+    sr[lane] = p0;
+    sr[lane + 32] = p1;
+    const float sum = warp_sum(p0 + p1);
+    if (lane == 0) {
+      const float alpha = live ? expf(m_old - m_new) : 0.f;
+      sm.a[gi] = alpha;
+      sm.l[gi] = alpha * sm.l[gi] + sum;
+      sm.m[gi] = m_new;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+    if (gi < n) acc[gi] *= sm.a[gi];
+  const T* vs = sm.v + st * BK_MAX * DV + tid;
+  int t4 = 0;
+  for (; t4 + 4 <= rows; t4 += 4) {
+    float vv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) vv[u] = to_f32(vs[(t4 + u) * DV]);
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi < n) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(sm.s + gi * BK_MAX + t4);
+        acc[gi] = fmaf(p.x, vv[0], acc[gi]);
+        acc[gi] = fmaf(p.y, vv[1], acc[gi]);
+        acc[gi] = fmaf(p.z, vv[2], acc[gi]);
+        acc[gi] = fmaf(p.w, vv[3], acc[gi]);
+      }
+    }
+  }
+  for (; t4 < rows; ++t4) {
+    const float vv = to_f32(vs[t4 * DV]);
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+      if (gi < n) acc[gi] = fmaf(sm.s[gi * BK_MAX + t4], vv, acc[gi]);
+  }
+}
+
+// The live splits of a row: [j_lo, j_hi), those holding a token that
+// the row sees (below `length`, and inside the window).  None for an
+// empty row.
+struct SplitRange {
+  int lo, hi;
+  __device__ SplitRange(int length, int window, int chunk) {
+    const int first = window > 0 ? max(0, length - window) : 0;
+    lo = first / chunk;
+    hi = length > 0 ? (length + chunk - 1) / chunk : 0;
+  }
+  __device__ int live() const { return max(0, hi - lo); }
+};
+
+// The merge of a row group's live partials (acc, m, l), stored by
+// split j at part_*[(j * rows_total + row) ...], in ascending split
+// order: m = max_j m_j, w_j = e^(m_j - m) (0 for every j where m is
+// not live: an all-empty row stays acc 0, m NEG_INF, l 0), acc = sum_j
+// acc_j w_j, l = sum_j l_j w_j.  The weights go through the score tile.
+// The partials were stored by other CTAs: read them through L2, with
+// MERGE_BATCH splits' loads in flight before any is summed (a loop of
+// dependent L2 round trips would cost more than the splits save).
+constexpr int MERGE_BATCH = 8;
+
+template <typename T, int DK, int DV, int G>
+__device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
+                            const float* part_acc, const float* part_m,
+                            const float* part_l, size_t rows_total,
+                            size_t row0, int n, int j_lo, int nlive,
+                            float* acc_out, float* m_out, float* l_out) {
+  constexpr int B = MERGE_BATCH;
+  const int tid = threadIdx.x;
+  const float* pm = part_m + j_lo * rows_total + row0;
+  const float* pl = part_l + j_lo * rows_total + row0;
+  const float* pa = part_acc + (j_lo * rows_total + row0) * DV + tid;
+  for (int i = tid; i < n * nlive; i += DV)  // m_j into the score tile
+    sm.s[(i / nlive) * BK_MAX + i % nlive] =
+        __ldcg(pm + (i % nlive) * rows_total + i / nlive);
+  __syncthreads();
+  if (tid < n) {
+    float m = NEG_INF;
+    for (int jj = 0; jj < nlive; ++jj) m = fmaxf(m, sm.s[tid * BK_MAX + jj]);
+    sm.m[tid] = m;
+  }
+  __syncthreads();
+  for (int i = tid; i < n * nlive; i += DV) {
+    const int gi = i / nlive, jj = i % nlive;
+    const float m = sm.m[gi];
+    float* w = sm.s + gi * BK_MAX + jj;
+    *w = m > NEG_INF / 2 ? expf(*w - m) : 0.f;
+  }
+  __syncthreads();
+  float acc[G], l = 0.f;
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) acc[gi] = 0.f;
+  for (int j0 = 0; j0 < nlive; j0 += B) {
+    float v[G][B], lv[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const bool in = j0 + u < nlive;
+      const size_t off = (j0 + u) * rows_total;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        v[gi][u] = in && gi < n ? __ldcg(pa + (off + gi) * DV) : 0.f;
+      lv[u] = in && tid < n ? __ldcg(pl + off + tid) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (j0 + u >= nlive) break;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        if (gi < n)
+          acc[gi] = fmaf(v[gi][u], sm.s[gi * BK_MAX + j0 + u], acc[gi]);
+      if (tid < n) l = fmaf(lv[u], sm.s[tid * BK_MAX + j0 + u], l);
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+    if (gi < n) acc_out[(row0 + gi) * DV + tid] = acc[gi];
+  if (tid < n) {
+    m_out[row0 + tid] = sm.m[tid];
+    l_out[row0 + tid] = l;
+  }
+}
 }  // namespace repro

@@ -3,11 +3,17 @@
 Returns the unnormalized residuals (acc, m, l) in f32, the contract of
 ``repro.kernels.decode_attention.decode_attention.decode_attention_fwd``.
 Key and value head dims are equal (64, 128, 256), or MLA's 192 and 128.
+
+The kernel splits each slot's cache into ``splits`` chunks of whole
+blocks, one CTA each, and merges the chunks' partials in split order
+inside the same launch (``ref.decode_attention_ref(chunk=...)`` is its
+rounding model).  :func:`decode_splits` picks the count from the cache's
+length alone.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,7 +23,7 @@ from repro_torch.core.build import (CudaKernel, check_cuda, dtype_code, ptr,
 _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "decode_attention", "decode_attention.cu", "decode_attention_fwd",
-    [_p] * 7 + [_i] * 7 + [_f, _i, _f, _i, _p])
+    [_p] * 11 + [_i] * 8 + [_f, _i, _f, _i, _p])
 
 HEAD_DIMS = (64, 128, 256)
 #: (Dk, Dv) builds of the one-token kernels with values narrower than
@@ -25,6 +31,46 @@ HEAD_DIMS = (64, 128, 256)
 MLA_DIMS = ((192, 128),)
 MAX_GROUP = 8        # G_DECODE in csrc/decode_common.cuh
 MAX_BLOCK_KV = 64    # BK_MAX in csrc/decode_common.cuh
+MAX_SPLITS = 64      # MAX_SPLITS in csrc/decode_common.cuh
+#: Cache rows a split walks (before :func:`split_chunk` evens the
+#: chunks out).  Of the candidates 256, 512 and 1024, in that order, the
+#: first that kept every dense serving path's teacher-forced gap within
+#: ``chip_smoke.py``'s TEACHER_GAP: gemma2-2b's was 0.0597 with 256
+#: rows, 0.0608 with 512, and 0.0597 with a count that fills the card
+#: (PERF.md §6; ``scripts/torch_decode_variants.py``).
+SPLIT_ROWS = 1024
+
+
+def decode_splits(s: int, block_kv: int = MAX_BLOCK_KV) -> int:
+    """Splits of each slot's cache of ``s`` rows for B3: chunks of
+    SPLIT_ROWS rows (at least a ``block_kv``-token block), at most
+    MAX_SPLITS.  From the cache's length alone: the slots' lengths live
+    on the card, and reading them would cost a sync."""
+    return min(-(-s // max(SPLIT_ROWS, block_kv)), MAX_SPLITS)
+
+
+def split_chunk(s: int, splits: int, block_kv: int = MAX_BLOCK_KV) -> int:
+    """Cache rows a split: ``splits`` chunks of whole ``block_kv``-token
+    blocks covering ``s`` rows (the last may be shorter, and fewer chunks
+    may do: ``ceil(s / chunk)`` is the launch's count)."""
+    if splits < 1:
+        raise ValueError(f"decode_attention: splits {splits} < 1")
+    blocks = -(-s // block_kv)
+    return -(-blocks // min(splits, blocks)) * block_kv
+
+
+#: device -> (B x Hkv,) int32 counters of the in-grid merge, zero
+#: between launches (the last CTA of a row group resets its own)
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 2 * (0 if have is None else have.numel())),
+                           dtype=torch.int32, device=device)
+        _COUNTERS[device] = have
+    return have
 
 
 #: Pool element types of the quantized kernels (B5, B6's quantized mode).
@@ -77,8 +123,10 @@ def residual_outputs(q, dv: Optional[int] = None
 
 def decode_attention_fwd(q, k_cache, v_cache, lengths, *,
                          window: Optional[int], softcap: Optional[float],
-                         scale: Optional[float], block_kv: int):
-    """q: (B, Hq, Dk); caches: (B, Hkv, S, Dk|Dv); lengths: (B,) int32."""
+                         scale: Optional[float], block_kv: int,
+                         splits: Optional[int] = None):
+    """q: (B, Hq, Dk); caches: (B, Hkv, S, Dk|Dv); lengths: (B,) int32.
+    ``splits``: chunks of each cache (None: :func:`decode_splits`)."""
     dv = check_decode_operands("decode_attention", q, k_cache, v_cache,
                                lengths, mla=True)
     b, hq, d = q.shape
@@ -89,10 +137,25 @@ def decode_attention_fwd(q, k_cache, v_cache, lengths, *,
     if not 1 <= block_kv <= MAX_BLOCK_KV:
         raise ValueError(f"decode_attention: block_kv {block_kv} not in "
                          f"[1, {MAX_BLOCK_KV}]")
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"decode_attention: splits {splits} not in "
+                         f"[1, {MAX_SPLITS}]")
     check_cuda("decode_attention", q, k_cache, v_cache, lengths)
+    if splits is None:
+        splits = decode_splits(s, block_kv)
+    chunk = split_chunk(s, splits, block_kv)
+    n = -(-s // chunk)              # <= splits
     acc, m, l = residual_outputs(q, dv)
+    parts = (None,) * 4
+    if n > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        parts = (torch.empty(n, b, hq, dv, **f32),
+                 torch.empty(n, b, hq, **f32), torch.empty(n, b, hq, **f32),
+                 _counters(q.device, b * hkv))
     KERNEL.launch(ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(acc),
-                  ptr(m), ptr(l), b, hq, hkv, s, d, dv, block_kv,
+                  ptr(m), ptr(l), *(None if t is None else ptr(t)
+                                    for t in parts),
+                  b, hq, hkv, s, d, dv, block_kv, chunk,
                   float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   stream_of(q))

@@ -6,8 +6,9 @@ A CPU tensor takes the plain version, a CUDA tensor the hand-written
 kernel (or the call raises).  Both return the unnormalized residuals
 (acc, m, l) internally; the public functions normalize them with the
 ``l == 0 -> 1`` guard unless ``return_residuals`` asks for the raw
-triple.  ``page_size`` (logical, divides the pool's) and ``block_kv``
-are schedule choices that never change the result.
+triple.  ``page_size`` (logical, divides the pool's), ``block_kv`` and
+the dense kernel's ``splits`` are schedule choices that change the
+result only by the order of f32 sums.
 """
 from __future__ import annotations
 
@@ -37,10 +38,13 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None,
                      block_kv: Optional[int] = None,
+                     splits: Optional[int] = None,
                      return_residuals: bool = False):
     """Single-token GQA decode.  q: (B, Hq, D); caches: (B, Hkv, S, D);
     lengths: (B,) int32, the valid prefix (the query is the newest
-    token)."""
+    token).  ``splits``: chunks of each cache the kernel walks in
+    parallel and merges (None: ``decode_attention.decode_splits``, from
+    the cache's length)."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         res = _ref.decode_attention_ref(
@@ -49,7 +53,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
         block_kv = block_kv or tuning.block_size("decode_attention",
                                                  "block_kv")
         res = _kern.decode_attention_fwd(
-            q, k_cache, v_cache, lengths, block_kv=block_kv, **kw)
+            q, k_cache, v_cache, lengths, block_kv=block_kv, splits=splits,
+            **kw)
     return _finish(q, res, return_residuals)
 
 

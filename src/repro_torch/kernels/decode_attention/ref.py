@@ -17,6 +17,7 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
                          softcap: Optional[float] = None,
                          scale: Optional[float] = None,
                          kv_offset=0,
+                         chunk: Optional[int] = None,
                          return_residuals: bool = False):
     """q: (B, Hq, D); caches: (B, Hkv, S, D); lengths: (B,) int32.
 
@@ -25,6 +26,13 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
     tensor that broadcasts against (B, 1, S)).  Returns (B, Hq, D) in
     q's dtype, or the unnormalized f32 residuals (acc (B, Hq, D),
     m (B, Hq), l (B, Hq)).
+
+    ``chunk``: the split kernel's rounding model (B3, ``csrc/
+    decode_attention.cu``): the residuals of each ``chunk`` cache rows
+    on their own, merged by :func:`combine_partials` in chunk order.
+    The scores are computed once for the whole cache, as the kernel
+    computes each the same way whatever the split, so m equals the
+    unsplit m bit for bit.
     """
     b, hq, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
@@ -45,14 +53,48 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
         mask &= (q_pos - k_pos) < window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
 
+    if chunk is None:
+        acc, m, l = _residuals(scores, vf)
+    else:
+        acc, m, l = combine_partials(*zip(*(
+            _residuals(scores[..., j:j + chunk], vf[:, :, j:j + chunk])
+            for j in range(0, s, chunk))))
+    if return_residuals:
+        return acc, m, l
+    return normalize(acc, l, q.dtype)
+
+
+def _residuals(scores, vf):
+    """(acc, m, l) of masked scores (B, Hq, S) over values (B, Hq, S,
+    Dv), with the ``m > NEG_INF / 2`` guard of an all-masked row."""
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = torch.where(m > NEG_INF / 2, p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhk,bhkd->bhd", p, vf)
-    if return_residuals:
-        return acc, m[..., 0], l[..., 0]
-    return normalize(acc, l[..., 0], q.dtype)
+    return acc, m[..., 0], l[..., 0]
+
+
+def combine_partials(accs, ms, ls):
+    """Merge flash-decode partials (log-sum-exp), in residual form: the
+    port's copy of ``repro.kernels.decode_attention.ref.
+    combine_partials``, which returns the normalized output instead.
+
+    accs: sequence of (B, Hq, D) f32 unnormalized; ms/ls: of (B, Hq).
+    Returns (acc, m, l) with m = max_j m_j, acc = sum_j acc_j e^(m_j - m)
+    and l = sum_j l_j e^(m_j - m), summed in order of j.  Where m is not
+    live (every partial empty) the weights are 0, so such a row stays
+    acc 0, m NEG_INF, l 0, as the kernel leaves it; NaN in a partial's
+    acc still reaches the sum."""
+    m = torch.stack(list(ms)).amax(dim=0)
+    live = m > NEG_INF / 2
+    acc = torch.zeros_like(accs[0])
+    l = torch.zeros_like(ls[0])
+    for acc_j, m_j, l_j in zip(accs, ms, ls):
+        w = torch.where(live, torch.exp(m_j - m), torch.zeros_like(m))
+        acc = acc + acc_j * w[..., None]
+        l = l + l_j * w
+    return acc, m, l
 
 
 def normalize(acc, l, dtype):

@@ -42,6 +42,7 @@ from repro_torch.kernels.rmsnorm import native as rms_native
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rmsnorm import rmsnorm as rms_kern
+from repro_torch.kernels.decode_attention import decode_attention as dec_kern
 from repro_torch.kernels.decode_attention import paged as paged_kern
 from repro_torch.kernels.decode_attention import quant as quant_kern
 from repro_torch.kernels.decode_attention import spec as spec_kern
@@ -158,10 +159,15 @@ def _pools_from_caches(kc, vc, ps, gen):
     return pools, bt.to(kc.device)
 
 
+@pytest.mark.parametrize("splits", [1, 3, None])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,window,softcap", [
     (128, None, None), (128, 50, 20.0), (64, None, None), (256, None, 50.0)])
-def test_decode_kernels(cuda, dtype, d, window, softcap):
+def test_decode_kernels(cuda, dtype, d, window, softcap, splits):
+    """B3 with one split, three and the served count, against its split
+    plain version (``chunk=``) and the unsplit one, and against its own
+    one-split launch: m bit for bit (the scores are computed alike
+    whatever the split), acc and l within f32 tol; then B4."""
     g = torch.Generator(device=cuda).manual_seed(0)
     b, hq, hkv, s, ps = 4, 32, 8, 300, 64
     q = torch.randn(b, hq, d, device=cuda, generator=g).to(dtype)
@@ -169,12 +175,22 @@ def test_decode_kernels(cuda, dtype, d, window, softcap):
     vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dtype)
     lengths = torch.tensor([0, 1, 299, 300], dtype=torch.int32, device=cuda)
     kw = dict(window=window, softcap=softcap)
+    n = splits or dec_kern.decode_splits(s)
     got = dec_ops.decode_attention(q, kc, vc, lengths, return_residuals=True,
-                                   **kw)
+                                   splits=splits, **kw)
     want = dec_ref.decode_attention_ref(q, kc, vc, lengths,
                                         return_residuals=True, **kw)
-    for a, w in zip(got, want):
+    split_want = dec_ref.decode_attention_ref(
+        q, kc, vc, lengths, return_residuals=True,
+        chunk=dec_kern.split_chunk(s, n), **kw)
+    for a, w, sw in zip(got, want, split_want):
         torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
+        torch.testing.assert_close(a, sw, **_tol(dtype, a.dtype))
+    one = dec_ops.decode_attention(q, kc, vc, lengths, return_residuals=True,
+                                   splits=1, **kw)
+    assert torch.equal(got[1], one[1])
+    for a, o in zip(got, one):
+        torch.testing.assert_close(a, o, **_tol(torch.float32))
     (kp, vp), bt = _pools_from_caches(kc, vc, ps,
                                       torch.Generator().manual_seed(0))
     for page_size in (None, 16):
@@ -778,6 +794,23 @@ def test_spec_accel_twins_and_generic_build(cuda, name, label):
     atol, rtol = sa.tolerance(name, args, want)
     for out in (got, got_native, got_generic):
         torch.testing.assert_close(out, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("n", [1, 5, 127, 200, 300, 1024])
+def test_det_ratios_at_every_orbital_count(cuda, n):
+    """B19 at N not a multiple of 4 (4-byte loads, a ragged last group of
+    columns) and at multiples (16-byte loads), with 8, 4, 2 and 1 row
+    slices a team: both builds bit for bit, each within the stated
+    tolerance of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    nw = 8
+    a_inv = torch.randn(nw, n, n, device=cuda, generator=g)
+    phi = torch.randn(nw, n, device=cuda, generator=g)
+    got = mq.evaluate_det_ratios(a_inv, phi)
+    assert torch.equal(got, mq.evaluate_det_ratios(a_inv, phi, native=True))
+    want = mq_ref.evaluate_det_ratios_ref(a_inv, phi)
+    atol, rtol = mq.tolerance("evaluateDetRatios", (a_inv, phi), want)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
 def test_pbt_sweeps_on_the_card(cuda):
