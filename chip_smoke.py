@@ -18,11 +18,15 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    TOL_BF16, and by the share of its bf16 outputs that differ from the
    model's (at most ``MODEL_MISMATCH``), which a control build of B2
    with one P term fewer must exceed, at every head-dim build; the
-   dense decode kernel (B3) at the split count it is served with and at
-   SPLIT_CHECK splits is held to its split plain version
-   (``decode_attention_ref(chunk=...)``) and, as a control, at one split
-   to the unsplit plain version, with m of every launch bit for bit, at
-   each of its shapes: granite-8b's
+   dense and paged decode kernels (B3, B4) at the split count each is
+   served with and at SPLIT_CHECK splits are held to their split plain
+   versions (``decode_attention_ref(chunk=...)``,
+   ``paged_decode_attention_ref(chunk=...)``) and, as a control, at one
+   split to the unsplit plain versions, with m of every launch bit for
+   bit, each launch a single one; B1 at granite's, gemma2's and jamba's
+   rows in bf16 and f32 is held bit for bit to its native twin B11a and
+   its generic build, and timed in turns with B11a and ``F.rms_norm``;
+   all at each of their shapes: granite-8b's
    shapes (head dim 128), then gemma2-2b's (head dim 256): the
    sliding-window kernels over ring tables (bf16, int8, fp8) and the
    head-dim-256 builds of the prefill, dense, paged and quantized
@@ -182,6 +186,11 @@ TEACHER_GAP = 0.05            # logits: emitted token vs the plain argmax
 # its merge runs where the served count is 1 (caches of 1024 rows)
 SPLIT_CHECK = 8
 PROMPT_LENS = (17, 64, 200, 511)
+# B1's served shapes (label, rows, d): prefills of granite-8b (8 x 512),
+# gemma2-2b (3 x 6000) and jamba-1.5-large-398b (2 x 511 at d_model
+# 8192, the widest row the served paths normalise)
+RMS_SHAPES = (("granite", 8 * 512, 4096), ("gemma2", 18000, 2304),
+              ("jamba", 1022, 8192))
 N_REQUESTS, MAX_NEW, SLOTS, CACHE_LEN, PAGE = 12, 32, 8, 1024, 64
 DECODE_LENGTHS = (1, 64, 200, 333, 511, 700, 900, 1024)
 SPEC_K = 4                    # drafts per speculative step: K1 = 5
@@ -277,12 +286,17 @@ class Smoke:
                   flush=True)
 
     def time_ms(self, fn, iters: int = 20) -> float:
+        """Median ms of ``fn`` over ``iters`` launches, each after an L2
+        flush and a wait on the card (``bench.timing.flush_and_settle``:
+        the host queues the call meanwhile, so the events time the card
+        alone)."""
         torch = self.torch
+        from repro_torch.bench.timing import flush_and_settle
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
-            self.flush.zero_()
+            flush_and_settle(self.flush)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -357,8 +371,15 @@ class Smoke:
 # ------------------------------------------------------------ kernels -----
 
 def check_rmsnorm(s: Smoke) -> None:
+    """B1 against its plain version at granite's shape and at edges (rows
+    staged one or two a team, and the streaming body of rows that are
+    not whole 16-byte vectors or wider than the staging holds); then at
+    every served shape in bf16 and f32, B1, its twin B11a and its
+    generic build bit for bit, and in bf16 B1, B11a and ``F.rms_norm``
+    timed in turns."""
     torch = s.torch
-    from repro_torch.kernels.rmsnorm import ops, ref
+    from repro_torch.bench.timing import time_in_turns, under
+    from repro_torch.kernels.rmsnorm import native, ops, ref
     g = torch.Generator(device=s.dev).manual_seed(1)
     rows, d = 8 * 512, 4096                      # a prefill of 8 x 512
     x = torch.randn(rows, d, device=s.dev, generator=g).bfloat16()
@@ -366,7 +387,11 @@ def check_rmsnorm(s: Smoke) -> None:
     kw = dict(eps=1e-6, weight_offset=1.0)
     err = s.compare(f"rmsnorm ({rows}, {d}) bf16", ops.rmsnorm(x, w, **kw),
                     ref.rmsnorm_ref(x, w, **kw))
-    for shape, dt in (((8, d), torch.bfloat16), ((3, 100), torch.float32)):
+    # staged two a team: (3, 100) f32; one a team: (8, 4096) bf16;
+    # streaming: (3, 100) bf16 (200 bytes a row), (2, 16384) f32 (64 KB)
+    for shape, dt in (((8, d), torch.bfloat16), ((3, 100), torch.float32),
+                      ((3, 100), torch.bfloat16),
+                      ((2, 16384), torch.float32)):
         xe = torch.randn(*shape, device=s.dev, generator=g).to(dt)
         we = torch.randn(shape[1], device=s.dev, generator=g).to(dt)
         s.compare(f"rmsnorm {shape} {dt}", ops.rmsnorm(xe, we, **kw),
@@ -378,6 +403,29 @@ def check_rmsnorm(s: Smoke) -> None:
              2 * x.numel() * 2 + 2 * d, 4 * x.numel(),
              s.time_ms(lambda: torch.nn.functional.rms_norm(
                  x, (d,), w1, 1e-6)))
+    turns = s.kernels["rmsnorm"]["in_turns"] = {}
+    for label, rows, d in RMS_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            xs = torch.randn(rows, d, device=s.dev, generator=g).to(dt)
+            ws = (0.1 * torch.randn(d, device=s.dev, generator=g)).to(dt)
+            got = ops.rmsnorm(xs, ws, **kw)
+            twin = native.rmsnorm_native(xs, ws, **kw)
+            generic = under("generic", lambda: ops.rmsnorm(xs, ws, **kw))()
+            s.check(bool(torch.equal(got, twin) and torch.equal(got, generic)),
+                    f"rmsnorm {label} ({rows}, {d}) {str(dt)[6:]}: B1, B11a "
+                    f"and B1's generic build bit for bit")
+            if dt == torch.bfloat16:
+                w1 = ws + 1.0
+                ms = time_in_turns([
+                    lambda: ops.rmsnorm(xs, ws, **kw),
+                    lambda: native.rmsnorm_native(xs, ws, **kw),
+                    lambda: torch.nn.functional.rms_norm(xs, (d,), w1, 1e-6)],
+                    s.flush)
+                turns[label] = dict(zip(("B1", "B11a", "F.rms_norm"), ms))
+                print(f"  rmsnorm {label} ({rows}, {d}) bf16 in turns: B1 "
+                      f"{ms[0]:.4f} ms, B11a {ms[1]:.4f}, F.rms_norm "
+                      f"{ms[2]:.4f}")
+            del xs, ws, got, twin, generic
 
 
 def check_flash(s: Smoke) -> None:
@@ -495,47 +543,76 @@ def _normalized(res):
     return acc / l.clamp_min(1e-30)[..., None]
 
 
-def check_split_decode(s: Smoke, what, q, kc, vc, ln, **kw):
-    """B3 at the split count it is served with (``decode_splits``) and at
-    SPLIT_CHECK splits, each against its split plain version
-    (``decode_attention_ref(chunk=...)``, its rounding model), its
-    one-split launch (the control: the unsplit kernel's arithmetic)
-    against the unsplit plain version, and m of every launch bit for
-    bit (each score is computed alike whatever the split); prints the
-    counts.  Returns the served launch's residuals."""
-    from repro_torch.kernels.decode_attention import decode_attention as dk
-    from repro_torch.kernels.decode_attention import ops, ref
-    n_rows = kc.shape[2]
-    served = dk.decode_splits(n_rows)
-    one = ops.decode_attention(q, kc, vc, ln, return_residuals=True,
-                               splits=1, **kw)
+def _check_splits(s: Smoke, what, kernel, run, plain, served, chunk_of):
+    """A split-KV kernel (``kernel``: B3's or B4's) at the split count it
+    is served with (``served``) and at SPLIT_CHECK splits, each against
+    its split plain version (``plain(chunk_of(n))``, its rounding model),
+    its one-split launch (the unsplit kernel's arithmetic) against the
+    unsplit plain version (``plain(None)``), m of every launch bit for
+    bit (each score is computed alike whatever the split), and each in
+    one launch; prints the counts.  ``run(n)`` launches it at ``n``
+    splits.  Returns the served launch's residuals."""
+    def launch(n):
+        before = kernel.launches
+        res = run(n)
+        s.check(kernel.launches == before + 1,
+                f"{what}: {n} split(s) in one launch")
+        return res
+
+    one = launch(1)
     s.compare(f"{what}, one split (the control), against the plain "
-              f"version", one, ref.decode_attention_ref(
-                  q, kc, vc, ln, return_residuals=True, **kw))
+              f"version", one, plain(None))
     got = one
     for n in sorted({served, SPLIT_CHECK} - {1}):
-        chunk = dk.split_chunk(n_rows, n)
-        res = ops.decode_attention(q, kc, vc, ln, return_residuals=True,
-                                   splits=n, **kw)
-        s.compare(f"{what}, {n} splits of {chunk} rows"
+        res = launch(n)
+        s.compare(f"{what}, {n} splits of {chunk_of(n)} rows"
                   f"{' (served)' if n == served else ''}, against the split "
-                  f"plain version", res, ref.decode_attention_ref(
-                      q, kc, vc, ln, return_residuals=True, chunk=chunk,
-                      **kw))
+                  f"plain version", res, plain(chunk_of(n)))
         s.check(bool(s.torch.equal(res[1], one[1])),
                 f"{what}: m of {n} splits equals m of one split bit for bit")
         if n == served:
             got = res
-    print(f"  {what}: served with {served} split(s) of "
-          f"{dk.split_chunk(n_rows, served)} cache rows")
+    print(f"  {what}: served with {served} split(s) of {chunk_of(served)} "
+          f"rows")
     return got
 
 
-def _split_timings(s: Smoke, what, fn, plain, nbytes, flops, library):
-    """B3's time at one split (the control) and at SPLIT_CHECK splits
-    beside its record (``fn(splits)`` launches it)."""
+def check_split_decode(s: Smoke, what, q, kc, vc, ln, **kw):
+    """B3 by :func:`_check_splits`, its count from ``decode_splits``."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import ops, ref
+    n_rows = kc.shape[2]
+    return _check_splits(
+        s, what, dk.KERNEL, lambda n: ops.decode_attention(
+            q, kc, vc, ln, return_residuals=True, splits=n, **kw),
+        lambda chunk: ref.decode_attention_ref(
+            q, kc, vc, ln, return_residuals=True, chunk=chunk, **kw),
+        dk.decode_splits(n_rows), lambda n: dk.split_chunk(n_rows, n))
+
+
+def check_split_paged(s: Smoke, what, q, kp, vp, bt, ln, page_size=None,
+                      **kw):
+    """B4 by :func:`_check_splits`, its count from ``paged_splits`` (the
+    table's reach at the logical ``page_size``, by default the pool's)."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import ops, paged, ref
+    page = page_size or kp.shape[2]
+    reach = bt.shape[1] * kp.shape[2]
+    return _check_splits(
+        s, what, paged.KERNEL, lambda n: ops.paged_decode_attention(
+            q, kp, vp, bt, ln, splits=n, page_size=page_size,
+            return_residuals=True, **kw),
+        lambda chunk: ref.paged_decode_attention_ref(
+            q, kp, vp, bt, ln, return_residuals=True, chunk=chunk, **kw),
+        dk.paged_splits(reach, page), lambda n: dk.split_chunk(reach, n, page))
+
+
+def _split_timings(s: Smoke, kernel, what, fn, plain, nbytes, flops,
+                   library=None):
+    """A split-KV kernel's time at one split (the control) and at
+    SPLIT_CHECK splits beside its record (``fn(splits)`` launches it)."""
     for n in (1, SPLIT_CHECK):
-        s.timings(f"decode_attention ({what}, {n} split{'s' * (n > 1)})",
+        s.timings(f"{kernel} ({what}, {n} split{'s' * (n > 1)})",
                   s.time_ms(lambda: fn(n)), plain, nbytes, flops, library)
 
 
@@ -571,9 +648,10 @@ def check_decode(s: Smoke) -> None:
              err, s.time_ms(lambda: ops.decode_attention(
                  q, kc, vc, ln, return_residuals=True)),
              plain_ms, nbytes, flops, library_ms)
-    _split_timings(s, "granite", lambda n: ops.decode_attention(
-        q, kc, vc, ln, return_residuals=True, splits=n), plain_ms, nbytes,
-        flops, library_ms)
+    _split_timings(s, "decode_attention", "granite",
+                   lambda n: ops.decode_attention(
+                       q, kc, vc, ln, return_residuals=True, splits=n),
+                   plain_ms, nbytes, flops, library_ms)
 
 
 def _pages(s: Smoke, kc, vc, lengths, ps):
@@ -601,8 +679,8 @@ def check_paged(s: Smoke) -> None:
     from repro_torch.kernels.decode_attention import ops, ref
     q, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS)
     kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
-    got = ops.paged_decode_attention(q, kp, vp, bt, ln,
-                                     return_residuals=True)
+    got = check_split_paged(s, "paged (B 8, 32/8 x 128, page 64)", q, kp,
+                            vp, bt, ln)
     want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
                                           return_residuals=True)
     s.compare("paged residuals, B = 8, page 64, scrambled, null tails",
@@ -612,6 +690,8 @@ def check_paged(s: Smoke) -> None:
     s.compare("paged, logical page 16 of 64",
               ops.paged_decode_attention(q, kp, vp, bt, ln, page_size=16,
                                          return_residuals=True), want)
+    check_split_paged(s, "paged, logical page 16 of 64", q, kp, vp, bt, ln,
+                      page_size=16)
     q0, kc0, vc0, ln0 = _decode_operands(s, (0, 5, 1024, 63))
     kp0, vp0, bt0 = _pages(s, kc0, vc0, (0, 5, 1024, 63), PAGE)
     s.compare("paged with an empty slot (all-null row), window 100",
@@ -620,15 +700,21 @@ def check_paged(s: Smoke) -> None:
               ref.paged_decode_attention_ref(q0, kp0, vp0, bt0, ln0,
                                              window=100,
                                              return_residuals=True))
+    check_split_paged(s, "paged with an empty slot, window 100, softcap 30",
+                      q0, kp0, vp0, bt0, ln0, window=100, softcap=30.0)
     nbytes, flops = _decode_cost(DECODE_LENGTHS)
     live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, bt, ln, return_residuals=True))
     s.record("paged_decode_attention", "paged_decode_attention.cu",
              "src/repro/kernels/decode_attention/paged.py:108", err,
              s.time_ms(lambda: ops.paged_decode_attention(
                  q, kp, vp, bt, ln, return_residuals=True)),
-             s.time_ms(lambda: ref.paged_decode_attention_ref(
-                 q, kp, vp, bt, ln, return_residuals=True)),
-             nbytes + 4 * live_pages, flops, None)
+             plain_ms, nbytes + 4 * live_pages, flops, None)
+    _split_timings(s, "paged_decode_attention", "granite",
+                   lambda n: ops.paged_decode_attention(
+                       q, kp, vp, bt, ln, return_residuals=True, splits=n),
+                   plain_ms, nbytes + 4 * live_pages, flops)
 
 
 def _quantize(s: Smoke, kp, vp, kv_dtype):
@@ -931,12 +1017,13 @@ def check_head_dim_256(s: Smoke) -> None:
                   s.time_ms(lambda: ops.decode_attention(
                       q, kc, vc, ln, return_residuals=True, **kw)),
                   plain_ms, nbytes, flops, None)
-    _split_timings(s, "gemma2", lambda n: ops.decode_attention(
-        q, kc, vc, ln, return_residuals=True, splits=n, **kw), plain_ms,
-        nbytes, flops, None)
+    _split_timings(s, "decode_attention", "gemma2",
+                   lambda n: ops.decode_attention(
+                       q, kc, vc, ln, return_residuals=True, splits=n, **kw),
+                   plain_ms, nbytes, flops, None)
     kp, vp, bt = _pages(s, kc, vc, G2_LENGTHS, PAGE)
-    got = ops.paged_decode_attention(q, kp, vp, bt, ln,
-                                     return_residuals=True, **kw)
+    got = check_split_paged(s, "paged (B 8, 8/4 x 256, table (8, 128), "
+                               "softcap 50)", q, kp, vp, bt, ln, **kw)
     want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
                                           return_residuals=True, **kw)
     s.compare("paged residuals, 8/4 heads of 256, table (8, 128)", got,
@@ -944,22 +1031,27 @@ def check_head_dim_256(s: Smoke) -> None:
     err = s.compare("paged output acc / l", _normalized(got),
                     _normalized(want))
     live_pages = sum(-(-n // PAGE) for n in G2_LENGTHS)
-    # the layout's cost at 4 KV heads: 32 CTAs on 132 SMs, every one
-    # walking the 95 blocks of a 6,032-token slot, the longest in serving
+    # every slot at 6,032 tokens, the longest in serving: 95 blocks a
+    # slot, 24 of the 32 splits of 256 rows live
     ln95 = torch.full_like(ln, 6032)
     s.timings("paged_decode_attention (gemma2, every slot at 6032: 95 "
-              "blocks per CTA)",
+              "blocks a slot)",
               s.time_ms(lambda: ops.paged_decode_attention(
                   q, kp, vp, bt, ln95, return_residuals=True, **kw)),
               s.time_ms(lambda: ref.paged_decode_attention_ref(
                   q, kp, vp, bt, ln95, return_residuals=True, **kw)),
               *_decode_cost([6032] * len(G2_LENGTHS), **G2), None)
+    plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, bt, ln, return_residuals=True, **kw))
     s.record_also("paged_decode_attention", "gemma2", err,
                   s.time_ms(lambda: ops.paged_decode_attention(
                       q, kp, vp, bt, ln, return_residuals=True, **kw)),
-                  s.time_ms(lambda: ref.paged_decode_attention_ref(
-                      q, kp, vp, bt, ln, return_residuals=True, **kw)),
-                  nbytes + 4 * live_pages, flops, None)
+                  plain_ms, nbytes + 4 * live_pages, flops, None)
+    _split_timings(s, "paged_decode_attention", "gemma2",
+                   lambda n: ops.paged_decode_attention(
+                       q, kp, vp, bt, ln, return_residuals=True, splits=n,
+                       **kw),
+                   plain_ms, nbytes + 4 * live_pages, flops)
     # B5 over the same pages, int8 and fp8
     nbytes, flops = _decode_cost(G2_LENGTHS, 1, **G2)
     nbytes += live_pages * (2 * G2_HKV * 4 + 4)
@@ -1106,11 +1198,13 @@ def check_mla_builds(s: Smoke) -> None:
                   s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
                                                          **kw)),
                   plain_ms, nbytes, flops, library_ms)
-    _split_timings(s, "deepseek", lambda n: ops.decode_attention(
-        qd, kc, vc, ln, splits=n, **kw), plain_ms, nbytes, flops,
-        library_ms)
+    _split_timings(s, "decode_attention", "deepseek",
+                   lambda n: ops.decode_attention(
+                       qd, kc, vc, ln, splits=n, **kw),
+                   plain_ms, nbytes, flops, library_ms)
     kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
-    got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **kw)
+    got = check_split_paged(s, "paged (B 8, 16/16 x 192/128, page 64)", qd,
+                            kp, vp, bt, ln, scale=scale)
     want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **kw)
     s.compare("paged residuals, 16/16 heads of 192/128, page 64", got, want)
     err = s.compare("paged 192/128 output acc / l", _normalized(got),
@@ -1119,12 +1213,16 @@ def check_mla_builds(s: Smoke) -> None:
               ops.paged_decode_attention(qd, kp, vp, bt, ln, page_size=16,
                                          **kw), want)
     live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
+        qd, kp, vp, bt, ln, **kw))
     s.record_also("paged_decode_attention", "deepseek", err,
                   s.time_ms(lambda: ops.paged_decode_attention(
                       qd, kp, vp, bt, ln, **kw)),
-                  s.time_ms(lambda: ref.paged_decode_attention_ref(
-                      qd, kp, vp, bt, ln, **kw)),
-                  nbytes + 4 * live_pages, flops, None)
+                  plain_ms, nbytes + 4 * live_pages, flops, None)
+    _split_timings(s, "paged_decode_attention", "deepseek",
+                   lambda n: ops.paged_decode_attention(
+                       qd, kp, vp, bt, ln, splits=n, **kw),
+                   plain_ms, nbytes + 4 * live_pages, flops)
 
 
 # ------------------------------------------- jamba-1.5-large kernels -----
@@ -1253,22 +1351,28 @@ def check_jamba_shapes(s: Smoke) -> None:
                   s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
                                                          **dkw)),
                   plain_ms, nbytes, flops, library_ms)
-    _split_timings(s, "jamba", lambda n: ops.decode_attention(
-        qd, kc, vc, ln, splits=n, **dkw), plain_ms, nbytes, flops,
-        library_ms)
+    _split_timings(s, "decode_attention", "jamba",
+                   lambda n: ops.decode_attention(
+                       qd, kc, vc, ln, splits=n, **dkw),
+                   plain_ms, nbytes, flops, library_ms)
     kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
-    got = ops.paged_decode_attention(qd, kp, vp, bt, ln, **dkw)
+    got = check_split_paged(s, "paged (B 8, 64/8 x 128, page 64)", qd, kp,
+                            vp, bt, ln)
     want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **dkw)
     s.compare("paged residuals, 64/8 heads of 128, page 64", got, want)
     err = s.compare("paged group 8 output acc / l", _normalized(got),
                     _normalized(want))
     live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
+        qd, kp, vp, bt, ln, **dkw))
     s.record_also("paged_decode_attention", "jamba", err,
                   s.time_ms(lambda: ops.paged_decode_attention(
                       qd, kp, vp, bt, ln, **dkw)),
-                  s.time_ms(lambda: ref.paged_decode_attention_ref(
-                      qd, kp, vp, bt, ln, **dkw)),
-                  nbytes + 4 * live_pages, flops, None)
+                  plain_ms, nbytes + 4 * live_pages, flops, None)
+    _split_timings(s, "paged_decode_attention", "jamba",
+                   lambda n: ops.paged_decode_attention(
+                       qd, kp, vp, bt, ln, splits=n, **dkw),
+                   plain_ms, nbytes + 4 * live_pages, flops)
     del qd, kc, vc, kp, vp
     # B8: decode (C 8 at 8 slots) gate/up and down, and the largest
     # prefill group's gate/up (C 160 for 2 x 511 tokens)
@@ -1436,6 +1540,9 @@ def run_parity(s: Smoke) -> None:
         what = f"{c['pair']} {c['case']} {tuple(c['shape'])} {c['dtype']}"
         s.check(c["bit_identical"], f"{what}: the native twin is "
                 "bit-identical to the portable kernel")
+        if c["pair"] == "rmsnorm":   # B1's generic build: the same sums
+            s.check(c["generic_bit_identical"], f"{what}: the generic "
+                    "build is bit-identical to the portable kernel")
         for side in ("portable", "native", "generic"):
             s.check(c[f"ok_{side}"], f"{what}: {side} within "
                     f"{c['tol']:g} of the plain version (max abs diff "

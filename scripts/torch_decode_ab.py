@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's one-token decode kernels (dense B3, paged B4, and the
-sliding-window B7) at granite-8b's and gemma2-2b's serving shapes, for
-the ``repro_torch`` package found under ``--src``, and keep their
-outputs (and B5's, B6's and B7q's) for a bit-for-bit comparison.
+"""Time the port's one-token decode kernels (dense B3, paged B4, its
+quantized mode B5, the speculative B6 and the sliding-window B7 and
+B7q) at granite-8b's and gemma2-2b's serving shapes, and
+the RMSNorm B1 at granite-8b's, gemma2-2b's and jamba-1.5-large-398b's
+prefill rows (beside ``F.rms_norm``, the library call computing the
+same function), for the ``repro_torch`` package found under ``--src``,
+and keep their outputs (B1's in bf16 and f32) for a bit-for-bit
+comparison.
 
 Register allocation of these kernels moves with small source changes,
 so compare two versions only inside one call on one card, in turns:
@@ -16,16 +20,19 @@ so compare two versions only inside one call on one card, in turns:
     python3 scripts/torch_decode_ab.py --compare build/ab_parent.pt \\
         build/ab_change.pt
 
+(B1's outputs make each --save file about 0.4 GB.)
+
 Each run builds its kernels into its own checkout's ``build/``, spins
 the card for about a second (a process's first timings otherwise ran
 slow) and prints one JSON line of medians (ms, CUDA events, 50
 launches, L2 flushed between them, then about 0.1 ms of waiting on the
 card, so that the host has queued the call before the card reaches the
-start event and the events time the card alone).  B3 runs with the
-package's own split rule and, where its ``decode_attention`` takes
-``splits``, also with one split and with 8 ("one split": a package
-without the argument has only the unsplit kernel, so its "one split" is
-its plain call); only the one-split outputs are kept.  ``--compare``
+start event and the events time the card alone).  B3 and B4 run with
+the package's own split rule and, where its ``decode_attention`` or
+``paged_decode_attention`` takes ``splits``, also with one split and
+with 8 ("one split": a package without the argument has only the
+unsplit kernel, so its "one split" is its plain call); only the
+one-split outputs are kept.  ``--compare``
 prints, for every output the two files share, whether they are equal
 bit for bit, and exits 1 if any is not.
 """
@@ -61,6 +68,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.rmsnorm import ops as rms
     from repro_torch.quant import resolve_kv_spec
     from repro_torch.serve.paging import live_window_pages, window_table_width
 
@@ -69,8 +77,9 @@ def main() -> int:
     # a process's first timings ran slow: spin about a second
     torch.cuda._sleep(2_000_000_000)
     g = torch.Generator(device=dev).manual_seed(0)
-    one_split = ({"splits": 1} if "splits" in inspect.signature(
-        ops.decode_attention).parameters else {})
+    one_split, paged_one = (
+        {"splits": 1} if "splits" in inspect.signature(fn).parameters
+        else {} for fn in (ops.decode_attention, ops.paged_decode_attention))
     outputs = {}
 
     def time_ms(fn, iters=50):
@@ -132,17 +141,25 @@ def main() -> int:
                 lambda: ops.decode_attention(q, kc, vc, ln,
                                              return_residuals=True, splits=8))
         kp, vp, bt = paged(kc, vc, lengths)
-        out[f"B4 {name}"] = time_ms(keep(
-            f"B4 {name}", lambda: ops.paged_decode_attention(
-                q, kp, vp, bt, ln, return_residuals=True)))
+        out[f"B4 {name}"] = time_ms(lambda: ops.paged_decode_attention(
+            q, kp, vp, bt, ln, return_residuals=True))
+        out[f"B4 {name} one split"] = time_ms(keep(
+            f"B4 {name} one split", lambda: ops.paged_decode_attention(
+                q, kp, vp, bt, ln, return_residuals=True, **paged_one)))
+        if paged_one:
+            out[f"B4 {name} 8 splits"] = time_ms(
+                lambda: ops.paged_decode_attention(
+                    q, kp, vp, bt, ln, return_residuals=True, splits=8))
         (kq, ks), (vq, vs) = int8.quantize_pages(kp), int8.quantize_pages(vp)
-        keep(f"B5 {name} int8", lambda: ops.quant_paged_decode_attention(
-            q, kq, vq, ks, vs, bt, ln, return_residuals=True))
+        out[f"B5 {name} int8"] = time_ms(keep(
+            f"B5 {name} int8", lambda: ops.quant_paged_decode_attention(
+                q, kq, vq, ks, vs, bt, ln, return_residuals=True)))
         if name == "granite":
             qs = rnd(len(lengths), 5, hq, d)
             base = ln.clamp(max=s_len - 5) - 1
-            keep("B6 granite k1 5", lambda: ops.spec_paged_decode_attention(
-                qs, kp, vp, bt, base, return_residuals=True))
+            out["B6 granite k1 5"] = time_ms(keep(
+                "B6 granite k1 5", lambda: ops.spec_paged_decode_attention(
+                    qs, kp, vp, bt, base, return_residuals=True)))
         if name == "gemma2":
             window, ps = 4096, 64
             tw = window_table_width(window, ps)
@@ -161,10 +178,24 @@ def main() -> int:
                     return_residuals=True)))
             (wkq, wks), (wvq, wvs) = (int8.quantize_pages(wk),
                                       int8.quantize_pages(wv))
-            keep("B7q gemma2 int8",
-                 lambda: ops.quant_window_paged_decode_attention(
-                     q, wkq, wvq, wks, wvs, rt, ln, window=window,
-                     softcap=50.0, return_residuals=True))
+            out["B7q gemma2 int8"] = time_ms(keep(
+                "B7q gemma2 int8",
+                lambda: ops.quant_window_paged_decode_attention(
+                    q, wkq, wvq, wks, wvs, rt, ln, window=window,
+                    softcap=50.0, return_residuals=True)))
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    for name, rows, d in (("granite", 4096, 4096), ("gemma2", 18000, 2304),
+                          ("jamba", 1022, 8192)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(rows, d, device=dev, generator=g).to(dt)
+            w = (0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+            fn = keep(f"B1 {name} {str(dt)[6:]}",
+                      lambda: (rms.rmsnorm(x, w, **kw),))
+            if dt == torch.bfloat16:
+                out[f"B1 {name}"] = time_ms(fn)
+                w1 = w + 1.0
+                out[f"F.rms_norm {name}"] = time_ms(
+                    lambda: torch.nn.functional.rms_norm(x, (d,), w1, 1e-6))
     if args.save:
         Path(args.save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(outputs, args.save)

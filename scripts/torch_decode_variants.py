@@ -1,32 +1,39 @@
 #!/usr/bin/env python3
-"""B3's split count against its times and the served paths' teacher-
-forced gaps, on one CUDA card.
+"""The split count of B3 (dense decode) or B4 (paged decode) against its
+times and the served paths' teacher-forced gaps, on one CUDA card.
 
 B3 (``csrc/decode_attention.cu``) walks each slot's cache in
 ``splits`` chunks and merges their partials in chunk order; the served
 count comes from ``decode_attention.decode_splits`` (chunks of
-SPLIT_ROWS cache rows).  This script passes the kernel other counts
-instead: one split (the unsplit kernel's arithmetic), chunks of a fixed
-number of cache rows, and a count that fills the card (B x Hkv x
-splits >= 4 CTAs a SM, were every cache full: the rule first proposed,
-whose gemma2-2b gap failed), and with each in place:
+SPLIT_ROWS cache rows).  B4 (``csrc/paged_decode_attention.cu``, with
+``--paged``) does the same over each slot's block-table row, in chunks
+of whole pages (``decode_attention.paged_splits``, from the table's
+reach).  This script passes the kernel other counts instead: one split
+(the unsplit kernel's arithmetic), chunks of a fixed number of rows,
+and a count that fills the card (B x Hkv x splits >= 4 CTAs a SM, were
+every cache full: the rule first proposed for B3, whose gemma2-2b gap
+failed), and with each in place:
 
-1. holds B3 to its split plain version (``decode_attention_ref(
-   chunk=...)``) and times it in turns (L2 flushed before each launch,
-   median of 20, after a second of spinning that brings the clocks up)
-   at the four dense serving shapes (granite-8b, jamba-1.5-large-398b,
+1. holds the kernel to its split plain version (``decode_attention_ref(
+   chunk=...)``, or ``paged_decode_attention_ref(chunk=...)`` over pools
+   of pages of 64 with scrambled tables) and times it in turns (L2
+   flushed and the card left to settle before each launch, median of
+   20, after a second of spinning that brings the clocks up) at the four
+   serving shapes (granite-8b, jamba-1.5-large-398b,
    deepseek-v2-lite-16b: 8 slots, lengths 1..1024; gemma2-2b: 8 slots,
    lengths 1..8192, softcap 50), with masked
-   ``scaled_dot_product_attention`` beside it where that computes the
-   same function;
-2. serves ``chip_smoke.py``'s 12 requests densely (granite-8b, gemma2-
-   2b, deepseek-v2-lite-16b and jamba-1.5-large-398b cut to 4 layers,
-   random weights from seed 0; the MoE models held to a plain replay of
-   their own calls) and prints the teacher-forced gap that
+   ``scaled_dot_product_attention`` over the dense cache beside it where
+   that computes the same function;
+2. serves ``chip_smoke.py``'s 12 requests densely (or paged, with
+   ``--paged``: gemma2-2b's local layers keep B7) on granite-8b,
+   gemma2-2b, deepseek-v2-lite-16b and jamba-1.5-large-398b cut to 4
+   layers (random weights from seed 0; the MoE models held to a plain
+   replay of their own calls) and prints the teacher-forced gap that
    ``chip_smoke.py`` holds to its TEACHER_GAP, and how many emitted
    tokens were not the plain argmax.
 
-  PYTHONPATH=src python3 scripts/torch_decode_variants.py [--no-gaps]
+  PYTHONPATH=src python3 scripts/torch_decode_variants.py [--paged] \
+      [--no-gaps]
 """
 from __future__ import annotations
 
@@ -51,10 +58,12 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.build import build_all  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention as dk  # noqa: E402
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import paged  # noqa: E402
 from repro_torch.kernels.decode_attention import ref  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
 SHIPPED = dk.decode_attention_fwd
+SHIPPED_PAGED = paged.paged_decode_attention_fwd
 #: the chunks (cache rows a split) served for their gaps, in the order a
 #: fallback takes them should a rule fail a path; timed besides them:
 GAP_CHUNKS = (256, 512, 1024)
@@ -81,15 +90,17 @@ def fill_the_card(b, hkv, s):
                                                  dk.MAX_SPLITS))))
 
 
-def variants(chunks, shipped: bool) -> dict:
-    """name -> split count of (B, Hkv, S): one split, each of
-    ``chunks``, filling the card and, with ``shipped``, the served
-    rule."""
+def variants(chunks, shipped: bool, is_paged: bool) -> dict:
+    """name -> split count of (B, Hkv, S) (S: a paged table's reach):
+    one split, each of ``chunks``, filling the card and, with
+    ``shipped``, the served rule."""
     out = {"one split": lambda b, hkv, s: 1}
     out.update({f"chunk {c}": fixed_chunk(c) for c in chunks})
     out["fill the card"] = fill_the_card
     if shipped:
-        out["shipped"] = lambda b, hkv, s: dk.decode_splits(s)
+        out["shipped"] = ((lambda b, hkv, s: dk.paged_splits(s, cs.PAGE))
+                          if is_paged else
+                          (lambda b, hkv, s: dk.decode_splits(s)))
     return out
 
 
@@ -101,20 +112,37 @@ def _launcher(count):
     return fwd
 
 
-def _with(count, fn):
-    """``fn`` run with B3's launcher taking its split count from
-    ``count``."""
+def _paged_launcher(count):
+    """B4's launcher with the split count of ``count`` (S: the table's
+    reach at the pool's page)."""
+    def fwd(q, k_pages, v_pages, block_tables, lengths, *, splits=None,
+            **kw):
+        reach = block_tables.shape[1] * k_pages.shape[2]
+        return SHIPPED_PAGED(q, k_pages, v_pages, block_tables, lengths,
+                             splits=count(q.shape[0], k_pages.shape[0],
+                                          reach), **kw)
+    return fwd
+
+
+def _with(count, fn, is_paged: bool = False):
+    """``fn`` run with B3's launcher (B4's with ``is_paged``) taking its
+    split count from ``count``."""
+    mod, name, shipped, launcher = (
+        (paged, "paged_decode_attention_fwd", SHIPPED_PAGED, _paged_launcher)
+        if is_paged else (dk, "decode_attention_fwd", SHIPPED, _launcher))
+
     def call():
-        dk.decode_attention_fwd = _launcher(count)
+        setattr(mod, name, launcher(count))
         try:
             return fn()
         finally:
-            dk.decode_attention_fwd = SHIPPED
+            setattr(mod, name, shipped)
     return call
 
 
-def time_variants(dev) -> dict:
+def time_variants(dev, is_paged: bool) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    smoke = cs.Smoke(torch)             # chip_smoke's page scatter
     torch.cuda._sleep(2_000_000_000)  # about a second: the clocks up
     g = torch.Generator(device=dev).manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -132,18 +160,36 @@ def time_variants(dev) -> dict:
         kc = torch.randn(b, hkv, s, dk_, device=dev, generator=g).bfloat16()
         vc = torch.randn(b, hkv, s, dv, device=dev, generator=g).bfloat16()
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        if is_paged:
+            kp, vp, bt = cs._pages(smoke, kc, vc, lengths, cs.PAGE)
+
+            def run(n, chunk=None, plain=False):
+                if plain:
+                    return ref.paged_decode_attention_ref(
+                        q, kp, vp, bt, ln, return_residuals=True,
+                        chunk=chunk, **kw)
+                return ops.paged_decode_attention(
+                    q, kp, vp, bt, ln, return_residuals=True, splits=n, **kw)
+            block = cs.PAGE
+        else:
+            def run(n, chunk=None, plain=False):
+                if plain:
+                    return ref.decode_attention_ref(
+                        q, kc, vc, ln, return_residuals=True, chunk=chunk,
+                        **kw)
+                return ops.decode_attention(q, kc, vc, ln,
+                                            return_residuals=True, splits=n,
+                                            **kw)
+            block = dk.MAX_BLOCK_KV
         fns, errs = {}, {}
-        for name, count in variants(TIMED_CHUNKS, shipped=True).items():
+        for name, count in variants(TIMED_CHUNKS, shipped=True,
+                                    is_paged=is_paged).items():
             n = count(b, hkv, s)
-            got = ops.decode_attention(q, kc, vc, ln, return_residuals=True,
-                                       splits=n, **kw)
-            want = ref.decode_attention_ref(
-                q, kc, vc, ln, return_residuals=True,
-                chunk=dk.split_chunk(s, n), **kw)
+            got = run(n)
+            want = run(None, chunk=dk.split_chunk(s, n, block), plain=True)
             errs[name] = (n, max(float((a - w).abs().max())
                                  for a, w in zip(got, want)))
-            fns[f"{name} ({n})"] = (lambda n=n: ops.decode_attention(
-                q, kc, vc, ln, return_residuals=True, splits=n, **kw))
+            fns[f"{name} ({n})"] = lambda n=n: run(n)
         if "softcap" not in kw:
             mask = (torch.arange(s, device=dev)[None, :]
                     < ln[:, None])[:, None, None, :]
@@ -151,18 +197,20 @@ def time_variants(dev) -> dict:
                                        enable_gqa=True, scale=kw.get("scale"))
         ms = time_in_turns(list(fns.values()), flush)
         out[label] = {"ms": dict(zip(fns, ms)), "splits_and_err": errs}
-        print(f"B3 {label} ({b}, {hq}/{hkv}, {s}, {dk_}/{dv}) ms: "
+        kern = "B4" if is_paged else "B3"
+        print(f"{kern} {label} ({b}, {hq}/{hkv}, {s}, {dk_}/{dv}) ms: "
               + ", ".join(f"{n} {t:.4f}"
                           for n, t in out[label]["ms"].items()), flush=True)
-        print(f"B3 {label} max |kernel - split plain version|: " + ", ".join(
-            f"{n} ({k} splits) {e:.2e}" for n, (k, e) in errs.items()),
-            flush=True)
-        del q, kc, vc
+        print(f"{kern} {label} max |kernel - split plain version|: "
+              + ", ".join(f"{n} ({k} splits) {e:.2e}"
+                          for n, (k, e) in errs.items()), flush=True)
+        del q, kc, vc, run
     return out
 
 
-def gaps(dev) -> list:
-    """Each model once, served densely with each split rule in turn."""
+def gaps(dev, is_paged: bool) -> list:
+    """Each model once, served densely (or paged) with each split rule
+    in turn."""
     s = cs.Smoke(torch)
     # check_serving's bookkeeping, without checks or records
     s.check = lambda ok, what: None
@@ -182,24 +230,28 @@ def gaps(dev) -> list:
         model = build_model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(0),
                             device=dev)
-        for name, count in variants(GAP_CHUNKS, shipped=False).items():
+        mode, kern = ("paged", "B4") if is_paged else ("dense", "B3")
+        for name, count in variants(GAP_CHUNKS, shipped=False,
+                                    is_paged=is_paged).items():
             _, st = _with(count, lambda: cs.check_serving(
-                s, model, params, f"{label} dense", dict(paged=False), {},
-                (), **kw))()
+                s, model, params, f"{label} {mode}",
+                dict(paged=is_paged), {}, (), **kw), is_paged)()
             row = dict(model=label, split=name, gap=st["teacher_gap"],
                        tokens=st["teacher_tokens"],
                        flipped=st["teacher_flipped"])
             rows.append(row)
             flag = "ok" if row["gap"] <= cs.TEACHER_GAP else "past"
-            print(f"gap {label} dense, B3 {name}: {row['gap']:.4f} ({flag} "
-                  f"{cs.TEACHER_GAP}); {row['flipped']} of {row['tokens']} "
-                  f"tokens not the plain argmax", flush=True)
+            print(f"gap {label} {mode}, {kern} {name}: {row['gap']:.4f} "
+                  f"({flag} {cs.TEACHER_GAP}); {row['flipped']} of "
+                  f"{row['tokens']} tokens not the plain argmax", flush=True)
         del params, model
     return rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paged", action="store_true",
+                    help="B4 over page pools and paged serving, not B3")
     ap.add_argument("--no-gaps", action="store_true",
                     help="check and time the split counts only")
     args = ap.parse_args()
@@ -219,9 +271,10 @@ def main() -> int:
     build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     res = {"device": torch.cuda.get_device_name(0), "power": smi,
-           "times_ms": time_variants(dev)}
+           "kernel": "B4" if args.paged else "B3",
+           "times_ms": time_variants(dev, args.paged)}
     if not args.no_gaps:
-        res["gaps"] = gaps(dev)
+        res["gaps"] = gaps(dev, args.paged)
     print(json.dumps({"decode_variants": res}))
     return 0
 

@@ -289,6 +289,7 @@ def _case(pair, label, shape, dtype, args, portable, native, plain, tol,
     err_n, ok_n = _err(out_n, want, tol)
     err_g, ok_g = _err(out_g, want, tol)
     same = torch.equal(out_p, out_n)
+    same_g = torch.equal(out_p, out_g)
     what = f"{pair} {label} {tuple(shape)} {str(dtype).split('.')[-1]}"
     for ok, msg in ((same, "portable and native outputs differ"),
                     (ok_p, f"portable off its plain version by {err_p:.3e}"),
@@ -302,6 +303,7 @@ def _case(pair, label, shape, dtype, args, portable, native, plain, tol,
         [portable, native, under("generic", portable), plain], flush)
     return {"pair": pair, "case": label, "shape": list(shape),
             "dtype": str(dtype).split(".")[-1], "bit_identical": same,
+            "generic_bit_identical": same_g,
             "tol": tol, "err_portable": err_p, "err_native": err_n,
             "err_generic": err_g, "ok_portable": ok_p, "ok_native": ok_n,
             "ok_generic": ok_g, "ms_portable": ms_p, "ms_native": ms_n,

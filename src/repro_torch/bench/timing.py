@@ -1,8 +1,9 @@
 """Times on the card in turns, for comparisons made inside one process
 (``bench/parity.py``, ``bench/spec_accel.py``, ``bench/miniqmc.py``):
-CUDA events around each call, the L2 flushed before each, and the order
-of the functions alternating from one turn to the next, so that neither
-side always launches first."""
+CUDA events around each call, the L2 flushed before each and the card
+left to spin a while after the flush (:func:`flush_and_settle`), and the
+order of the functions alternating from one turn to the next, so that
+neither side always launches first."""
 from __future__ import annotations
 
 import statistics
@@ -13,6 +14,18 @@ import torch
 from repro_torch.core.context import target
 
 ITERS = 20
+#: clock cycles the card spins after each flush, about 0.5 ms at the
+#: H100's 1.98 GHz boost clock: longer than a wrapper's host work, so
+#: the host has queued the timed call before the card reaches its start
+#: event, and the events time the card, not the host
+SETTLE_CYCLES = 1_000_000
+
+
+def flush_and_settle(flush: torch.Tensor) -> None:
+    """Evict the L2 (``flush.zero_()``), then keep the card busy for
+    SETTLE_CYCLES while the host queues what comes next."""
+    flush.zero_()
+    torch.cuda._sleep(SETTLE_CYCLES)
 
 
 def under(arch: str, fn: Callable) -> Callable:
@@ -33,15 +46,15 @@ def turn_order(n: int, turn: int) -> List[int]:
 def times_in_turns(fns: Sequence[Callable], flush: torch.Tensor,
                    iters: int = ITERS) -> List[List[float]]:
     """Every ms of each of ``fns`` over ``iters`` turns, each call after
-    an L2 flush (``flush.zero_()``), the order alternating by
-    :func:`turn_order`; one warm-up call each first."""
+    :func:`flush_and_settle`, the order alternating by :func:`turn_order`;
+    one warm-up call each first."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     events = [[] for _ in fns]
     for turn in range(iters):
         for i in turn_order(len(fns), turn):
-            flush.zero_()
+            flush_and_settle(flush)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()

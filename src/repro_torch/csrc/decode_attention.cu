@@ -53,15 +53,8 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const size_t row0 = static_cast<size_t>(b) * hq + h * g;
   const int length = min(lengths[b], s);
   const repro::SplitRange live(length, window, chunk);
-  if (live.live() == 0) {  // an empty row: split 0 stores acc 0, m, l
-    if (j == 0) {
-      for (int gi = 0; gi < g; ++gi)
-        acc_out[(row0 + gi) * DV + threadIdx.x] = 0.f;
-      if (threadIdx.x < g) {
-        m_out[row0 + threadIdx.x] = repro::NEG_INF;
-        l_out[row0 + threadIdx.x] = 0.f;
-      }
-    }
+  if (live.live() == 0) {
+    repro::split_store_empty<DV>(j, g, row0, acc_out, m_out, l_out);
     return;
   }
   if (j < live.lo || j >= live.hi) return;  // an empty split
@@ -89,37 +82,10 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       stage(ib + 1);
     }
   }
-  __syncthreads();
-  const int nlive = live.live();
-  const size_t rows_total = static_cast<size_t>(gridDim.y) * hq;
-  float* a_out = acc_out;
-  float *mo = m_out, *lo = l_out;
-  if (nlive > 1) {  // store a partial instead
-    a_out = part_acc + j * rows_total * DV;
-    mo = part_m + j * rows_total;
-    lo = part_l + j * rows_total;
-  }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-    if (gi < g) a_out[(row0 + gi) * DV + threadIdx.x] = acc[gi];
-  if (threadIdx.x < g) {
-    mo[row0 + threadIdx.x] = sm.m[threadIdx.x];
-    lo[row0 + threadIdx.x] = sm.l[threadIdx.x];
-  }
-  if (nlive == 1) return;
-  __threadfence();  // the partial is visible before it is counted
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* counter = counters + b * hkv + h;
-    *sm.flag = atomicAdd(counter, 1) == nlive - 1;
-    if (*sm.flag) *counter = 0;  // every live split has counted: reset
-  }
-  __syncthreads();
-  if (!*sm.flag) return;
-  __threadfence();
-  repro::split_merge<T, DK, DV, G>(sm, part_acc, part_m, part_l, rows_total,
-                                   row0, g, live.lo, nlive, acc_out, m_out,
-                                   l_out);
+  repro::split_finish<T, DK, DV, G>(sm, acc, j, g, row0,
+                                    static_cast<size_t>(gridDim.y) * hq,
+                                    live, counters + b * hkv + h, acc_out,
+                                    m_out, l_out, part_acc, part_m, part_l);
 }
 
 struct Args {

@@ -20,8 +20,8 @@
 // (row, token) pair against the row's own causal horizon, run the
 // online-softmax update (one warp per row), and accumulate P V in
 // registers.  The outputs are the unnormalized residuals (acc, m, l) of
-// the reference's contract.  B3 runs the same arithmetic through the
-// split-KV helpers at the end of this file.
+// the reference's contract.  B3 and B4 run the same arithmetic through
+// the split-KV helpers at the end of this file.
 #pragma once
 
 #include "common.cuh"
@@ -187,14 +187,15 @@ __device__ void decode_store(const DecodeSmem<DK, DV, G>& sm, const float acc[G]
   }
 }
 
-// The paged decode body of B4, B5 and B6: K/V gathered through per-row
-// block tables from head-major page pools (Hkv, P, ps, DK|DV) of KV; a
-// 1-byte KV is quantized storage, with (Hkv, P) f32 scale pools read at
-// scales[h * P + page] for the page a block comes from.  Page 0 is
-// the allocator's null page; a table entry outside the pool reads it
-// instead of out-of-bounds memory.  Logical page ik / ps of row b maps
-// to physical page bt[b, ik / ps], and its bk-token sub-block is a
-// contiguous run of rows (bk divides ps; the wrapper clamps it).
+// The paged decode body of B5, B6, B7 and B7q: K/V gathered through
+// per-row block tables from head-major page pools (Hkv, P, ps, DK|DV)
+// of KV; a 1-byte KV is quantized storage, with (Hkv, P) f32 scale
+// pools read at scales[h * P + page] for the page a block comes from.
+// Page 0 is the allocator's null page; a table entry outside the pool
+// reads it instead of out-of-bounds memory.  Logical page ik / ps of
+// row b maps to physical page bt[b, ik / ps], and its bk-token
+// sub-block is a contiguous run of rows (bk divides ps; the wrapper
+// clamps it).
 //
 // Horizons: a one-token kernel's rows all see row_len[b] tokens (its
 // lengths already count the new token), capped at the table's reach;
@@ -276,6 +277,11 @@ struct PagedArgs {
   cudaStream_t stream;
   const int* start = nullptr;
   int dv = 0;
+  // the split kernel's: rows a split, splits, and (with several) the
+  // partials' scratch and the zeroed (B x Hkv) int32 counters
+  int chunk = 0, nsplit = 1;
+  float *part_acc = nullptr, *part_m = nullptr, *part_l = nullptr;
+  int* counters = nullptr;
 };
 
 // Launch paged_decode_kernel<T, KV, DK, DV, G, RING> on a (Hkv, B) grid
@@ -316,8 +322,10 @@ inline bool paged_args_ok(const PagedArgs& a) {
 }
 
 // ---------------------------------------------------------------------
-// Split-KV one-token decode (B3, csrc/decode_attention.cu).  The paged
-// kernels above do not use these yet.
+// Split-KV one-token decode: B3 (csrc/decode_attention.cu) over dense
+// caches, and B4 (split_paged_decode_kernel, csrc/paged_decode_
+// attention.cu) over page pools.  B5, B6, B7 and B7q still run
+// paged_decode_kernel above.
 //
 // A CTA serves one (batch row, kv head) and one split of its cache: rows
 // [j * chunk, (j + 1) * chunk), chunk a whole number of blocks.  Its
@@ -419,10 +427,11 @@ __device__ __forceinline__ void split_stage(const SplitSmem<T, DK, DV, G>& sm,
   cp_async_commit();
 }
 
-// decode_init for the split kernel: the scaled query rows (rows past n
-// zeroed) and the reset running state.
-template <typename T, int DK, int DV, int G>
-__device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const T* q,
+// decode_init for the split kernels: the scaled query rows (rows past n
+// zeroed; Q the query's type, T the stages') and the reset running
+// state.
+template <typename T, int DK, int DV, int G, typename Q>
+__device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const Q* q,
                            size_t row0, int n, float scale, float acc[G]) {
   for (int i = threadIdx.x; i < G * DK; i += DV)
     sm.q[i] = i / DK < n ? to_f32(q[row0 * DK + i]) * scale : 0.f;
@@ -438,11 +447,14 @@ __device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const T* q,
 // k_start + rows - 1, masked at `length` and by the window.  Scores:
 // DV / BK_MAX threads a token, each over every (DV / BK_MAX)-th row,
 // reading the key a 16-byte chunk at a time and the query rows as
-// broadcasts.
+// broadcasts.  A 1-byte T is quantized storage, dequantized as
+// stage_tile does (`to_f32(x) * scale`) with the block's page scales.
 template <typename T, int DK, int DV, int G>
 __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
                             int rows, int k_start, int n, int length,
-                            int window, float softcap, float acc[G]) {
+                            int window, float softcap, float acc[G],
+                            float k_scale = 1.f, float v_scale = 1.f) {
+  constexpr bool kQuant = sizeof(T) == 1;
   constexpr int VEC = 16 / sizeof(T), CH = DK / VEC;
   constexpr int TPT = DV / BK_MAX;             // threads a token
   constexpr int RPT = (G + TPT - 1) / TPT;     // rows a thread
@@ -460,7 +472,8 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
       const T* e = reinterpret_cast<const T*>(&raw);
       float kv[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) kv[j] = to_f32(e[j]);
+      for (int j = 0; j < VEC; ++j)
+        kv[j] = kQuant ? to_f32(e[j]) * k_scale : to_f32(e[j]);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         if (r0 + i * TPT >= G) break;
@@ -510,7 +523,9 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
   for (; t4 + 4 <= rows; t4 += 4) {
     float vv[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) vv[u] = to_f32(vs[(t4 + u) * DV]);
+    for (int u = 0; u < 4; ++u)
+      vv[u] = kQuant ? to_f32(vs[(t4 + u) * DV]) * v_scale
+                     : to_f32(vs[(t4 + u) * DV]);
 #pragma unroll
     for (int gi = 0; gi < G; ++gi) {
       if (gi < n) {
@@ -524,7 +539,8 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
     }
   }
   for (; t4 < rows; ++t4) {
-    const float vv = to_f32(vs[t4 * DV]);
+    const float vv =
+        kQuant ? to_f32(vs[t4 * DV]) * v_scale : to_f32(vs[t4 * DV]);
 #pragma unroll
     for (int gi = 0; gi < G; ++gi)
       if (gi < n) acc[gi] = fmaf(sm.s[gi * BK_MAX + t4], vv, acc[gi]);
@@ -532,15 +548,20 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
 }
 
 // The live splits of a row: [j_lo, j_hi), those holding a token that
-// the row sees (below `length`, and inside the window).  None for an
-// empty row.
+// the row sees.  None for an empty row.
 struct SplitRange {
   int lo, hi;
-  __device__ SplitRange(int length, int window, int chunk) {
-    const int first = window > 0 ? max(0, length - window) : 0;
-    lo = first / chunk;
-    hi = length > 0 ? (length + chunk - 1) / chunk : 0;
+  // splits covering tokens from `origin` on (a ring walk's start, else
+  // 0), of a row that sees tokens [first, limit)
+  __device__ SplitRange(int origin, int first, int limit, int chunk) {
+    const int a = max(first, origin) - origin, e = limit - origin;
+    lo = a / chunk;
+    hi = e > a ? (e + chunk - 1) / chunk : 0;
   }
+  // a dense cache's row: tokens [0, length), the window measured back
+  __device__ SplitRange(int length, int window, int chunk)
+      : SplitRange(0, window > 0 ? max(0, length - window) : 0, length,
+                   chunk) {}
   __device__ int live() const { return max(0, hi - lo); }
 };
 
@@ -613,5 +634,187 @@ __device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
     m_out[row0 + tid] = sm.m[tid];
     l_out[row0 + tid] = l;
   }
+}
+
+// An empty row (no live split): split 0 stores acc 0, m NEG_INF, l 0,
+// what the unsplit kernel leaves for it; the other splits store nothing.
+template <int DV>
+__device__ __forceinline__ void split_store_empty(int j, int n, size_t row0,
+                                                  float* acc_out,
+                                                  float* m_out,
+                                                  float* l_out) {
+  if (j != 0) return;
+  for (int gi = 0; gi < n; ++gi) acc_out[(row0 + gi) * DV + threadIdx.x] = 0.f;
+  if (threadIdx.x < n) {
+    m_out[row0 + threadIdx.x] = NEG_INF;
+    l_out[row0 + threadIdx.x] = 0.f;
+  }
+}
+
+// The end of a live split's walk.  A row with one live split stores its
+// residuals directly, so it keeps the unsplit kernel's bits.  With
+// several, each stores its partial at part_*[j], fences, and counts
+// itself in `counter`; the last to arrive resets the counter to 0 for
+// the next launch and merges the partials in split order (split_merge),
+// so the result does not depend on which CTA finishes last.
+template <typename T, int DK, int DV, int G>
+__device__ __forceinline__ void split_finish(
+    const SplitSmem<T, DK, DV, G>& sm, const float acc[G], int j, int n,
+    size_t row0, size_t rows_total, const SplitRange& live, int* counter,
+    float* acc_out, float* m_out, float* l_out, float* part_acc,
+    float* part_m, float* part_l) {
+  __syncthreads();
+  const int nlive = live.live();
+  float* a_out = acc_out;
+  float *mo = m_out, *lo = l_out;
+  if (nlive > 1) {  // store a partial instead
+    a_out = part_acc + j * rows_total * DV;
+    mo = part_m + j * rows_total;
+    lo = part_l + j * rows_total;
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi)
+    if (gi < n) a_out[(row0 + gi) * DV + threadIdx.x] = acc[gi];
+  if (threadIdx.x < n) {
+    mo[row0 + threadIdx.x] = sm.m[threadIdx.x];
+    lo[row0 + threadIdx.x] = sm.l[threadIdx.x];
+  }
+  if (nlive == 1) return;
+  __threadfence();  // the partial is visible before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *sm.flag = atomicAdd(counter, 1) == nlive - 1;
+    if (*sm.flag) *counter = 0;  // every live split has counted: reset
+  }
+  __syncthreads();
+  if (!*sm.flag) return;
+  __threadfence();
+  split_merge<T, DK, DV, G>(sm, part_acc, part_m, part_l, rows_total, row0,
+                            n, live.lo, nlive, acc_out, m_out, l_out);
+}
+
+// Split-KV paged decode (B4): paged_decode_kernel's walk through the
+// block table, cut into splits as B3 cuts a dense cache.  The grid is
+// (Hkv, B, nsplit); CTA (h, b, j) walks the slot's logical rows
+// [lo + j * chunk, lo + (j + 1) * chunk), chunk a whole number of pages
+// and so of bk-token blocks (lo: a ring walk's start[b], else 0), for
+// the group's G rows.  Each block's physical page comes from the table
+// row, an entry outside the pool reading the null page 0, as in
+// paged_decode_kernel; the entry of block i + 2 is read while block i
+// computes and the copy of block i + 1 is in flight (two stages where
+// they fit).  The per-block arithmetic is split_block's, decode_block's
+// term for term, so one split gives paged_decode_kernel's bits.  Rows,
+// horizons and the ring walk as paged_decode_kernel (one-token only):
+// the rows see `length` tokens (row_len[b], capped at the table's reach
+// unless RING), the window measured back from it.  Templated on KV and
+// RING as paged_decode_kernel is; only B4 (T == KV, no ring) launches
+// it so far.  A 1-byte KV reads its block's page scales (a 64-wide key
+// of 1-byte storage needs a narrower swizzle than SplitSmem's first).
+template <typename T, typename KV, int DK, int DV, int G, bool RING>
+__global__ void __launch_bounds__(DV)
+split_paged_decode_kernel(
+    const T* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ bt,
+    const int* __restrict__ row_len, const int* __restrict__ start,
+    float* acc_out, float* m_out, float* l_out, float* part_acc,
+    float* part_m, float* part_l, int* counters, int hq, int hkv,
+    int n_pages, int page_size, int t_cols, int bk, int chunk, float scale,
+    int window, float softcap) {
+  using Smem = SplitSmem<KV, DK, DV, G>;
+  constexpr bool kQuant = sizeof(KV) == 1;
+  // paged_decode_kernel's `smem` above is float
+  extern __shared__ __align__(16) unsigned char split_smem[];
+  const Smem sm(split_smem);
+  const int h = blockIdx.x, b = blockIdx.y, j = blockIdx.z, g = hq / hkv;
+  const size_t row0 = static_cast<size_t>(b) * hq + h * g;
+  const int reach = t_cols * page_size;
+  const int lo = RING ? start[b] : 0;
+  const int length = RING ? row_len[b] : min(row_len[b], reach);
+  const int limit = RING ? min(length, lo + reach) : length;
+  const SplitRange live(lo, window > 0 ? max(0, length - window) : 0, limit,
+                        chunk);
+  if (live.live() == 0) {
+    split_store_empty<DV>(j, g, row0, acc_out, m_out, l_out);
+    return;
+  }
+  if (j < live.lo || j >= live.hi) return;  // an empty split
+  const int* row = bt + static_cast<size_t>(b) * t_cols;
+  const int c_begin = j * chunk;  // the split's first row past lo
+  const int nblk = (min(c_begin + chunk, limit - lo) - c_begin + bk - 1) / bk;
+  auto page_of = [&](int ib) {  // block ib's physical page
+    const int page = row[(c_begin + ib * bk) / page_size];
+    return page < 0 || page >= n_pages ? 0 : page;
+  };
+  auto stage = [&](int ib, int page) {
+    const size_t r0 = (static_cast<size_t>(h) * n_pages + page) * page_size +
+                      (c_begin + ib * bk) % page_size;
+    split_stage<KV, DK, DV, G>(sm, ib % Smem::STAGES, kp + r0 * DK,
+                               vp + r0 * DV, bk);
+  };
+  int cur = page_of(0);
+  int nxt = nblk > 1 ? page_of(1) : 0;
+  stage(0, cur);  // in flight while the query rows are staged
+  float acc[G];
+  split_init<KV, DK, DV, G>(sm, q, row0, g, scale, acc);
+  for (int ib = 0; ib < nblk; ++ib) {
+    cp_async_wait_all();
+    __syncthreads();  // the block has landed; the last one's readers are done
+    if (Smem::STAGES == 2 && ib + 1 < nblk) stage(ib + 1, nxt);
+    const int after = ib + 2 < nblk ? page_of(ib + 2) : 0;
+    const size_t pg = static_cast<size_t>(h) * n_pages + cur;
+    split_block<KV, DK, DV, G>(sm, ib % Smem::STAGES, bk,
+                               lo + c_begin + ib * bk, g, length, window,
+                               softcap, acc, kQuant ? ks[pg] : 1.f,
+                               kQuant ? vs[pg] : 1.f);
+    if (Smem::STAGES == 1 && ib + 1 < nblk) {
+      __syncthreads();
+      stage(ib + 1, nxt);
+    }
+    cur = nxt;
+    nxt = after;
+  }
+  split_finish<KV, DK, DV, G>(sm, acc, j, g, row0,
+                              static_cast<size_t>(gridDim.y) * hq, live,
+                              counters + b * hkv + h, acc_out, m_out, l_out,
+                              part_acc, part_m, part_l);
+}
+
+// Launch split_paged_decode_kernel<T, KV, DK, DV, G, RING> on a (Hkv, B,
+// nsplit) grid of DV-thread CTAs.
+template <typename T, typename KV, int DK, int DV, int G, bool RING>
+cudaError_t launch_split_paged(const PagedArgs& a) {
+  const size_t bytes = split_smem_bytes<KV, DK, DV, G>();
+  static const cudaError_t attr =
+      allow_smem(split_paged_decode_kernel<T, KV, DK, DV, G, RING>, bytes);
+  if (attr != cudaSuccess) return attr;
+  split_paged_decode_kernel<T, KV, DK, DV, G, RING>
+      <<<dim3(a.hkv, a.b, a.nsplit), DV, bytes, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
+          static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len, a.start,
+          a.acc, a.m, a.l, a.part_acc, a.part_m, a.part_l, a.counters, a.hq,
+          a.hkv, a.n_pages, a.page_size, a.t_cols, a.bk, a.chunk, a.scale,
+          a.window, a.softcap);
+  return cudaGetLastError();
+}
+
+// The group's rows, rounded up to a build: 1, 2, 4 or 8.
+template <typename T, typename KV, int DK, int DV, bool RING = false>
+cudaError_t dispatch_split_paged_g(const PagedArgs& a) {
+  const int g = a.hq / a.hkv;
+  if (g <= 1) return launch_split_paged<T, KV, DK, DV, 1, RING>(a);
+  if (g <= 2) return launch_split_paged<T, KV, DK, DV, 2, RING>(a);
+  if (g <= 4) return launch_split_paged<T, KV, DK, DV, 4, RING>(a);
+  return launch_split_paged<T, KV, DK, DV, 8, RING>(a);
+}
+
+// Shape checks of the split paged launch beside paged_args_ok: chunks of
+// whole pages, at most MAX_SPLITS of them, scratch where there are
+// several.
+inline bool split_paged_args_ok(const PagedArgs& a) {
+  return a.chunk >= a.page_size && a.chunk % a.page_size == 0 &&
+         a.nsplit >= 1 && a.nsplit <= MAX_SPLITS &&
+         (a.nsplit == 1 || (a.part_acc != nullptr && a.part_m != nullptr &&
+                            a.part_l != nullptr && a.counters != nullptr));
 }
 }  // namespace repro

@@ -6,34 +6,56 @@
 // (paged_decode_attention_fwd, body _paged_decode_kernel).
 //
 // Bound on the H100: bytes, as for dense decode, plus one table entry
-// per page.  Design: the reference prefetches the block table as a
-// scalar operand so the DMA engine can resolve pool[bt[b, page]]; here
-// the CTA reads its own table row (paged_decode_kernel in
-// decode_common.cuh, shared with the quantized and the speculative
-// kernels).  Every row of a CTA sees lengths[b] tokens.  Key and value
-// head dims are equal (64, 128, 256), or 192 / 128 for MLA, whose 16
-// query heads sit one per kv head: 8 slots make 128 CTAs of 128
-// threads, each scoring over 192 columns and writing 128.
+// per page.  Design: split-KV, as B3's (split_paged_decode_kernel in
+// decode_common.cuh).  The grid is (Hkv, B, nsplit): CTA (h, b, j)
+// walks logical rows [j * chunk, (j + 1) * chunk) of its slot's table,
+// chunk a whole number of pages, for all G = Hq / Hkv query heads of
+// the group, so each K/V row is read once.  The reference prefetches
+// the block table as a scalar operand so the DMA engine can resolve
+// pool[bt[b, page]]; here the CTA reads its own table row, a block's
+// entry two blocks ahead, and cp.async stages K and V in their storage
+// type, the next block's copy in flight while this one computes.  The
+// host picks nsplit from the table's reach (t_cols x page_size) alone
+// (kernels/decode_attention/decode_attention.py, paged_splits), never
+// from lengths, which live on the card; a split past lengths[b] or
+// wholly outside the window returns at once.  A row with one live split
+// stores its result directly, with the arithmetic of the unsplit paged
+// kernel (paged_decode_kernel, which B5-B7q still run), so a one-split
+// launch gives its bits; with several, the last live split to arrive
+// merges the partials in split order and resets its counter, inside
+// the same launch.  Key and value head dims are equal (64, 128, 256),
+// or 192 / 128 for MLA, whose 16 query heads sit one per kv head: 8
+// slots make 128 CTAs a split of 128 threads, each scoring over 192
+// columns and writing 128.
 #include "decode_common.cuh"
 
 namespace {
 
 template <typename T>
 cudaError_t dispatch(const repro::PagedArgs& a) {
-  constexpr int G = repro::G_DECODE;
-  if (a.dv == a.d) return repro::dispatch_paged_d<T, T, G>(a);
   if (a.d == 192 && a.dv == 128)
-    return repro::launch_paged<T, T, 192, 128, G, false>(a);
+    return repro::dispatch_split_paged_g<T, T, 192, 128>(a);
+  if (a.dv != a.d) return cudaErrorInvalidValue;
+  if (a.d == 64) return repro::dispatch_split_paged_g<T, T, 64, 64>(a);
+  if (a.d == 128) return repro::dispatch_split_paged_g<T, T, 128, 128>(a);
+  if (a.d == 256) return repro::dispatch_split_paged_g<T, T, 256, 256>(a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// chunk: logical rows a split, a whole number of pages; nsplit =
+// max(1, ceil(t_cols * page_size / chunk)) <= MAX_SPLITS.  With nsplit
+// > 1, part_acc (nsplit, B, Hq, DV), part_m and part_l (nsplit, B, Hq)
+// are scratch and counters (B, Hkv) int32 must hold 0 (the kernel
+// leaves them so).
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* kp, const void* vp, const void* bt,
-    const void* lengths, void* acc, void* m, void* l, int b, int hq, int hkv,
+    const void* lengths, void* acc, void* m, void* l, void* part_acc,
+    void* part_m, void* part_l, void* counters, int b, int hq, int hkv,
     int n_pages, int page_size, int t_cols, int d, int dv, int bk,
-    float scale, int window, float softcap, int dtype, void* stream) {
+    int chunk, float scale, int window, float softcap, int dtype,
+    void* stream) {
   constexpr int G = repro::G_DECODE;
   repro::PagedArgs a{
       q, kp, vp, nullptr, nullptr, static_cast<const int*>(bt),
@@ -42,7 +64,15 @@ extern "C" int paged_decode_attention_fwd(
       page_size, t_cols, d, bk, scale, window, softcap,
       static_cast<cudaStream_t>(stream)};
   a.dv = dv;
-  if (!repro::paged_args_ok<G>(a)) return cudaErrorInvalidValue;
+  a.chunk = chunk;
+  a.nsplit = chunk > 0 ? (t_cols * page_size + chunk - 1) / chunk : 0;
+  if (a.nsplit < 1) a.nsplit = 1;
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.counters = static_cast<int*>(counters);
+  if (!repro::paged_args_ok<G>(a) || !repro::split_paged_args_ok(a))
+    return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
   if (dtype == repro::DTYPE_F32) return dispatch<float>(a);
   if (dtype == repro::DTYPE_BF16) return dispatch<__nv_bfloat16>(a);

@@ -8,7 +8,8 @@ The kernel splits each slot's cache into ``splits`` chunks of whole
 blocks, one CTA each, and merges the chunks' partials in split order
 inside the same launch (``ref.decode_attention_ref(chunk=...)`` is its
 rounding model).  :func:`decode_splits` picks the count from the cache's
-length alone.
+length alone, and :func:`paged_splits` the paged kernel's (B4, launched
+from ``paged.py``) from its table's reach.
 """
 from __future__ import annotations
 
@@ -39,6 +40,13 @@ MAX_SPLITS = 64      # MAX_SPLITS in csrc/decode_common.cuh
 #: rows, 0.0608 with 512, and 0.0597 with a count that fills the card
 #: (PERF.md §6; ``scripts/torch_decode_variants.py``).
 SPLIT_ROWS = 1024
+#: Logical rows a split of B4 walks (before :func:`split_chunk` evens the
+#: chunks out in whole pages).  Of the same candidates, in the same order,
+#: the first that kept every paged serving path's teacher-forced gap
+#: within TEACHER_GAP: gemma2-2b's paged gap was 0.0408 with 256 rows,
+#: and 0.0597 with 512, with 1024 and with the count that fills the card
+#: (PERF.md §6; ``scripts/torch_decode_variants.py --paged``).
+PAGED_SPLIT_ROWS = 256
 
 
 def decode_splits(s: int, block_kv: int = MAX_BLOCK_KV) -> int:
@@ -47,6 +55,16 @@ def decode_splits(s: int, block_kv: int = MAX_BLOCK_KV) -> int:
     MAX_SPLITS.  From the cache's length alone: the slots' lengths live
     on the card, and reading them would cost a sync."""
     return min(-(-s // max(SPLIT_ROWS, block_kv)), MAX_SPLITS)
+
+
+def paged_splits(reach: int, page_size: int) -> int:
+    """Splits of each slot's block table for B4 (``csrc/
+    paged_decode_attention.cu``): chunks of PAGED_SPLIT_ROWS logical rows
+    (at least a page), at most MAX_SPLITS, from the table's reach
+    (columns x ``page_size``) alone, never from ``lengths``.
+    :func:`split_chunk` with ``block_kv=page_size`` evens them out in
+    whole pages."""
+    return min(-(-reach // max(PAGED_SPLIT_ROWS, page_size)), MAX_SPLITS)
 
 
 def split_chunk(s: int, splits: int, block_kv: int = MAX_BLOCK_KV) -> int:
@@ -60,11 +78,13 @@ def split_chunk(s: int, splits: int, block_kv: int = MAX_BLOCK_KV) -> int:
 
 
 #: device -> (B x Hkv,) int32 counters of the in-grid merge, zero
-#: between launches (the last CTA of a row group resets its own)
+#: between launches (the last CTA of a row group resets its own); B3
+#: and B4 share them, launching on one stream
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
+def merge_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters on ``device``."""
     have = _COUNTERS.get(device)
     if have is None or have.numel() < n:
         have = torch.zeros(max(n, 2 * (0 if have is None else have.numel())),
@@ -151,7 +171,7 @@ def decode_attention_fwd(q, k_cache, v_cache, lengths, *,
         f32 = dict(dtype=torch.float32, device=q.device)
         parts = (torch.empty(n, b, hq, dv, **f32),
                  torch.empty(n, b, hq, **f32), torch.empty(n, b, hq, **f32),
-                 _counters(q.device, b * hkv))
+                 merge_counters(q.device, b * hkv))
     KERNEL.launch(ptr(q), ptr(k_cache), ptr(v_cache), ptr(lengths), ptr(acc),
                   ptr(m), ptr(l), *(None if t is None else ptr(t)
                                     for t in parts),

@@ -7,8 +7,8 @@ kernel (or the call raises).  Both return the unnormalized residuals
 (acc, m, l) internally; the public functions normalize them with the
 ``l == 0 -> 1`` guard unless ``return_residuals`` asks for the raw
 triple.  ``page_size`` (logical, divides the pool's), ``block_kv`` and
-the dense kernel's ``splits`` are schedule choices that change the
-result only by the order of f32 sums.
+the dense and paged kernels' ``splits`` are schedule choices that
+change the result only by the order of f32 sums.
 """
 from __future__ import annotations
 
@@ -64,11 +64,14 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            scale: Optional[float] = None,
                            page_size: Optional[int] = None,
                            block_kv: Optional[int] = None,
+                           splits: Optional[int] = None,
                            return_residuals: bool = False):
     """Single-token GQA decode over a paged pool.  q: (B, Hq, D); pools
     (Hkv, P, ps, D); block_tables (B, T) int32; lengths (B,) int32.
-    ``page_size`` (logical, divides ps) and ``block_kv`` are schedule
-    choices that never change the result."""
+    ``page_size`` (logical, divides ps), ``block_kv`` and ``splits``
+    (chunks of whole pages of each table row the kernel walks in
+    parallel and merges; None: ``decode_attention.paged_splits``, from
+    the table's reach) are schedule choices."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         res = _ref.paged_decode_attention_ref(
@@ -79,7 +82,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                                                  "block_kv")
         res = _paged.paged_decode_attention_fwd(
             q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
-            block_kv=block_kv, **kw)
+            block_kv=block_kv, splits=splits, **kw)
     return _finish(q, res, return_residuals)
 
 

@@ -30,13 +30,14 @@ import torch
 from repro_torch.core.build import (CudaKernel, check_cuda, dtype_code, ptr,
                                     stream_of)
 from repro_torch.kernels.decode_attention.decode_attention import (
-    MAX_BLOCK_KV, MAX_GROUP, check_decode_operands, residual_outputs)
+    MAX_BLOCK_KV, MAX_GROUP, MAX_SPLITS, check_decode_operands,
+    merge_counters, paged_splits, residual_outputs, split_chunk)
 
 _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "paged_decode_attention", "paged_decode_attention.cu",
     "paged_decode_attention_fwd",
-    [_p] * 8 + [_i] * 9 + [_f, _i, _f, _i, _p])
+    [_p] * 12 + [_i] * 10 + [_f, _i, _f, _i, _p])
 # the window kernels over bf16/f32 pools (B7) and int8/fp8 pools with
 # scale pools (B7q): one argument list, one launcher
 _WINDOW_ARGS = [_p] * 11 + [_i] * 8 + [_f, _i, _f, _i, _i, _p]
@@ -141,10 +142,14 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
                                window: Optional[int],
                                softcap: Optional[float],
                                scale: Optional[float],
-                               page_size: Optional[int], block_kv: int):
+                               page_size: Optional[int], block_kv: int,
+                               splits: Optional[int] = None):
     """Returns unnormalized f32 residuals (acc, m, l), as the dense
     decode kernel does; the V pool may be narrower than the K pool
-    (MLA)."""
+    (MLA).  ``splits``: chunks of whole logical pages of each table row
+    the kernel walks in parallel and merges (None: ``paged_splits``,
+    from the table's reach); ``ref.paged_decode_attention_ref(chunk=
+    ...)`` is its rounding model."""
     name = "paged_decode_attention"
     dv = check_decode_operands(name, q, k_pages, v_pages, lengths, mla=True)
     b, hq, d = q.shape
@@ -152,15 +157,29 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads "
                          f"(group <= {MAX_GROUP})")
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"{name}: splits {splits} not in [1, {MAX_SPLITS}]")
     k_pages, v_pages, bt, _, _, page_size, bk = paged_operands(
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv)
     check_cuda(name, q, k_pages, v_pages, bt, lengths)
+    reach = max(bt.shape[1], 1) * page_size
+    if splits is None:
+        splits = paged_splits(reach, page_size)
+    chunk = split_chunk(reach, splits, page_size)
+    n = -(-reach // chunk)          # <= splits
     acc, m, l = residual_outputs(q, dv)
+    parts = (None,) * 4
+    if n > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        parts = (torch.empty(n, b, hq, dv, **f32),
+                 torch.empty(n, b, hq, **f32), torch.empty(n, b, hq, **f32),
+                 merge_counters(q.device, b * hkv))
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(bt), ptr(lengths),
-                  ptr(acc), ptr(m), ptr(l), b, hq, hkv, k_pages.shape[1],
-                  page_size, bt.shape[1], d, dv, bk,
-                  float(d ** -0.5 if scale is None else scale),
+                  ptr(acc), ptr(m), ptr(l),
+                  *(None if t is None else ptr(t) for t in parts),
+                  b, hq, hkv, k_pages.shape[1], page_size, bt.shape[1], d,
+                  dv, bk, chunk, float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   stream_of(q))
     return acc, m, l

@@ -116,13 +116,18 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                                window: Optional[int] = None,
                                softcap: Optional[float] = None,
                                scale: Optional[float] = None,
+                               chunk: Optional[int] = None,
                                return_residuals: bool = False):
     """Gather the pages dense, then the dense plain version: paging is
-    semantically invisible."""
+    semantically invisible.  ``chunk``: the split paged kernel's
+    rounding model (B4, ``csrc/paged_decode_attention.cu``), chunks of
+    ``chunk`` logical rows of each table row merged in order, as
+    :func:`decode_attention_ref` models B3's."""
     return decode_attention_ref(
         q, gather_pages(k_pages, block_tables),
         gather_pages(v_pages, block_tables), lengths, window=window,
-        softcap=softcap, scale=scale, return_residuals=return_residuals)
+        softcap=softcap, scale=scale, chunk=chunk,
+        return_residuals=return_residuals)
 
 
 def dequantize_pools(k_pages, v_pages, k_scales, v_scales):

@@ -201,6 +201,80 @@ def test_decode_kernels(cuda, dtype, d, window, softcap, splits):
             torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
 
 
+#: B4's shapes: (label, Hq, Hkv, D, cache rows, lengths, kw): chip_smoke's
+#: check_paged (granite-8b) and gemma2-2b's table of 128 pages of 64
+SPLIT_PAGED_CASES = [
+    ("granite", 32, 8, 128, 1024, (1, 64, 200, 333, 511, 700, 900, 1024),
+     {}),
+    ("granite window", 32, 8, 128, 1024, (0, 5, 1024, 63),
+     dict(window=100, softcap=30.0)),
+    ("gemma2", 8, 4, 256, 8192, (1, 17, 1001, 4096, 4151, 6001, 6032, 8192),
+     dict(softcap=50.0))]
+
+
+@pytest.mark.parametrize("page_size", [None, 16])
+@pytest.mark.parametrize("case", SPLIT_PAGED_CASES,
+                         ids=[c[0] for c in SPLIT_PAGED_CASES])
+def test_split_paged_decode_kernel(cuda, case, page_size):
+    """B4 at one split, at 8 and at its served count, each in one
+    launch: against its split plain version (``chunk=``, its rounding
+    model) and the unsplit one within f32 tol, and m bit for bit with
+    its one-split launch (the scores are computed alike whatever the
+    split); at a logical page of 16 as at the pool's 64."""
+    label, hq, hkv, d, s, lengths, kw = case
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b = len(lengths)
+    q = torch.randn(b, hq, d, device=cuda, generator=g).bfloat16()
+    kc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    (kp, vp), bt = _pools_from_caches(kc, vc, 64,
+                                      torch.Generator().manual_seed(1))
+    reach = bt.shape[1] * 64
+    page = page_size or 64
+    want = dec_ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
+                                              return_residuals=True, **kw)
+    one = None
+    for splits in (1, 8, None):
+        n = splits or dec_kern.paged_splits(reach, page)
+        before = paged_kern.KERNEL.launches
+        got = dec_ops.paged_decode_attention(
+            q, kp, vp, bt, ln, page_size=page_size, splits=splits,
+            return_residuals=True, **kw)
+        assert paged_kern.KERNEL.launches == before + 1
+        split_want = dec_ref.paged_decode_attention_ref(
+            q, kp, vp, bt, ln, return_residuals=True,
+            chunk=dec_kern.split_chunk(reach, n, page), **kw)
+        for a, w, sw in zip(got, want, split_want):
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(a, sw, atol=1e-4, rtol=1e-4)
+        one = got if one is None else one
+        assert torch.equal(got[1], one[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4096, 4096), (18000, 2304), (1022, 8192),
+                                    (64, 16384), (5, 100)],
+                         ids=["granite", "gemma2", "jamba", "wide", "narrow"])
+def test_rmsnorm_schedules_are_bit_identical(cuda, dtype, rows, d):
+    """B1 at the served shapes and a wide row (a warp a row) and at rows
+    that are not whole 16-byte vectors (a team a row, in bf16): B1, its
+    native twin B11a and B1's generic build bit for bit, each in one
+    launch, within tol of the plain version."""
+    x = torch.randn(rows, d, device=cuda).to(dtype)
+    w = (0.1 * torch.randn(d, device=cuda)).to(dtype)
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    before = rms_kern.KERNEL.launches
+    got = rms_ops.rmsnorm(x, w, **kw)
+    assert rms_kern.KERNEL.launches == before + 1
+    assert torch.equal(got, rms_native.rmsnorm_native(x, w, **kw))
+    with target("generic"):
+        assert torch.equal(got, rms_ops.rmsnorm(x, w, **kw))
+    torch.testing.assert_close(got.float(),
+                               rms_ref.rmsnorm_ref(x, w, **kw).float(),
+                               **_tol(dtype))
+
+
 def _quantized(pool, dtype):
     """(q, scales) of a pool at per-(head, page) absmax."""
     spec = resolve_kv_spec(dtype, pool.device, strict=True)
