@@ -18,12 +18,17 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    TOL_BF16, and by the share of its bf16 outputs that differ from the
    model's (at most ``MODEL_MISMATCH``), which a control build of B2
    with one P term fewer must exceed, at every head-dim build; the
-   dense and paged decode kernels (B3, B4) at the split count each is
-   served with and at SPLIT_CHECK splits are held to their split plain
-   versions (``decode_attention_ref(chunk=...)``,
-   ``paged_decode_attention_ref(chunk=...)``) and, as a control, at one
-   split to the unsplit plain versions, with m of every launch bit for
-   bit, each launch a single one; B1 at granite's, gemma2's and jamba's
+   split-KV decode kernels (B3 dense, B4 paged, B5 over int8 and fp8
+   pools, B6 speculative over bf16 and int8 pools) at the split count
+   each is served with and at SPLIT_CHECK splits are held to their split
+   plain versions (``decode_attention_ref(chunk=...)``,
+   ``paged_decode_attention_ref(chunk=...)``,
+   ``quant_paged_decode_attention_ref(chunk=...)``,
+   ``spec_paged_decode_attention_ref(chunk=...)`` and its quantized
+   twin) and, as a control, at one split to the unsplit plain versions,
+   with m of every launch bit for bit, each launch a single one, and
+   timed at one split and at SPLIT_CHECK beside their served records; B1
+   at granite's, gemma2's and jamba's
    rows in bf16 and f32 is held bit for bit to its native twin B11a and
    its generic build, and timed in turns with B11a and ``F.rms_norm``;
    all at each of their shapes: granite-8b's
@@ -544,8 +549,9 @@ def _normalized(res):
 
 
 def _check_splits(s: Smoke, what, kernel, run, plain, served, chunk_of):
-    """A split-KV kernel (``kernel``: B3's or B4's) at the split count it
-    is served with (``served``) and at SPLIT_CHECK splits, each against
+    """A split-KV kernel (``kernel``: B3's, B4's, B5's or B6's) at the
+    split count it is served with (``served``) and at SPLIT_CHECK splits,
+    each against
     its split plain version (``plain(chunk_of(n))``, its rounding model),
     its one-split launch (the unsplit kernel's arithmetic) against the
     unsplit plain version (``plain(None)``), m of every launch bit for
@@ -607,13 +613,47 @@ def check_split_paged(s: Smoke, what, q, kp, vp, bt, ln, page_size=None,
         dk.paged_splits(reach, page), lambda n: dk.split_chunk(reach, n, page))
 
 
+def check_split_quant(s: Smoke, what, args, page_size=None, **kw):
+    """B5 by :func:`_check_splits` (``args``: q, the int8/fp8 pools,
+    their scales, the table and lengths), its count from B4's rule."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import ops, quant, ref
+    kq, bt = args[1], args[5]
+    page = page_size or kq.shape[2]
+    reach = bt.shape[1] * kq.shape[2]
+    return _check_splits(
+        s, what, quant.KERNEL, lambda n: ops.quant_paged_decode_attention(
+            *args, splits=n, page_size=page_size, return_residuals=True,
+            **kw),
+        lambda chunk: ref.quant_paged_decode_attention_ref(
+            *args, return_residuals=True, chunk=chunk, **kw),
+        dk.paged_splits(reach, page), lambda n: dk.split_chunk(reach, n, page))
+
+
+def check_split_spec(s: Smoke, what, args, fn, plain, **kw):
+    """B6 by :func:`_check_splits` (``fn``/``plain``: the op over bf16
+    pools or its quantized twin, and its plain version), its count from
+    the table's reach by the speculative rule."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import spec
+    pool, bt = args[1], args[-2]
+    reach = bt.shape[1] * pool.shape[2]
+    page = pool.shape[2]
+    return _check_splits(
+        s, what, spec.KERNEL, lambda n: fn(*args, splits=n,
+                                           return_residuals=True, **kw),
+        lambda chunk: plain(*args, return_residuals=True, chunk=chunk, **kw),
+        dk.paged_splits(reach, page), lambda n: dk.split_chunk(reach, n, page))
+
+
 def _split_timings(s: Smoke, kernel, what, fn, plain, nbytes, flops,
-                   library=None):
+                   library=None, ops_per_s=BF16_FLOPS_PER_S):
     """A split-KV kernel's time at one split (the control) and at
     SPLIT_CHECK splits beside its record (``fn(splits)`` launches it)."""
     for n in (1, SPLIT_CHECK):
         s.timings(f"{kernel} ({what}, {n} split{'s' * (n > 1)})",
-                  s.time_ms(lambda: fn(n)), plain, nbytes, flops, library)
+                  s.time_ms(lambda: fn(n)), plain, nbytes, flops, library,
+                  ops_per_s)
 
 
 def check_decode(s: Smoke) -> None:
@@ -728,9 +768,11 @@ def _quantize(s: Smoke, kp, vp, kv_dtype):
 
 
 def check_quant_paged(s: Smoke) -> None:
-    """B5 on int8 and fp8 pools: against its plain version on the same
-    quantized bytes (f32 residuals, 1e-4), and against bf16 B4 on the
-    unquantized data within DECODE_TOL."""
+    """B5 on int8 and fp8 pools: by :func:`check_split_quant` at the
+    pool's page and a logical page of 16, against its plain version on
+    the same quantized bytes (f32 residuals, 1e-4), and against bf16 B4
+    on the unquantized data within DECODE_TOL; timed at one split and at
+    SPLIT_CHECK beside its served record."""
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.quant import DECODE_TOL
     q, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS)
@@ -744,7 +786,10 @@ def check_quant_paged(s: Smoke) -> None:
     for kv in ("int8", "fp8_e4m3"):
         kq, vq, ks, vs = _quantize(s, kp, vp, kv)
         args = (q, kq, vq, ks, vs, bt, ln)
-        got = ops.quant_paged_decode_attention(*args, return_residuals=True)
+        got = check_split_quant(s, f"quant paged {kv} (B 8, 32/8 x 128, "
+                                   f"page 64)", args)
+        check_split_quant(s, f"quant paged {kv}, logical page 16 of 64",
+                          args, page_size=16)
         want = ref.quant_paged_decode_attention_ref(*args,
                                                     return_residuals=True)
         s.compare(f"quant paged {kv} residuals, B = 8, lengths 1..1024",
@@ -759,11 +804,11 @@ def check_quant_paged(s: Smoke) -> None:
         s.check(gap <= DECODE_TOL[kv],
                 f"quant paged {kv} against bf16 paged on the unquantized "
                 f"data: max abs diff {gap:.4f} <= DECODE_TOL {DECODE_TOL[kv]}")
+        plain_ms = s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
+            *args, return_residuals=True))
         times = (s.time_ms(lambda: ops.quant_paged_decode_attention(
                      *args, return_residuals=True)),
-                 s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
-                     *args, return_residuals=True)),
-                 nbytes, flops, None, INT8_OPS_PER_S)
+                 plain_ms, nbytes, flops, None, INT8_OPS_PER_S)
         if kv == "int8":
             s.record("quant_paged_decode_attention",
                      "quant_paged_decode_attention.cu",
@@ -771,11 +816,17 @@ def check_quant_paged(s: Smoke) -> None:
                      *times)
         else:
             s.timings(f"quant_paged_decode_attention ({kv})", *times)
+        _split_timings(s, "quant_paged_decode_attention", f"granite {kv}",
+                       lambda n: ops.quant_paged_decode_attention(
+                           *args, return_residuals=True, splits=n),
+                       plain_ms, nbytes, flops, ops_per_s=INT8_OPS_PER_S)
 
 
 def check_spec(s: Smoke) -> None:
     """B6 with K1 = SPEC_K + 1 positions per slot, over bf16 pools and
-    in its int8 mode, against its plain version (f32 residuals, 1e-4)."""
+    in its int8 mode: by :func:`check_split_spec`, against its plain
+    version (f32 residuals, 1e-4); timed at one split and at SPLIT_CHECK
+    beside its served record."""
     torch = s.torch
     from repro_torch.kernels.decode_attention import ops, ref
     k1 = SPEC_K + 1
@@ -806,7 +857,8 @@ def check_spec(s: Smoke) -> None:
                          ref.quant_spec_paged_decode_attention_ref)
             kv_bytes, scale_bytes, rate = 1, 2 * 8 * 4, INT8_OPS_PER_S
         what = f"spec K1 = {k1} {kv or 'bf16'}"
-        got = fn(*args, return_residuals=True)
+        got = check_split_spec(s, f"{what} (B 8, 32/8 x 128, page 64)",
+                               args, fn, plain)
         want = plain(*args, return_residuals=True)
         s.compare(f"{what} residuals, B = 8, prefixes 0..{SPEC_BASES[-1]}",
                   got, want)
@@ -814,9 +866,9 @@ def check_spec(s: Smoke) -> None:
                         _normalized(want))
         nbytes = (q.numel() * 2 + live * 8 * 128 * 2 * kv_bytes + out_bytes
                   + live_pages * (scale_bytes + 4) + b * k1 * 32 * 4)
+        plain_ms = s.time_ms(lambda: plain(*args, return_residuals=True))
         times = (s.time_ms(lambda: fn(*args, return_residuals=True)),
-                 s.time_ms(lambda: plain(*args, return_residuals=True)),
-                 nbytes, flops, None, rate)
+                 plain_ms, nbytes, flops, None, rate)
         if kv is None:
             s.record("spec_paged_decode_attention",
                      "spec_paged_decode_attention.cu",
@@ -824,6 +876,9 @@ def check_spec(s: Smoke) -> None:
                      *times)
         else:
             s.timings(f"spec_paged_decode_attention ({kv})", *times)
+        _split_timings(s, "spec_paged_decode_attention", f"granite {what}",
+                       lambda n: fn(*args, return_residuals=True, splits=n),
+                       plain_ms, nbytes, flops, ops_per_s=rate)
 
 
 # ------------------------------------------------ gemma2-2b kernels -----
@@ -1058,23 +1113,27 @@ def check_head_dim_256(s: Smoke) -> None:
     for kv in ("int8", "fp8_e4m3"):
         kq, vq, ks, vs = _quantize(s, kp, vp, kv)
         args = (q, kq, vq, ks, vs, bt, ln)
-        got = ops.quant_paged_decode_attention(*args, return_residuals=True,
-                                               **kw)
+        got = check_split_quant(s, f"quant paged {kv} (B 8, 8/4 x 256, "
+                                   f"table (8, 128), softcap 50)", args, **kw)
         want = ref.quant_paged_decode_attention_ref(
             *args, return_residuals=True, **kw)
         s.compare(f"quant paged {kv} residuals, heads of 256", got, want)
         err = s.compare(f"quant paged {kv} output acc / l, heads of 256",
                         _normalized(got), _normalized(want))
+        plain_ms = s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
+            *args, return_residuals=True, **kw))
         times = (s.time_ms(lambda: ops.quant_paged_decode_attention(
                      *args, return_residuals=True, **kw)),
-                 s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
-                     *args, return_residuals=True, **kw)),
-                 nbytes, flops, None, INT8_OPS_PER_S)
+                 plain_ms, nbytes, flops, None, INT8_OPS_PER_S)
         if kv == "int8":
             s.record_also("quant_paged_decode_attention", "gemma2", err,
                           *times)
         else:
             s.timings(f"quant_paged_decode_attention ({kv}, gemma2)", *times)
+        _split_timings(s, "quant_paged_decode_attention", f"gemma2 {kv}",
+                       lambda n: ops.quant_paged_decode_attention(
+                           *args, return_residuals=True, splits=n, **kw),
+                       plain_ms, nbytes, flops, ops_per_s=INT8_OPS_PER_S)
 
 
 # ------------------------------------------- deepseek-v2-lite kernels -----

@@ -27,14 +27,17 @@ the card for about a second (a process's first timings otherwise ran
 slow) and prints one JSON line of medians (ms, CUDA events, 50
 launches, L2 flushed between them, then about 0.1 ms of waiting on the
 card, so that the host has queued the call before the card reaches the
-start event and the events time the card alone).  B3 and B4 run with
-the package's own split rule and, where its ``decode_attention`` or
-``paged_decode_attention`` takes ``splits``, also with one split and
-with 8 ("one split": a package without the argument has only the
-unsplit kernel, so its "one split" is its plain call); only the
-one-split outputs are kept.  ``--compare``
-prints, for every output the two files share, whether they are equal
-bit for bit, and exits 1 if any is not.
+start event and the events time the card alone).  The split-KV
+kernels (B3, B4, and B5 and B6 where the package's ops take ``splits``)
+run with the package's own split rule and with one split, B3 and B4
+also with 8 ("one split": a package whose op lacks the argument has
+only the unsplit kernel, so its "one split" is its plain call); only
+the one-split outputs are kept.  Kept untimed besides: B3-B6 at
+granite-8b's shapes with f32 queries (B3, B4 and B6 over f32 caches and
+pools, B5 and B6 over int8 and fp8 pools), B5 and B6 over fp8 pools,
+B5 at head dim 64, and B6 at head dim 256.  ``--compare`` prints, for
+every output the two files share, whether they are equal bit for bit,
+and exits 1 if any is not.
 """
 from __future__ import annotations
 
@@ -77,9 +80,11 @@ def main() -> int:
     # a process's first timings ran slow: spin about a second
     torch.cuda._sleep(2_000_000_000)
     g = torch.Generator(device=dev).manual_seed(0)
-    one_split, paged_one = (
+    one_split, paged_one, quant_one, spec_one = (
         {"splits": 1} if "splits" in inspect.signature(fn).parameters
-        else {} for fn in (ops.decode_attention, ops.paged_decode_attention))
+        else {} for fn in (ops.decode_attention, ops.paged_decode_attention,
+                           ops.quant_paged_decode_attention,
+                           ops.spec_paged_decode_attention))
     outputs = {}
 
     def time_ms(fn, iters=50):
@@ -117,10 +122,35 @@ def main() -> int:
             pool = torch.zeros(h, 1 + b * t, ps, d, device=dev,
                                dtype=c.dtype)
             pool[:, bt.long()] = c.reshape(b, h, t, ps, d).transpose(0, 1)
+            # the null tails all wrote page 0, racing: which write lands
+            # differs between runs, and B6's later rows read it
+            pool[:, 0] = 0
             pools.append(pool)
         return pools[0], pools[1], bt.to(dev)
 
     int8 = resolve_kv_spec("int8", dev, strict=True)
+    fp8 = resolve_kv_spec("fp8_e4m3", dev, strict=True)
+
+    def quantized(spec, kp, vp):
+        (kq, ks), (vq, vs) = spec.quantize_pages(kp), spec.quantize_pages(vp)
+        return kq, vq, ks, vs
+
+    def untimed(name, q, kp, vp, bt, ln, s_len, k1=5):
+        """Keep B5's (int8, fp8) and B6's (the pools, int8, fp8)
+        one-split outputs for q, pools and table."""
+        qs = q[:, None].expand(-1, k1, -1, -1).contiguous()
+        base = ln.clamp(max=s_len - k1) - 1
+        for kvn, spec in (("int8", int8), ("fp8", fp8)):
+            quant = quantized(spec, kp, vp)
+            keep(f"B5 {name} {kvn}", lambda: ops.quant_paged_decode_attention(
+                q, *quant, bt, ln, return_residuals=True, **quant_one))
+            keep(f"B6 {name} {kvn}",
+                 lambda: ops.quant_spec_paged_decode_attention(
+                     qs, *quant, bt, base, return_residuals=True,
+                     **spec_one))
+        keep(f"B6 {name}", lambda: ops.spec_paged_decode_attention(
+            qs, kp, vp, bt, base, return_residuals=True, **spec_one))
+
     out = {"tag": args.tag, "card": torch.cuda.get_device_name(0)}
     for name, hq, hkv, d, s_len, lengths in (
             ("granite", 32, 8, 128, 1024, (1, 64, 200, 333, 511, 700, 900,
@@ -150,16 +180,48 @@ def main() -> int:
             out[f"B4 {name} 8 splits"] = time_ms(
                 lambda: ops.paged_decode_attention(
                     q, kp, vp, bt, ln, return_residuals=True, splits=8))
-        (kq, ks), (vq, vs) = int8.quantize_pages(kp), int8.quantize_pages(vp)
-        out[f"B5 {name} int8"] = time_ms(keep(
-            f"B5 {name} int8", lambda: ops.quant_paged_decode_attention(
-                q, kq, vq, ks, vs, bt, ln, return_residuals=True)))
+        kq, vq, ks, vs = quantized(int8, kp, vp)
+        out[f"B5 {name} int8"] = time_ms(
+            lambda: ops.quant_paged_decode_attention(
+                q, kq, vq, ks, vs, bt, ln, return_residuals=True))
+        out[f"B5 {name} int8 one split"] = time_ms(
+            lambda: ops.quant_paged_decode_attention(
+                q, kq, vq, ks, vs, bt, ln, return_residuals=True,
+                **quant_one))
         if name == "granite":
             qs = rnd(len(lengths), 5, hq, d)
             base = ln.clamp(max=s_len - 5) - 1
-            out["B6 granite k1 5"] = time_ms(keep(
-                "B6 granite k1 5", lambda: ops.spec_paged_decode_attention(
-                    qs, kp, vp, bt, base, return_residuals=True)))
+            out["B6 granite k1 5"] = time_ms(
+                lambda: ops.spec_paged_decode_attention(
+                    qs, kp, vp, bt, base, return_residuals=True))
+            out["B6 granite k1 5 one split"] = time_ms(
+                lambda: ops.spec_paged_decode_attention(
+                    qs, kp, vp, bt, base, return_residuals=True,
+                    **spec_one))
+            out["B6 granite k1 5 int8"] = time_ms(
+                lambda: ops.quant_spec_paged_decode_attention(
+                    qs, kq, vq, ks, vs, bt, base, return_residuals=True))
+            out["B6 granite k1 5 int8 one split"] = time_ms(
+                lambda: ops.quant_spec_paged_decode_attention(
+                    qs, kq, vq, ks, vs, bt, base, return_residuals=True,
+                    **spec_one))
+            # f32: B3, B4 and B6 over f32 caches and pools, B5 and B6's
+            # quantized mode on f32 queries
+            qf, kf, vf = q.float(), kc.float(), vc.float()
+            keep("B3 granite f32", lambda: ops.decode_attention(
+                qf, kf, vf, ln, return_residuals=True, **one_split))
+            kpf, vpf, btf = paged(kf, vf, lengths)
+            keep("B4 granite f32", lambda: ops.paged_decode_attention(
+                qf, kpf, vpf, btf, ln, return_residuals=True, **paged_one))
+            untimed("granite f32", qf, kpf, vpf, btf, ln, s_len)
+            untimed("granite", q, kp, vp, bt, ln, s_len)
+            # head dim 64: granite's heads and lengths at half the width
+            q64, k64, v64 = (t[..., :64].contiguous() for t in (q, kc, vc))
+            kp64, vp64, bt64 = paged(k64, v64, lengths)
+            untimed("granite d64", q64, kp64, vp64, bt64, ln, s_len)
+            del qf, kf, vf, kpf, vpf, q64, k64, v64, kp64, vp64
+        else:
+            untimed(name, q, kp, vp, bt, ln, s_len)
         if name == "gemma2":
             window, ps = 4096, 64
             tw = window_table_width(window, ps)

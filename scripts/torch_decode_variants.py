@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The split count of B3 (dense decode) or B4 (paged decode) against its
-times and the served paths' teacher-forced gaps, on one CUDA card.
+"""The split count of B3 (dense decode), B4 (paged decode), B5 (paged
+decode over int8 or fp8 pools) or B6 (speculative paged decode) against
+its times and the served paths' teacher-forced gaps, on one CUDA card.
 
 B3 (``csrc/decode_attention.cu``) walks each slot's cache in
 ``splits`` chunks and merges their partials in chunk order; the served
@@ -8,11 +9,13 @@ count comes from ``decode_attention.decode_splits`` (chunks of
 SPLIT_ROWS cache rows).  B4 (``csrc/paged_decode_attention.cu``, with
 ``--paged``) does the same over each slot's block-table row, in chunks
 of whole pages (``decode_attention.paged_splits``, from the table's
-reach).  This script passes the kernel other counts instead: one split
-(the unsplit kernel's arithmetic), chunks of a fixed number of rows,
-and a count that fills the card (B x Hkv x splits >= 4 CTAs a SM, were
-every cache full: the rule first proposed for B3, whose gemma2-2b gap
-failed), and with each in place:
+reach), and so do B5 (``--paged --kv int8|fp8_e4m3``) and B6
+(``--paged --spec``, over bf16 and int8 pools).  This script passes the
+kernel other counts instead: one split (the unsplit kernel's
+arithmetic), chunks of a fixed number of rows, and a count that fills
+the card (B x Hkv x splits >= 4 CTAs a SM, were every cache full: the
+rule first proposed for B3, whose gemma2-2b gap failed), and with each
+in place:
 
 1. holds the kernel to its split plain version (``decode_attention_ref(
    chunk=...)``, or ``paged_decode_attention_ref(chunk=...)`` over pools
@@ -23,23 +26,30 @@ failed), and with each in place:
    deepseek-v2-lite-16b: 8 slots, lengths 1..1024; gemma2-2b: 8 slots,
    lengths 1..8192, softcap 50), with masked
    ``scaled_dot_product_attention`` over the dense cache beside it where
-   that computes the same function;
+   that computes the same function (B5 at granite-8b's and gemma2-2b's
+   shapes only, B6 at granite-8b's with K1 = 5: the paths that run
+   them);
 2. serves ``chip_smoke.py``'s 12 requests densely (or paged, with
    ``--paged``: gemma2-2b's local layers keep B7) on granite-8b,
    gemma2-2b, deepseek-v2-lite-16b and jamba-1.5-large-398b cut to 4
    layers (random weights from seed 0; the MoE models held to a plain
    replay of their own calls) and prints the teacher-forced gap that
    ``chip_smoke.py`` holds to its TEACHER_GAP, and how many emitted
-   tokens were not the plain argmax.
+   tokens were not the plain argmax.  ``--kv``: granite-8b and gemma2-2b
+   from pools of that type (gaps reported by ``chip_smoke.py``, not
+   held); ``--spec``: granite-8b with n-gram speculation (k = 4) over
+   bf16 pools (held) and int8 pools (reported).
 
-  PYTHONPATH=src python3 scripts/torch_decode_variants.py [--paged] \
-      [--no-gaps]
+  PYTHONPATH=src python3 scripts/torch_decode_variants.py [--paged \
+      [--kv int8|fp8_e4m3 | --spec]] [--no-gaps]
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import gc
+import inspect
+import itertools
 import json
 import subprocess
 import sys
@@ -59,11 +69,18 @@ from repro_torch.core.build import build_all  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention as dk  # noqa: E402
 from repro_torch.kernels.decode_attention import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import paged  # noqa: E402
+from repro_torch.kernels.decode_attention import quant  # noqa: E402
 from repro_torch.kernels.decode_attention import ref  # noqa: E402
+from repro_torch.kernels.decode_attention import spec  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.quant import resolve_kv_spec  # noqa: E402
 
-SHIPPED = dk.decode_attention_fwd
-SHIPPED_PAGED = paged.paged_decode_attention_fwd
+#: kernel -> (module, launcher) whose split count a variant replaces
+LAUNCHERS = {"B3": (dk, "decode_attention_fwd"),
+             "B4": (paged, "paged_decode_attention_fwd"),
+             "B5": (quant, "quant_paged_decode_attention_fwd"),
+             "B6": (spec, "spec_paged_decode_attention_fwd")}
+SHIPPED = {k: getattr(mod, name) for k, (mod, name) in LAUNCHERS.items()}
 #: the chunks (cache rows a split) served for their gaps, in the order a
 #: fallback takes them should a rule fail a path; timed besides them:
 GAP_CHUNKS = (256, 512, 1024)
@@ -90,57 +107,83 @@ def fill_the_card(b, hkv, s):
                                                  dk.MAX_SPLITS))))
 
 
-def variants(chunks, shipped: bool, is_paged: bool) -> dict:
+def variants(chunks, shipped: bool, kern: str) -> dict:
     """name -> split count of (B, Hkv, S) (S: a paged table's reach):
     one split, each of ``chunks``, filling the card and, with
-    ``shipped``, the served rule."""
+    ``shipped``, the served rule of ``kern``."""
     out = {"one split": lambda b, hkv, s: 1}
     out.update({f"chunk {c}": fixed_chunk(c) for c in chunks})
     out["fill the card"] = fill_the_card
     if shipped:
-        out["shipped"] = ((lambda b, hkv, s: dk.paged_splits(s, cs.PAGE))
-                          if is_paged else
-                          (lambda b, hkv, s: dk.decode_splits(s)))
+        out["shipped"] = ((lambda b, hkv, s: dk.decode_splits(s))
+                          if kern == "B3" else
+                          (lambda b, hkv, s: dk.paged_splits(s, cs.PAGE)))
     return out
 
 
-def _launcher(count):
-    """B3's launcher with the split count of ``count``."""
-    def fwd(q, k_cache, v_cache, lengths, *, splits=None, **kw):
-        return SHIPPED(q, k_cache, v_cache, lengths, splits=count(
-            q.shape[0], k_cache.shape[1], k_cache.shape[2]), **kw)
+def _launcher(kern: str, count):
+    """``kern``'s launcher with the split count of ``count`` (S: a dense
+    cache's rows, or a table's reach at the pool's page)."""
+    shipped = SHIPPED[kern]
+    sig = inspect.signature(shipped)
+
+    def fwd(*args, splits=None, **kw):
+        a = sig.bind_partial(*args, **kw).arguments
+        if kern == "B3":
+            b, hkv, s = (a["q"].shape[0],) + tuple(a["k_cache"].shape[1:3])
+        else:
+            kp = a["k_pages"]
+            b, hkv = a["q"].shape[0], kp.shape[0]
+            s = a["block_tables"].shape[1] * kp.shape[2]
+        return shipped(*args, splits=count(b, hkv, s), **kw)
     return fwd
 
 
-def _paged_launcher(count):
-    """B4's launcher with the split count of ``count`` (S: the table's
-    reach at the pool's page)."""
-    def fwd(q, k_pages, v_pages, block_tables, lengths, *, splits=None,
-            **kw):
-        reach = block_tables.shape[1] * k_pages.shape[2]
-        return SHIPPED_PAGED(q, k_pages, v_pages, block_tables, lengths,
-                             splits=count(q.shape[0], k_pages.shape[0],
-                                          reach), **kw)
-    return fwd
-
-
-def _with(count, fn, is_paged: bool = False):
-    """``fn`` run with B3's launcher (B4's with ``is_paged``) taking its
-    split count from ``count``."""
-    mod, name, shipped, launcher = (
-        (paged, "paged_decode_attention_fwd", SHIPPED_PAGED, _paged_launcher)
-        if is_paged else (dk, "decode_attention_fwd", SHIPPED, _launcher))
+def _with(count, fn, kern: str):
+    """``fn`` run with ``kern``'s launcher taking its split count from
+    ``count``."""
+    mod, name = LAUNCHERS[kern]
 
     def call():
-        setattr(mod, name, launcher(count))
+        setattr(mod, name, _launcher(kern, count))
         try:
             return fn()
         finally:
-            setattr(mod, name, shipped)
+            setattr(mod, name, SHIPPED[kern])
     return call
 
 
-def time_variants(dev, is_paged: bool) -> dict:
+def _paged_run(kern, kv, q, kc, vc, ln, kw, smoke):
+    """``run(n, chunk, plain)`` of B4, B5 (pools of ``kv``) or B6 (its
+    bf16 or int8 mode, q (B, K1, Hq, D), ``ln`` the prefixes) over
+    chip_smoke's scrambled pages of 64."""
+    horizons = ln.tolist() if kern != "B6" else [
+        n + q.shape[1] for n in ln.tolist()]
+    kp, vp, bt = cs._pages(smoke, kc, vc, horizons, cs.PAGE)
+    if kern == "B4" or (kern == "B6" and kv == "bf16"):
+        args = (q, kp, vp, bt, ln)
+        fn, plain_fn = ((ops.paged_decode_attention,
+                         ref.paged_decode_attention_ref) if kern == "B4" else
+                        (ops.spec_paged_decode_attention,
+                         ref.spec_paged_decode_attention_ref))
+    else:
+        sp = resolve_kv_spec(kv, q.device, strict=True)
+        (kq, ks), (vq, vs) = sp.quantize_pages(kp), sp.quantize_pages(vp)
+        args = (q, kq, vq, ks, vs, bt, ln)
+        fn, plain_fn = ((ops.quant_paged_decode_attention,
+                         ref.quant_paged_decode_attention_ref)
+                        if kern == "B5" else
+                        (ops.quant_spec_paged_decode_attention,
+                         ref.quant_spec_paged_decode_attention_ref))
+
+    def run(n, chunk=None, plain=False):
+        if plain:
+            return plain_fn(*args, return_residuals=True, chunk=chunk, **kw)
+        return fn(*args, return_residuals=True, splits=n, **kw)
+    return run
+
+
+def time_variants(dev, kern: str, kv: str) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     smoke = cs.Smoke(torch)             # chip_smoke's page scatter
     torch.cuda._sleep(2_000_000_000)  # about a second: the clocks up
@@ -154,22 +197,21 @@ def time_variants(dev, is_paged: bool) -> dict:
                      dict(scale=192 ** -0.5)),
         "gemma2": (8, 4, 256, 256, cs.G2_CACHE_LEN, cs.G2_LENGTHS,
                    dict(softcap=cs.G2_SOFTCAP))}
+    if kern == "B5":    # the paths that run it
+        shapes = {k: shapes[k] for k in ("granite", "gemma2")}
+    if kern == "B6":    # granite-8b's spec path: K1 = 5 a slot
+        shapes = {f"granite spec {m}": shapes["granite"][:5]
+                  + (cs.SPEC_BASES, {}) for m in ("bf16", "int8")}
     for label, (hq, hkv, dk_, dv, s, lengths, kw) in shapes.items():
         b = len(lengths)
-        q = torch.randn(b, hq, dk_, device=dev, generator=g).bfloat16()
+        k1 = (cs.SPEC_K + 1,) if kern == "B6" else ()
+        q = torch.randn(b, *k1, hq, dk_, device=dev, generator=g).bfloat16()
         kc = torch.randn(b, hkv, s, dk_, device=dev, generator=g).bfloat16()
         vc = torch.randn(b, hkv, s, dv, device=dev, generator=g).bfloat16()
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        if is_paged:
-            kp, vp, bt = cs._pages(smoke, kc, vc, lengths, cs.PAGE)
-
-            def run(n, chunk=None, plain=False):
-                if plain:
-                    return ref.paged_decode_attention_ref(
-                        q, kp, vp, bt, ln, return_residuals=True,
-                        chunk=chunk, **kw)
-                return ops.paged_decode_attention(
-                    q, kp, vp, bt, ln, return_residuals=True, splits=n, **kw)
+        if kern != "B3":
+            run = _paged_run(kern, label.split()[-1] if kern == "B6" else kv,
+                             q, kc, vc, ln, kw, smoke)
             block = cs.PAGE
         else:
             def run(n, chunk=None, plain=False):
@@ -183,21 +225,20 @@ def time_variants(dev, is_paged: bool) -> dict:
             block = dk.MAX_BLOCK_KV
         fns, errs = {}, {}
         for name, count in variants(TIMED_CHUNKS, shipped=True,
-                                    is_paged=is_paged).items():
+                                    kern=kern).items():
             n = count(b, hkv, s)
             got = run(n)
             want = run(None, chunk=dk.split_chunk(s, n, block), plain=True)
             errs[name] = (n, max(float((a - w).abs().max())
                                  for a, w in zip(got, want)))
             fns[f"{name} ({n})"] = lambda n=n: run(n)
-        if "softcap" not in kw:
+        if "softcap" not in kw and kern in ("B3", "B4"):
             mask = (torch.arange(s, device=dev)[None, :]
                     < ln[:, None])[:, None, None, :]
             fns["sdpa"] = lambda: sdpa(q[:, :, None], kc, vc, attn_mask=mask,
                                        enable_gqa=True, scale=kw.get("scale"))
         ms = time_in_turns(list(fns.values()), flush)
         out[label] = {"ms": dict(zip(fns, ms)), "splits_and_err": errs}
-        kern = "B4" if is_paged else "B3"
         print(f"{kern} {label} ({b}, {hq}/{hkv}, {s}, {dk_}/{dv}) ms: "
               + ", ".join(f"{n} {t:.4f}"
                           for n, t in out[label]["ms"].items()), flush=True)
@@ -208,35 +249,50 @@ def time_variants(dev, is_paged: bool) -> dict:
     return out
 
 
-def gaps(dev, is_paged: bool) -> list:
-    """Each model once, served densely (or paged) with each split rule
-    in turn."""
+def _modes(kern: str, kv: str):
+    """(name, serving mode) of the paths that run ``kern``."""
+    if kern == "B3":
+        return (("dense", dict(paged=False)),)
+    if kern == "B4":
+        return (("paged", dict(paged=True)),)
+    if kern == "B5":
+        return ((kv, dict(paged=True, kv_dtype=kv)),)
+    sp = dict(paged=True, spec_mode="ngram", spec_k=cs.SPEC_K)
+    return (("spec", sp), ("spec-int8", dict(sp, kv_dtype="int8")))
+
+
+def gaps(dev, kern: str, kv: str) -> list:
+    """Each model that runs ``kern`` once, served in each of its modes
+    with each split rule in turn."""
     s = cs.Smoke(torch)
     # check_serving's bookkeeping, without checks or records
     s.check = lambda ok, what: None
     s.kernels = collections.defaultdict(
         lambda: collections.defaultdict(dict, launches_by_path={}))
     rows = []
-    for label, cfg, kw in (
-            ("granite-8b", get_config("granite-8b"), {}),
-            ("gemma2-2b", get_config("gemma2-2b"),
-             dict(cache_len=cs.G2_CACHE_LEN, prompt_lens=cs.G2_PROMPT_LENS)),
-            ("deepseek-v2-lite-16b", get_config("deepseek-v2-lite-16b"),
-             dict(prefill=("rmsnorm",), replay=True)),
-            ("jamba-1.5-large-398b", cs._jamba_config(),
-             dict(prefill=("rmsnorm",), replay=True))):
+    models = (
+        ("granite-8b", get_config("granite-8b"), {}),
+        ("gemma2-2b", get_config("gemma2-2b"),
+         dict(cache_len=cs.G2_CACHE_LEN, prompt_lens=cs.G2_PROMPT_LENS)),
+        ("deepseek-v2-lite-16b", get_config("deepseek-v2-lite-16b"),
+         dict(prefill=("rmsnorm",), replay=True)),
+        ("jamba-1.5-large-398b", cs._jamba_config(),
+         dict(prefill=("rmsnorm",), replay=True)))
+    models = models[:{"B5": 2, "B6": 1}.get(kern, len(models))]
+    for label, cfg, kw in models:
         gc.collect()
         torch.cuda.empty_cache()
         model = build_model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(0),
                             device=dev)
-        mode, kern = ("paged", "B4") if is_paged else ("dense", "B3")
-        for name, count in variants(GAP_CHUNKS, shipped=False,
-                                    is_paged=is_paged).items():
+        for (mode, served), (name, count) in itertools.product(
+                _modes(kern, kv), variants(GAP_CHUNKS, shipped=False,
+                                           kern=kern).items()):
             _, st = _with(count, lambda: cs.check_serving(
-                s, model, params, f"{label} {mode}",
-                dict(paged=is_paged), {}, (), **kw), is_paged)()
-            row = dict(model=label, split=name, gap=st["teacher_gap"],
+                s, model, params, f"{label} {mode}", served, {}, (),
+                **kw), kern)()
+            row = dict(model=label, mode=mode, split=name,
+                       gap=st["teacher_gap"],
                        tokens=st["teacher_tokens"],
                        flipped=st["teacher_flipped"])
             rows.append(row)
@@ -252,9 +308,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--paged", action="store_true",
                     help="B4 over page pools and paged serving, not B3")
+    ap.add_argument("--kv", choices=("int8", "fp8_e4m3"),
+                    help="with --paged: B5 over pools of this type")
+    ap.add_argument("--spec", action="store_true",
+                    help="with --paged: B6, speculation over bf16 and "
+                         "int8 pools")
     ap.add_argument("--no-gaps", action="store_true",
                     help="check and time the split counts only")
     args = ap.parse_args()
+    if (args.kv or args.spec) and not args.paged or args.kv and args.spec:
+        ap.error("--kv or --spec, each with --paged")
+    kern = ("B6" if args.spec else "B5" if args.kv else
+            "B4" if args.paged else "B3")
     if not torch.cuda.is_available():
         print("torch_decode_variants: needs a CUDA card", file=sys.stderr)
         return 1
@@ -271,10 +336,10 @@ def main() -> int:
     build_all()
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     res = {"device": torch.cuda.get_device_name(0), "power": smi,
-           "kernel": "B4" if args.paged else "B3",
-           "times_ms": time_variants(dev, args.paged)}
+           "kernel": kern, "kv": args.kv,
+           "times_ms": time_variants(dev, kern, args.kv)}
     if not args.no_gaps:
-        res["gaps"] = gaps(dev, args.paged)
+        res["gaps"] = gaps(dev, kern, args.kv)
     print(json.dumps({"decode_variants": res}))
     return 0
 

@@ -50,11 +50,11 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem sm(smem);
   const int h = blockIdx.x, b = blockIdx.y, j = blockIdx.z, g = hq / hkv;
-  const size_t row0 = static_cast<size_t>(b) * hq + h * g;
+  const repro::Rows<G> rows{static_cast<size_t>(b) * hq + h * g, g, hq, g};
   const int length = min(lengths[b], s);
   const repro::SplitRange live(length, window, chunk);
   if (live.live() == 0) {
-    repro::split_store_empty<DV>(j, g, row0, acc_out, m_out, l_out);
+    repro::split_store_empty<DV>(j, rows, acc_out, m_out, l_out);
     return;
   }
   if (j < live.lo || j >= live.hi) return;  // an empty split
@@ -69,7 +69,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   };
   stage(0);  // in flight while the query rows are staged
   float acc[G];
-  repro::split_init<T, DK, DV, G>(sm, q, row0, g, scale, acc);
+  repro::split_init<T, DK, DV, G>(sm, q, rows, scale, acc);
   for (int ib = 0; ib < nblk; ++ib) {
     repro::cp_async_wait_all();
     __syncthreads();  // the block has landed; the last one's readers are done
@@ -82,7 +82,7 @@ split_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       stage(ib + 1);
     }
   }
-  repro::split_finish<T, DK, DV, G>(sm, acc, j, g, row0,
+  repro::split_finish<T, DK, DV, G>(sm, acc, j, rows,
                                     static_cast<size_t>(gridDim.y) * hq,
                                     live, counters + b * hkv + h, acc_out,
                                     m_out, l_out, part_acc, part_m, part_l);

@@ -6,23 +6,30 @@
 //
 // One CTA serves one (batch row, kv head) and the G query rows stacked
 // on that kv head, so each K/V row is read from memory once.  For the
-// one-token kernels (B3, B4, B5) the rows are the group's Hq / Hkv
-// query heads; for the speculative kernel (B6) they are the K1 window
-// positions times the group, position-major (row r = qi * group + gi,
-// `Rows` below).  Keys may be wider than values (MLA: DK = 192 query/
-// key columns, DV = 128 value columns); the CTA has DV threads, and
-// thread c owns output column c of every row, while the scores, a dot
-// over DK columns per (row, token) pair, are shared out over all the
-// threads.  Per block of up to BK_MAX tokens: stage K and V in
-// shared memory as f32 (stage_tile: every thread's 16-byte loads in
-// flight together, so a block pays about one memory latency; a
-// quantized block is dequantized there, before any dot), score every
-// (row, token) pair against the row's own causal horizon, run the
-// online-softmax update (one warp per row), and accumulate P V in
-// registers.  The outputs are the unnormalized residuals (acc, m, l) of
-// the reference's contract.  B3 and B4 run the same arithmetic through
-// the split-KV helpers at the end of this file.
+// one-token kernels (B3, B4, B5, B7, B7q) the rows are the group's Hq /
+// Hkv query heads; for the speculative kernel (B6) they are the K1
+// window positions times the group, position-major (row r = qi * group
+// + gi, `Rows` below), each with its own causal horizon.  Keys may be
+// wider than values (MLA: DK = 192 query/key columns, DV = 128 value
+// columns); the CTA has DV threads, and thread c owns output column c
+// of every row, while the scores, a dot over DK columns per (row,
+// token) pair, are shared out over all the threads.  Per block of up to
+// BK_MAX tokens: score every (row, token) pair against the row's
+// horizon, run the online-softmax update (one warp per row), and
+// accumulate P V in registers.  The outputs are the unnormalized
+// residuals (acc, m, l) of the reference's contract.
+//
+// Two bodies share that arithmetic term for term.  The sliding-window
+// kernels B7 and B7q run paged_decode_kernel: one CTA walks the whole
+// window, staging K and V in shared memory as f32 (stage_tile; a
+// quantized block is dequantized there, before any dot).  B3, B4, B5
+// and B6 run the split-KV helpers at the end of this file: the cache
+// cut into chunks walked by CTAs of their own, K and V staged in their
+// storage type with the next block in flight, the chunks' partials
+// merged in split order.
 #pragma once
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -33,8 +40,8 @@ constexpr int G_DECODE = 8;    // rows of the one-token kernels: the group
 constexpr int G_SPEC = 32;     // rows of the speculative kernel: K1 * group
 
 // The speculative kernel's rows each see their own causal horizon, read
-// from shared memory; the one-token kernels' rows all see the CTA's one
-// length, kept in a register.
+// from shared memory (SplitSmem::hz); the one-token kernels' rows all
+// see the CTA's one length, kept in a register.
 template <int G>
 __host__ __device__ constexpr bool per_row_horizon() {
   return G == G_SPEC;
@@ -43,7 +50,7 @@ __host__ __device__ constexpr bool per_row_horizon() {
 template <int DK, int DV, int G>
 constexpr size_t decode_smem_floats() {
   return static_cast<size_t>(G) * DK + BK_MAX * (DK + 1) + BK_MAX * DV +
-         G * BK_MAX + 4 * G;
+         G * BK_MAX + 3 * G;
 }
 
 template <int DK, int DV, int G>
@@ -55,7 +62,6 @@ struct DecodeSmem {
   float* m;   // running max per row
   float* l;   // running sum per row
   float* a;   // this block's rescale factor per row
-  int* hz;    // per-row horizons (per_row_horizon): tokens [0, hz) visible
   __device__ explicit DecodeSmem(float* base) {
     q = base;
     k = q + G * DK;
@@ -64,24 +70,24 @@ struct DecodeSmem {
     m = s + G * BK_MAX;
     l = m + G;
     a = l + G;
-    hz = reinterpret_cast<int*>(a + G);
   }
 };
 
 // Where the CTA's row r lives in the (B, K1, Hq) row space of q and of
 // the outputs: query position r / group, head h * group + r % group.
 // The one-token kernels' rows are consecutive heads (K1 = 1), so their
-// index is row0 + r, with no division.
+// offset from row0 is r, with no division.
 template <int G>
 struct Rows {
   size_t row0;  // (b * K1) * Hq + h * group
   int group;    // query heads per kv head
   int hq;       // rows per query position
   int n;        // live rows: K1 * group (<= G)
-  __device__ size_t operator()(int r) const {
-    if (!per_row_horizon<G>()) return row0 + r;
-    return row0 + static_cast<size_t>(r / group) * hq + r % group;
+  __device__ size_t off(int r) const {
+    if (!per_row_horizon<G>()) return r;
+    return static_cast<size_t>(r / group) * hq + r % group;
   }
+  __device__ size_t operator()(int r) const { return row0 + off(r); }
 };
 
 // Load the CTA's query rows (scaled) and reset the running state.
@@ -107,10 +113,9 @@ __device__ void decode_init(const DecodeSmem<DK, DV, G>& sm, const T* q,
 
 // One block update.  `kblk`/`vblk` point at `rows` contiguous K/V rows
 // holding tokens k_start .. k_start + rows - 1, stored as KV; a 1-byte
-// KV is quantized storage, dequantized with `k_scale`/`v_scale`.  Row r
-// masks tokens at or past its horizon (sm.hz[r], or `length` for every
-// row of a one-token kernel), and outside the window measured back from
-// that horizon (decode_attention.py:80-83).
+// KV is quantized storage, dequantized with `k_scale`/`v_scale`.  Every
+// row masks tokens at or past `length`, and outside the window measured
+// back from it (decode_attention.py:80-83).
 template <typename KV, int DK, int DV, int G>
 __device__ void decode_block(const DecodeSmem<DK, DV, G>& sm,
                              const KV* __restrict__ kblk,
@@ -135,9 +140,8 @@ __device__ void decode_block(const DecodeSmem<DK, DV, G>& sm,
     for (int c = 0; c < DK; ++c) x = fmaf(qr[c], kr[c], x);
     if (softcap > 0.f) x = softcap * tanhf(x / softcap);
     const int kp = k_start + t;
-    const int horizon = per_row_horizon<G>() ? sm.hz[gi] : length;
-    bool ok = t < rows && kp < horizon;
-    if (window > 0) ok = ok && (horizon - 1 - kp) < window;
+    bool ok = t < rows && kp < length;
+    if (window > 0) ok = ok && (length - 1 - kp) < window;
     sm.s[gi * BK_MAX + t] = ok ? x : NEG_INF;
   }
   __syncthreads();
@@ -187,7 +191,7 @@ __device__ void decode_store(const DecodeSmem<DK, DV, G>& sm, const float acc[G]
   }
 }
 
-// The paged decode body of B5, B6, B7 and B7q: K/V gathered through
+// The unsplit paged decode body of B7 and B7q: K/V gathered through
 // per-row block tables from head-major page pools (Hkv, P, ps, DK|DV)
 // of KV; a 1-byte KV is quantized storage, with (Hkv, P) f32 scale
 // pools read at scales[h * P + page] for the page a block comes from.
@@ -195,13 +199,12 @@ __device__ void decode_store(const DecodeSmem<DK, DV, G>& sm, const float acc[G]
 // reads it instead of out-of-bounds memory.  Logical page ik / ps of
 // row b maps to physical page bt[b, ik / ps], and its bk-token
 // sub-block is a contiguous run of rows (bk divides ps; the wrapper
-// clamps it).
-//
-// Horizons: a one-token kernel's rows all see row_len[b] tokens (its
-// lengths already count the new token), capped at the table's reach;
-// the speculative kernel's row r sees row_len[b * row_stride + r] (its
-// wrapper computes base + 1 + r / group), and its block loop runs to
-// the largest horizon, capped at the table's reach.
+// clamps it).  The rows all see row_len[b] tokens (its lengths already
+// count the new token), capped at the table's reach unless RING.
+// `row_stride` and `k1` (0 and 1 here) are the arguments the kernel took
+// while it also served the speculative rows: without them nvcc schedules
+// B7's body otherwise, and it ran 9% slower on the H100 (PERF.md §6, the
+// unsplit kernel's trim), so they stay.
 //
 // RING (the sliding-window kernels B7, B7q): the table row is the
 // slot's ring walk, its live window pages in timeline order
@@ -220,7 +223,7 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     float* acc_out, float* m_out, float* l_out, int k1,
                     int hq, int hkv, int n_pages, int page_size, int t_cols,
                     int bk, float scale, int window, float softcap) {
-  static_assert(!RING || !per_row_horizon<G>(), "ring walks are one-token");
+  static_assert(!per_row_horizon<G>(), "one-token rows only");
   extern __shared__ float smem[];
   const DecodeSmem<DK, DV, G> sm(smem);
   const int h = blockIdx.x, b = blockIdx.y, group = hq / hkv;
@@ -231,18 +234,8 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   decode_init<T, DK, DV, G>(sm, q, rows, scale, acc);
   const int reach = t_cols * page_size;
   const int lo = RING ? start[b] : 0;
-  int length = RING ? row_len[b]
-                    : (per_row_horizon<G>() ? 0 : min(row_len[b], reach));
+  int length = RING ? row_len[b] : min(row_len[b], reach);
   int limit = RING ? min(length, lo + reach) : length;
-  if (per_row_horizon<G>()) {
-    if (threadIdx.x < rows.n)
-      sm.hz[threadIdx.x] =
-          row_len[static_cast<size_t>(b) * row_stride + threadIdx.x];
-    __syncthreads();
-    limit = 0;
-    for (int r = 0; r < rows.n; ++r) limit = max(limit, sm.hz[r]);
-    limit = min(limit, reach);
-  }
   const int* row = bt + static_cast<size_t>(b) * t_cols;
   for (int k0 = lo; k0 < limit; k0 += bk) {
     // lo is a whole number of pages, so k0 - lo keeps k0's page offset
@@ -322,23 +315,25 @@ inline bool paged_args_ok(const PagedArgs& a) {
 }
 
 // ---------------------------------------------------------------------
-// Split-KV one-token decode: B3 (csrc/decode_attention.cu) over dense
-// caches, and B4 (split_paged_decode_kernel, csrc/paged_decode_
-// attention.cu) over page pools.  B5, B6, B7 and B7q still run
-// paged_decode_kernel above.
+// Split-KV decode: B3 (csrc/decode_attention.cu) over dense caches, and
+// split_paged_decode_kernel over page pools: B4 (csrc/paged_decode_
+// attention.cu), B5 (its int8/fp8 pools, csrc/quant_paged_decode_
+// attention.cu) and B6 (the speculative rows, csrc/spec_paged_decode_
+// attention.cu).  B7 and B7q still run paged_decode_kernel above.
 //
 // A CTA serves one (batch row, kv head) and one split of its cache: rows
 // [j * chunk, (j + 1) * chunk), chunk a whole number of blocks.  Its
 // per-block arithmetic is decode_block's, term for term (the scores'
-// fmaf over the key columns in order, the softcap's tanhf, the warp
-// softmax with the same lanes, P V in token order), so a split that is
-// its row's only live one gives the bits of the unsplit kernel.  What
-// differs is where the bytes go: K and V are staged in their storage
-// type by 16-byte cp.async copies, the next block's while this one
-// computes (two stages when both fit), and the rows of a CTA (the
-// group) size shared memory and acc[] through G.  Several live splits
-// leave partials (acc, m, l), and the last of them to finish merges
-// them in split order (split_merge).
+// fmaf over the key columns in order, a 1-byte key dequantized first as
+// to_f32(x) * scale, the softcap's tanhf, the warp softmax with the
+// same lanes, P V in token order), so a split that is its rows' only
+// live one gives the bits of the unsplit kernel.  What differs is where
+// the bytes go: K and V are staged in their storage type by 16-byte
+// cp.async copies, the next block's while this one computes (two stages
+// when both fit), and the rows of a CTA (the group, or B6's K1 x group)
+// size shared memory and acc[] through G.  Several live splits leave
+// partials (acc, m, l), and the last of them to finish merges them in
+// split order (split_merge).
 
 // cp.async: 16 bytes global -> shared, through L2 only.
 __device__ __forceinline__ void cp_async16(void* dst_shared,
@@ -364,11 +359,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 constexpr int MAX_SPLITS = BK_MAX;
 
 // The split kernel's shared memory: the K and V stages in T (the key's
-// 16-byte chunks swizzled by token, so that 8 neighbouring tokens read
-// one chunk column from 8 distinct bank groups), the scaled query rows,
-// the score tile, the rows' running (m, l), the block's rescale factors
-// and the merge flag.  Two stages where they fit the 227 KB a CTA may
-// take, else one (f32 at head dim 256).
+// 16-byte chunks swizzled by token, so that neighbouring tokens read one
+// chunk column from distinct bank groups), the scaled query rows, the
+// score tile, the rows' running (m, l), the block's rescale factors,
+// the merge flag and, for the speculative rows, their horizons.  Two
+// stages where they fit the 227 KB a CTA may take, else one (f32 at
+// head dim 256).
 template <typename T, int DK, int DV>
 __host__ __device__ constexpr int split_stages() {
   return 2 * BK_MAX * (DK + DV) * sizeof(T) <= 200 * 1024 ? 2 : 1;
@@ -378,12 +374,18 @@ template <typename T, int DK, int DV, int G>
 __host__ __device__ constexpr size_t split_smem_bytes() {
   return static_cast<size_t>(split_stages<T, DK, DV>()) * BK_MAX *
              (DK + DV) * sizeof(T) +
-         sizeof(float) * (G * DK + G * BK_MAX + 3 * G) + 16;
+         sizeof(float) * (G * DK + G * BK_MAX + 3 * G) + 16 +
+         (per_row_horizon<G>() ? sizeof(int) * G : 0);
 }
 
 template <typename T, int DK, int DV, int G>
 struct SplitSmem {
   static constexpr int STAGES = split_stages<T, DK, DV>();
+  // 16-byte chunks a key row, and the tokens whose chunk columns the
+  // swizzle spreads: 8, or a row's chunks where it has fewer (a 64-wide
+  // key of 1-byte storage has 4)
+  static constexpr int KCH = DK * sizeof(T) / 16;
+  static constexpr int SWIZZLE = KCH < 8 ? KCH : 8;
   T* k;       // STAGES x BK_MAX x DK, chunks swizzled (k_chunk)
   T* v;       // STAGES x BK_MAX x DV
   float* q;   // G x DK, pre-scaled
@@ -392,6 +394,7 @@ struct SplitSmem {
   float* l;   // running sum per row
   float* a;   // this block's rescale factor per row
   int* flag;  // this CTA merges
+  int* hz;    // per-row horizons (per_row_horizon): tokens [0, hz) visible
   __device__ explicit SplitSmem(unsigned char* base) {
     k = reinterpret_cast<T*>(base);
     v = k + STAGES * BK_MAX * DK;
@@ -401,12 +404,12 @@ struct SplitSmem {
     l = m + G;
     a = l + G;
     flag = reinterpret_cast<int*>(a + G);
+    hz = flag + 4;
   }
   // 16-byte chunk c of token t's key row in stage `st`
   __device__ uint4* k_chunk(int st, int t, int c) const {
-    constexpr int CH = DK * sizeof(T) / 16;
-    return reinterpret_cast<uint4*>(k + st * BK_MAX * DK) + t * CH +
-           (c ^ (t & 7));
+    return reinterpret_cast<uint4*>(k + st * BK_MAX * DK) + t * KCH +
+           (c ^ (t & (SWIZZLE - 1)));
   }
 };
 
@@ -416,7 +419,9 @@ __device__ __forceinline__ void split_stage(const SplitSmem<T, DK, DV, G>& sm,
                                             int st, const T* kblk,
                                             const T* vblk, int rows) {
   constexpr int KCH = DK * sizeof(T) / 16, VCH = DV * sizeof(T) / 16;
-  static_assert(KCH % 8 == 0 && VCH >= 1, "16-byte rows");
+  constexpr int SW = SplitSmem<T, DK, DV, G>::SWIZZLE;
+  static_assert(KCH % SW == 0 && (SW & (SW - 1)) == 0 && VCH >= 1,
+                "16-byte rows, a whole number of swizzled chunk columns");
   const uint4* ks = reinterpret_cast<const uint4*>(kblk);
   const uint4* vs = reinterpret_cast<const uint4*>(vblk);
   uint4* vd = reinterpret_cast<uint4*>(sm.v + st * BK_MAX * DV);
@@ -432,9 +437,13 @@ __device__ __forceinline__ void split_stage(const SplitSmem<T, DK, DV, G>& sm,
 // state.
 template <typename T, int DK, int DV, int G, typename Q>
 __device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const Q* q,
-                           size_t row0, int n, float scale, float acc[G]) {
-  for (int i = threadIdx.x; i < G * DK; i += DV)
-    sm.q[i] = i / DK < n ? to_f32(q[row0 * DK + i]) * scale : 0.f;
+                           const Rows<G>& rows, float scale, float acc[G]) {
+  for (int i = threadIdx.x; i < G * DK; i += DV) {
+    const size_t src = per_row_horizon<G>()
+                           ? rows(i / DK) * DK + i % DK
+                           : rows.row0 * DK + i;
+    sm.q[i] = i / DK < rows.n ? to_f32(q[src]) * scale : 0.f;
+  }
   if (threadIdx.x < G) {
     sm.m[threadIdx.x] = NEG_INF;
     sm.l[threadIdx.x] = 0.f;
@@ -444,7 +453,8 @@ __device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const Q* q,
 }
 
 // One block of stage `st`, decode_block's arithmetic: tokens k_start ..
-// k_start + rows - 1, masked at `length` and by the window.  Scores:
+// k_start + rows - 1, masked at `length` (at sm.hz[r] for the
+// speculative rows) and by the window measured back from it.  Scores:
 // DV / BK_MAX threads a token, each over every (DV / BK_MAX)-th row,
 // reading the key a 16-byte chunk at a time and the query rows as
 // broadcasts.  A 1-byte T is quantized storage, dequantized as
@@ -462,6 +472,8 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
   static_assert(DV % BK_MAX == 0, "a whole number of threads a token");
   const int tid = threadIdx.x;
   const int t = tid % BK_MAX, r0 = tid / BK_MAX;
+  // rows scored: G, or the live ones where they may be far fewer (B6)
+  const int n_dot = per_row_horizon<G>() ? n : G;
   if (r0 < n) {
     float x[RPT];
 #pragma unroll
@@ -476,7 +488,7 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
         kv[j] = kQuant ? to_f32(e[j]) * k_scale : to_f32(e[j]);
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
-        if (r0 + i * TPT >= G) break;
+        if (r0 + i * TPT >= n_dot) break;
         const float* qr = sm.q + (r0 + i * TPT) * DK + c * VEC;
 #pragma unroll
         for (int j = 0; j < VEC; ++j) x[i] = fmaf(qr[j], kv[j], x[i]);
@@ -491,6 +503,11 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
       if (gi >= n) break;
       float y = x[i];
       if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+      if (per_row_horizon<G>()) {  // the row's own horizon
+        const int hz = sm.hz[gi];
+        ok = t < rows && kp < hz;
+        if (window > 0) ok = ok && (hz - 1 - kp) < window;
+      }
       sm.s[gi * BK_MAX + t] = ok ? y : NEG_INF;
     }
   }
@@ -547,12 +564,12 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
   }
 }
 
-// The live splits of a row: [j_lo, j_hi), those holding a token that
-// the row sees.  None for an empty row.
+// The live splits of a row group: [j_lo, j_hi), those holding a token
+// that one of its rows sees.  None for an empty group.
 struct SplitRange {
   int lo, hi;
   // splits covering tokens from `origin` on (a ring walk's start, else
-  // 0), of a row that sees tokens [first, limit)
+  // 0), of rows that see tokens [first, limit) between them
   __device__ SplitRange(int origin, int first, int limit, int chunk) {
     const int a = max(first, origin) - origin, e = limit - origin;
     lo = a / chunk;
@@ -568,27 +585,30 @@ struct SplitRange {
 // The merge of a row group's live partials (acc, m, l), stored by
 // split j at part_*[(j * rows_total + row) ...], in ascending split
 // order: m = max_j m_j, w_j = e^(m_j - m) (0 for every j where m is
-// not live: an all-empty row stays acc 0, m NEG_INF, l 0), acc = sum_j
+// not live: an all-empty row stays acc 0, m NEG_INF, l 0; 0 too for a
+// split where a speculative row saw nothing, m_j NEG_INF), acc = sum_j
 // acc_j w_j, l = sum_j l_j w_j.  The weights go through the score tile.
 // The partials were stored by other CTAs: read them through L2, with
-// MERGE_BATCH splits' loads in flight before any is summed (a loop of
-// dependent L2 round trips would cost more than the splits save).
+// MERGE_BATCH splits' loads of 8 rows in flight before any is summed (a
+// loop of dependent L2 round trips would cost more than the splits
+// save).
 constexpr int MERGE_BATCH = 8;
 
 template <typename T, int DK, int DV, int G>
 __device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
                             const float* part_acc, const float* part_m,
                             const float* part_l, size_t rows_total,
-                            size_t row0, int n, int j_lo, int nlive,
+                            const Rows<G>& rows, int j_lo, int nlive,
                             float* acc_out, float* m_out, float* l_out) {
-  constexpr int B = MERGE_BATCH;
-  const int tid = threadIdx.x;
-  const float* pm = part_m + j_lo * rows_total + row0;
-  const float* pl = part_l + j_lo * rows_total + row0;
-  const float* pa = part_acc + (j_lo * rows_total + row0) * DV + tid;
+  // splits a batch: MERGE_BATCH x 8 loads in flight at any G
+  constexpr int B = MERGE_BATCH * 8 / (G > 8 ? G : 8);
+  const int tid = threadIdx.x, n = rows.n;
+  const float* pm = part_m + j_lo * rows_total + rows.row0;
+  const float* pl = part_l + j_lo * rows_total + rows.row0;
+  const float* pa = part_acc + (j_lo * rows_total + rows.row0) * DV + tid;
   for (int i = tid; i < n * nlive; i += DV)  // m_j into the score tile
     sm.s[(i / nlive) * BK_MAX + i % nlive] =
-        __ldcg(pm + (i % nlive) * rows_total + i / nlive);
+        __ldcg(pm + (i % nlive) * rows_total + rows.off(i / nlive));
   __syncthreads();
   if (tid < n) {
     float m = NEG_INF;
@@ -614,8 +634,8 @@ __device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
       const size_t off = (j0 + u) * rows_total;
 #pragma unroll
       for (int gi = 0; gi < G; ++gi)
-        v[gi][u] = in && gi < n ? __ldcg(pa + (off + gi) * DV) : 0.f;
-      lv[u] = in && tid < n ? __ldcg(pl + off + tid) : 0.f;
+        v[gi][u] = in && gi < n ? __ldcg(pa + (off + rows.off(gi)) * DV) : 0.f;
+      lv[u] = in && tid < n ? __ldcg(pl + off + rows.off(tid)) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < B; ++u) {
@@ -629,42 +649,45 @@ __device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
   }
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
-    if (gi < n) acc_out[(row0 + gi) * DV + tid] = acc[gi];
+    if (gi < n) acc_out[rows(gi) * DV + tid] = acc[gi];
   if (tid < n) {
-    m_out[row0 + tid] = sm.m[tid];
-    l_out[row0 + tid] = l;
+    m_out[rows(tid)] = sm.m[tid];
+    l_out[rows(tid)] = l;
   }
 }
 
-// An empty row (no live split): split 0 stores acc 0, m NEG_INF, l 0,
-// what the unsplit kernel leaves for it; the other splits store nothing.
-template <int DV>
-__device__ __forceinline__ void split_store_empty(int j, int n, size_t row0,
+// An empty row group (no live split): split 0 stores acc 0, m NEG_INF,
+// l 0, what the unsplit kernel leaves for it; the other splits store
+// nothing.
+template <int DV, int G>
+__device__ __forceinline__ void split_store_empty(int j, const Rows<G>& rows,
                                                   float* acc_out,
                                                   float* m_out,
                                                   float* l_out) {
   if (j != 0) return;
-  for (int gi = 0; gi < n; ++gi) acc_out[(row0 + gi) * DV + threadIdx.x] = 0.f;
-  if (threadIdx.x < n) {
-    m_out[row0 + threadIdx.x] = NEG_INF;
-    l_out[row0 + threadIdx.x] = 0.f;
+  for (int gi = 0; gi < rows.n; ++gi)
+    acc_out[rows(gi) * DV + threadIdx.x] = 0.f;
+  if (threadIdx.x < rows.n) {
+    m_out[rows(threadIdx.x)] = NEG_INF;
+    l_out[rows(threadIdx.x)] = 0.f;
   }
 }
 
-// The end of a live split's walk.  A row with one live split stores its
-// residuals directly, so it keeps the unsplit kernel's bits.  With
-// several, each stores its partial at part_*[j], fences, and counts
-// itself in `counter`; the last to arrive resets the counter to 0 for
-// the next launch and merges the partials in split order (split_merge),
-// so the result does not depend on which CTA finishes last.
+// The end of a live split's walk.  A row group with one live split
+// stores its residuals directly, so it keeps the unsplit kernel's bits.
+// With several, each stores its partial at part_*[j], fences, and
+// counts itself in `counter`; the last to arrive resets the counter to
+// 0 for the next launch and merges the partials in split order
+// (split_merge), so the result does not depend on which CTA finishes
+// last.
 template <typename T, int DK, int DV, int G>
 __device__ __forceinline__ void split_finish(
-    const SplitSmem<T, DK, DV, G>& sm, const float acc[G], int j, int n,
-    size_t row0, size_t rows_total, const SplitRange& live, int* counter,
-    float* acc_out, float* m_out, float* l_out, float* part_acc,
-    float* part_m, float* part_l) {
+    const SplitSmem<T, DK, DV, G>& sm, const float acc[G], int j,
+    const Rows<G>& rows, size_t rows_total, const SplitRange& live,
+    int* counter, float* acc_out, float* m_out, float* l_out,
+    float* part_acc, float* part_m, float* part_l) {
   __syncthreads();
-  const int nlive = live.live();
+  const int nlive = live.live(), n = rows.n;
   float* a_out = acc_out;
   float *mo = m_out, *lo = l_out;
   if (nlive > 1) {  // store a partial instead
@@ -674,10 +697,10 @@ __device__ __forceinline__ void split_finish(
   }
 #pragma unroll
   for (int gi = 0; gi < G; ++gi)
-    if (gi < n) a_out[(row0 + gi) * DV + threadIdx.x] = acc[gi];
+    if (gi < n) a_out[(rows.row0 + rows.off(gi)) * DV + threadIdx.x] = acc[gi];
   if (threadIdx.x < n) {
-    mo[row0 + threadIdx.x] = sm.m[threadIdx.x];
-    lo[row0 + threadIdx.x] = sm.l[threadIdx.x];
+    mo[rows.row0 + rows.off(threadIdx.x)] = sm.m[threadIdx.x];
+    lo[rows.row0 + rows.off(threadIdx.x)] = sm.l[threadIdx.x];
   }
   if (nlive == 1) return;
   __threadfence();  // the partial is visible before it is counted
@@ -689,27 +712,36 @@ __device__ __forceinline__ void split_finish(
   __syncthreads();
   if (!*sm.flag) return;
   __threadfence();
-  split_merge<T, DK, DV, G>(sm, part_acc, part_m, part_l, rows_total, row0,
-                            n, live.lo, nlive, acc_out, m_out, l_out);
+  split_merge<T, DK, DV, G>(sm, part_acc, part_m, part_l, rows_total, rows,
+                            live.lo, nlive, acc_out, m_out, l_out);
 }
 
-// Split-KV paged decode (B4): paged_decode_kernel's walk through the
-// block table, cut into splits as B3 cuts a dense cache.  The grid is
-// (Hkv, B, nsplit); CTA (h, b, j) walks the slot's logical rows
+// Split-KV paged decode (B4, B5, B6): the block-table walk of
+// paged_decode_kernel, cut into splits as B3 cuts a dense cache.  The
+// grid is (Hkv, B, nsplit); CTA (h, b, j) walks the slot's logical rows
 // [lo + j * chunk, lo + (j + 1) * chunk), chunk a whole number of pages
 // and so of bk-token blocks (lo: a ring walk's start[b], else 0), for
-// the group's G rows.  Each block's physical page comes from the table
+// the CTA's rows.  Each block's physical page comes from the table
 // row, an entry outside the pool reading the null page 0, as in
 // paged_decode_kernel; the entry of block i + 2 is read while block i
 // computes and the copy of block i + 1 is in flight (two stages where
-// they fit).  The per-block arithmetic is split_block's, decode_block's
-// term for term, so one split gives paged_decode_kernel's bits.  Rows,
-// horizons and the ring walk as paged_decode_kernel (one-token only):
-// the rows see `length` tokens (row_len[b], capped at the table's reach
-// unless RING), the window measured back from it.  Templated on KV and
-// RING as paged_decode_kernel is; only B4 (T == KV, no ring) launches
-// it so far.  A 1-byte KV reads its block's page scales (a 64-wide key
-// of 1-byte storage needs a narrower swizzle than SplitSmem's first).
+// they fit), and a 1-byte KV's page scales of block i + 1 are read
+// while block i computes.  The per-block arithmetic is split_block's,
+// decode_block's term for term, so one split gives the unsplit
+// kernel's bits.
+//
+// Rows and horizons.  One-token (G <= 8): the group's rows all see
+// `length` tokens (row_len[b], capped at the table's reach unless
+// RING), the window measured back from it.  Speculative (G_SPEC): row r
+// of the K1 x group (Rows) sees row_len[b * row_stride + r] tokens (its
+// wrapper computes base + 1 + r / group), each masked at its own
+// horizon and window (in shared memory, SplitSmem::hz); the CTA's live
+// range runs from the earliest window start of its rows to their
+// largest horizon, capped at the table's reach, so the walk, the live
+// splits and the direct store are the CTA's, as one counter per (slot,
+// kv head) is.  A split of that range where a row sees no token leaves
+// it acc 0, m NEG_INF, l 0, which the merge weighs 0.  Templated on KV
+// and RING (B7 and B7q may take it by a change of dispatch).
 template <typename T, typename KV, int DK, int DV, int G, bool RING>
 __global__ void __launch_bounds__(DV)
 split_paged_decode_kernel(
@@ -717,25 +749,44 @@ split_paged_decode_kernel(
     const KV* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ bt,
     const int* __restrict__ row_len, const int* __restrict__ start,
-    float* acc_out, float* m_out, float* l_out, float* part_acc,
-    float* part_m, float* part_l, int* counters, int hq, int hkv,
-    int n_pages, int page_size, int t_cols, int bk, int chunk, float scale,
-    int window, float softcap) {
+    int row_stride, float* acc_out, float* m_out, float* l_out,
+    float* part_acc, float* part_m, float* part_l, int* counters, int k1,
+    int hq, int hkv, int n_pages, int page_size, int t_cols, int bk,
+    int chunk, float scale, int window, float softcap) {
+  static_assert(!RING || !per_row_horizon<G>(), "ring walks are one-token");
   using Smem = SplitSmem<KV, DK, DV, G>;
   constexpr bool kQuant = sizeof(KV) == 1;
+  constexpr bool kSpec = per_row_horizon<G>();
   // paged_decode_kernel's `smem` above is float
   extern __shared__ __align__(16) unsigned char split_smem[];
   const Smem sm(split_smem);
   const int h = blockIdx.x, b = blockIdx.y, j = blockIdx.z, g = hq / hkv;
-  const size_t row0 = static_cast<size_t>(b) * hq + h * g;
+  const int k = kSpec ? k1 : 1;  // query positions a slot
+  const Rows<G> rows{static_cast<size_t>(b) * k * hq + h * g, g, hq, k * g};
   const int reach = t_cols * page_size;
   const int lo = RING ? start[b] : 0;
-  const int length = RING ? row_len[b] : min(row_len[b], reach);
-  const int limit = RING ? min(length, lo + reach) : length;
-  const SplitRange live(lo, window > 0 ? max(0, length - window) : 0, limit,
-                        chunk);
+  int length = 0, first, limit;
+  if (kSpec) {
+    if (threadIdx.x < rows.n)
+      sm.hz[threadIdx.x] =
+          row_len[static_cast<size_t>(b) * row_stride + threadIdx.x];
+    __syncthreads();
+    first = INT_MAX;
+    limit = 0;
+    for (int r = 0; r < rows.n; ++r) {
+      const int hz = sm.hz[r];
+      first = min(first, window > 0 ? max(0, hz - window) : 0);
+      limit = max(limit, hz);
+    }
+    limit = min(limit, reach);
+  } else {
+    length = RING ? row_len[b] : min(row_len[b], reach);
+    first = window > 0 ? max(0, length - window) : 0;
+    limit = RING ? min(length, lo + reach) : length;
+  }
+  const SplitRange live(lo, first, limit, chunk);
   if (live.live() == 0) {
-    split_store_empty<DV>(j, g, row0, acc_out, m_out, l_out);
+    split_store_empty<DV, G>(j, rows, acc_out, m_out, l_out);
     return;
   }
   if (j < live.lo || j >= live.hi) return;  // an empty split
@@ -752,30 +803,39 @@ split_paged_decode_kernel(
     split_stage<KV, DK, DV, G>(sm, ib % Smem::STAGES, kp + r0 * DK,
                                vp + r0 * DV, bk);
   };
-  int cur = page_of(0);
+  const int first_page = page_of(0);
   int nxt = nblk > 1 ? page_of(1) : 0;
-  stage(0, cur);  // in flight while the query rows are staged
+  float k_sc = 1.f, v_sc = 1.f;  // the computing block's page scales
+  if (kQuant) {
+    k_sc = ks[static_cast<size_t>(h) * n_pages + first_page];
+    v_sc = vs[static_cast<size_t>(h) * n_pages + first_page];
+  }
+  stage(0, first_page);  // in flight while the query rows are staged
   float acc[G];
-  split_init<KV, DK, DV, G>(sm, q, row0, g, scale, acc);
+  split_init<KV, DK, DV, G>(sm, q, rows, scale, acc);
   for (int ib = 0; ib < nblk; ++ib) {
     cp_async_wait_all();
     __syncthreads();  // the block has landed; the last one's readers are done
     if (Smem::STAGES == 2 && ib + 1 < nblk) stage(ib + 1, nxt);
     const int after = ib + 2 < nblk ? page_of(ib + 2) : 0;
-    const size_t pg = static_cast<size_t>(h) * n_pages + cur;
+    float k_nx = 1.f, v_nx = 1.f;  // block ib + 1's, landing meanwhile
+    if (kQuant) {
+      k_nx = ks[static_cast<size_t>(h) * n_pages + nxt];
+      v_nx = vs[static_cast<size_t>(h) * n_pages + nxt];
+    }
     split_block<KV, DK, DV, G>(sm, ib % Smem::STAGES, bk,
-                               lo + c_begin + ib * bk, g, length, window,
-                               softcap, acc, kQuant ? ks[pg] : 1.f,
-                               kQuant ? vs[pg] : 1.f);
+                               lo + c_begin + ib * bk, rows.n, length,
+                               window, softcap, acc, k_sc, v_sc);
     if (Smem::STAGES == 1 && ib + 1 < nblk) {
       __syncthreads();
       stage(ib + 1, nxt);
     }
-    cur = nxt;
     nxt = after;
+    k_sc = k_nx;
+    v_sc = v_nx;
   }
-  split_finish<KV, DK, DV, G>(sm, acc, j, g, row0,
-                              static_cast<size_t>(gridDim.y) * hq, live,
+  split_finish<KV, DK, DV, G>(sm, acc, j, rows,
+                              static_cast<size_t>(gridDim.y) * k * hq, live,
                               counters + b * hkv + h, acc_out, m_out, l_out,
                               part_acc, part_m, part_l);
 }
@@ -792,9 +852,9 @@ cudaError_t launch_split_paged(const PagedArgs& a) {
       <<<dim3(a.hkv, a.b, a.nsplit), DV, bytes, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
           static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len, a.start,
-          a.acc, a.m, a.l, a.part_acc, a.part_m, a.part_l, a.counters, a.hq,
-          a.hkv, a.n_pages, a.page_size, a.t_cols, a.bk, a.chunk, a.scale,
-          a.window, a.softcap);
+          a.row_stride, a.acc, a.m, a.l, a.part_acc, a.part_m, a.part_l,
+          a.counters, a.k1, a.hq, a.hkv, a.n_pages, a.page_size, a.t_cols,
+          a.bk, a.chunk, a.scale, a.window, a.softcap);
   return cudaGetLastError();
 }
 
@@ -806,6 +866,40 @@ cudaError_t dispatch_split_paged_g(const PagedArgs& a) {
   if (g <= 2) return launch_split_paged<T, KV, DK, DV, 2, RING>(a);
   if (g <= 4) return launch_split_paged<T, KV, DK, DV, 4, RING>(a);
   return launch_split_paged<T, KV, DK, DV, 8, RING>(a);
+}
+
+// Equal key and value head dims 64, 128 and 256: the group's build, or
+// with SPEC the speculative kernel's G_SPEC rows.
+template <typename T, typename KV, int D, bool SPEC>
+cudaError_t dispatch_split_paged_rows(const PagedArgs& a) {
+  if constexpr (SPEC)
+    return launch_split_paged<T, KV, D, D, G_SPEC, false>(a);
+  else
+    return dispatch_split_paged_g<T, KV, D, D>(a);
+}
+
+template <typename T, typename KV, bool SPEC = false>
+cudaError_t dispatch_split_paged_d(const PagedArgs& a) {
+  if (a.dv != 0 && a.dv != a.d) return cudaErrorInvalidValue;
+  if (a.d == 64) return dispatch_split_paged_rows<T, KV, 64, SPEC>(a);
+  if (a.d == 128) return dispatch_split_paged_rows<T, KV, 128, SPEC>(a);
+  if (a.d == 256) return dispatch_split_paged_rows<T, KV, 256, SPEC>(a);
+  return cudaErrorInvalidValue;
+}
+
+// The split fields of a paged launch: `chunk` logical rows a split (a
+// whole number of pages), nsplit = max(1, ceil(t_cols * page_size /
+// chunk)) and, with several, the partials' scratch (nsplit, rows, DV),
+// (nsplit, rows) twice, and the zeroed (B x Hkv) int32 counters.
+inline void set_splits(PagedArgs& a, int chunk, void* part_acc,
+                       void* part_m, void* part_l, void* counters) {
+  a.chunk = chunk;
+  a.nsplit = chunk > 0 ? (a.t_cols * a.page_size + chunk - 1) / chunk : 0;
+  if (a.nsplit < 1) a.nsplit = 1;
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_m = static_cast<float*>(part_m);
+  a.part_l = static_cast<float*>(part_l);
+  a.counters = static_cast<int*>(counters);
 }
 
 // Shape checks of the split paged launch beside paged_args_ok: chunks of

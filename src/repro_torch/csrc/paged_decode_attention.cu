@@ -20,13 +20,14 @@
 // from lengths, which live on the card; a split past lengths[b] or
 // wholly outside the window returns at once.  A row with one live split
 // stores its result directly, with the arithmetic of the unsplit paged
-// kernel (paged_decode_kernel, which B5-B7q still run), so a one-split
-// launch gives its bits; with several, the last live split to arrive
-// merges the partials in split order and resets its counter, inside
-// the same launch.  Key and value head dims are equal (64, 128, 256),
-// or 192 / 128 for MLA, whose 16 query heads sit one per kv head: 8
-// slots make 128 CTAs a split of 128 threads, each scoring over 192
-// columns and writing 128.
+// kernel (paged_decode_kernel, which B7 and B7q still run), so a
+// one-split launch gives its bits; with several, the last live split to
+// arrive merges the partials in split order and resets its counter,
+// inside the same launch.  The quantized (B5) and speculative (B6)
+// kernels run the same body over their pools and rows.  Key and value
+// head dims are equal (64, 128, 256), or 192 / 128 for MLA, whose 16
+// query heads sit one per kv head: 8 slots make 128 CTAs a split of 128
+// threads, each scoring over 192 columns and writing 128.
 #include "decode_common.cuh"
 
 namespace {
@@ -35,11 +36,7 @@ template <typename T>
 cudaError_t dispatch(const repro::PagedArgs& a) {
   if (a.d == 192 && a.dv == 128)
     return repro::dispatch_split_paged_g<T, T, 192, 128>(a);
-  if (a.dv != a.d) return cudaErrorInvalidValue;
-  if (a.d == 64) return repro::dispatch_split_paged_g<T, T, 64, 64>(a);
-  if (a.d == 128) return repro::dispatch_split_paged_g<T, T, 128, 128>(a);
-  if (a.d == 256) return repro::dispatch_split_paged_g<T, T, 256, 256>(a);
-  return cudaErrorInvalidValue;
+  return repro::dispatch_split_paged_d<T, T>(a);
 }
 
 }  // namespace
@@ -64,13 +61,7 @@ extern "C" int paged_decode_attention_fwd(
       page_size, t_cols, d, bk, scale, window, softcap,
       static_cast<cudaStream_t>(stream)};
   a.dv = dv;
-  a.chunk = chunk;
-  a.nsplit = chunk > 0 ? (t_cols * page_size + chunk - 1) / chunk : 0;
-  if (a.nsplit < 1) a.nsplit = 1;
-  a.part_acc = static_cast<float*>(part_acc);
-  a.part_m = static_cast<float*>(part_m);
-  a.part_l = static_cast<float*>(part_l);
-  a.counters = static_cast<int*>(counters);
+  repro::set_splits(a, chunk, part_acc, part_m, part_l, counters);
   if (!repro::paged_args_ok<G>(a) || !repro::split_paged_args_ok(a))
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;

@@ -8,43 +8,56 @@
 //
 // Bound on the H100: bytes, half of the bf16 kernel's: one byte per K/V
 // element plus one f32 scale per (head, page) for each pool.  Design:
-// the reference rides the scale block on the same block-table index map
-// as its K/V block and multiplies after the DMA; here the CTA reads
-// scales[h * P + page] for the page it gathers and stage_tile
-// dequantizes every element to f32 as to_f32(x) * scale while staging
-// it, before any dot (decode_attention.py:69-72).  A 16-byte load
-// carries 16 elements, so a block's staging issues half the loads of
-// bf16.
+// B4's split-KV kernel (split_paged_decode_kernel in decode_common.cuh)
+// with KV the pool's 1-byte type.  The grid is (Hkv, B, nsplit), chunks
+// of whole pages of each slot's table picked from the table's reach
+// alone (kernels/decode_attention/decode_attention.py, paged_splits);
+// a one-split launch keeps the unsplit kernel's arithmetic and bits,
+// and several merge in split order inside the launch.  The reference
+// rides the scale block on the same block-table index map as its K/V
+// block and multiplies after the DMA; here the CTA reads scales[h * P +
+// page] of the next block with its table entry, while this block
+// computes, and cp.async stages the bytes as they are stored, 16
+// elements a copy (half the copies of bf16).  split_block dequantizes
+// each element as to_f32(x) * scale before any dot or P V product
+// (decode_attention.py:69-72).  A 64-wide key of 1-byte storage is four
+// 16-byte chunks, so the stage's swizzle spreads 4 tokens, not 8.
 #include "decode_common.cuh"
 
 namespace {
 
 template <typename T>
 cudaError_t dispatch_kv(const repro::PagedArgs& a, int kv_dtype) {
-  constexpr int G = repro::G_DECODE;
   if (kv_dtype == repro::DTYPE_I8)
-    return repro::dispatch_paged_d<T, int8_t, G>(a);
+    return repro::dispatch_split_paged_d<T, int8_t>(a);
   if (kv_dtype == repro::DTYPE_FP8)
-    return repro::dispatch_paged_d<T, __nv_fp8_e4m3, G>(a);
+    return repro::dispatch_split_paged_d<T, __nv_fp8_e4m3>(a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// chunk: logical rows a split, a whole number of pages; nsplit =
+// max(1, ceil(t_cols * page_size / chunk)) <= MAX_SPLITS.  With nsplit
+// > 1, part_acc (nsplit, B, Hq, D), part_m and part_l (nsplit, B, Hq)
+// are scratch and counters (B, Hkv) int32 must hold 0 (the kernel
+// leaves them so).
 extern "C" int quant_paged_decode_attention_fwd(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* bt, const void* lengths, void* acc, void* m,
-    void* l, int b, int hq, int hkv, int n_pages, int page_size, int t_cols,
-    int d, int bk, float scale, int window, float softcap, int q_dtype,
+    void* l, void* part_acc, void* part_m, void* part_l, void* counters,
+    int b, int hq, int hkv, int n_pages, int page_size, int t_cols, int d,
+    int bk, int chunk, float scale, int window, float softcap, int q_dtype,
     int kv_dtype, void* stream) {
-  const repro::PagedArgs a{
+  repro::PagedArgs a{
       q, kp, vp, static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(bt), static_cast<const int*>(lengths), 0,
       static_cast<float*>(acc), static_cast<float*>(m),
       static_cast<float*>(l), b, 1, hq, hkv, n_pages, page_size, t_cols, d,
       bk, scale, window, softcap, static_cast<cudaStream_t>(stream)};
-  if (!repro::paged_args_ok<repro::G_DECODE>(a) || ks == nullptr ||
-      vs == nullptr)
+  repro::set_splits(a, chunk, part_acc, part_m, part_l, counters);
+  if (!repro::paged_args_ok<repro::G_DECODE>(a) ||
+      !repro::split_paged_args_ok(a) || ks == nullptr || vs == nullptr)
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
   if (q_dtype == repro::DTYPE_F32) return dispatch_kv<float>(a, kv_dtype);

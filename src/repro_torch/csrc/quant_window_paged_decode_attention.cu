@@ -13,7 +13,7 @@
 // walk (kernels/decode_attention/paged.py, ring_walk) as the bf16
 // window kernel does and reads scales[h * P + page] for each page it
 // gathers; stage_tile dequantizes every element as to_f32(x) * scale
-// while staging it, before any dot, as B5 does (decode_common.cuh).
+// while staging it, before any dot (decode_common.cuh).
 #include "decode_common.cuh"
 
 namespace {

@@ -7,8 +7,9 @@ kernel (or the call raises).  Both return the unnormalized residuals
 (acc, m, l) internally; the public functions normalize them with the
 ``l == 0 -> 1`` guard unless ``return_residuals`` asks for the raw
 triple.  ``page_size`` (logical, divides the pool's), ``block_kv`` and
-the dense and paged kernels' ``splits`` are schedule choices that
-change the result only by the order of f32 sums.
+the split-KV kernels' ``splits`` (dense, paged, quantized paged and
+speculative) are schedule choices that change the result only by the
+order of f32 sums; on the CPU they have no effect.
 """
 from __future__ import annotations
 
@@ -93,10 +94,12 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
                                  scale: Optional[float] = None,
                                  page_size: Optional[int] = None,
                                  block_kv: Optional[int] = None,
+                                 splits: Optional[int] = None,
                                  return_residuals: bool = False):
     """Single-token GQA decode over a quantized paged pool: pools (Hkv,
     P, ps, D) int8/fp8-e4m3, scale pools (Hkv, P) f32.  Semantics of
-    ``paged_decode_attention`` over the dequantized pools."""
+    ``paged_decode_attention`` over the dequantized pools, ``splits``
+    as there."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         res = _ref.quant_paged_decode_attention_ref(
@@ -107,7 +110,7 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
             "quant_paged_decode_attention", "block_kv")
         res = _quant.quant_paged_decode_attention_fwd(
             q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths,
-            page_size=page_size, block_kv=block_kv, **kw)
+            page_size=page_size, block_kv=block_kv, splits=splits, **kw)
     return _finish(q, res, return_residuals)
 
 
@@ -166,11 +169,13 @@ def spec_paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                                 scale: Optional[float] = None,
                                 page_size: Optional[int] = None,
                                 block_kv: Optional[int] = None,
+                                splits: Optional[int] = None,
                                 return_residuals: bool = False):
     """Speculative (multi-query) GQA decode over a paged pool.  q: (B,
     K1, Hq, D), the committed token plus k drafts per slot; lengths:
     (B,) PRE-speculation prefix.  Position i attends causally to
-    ``lengths + 1 + i`` tokens.  Returns (B, K1, Hq, D) or residuals."""
+    ``lengths + 1 + i`` tokens.  ``splits`` as ``paged_decode_attention``
+    takes it.  Returns (B, K1, Hq, D) or residuals."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         res = _ref.spec_paged_decode_attention_ref(
@@ -181,7 +186,7 @@ def spec_paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
             "spec_paged_decode_attention", "block_kv")
         res = _spec.spec_paged_decode_attention_fwd(
             q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
-            block_kv=block_kv, **kw)
+            block_kv=block_kv, splits=splits, **kw)
     return _finish(q, res, return_residuals)
 
 
@@ -192,6 +197,7 @@ def quant_spec_paged_decode_attention(q, k_pages, v_pages, k_scales,
                                       scale: Optional[float] = None,
                                       page_size: Optional[int] = None,
                                       block_kv: Optional[int] = None,
+                                      splits: Optional[int] = None,
                                       return_residuals: bool = False):
     """``spec_paged_decode_attention`` over quantized pools; on the card
     the same kernel in its quantized mode."""
@@ -205,5 +211,6 @@ def quant_spec_paged_decode_attention(q, k_pages, v_pages, k_scales,
             "quant_spec_paged_decode_attention", "block_kv")
         res = _spec.spec_paged_decode_attention_fwd(
             q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
-            block_kv=block_kv, k_scales=k_scales, v_scales=v_scales, **kw)
+            block_kv=block_kv, k_scales=k_scales, v_scales=v_scales,
+            splits=splits, **kw)
     return _finish(q, res, return_residuals)

@@ -18,7 +18,8 @@ the window's first live page, the walk the window kernels follow.
 plain functions so that the CPU tests check the index math the kernel
 launches rely on; ``paged_operands`` applies them for these launchers
 and for the quantized (``quant.py``) and speculative (``spec.py``)
-ones.
+ones, and ``split_plan`` picks the split-KV launch of B4, B5 and B6
+(chunks of whole pages of each table row, from the table's reach).
 """
 from __future__ import annotations
 
@@ -138,6 +139,37 @@ def paged_operands(name: str, q, k_pages, v_pages, block_tables, *,
             bk)
 
 
+def split_plan(name: str, q, hkv: int, bt, page_size: int,
+               splits: Optional[int], dv: Optional[int] = None):
+    """(chunk, scratch) of a split-KV paged launch (B4, B5, B6): chunks
+    of whole logical pages of each table row, ``splits`` of them (None:
+    ``paged_splits`` from the table's reach, never from ``lengths``),
+    and with several the partials' scratch for q's rows ``q.shape[:-1]``
+    (acc (n, ..., dv), m and l (n, ...)) and the merge's zeroed (B x
+    Hkv) counters; else four Nones."""
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"{name}: splits {splits} not in [1, {MAX_SPLITS}]")
+    reach = max(bt.shape[1], 1) * page_size
+    if splits is None:
+        splits = paged_splits(reach, page_size)
+    chunk = split_chunk(reach, splits, page_size)
+    n = -(-reach // chunk)          # <= splits
+    if n == 1:
+        return chunk, (None,) * 4
+    f32 = dict(dtype=torch.float32, device=q.device)
+    rows = tuple(q.shape[:-1])
+    dv = q.shape[-1] if dv is None else dv
+    return chunk, (torch.empty(n, *rows, dv, **f32),
+                   torch.empty(n, *rows, **f32), torch.empty(n, *rows, **f32),
+                   merge_counters(q.device, q.shape[0] * hkv))
+
+
+def scratch_ptrs(scratch):
+    """The kernel arguments of ``split_plan``'s scratch (null where
+    absent)."""
+    return tuple(None if t is None else ptr(t) for t in scratch)
+
+
 def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
                                window: Optional[int],
                                softcap: Optional[float],
@@ -157,27 +189,14 @@ def paged_decode_attention_fwd(q, k_pages, v_pages, block_tables, lengths, *,
     if hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"{name}: {hq} query heads over {hkv} kv heads "
                          f"(group <= {MAX_GROUP})")
-    if splits is not None and not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"{name}: splits {splits} not in [1, {MAX_SPLITS}]")
     k_pages, v_pages, bt, _, _, page_size, bk = paged_operands(
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv)
+    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits, dv)
     check_cuda(name, q, k_pages, v_pages, bt, lengths)
-    reach = max(bt.shape[1], 1) * page_size
-    if splits is None:
-        splits = paged_splits(reach, page_size)
-    chunk = split_chunk(reach, splits, page_size)
-    n = -(-reach // chunk)          # <= splits
     acc, m, l = residual_outputs(q, dv)
-    parts = (None,) * 4
-    if n > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        parts = (torch.empty(n, b, hq, dv, **f32),
-                 torch.empty(n, b, hq, **f32), torch.empty(n, b, hq, **f32),
-                 merge_counters(q.device, b * hkv))
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(bt), ptr(lengths),
-                  ptr(acc), ptr(m), ptr(l),
-                  *(None if t is None else ptr(t) for t in parts),
+                  ptr(acc), ptr(m), ptr(l), *scratch_ptrs(scratch),
                   b, hq, hkv, k_pages.shape[1], page_size, bt.shape[1], d,
                   dv, bk, chunk, float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),

@@ -52,27 +52,36 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, *,
         q_pos = (lengths - 1)[:, None, None]
         mask &= (q_pos - k_pos) < window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-
-    if chunk is None:
-        acc, m, l = _residuals(scores, vf)
-    else:
-        acc, m, l = combine_partials(*zip(*(
-            _residuals(scores[..., j:j + chunk], vf[:, :, j:j + chunk])
-            for j in range(0, s, chunk))))
+    acc, m, l = _chunked_residuals(scores, vf, chunk)
     if return_residuals:
         return acc, m, l
     return normalize(acc, l, q.dtype)
 
 
 def _residuals(scores, vf):
-    """(acc, m, l) of masked scores (B, Hq, S) over values (B, Hq, S,
-    Dv), with the ``m > NEG_INF / 2`` guard of an all-masked row."""
+    """(acc, m, l) of masked scores (B, Hq, S), or (B, K1, Hq, S) for
+    the speculative rows, over values (B, Hq, S, Dv), with the ``m >
+    NEG_INF / 2`` guard of an all-masked row."""
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = torch.where(m > NEG_INF / 2, p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhk,bhkd->bhd", p, vf)
+    eq = "bhk,bhkd->bhd" if scores.dim() == 3 else "bihk,bhkd->bihd"
+    acc = torch.einsum(eq, p, vf)
     return acc, m[..., 0], l[..., 0]
+
+
+def _chunked_residuals(scores, vf, chunk: Optional[int]):
+    """:func:`_residuals` of the whole key axis, or (``chunk``: a
+    split-KV kernel's rounding model) of each ``chunk`` keys on their own,
+    merged by :func:`combine_partials` in chunk order.  The scores are
+    computed once, as the kernels compute each the same way whatever the
+    split, so m equals the unsplit m bit for bit."""
+    if chunk is None:
+        return _residuals(scores, vf)
+    return combine_partials(*zip(*(
+        _residuals(scores[..., j:j + chunk], vf[:, :, j:j + chunk])
+        for j in range(0, scores.shape[-1], chunk))))
 
 
 def combine_partials(accs, ms, ls):
@@ -143,12 +152,15 @@ def quant_paged_decode_attention_ref(q, k_pages, v_pages, k_scales, v_scales,
                                      window: Optional[int] = None,
                                      softcap: Optional[float] = None,
                                      scale: Optional[float] = None,
+                                     chunk: Optional[int] = None,
                                      return_residuals: bool = False):
-    """Dequantize the pools densely, then the paged plain version."""
+    """Dequantize the pools densely, then the paged plain version
+    (``chunk``: B5's split-KV rounding model, as B4's)."""
     k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
     return paged_decode_attention_ref(
         q, k_dense, v_dense, block_tables, lengths, window=window,
-        softcap=softcap, scale=scale, return_residuals=return_residuals)
+        softcap=softcap, scale=scale, chunk=chunk,
+        return_residuals=return_residuals)
 
 
 def window_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
@@ -189,6 +201,7 @@ def spec_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                     window: Optional[int] = None,
                                     softcap: Optional[float] = None,
                                     scale: Optional[float] = None,
+                                    chunk: Optional[int] = None,
                                     return_residuals: bool = False):
     """Speculative (multi-query) paged decode.
 
@@ -197,7 +210,10 @@ def spec_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
     ``lengths + i`` and attends causally to ``lengths + 1 + i`` tokens
     (the window's K/V rows are written before the verify).  Returns
     (B, K1, Hq, D) in q's dtype, or residuals acc (B, K1, Hq, D), m and
-    l (B, K1, Hq)."""
+    l (B, K1, Hq).  ``chunk``: the split-KV kernel's rounding model
+    (B6, ``csrc/spec_paged_decode_attention.cu``), each ``chunk``
+    logical rows of a table row on their own, merged in chunk order; a
+    position that sees no row of a chunk adds nothing to the merge."""
     b, k1, hq, d = q.shape
     hkv = k_pages.shape[0]
     group = hq // hkv
@@ -221,15 +237,10 @@ def spec_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
         q_pos = (row_len - 1)[:, :, None, None]
         mask &= (q_pos - k_pos) < window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
-    p = torch.where(m > NEG_INF / 2, p, torch.zeros_like(p))
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bihk,bhkd->bihd", p, vf)
+    acc, m, l = _chunked_residuals(scores, vf, chunk)
     if return_residuals:
-        return acc, m[..., 0], l[..., 0]
-    return normalize(acc, l[..., 0], q.dtype)
+        return acc, m, l
+    return normalize(acc, l, q.dtype)
 
 
 def quant_spec_paged_decode_attention_ref(q, k_pages, v_pages, k_scales,
@@ -237,9 +248,12 @@ def quant_spec_paged_decode_attention_ref(q, k_pages, v_pages, k_scales,
                                           window: Optional[int] = None,
                                           softcap: Optional[float] = None,
                                           scale: Optional[float] = None,
+                                          chunk: Optional[int] = None,
                                           return_residuals: bool = False):
-    """Dequantize the pools densely, then the speculative plain version."""
+    """Dequantize the pools densely, then the speculative plain version
+    (``chunk`` as there)."""
     k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
     return spec_paged_decode_attention_ref(
         q, k_dense, v_dense, block_tables, lengths, window=window,
-        softcap=softcap, scale=scale, return_residuals=return_residuals)
+        softcap=softcap, scale=scale, chunk=chunk,
+        return_residuals=return_residuals)

@@ -11,7 +11,12 @@ Position ``qi`` sits at token ``lengths + qi`` and sees ``lengths + 1 +
 qi`` tokens, so row ``r`` sees ``lengths + 1 + r // group``
 (``spec_row_lengths``): the window's K/V rows are written before the
 verify.  Both helpers are plain torch, so the CPU tests check the index
-math the kernel is handed.
+math the kernel is handed.  The kernel is B4's split-KV kernel at
+``MAX_ROWS`` rows a CTA, each masked at its own horizon: it walks each
+table row in ``splits`` chunks of whole pages (None: the rule of
+``paged.split_plan``, from the table's reach, never from ``lengths``)
+and merges their partials in chunk order; the plain version with
+``chunk=`` is its rounding model.
 
 Layouts
   q            (B, K1, Hq, D)   the speculation window per slot
@@ -34,13 +39,14 @@ from repro_torch.core.build import (CudaKernel, check_cuda, dtype_code, ptr,
                                     stream_of)
 from repro_torch.kernels.decode_attention.decode_attention import (
     check_decode_operands, residual_outputs)
-from repro_torch.kernels.decode_attention.paged import paged_operands
+from repro_torch.kernels.decode_attention.paged import (
+    paged_operands, scratch_ptrs, split_plan)
 
 _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "spec_paged_decode_attention", "spec_paged_decode_attention.cu",
     "spec_paged_decode_attention_fwd",
-    [_p] * 10 + [_i] * 9 + [_f, _i, _f, _i, _i, _p])
+    [_p] * 14 + [_i] * 10 + [_f, _i, _f, _i, _i, _p])
 
 MAX_ROWS = 32        # G_SPEC in csrc/decode_common.cuh: K1 * group
 
@@ -66,10 +72,12 @@ def spec_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
                                     softcap: Optional[float],
                                     scale: Optional[float],
                                     page_size: Optional[int], block_kv: int,
-                                    k_scales=None, v_scales=None):
+                                    k_scales=None, v_scales=None,
+                                    splits: Optional[int] = None):
     """Launch the speculative kernel; with ``k_scales``/``v_scales`` the
     pools are int8/fp8 storage and each block is dequantized in the
-    kernel, else they hold q's dtype."""
+    kernel, else they hold q's dtype.  ``splits``: chunks of whole pages
+    of each table row (None: the table's reach decides)."""
     name = "spec_paged_decode_attention"
     quantized = k_scales is not None
     check_decode_operands(name, q, k_pages, v_pages, lengths,
@@ -83,6 +91,7 @@ def spec_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
     k_pages, v_pages, bt, ks, vs, page_size, bk = paged_operands(
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv, k_scales=k_scales, v_scales=v_scales)
+    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits)
     row_len = spec_row_lengths(lengths, k1, group)
     operands = [q, k_pages, v_pages, bt, row_len]
     if quantized:
@@ -92,9 +101,9 @@ def spec_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages),
                   ptr(ks) if quantized else None,
                   ptr(vs) if quantized else None, ptr(bt), ptr(row_len),
-                  ptr(acc), ptr(m), ptr(l), b, k1, hq, hkv,
-                  k_pages.shape[1], page_size, bt.shape[1], d, bk,
-                  float(d ** -0.5 if scale is None else scale),
+                  ptr(acc), ptr(m), ptr(l), *scratch_ptrs(scratch), b, k1,
+                  hq, hkv, k_pages.shape[1], page_size, bt.shape[1], d, bk,
+                  chunk, float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   dtype_code(k_pages), stream_of(q))
     return acc, m, l

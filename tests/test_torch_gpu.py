@@ -281,14 +281,38 @@ def _quantized(pool, dtype):
     return spec.quantize_pages(pool)
 
 
+def _check_split_counts(kern, run, plain, reach, page):
+    """A split-KV paged kernel (B5, B6) at one split, at 8 and at its
+    served count, each in one launch: against its split plain version
+    (``plain(chunk)``, its rounding model) and the unsplit one
+    (``plain(None)``) within 1e-4 (f32 residuals), and m bit for bit with
+    its one-split launch."""
+    want = plain(None)
+    one = None
+    for splits in (1, 8, None):
+        n = splits or dec_kern.paged_splits(reach, page)
+        before = kern.launches
+        got = run(splits)
+        assert kern.launches == before + 1
+        split_want = plain(dec_kern.split_chunk(reach, n, page))
+        for a, w, sw in zip(got, want, split_want):
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(a, sw, atol=1e-4, rtol=1e-4)
+        one = got if one is None else one
+        assert torch.equal(got[1], one[1])
+    return one
+
+
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
 @pytest.mark.parametrize("d,window,softcap", [(128, None, None),
                                               (64, 50, 20.0),
                                               (256, None, 50.0)])
 def test_quant_paged_decode_kernel(cuda, kv_dtype, d, window, softcap):
-    """B5 against its plain version on the same quantized bytes (f32
-    residuals, 1e-4), and against bf16 B4 on the unquantized data within
-    the documented DECODE_TOL."""
+    """B5 at one split, 8 and its served count against its split plain
+    version and the unsplit one on the same quantized bytes (f32
+    residuals, 1e-4), at the pool's page and a logical page of 16; and
+    against bf16 B4 on the unquantized data within the documented
+    DECODE_TOL."""
     g = torch.Generator(device=cuda).manual_seed(1)
     b, hq, hkv, s, ps = 4, 32, 8, 300, 64
     q = torch.randn(b, hq, d, device=cuda, generator=g).bfloat16()
@@ -299,58 +323,82 @@ def test_quant_paged_decode_kernel(cuda, kv_dtype, d, window, softcap):
                                       torch.Generator().manual_seed(0))
     (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp, kv_dtype)
     kw = dict(window=window, softcap=softcap)
-    want = dec_ref.quant_paged_decode_attention_ref(
-        q, kq, vq, ks, vs, bt, lengths, return_residuals=True, **kw)
+    args = (q, kq, vq, ks, vs, bt, lengths)
     for page_size in (None, 16):
-        before = quant_kern.KERNEL.launches
-        got = dec_ops.quant_paged_decode_attention(
-            q, kq, vq, ks, vs, bt, lengths, page_size=page_size,
-            return_residuals=True, **kw)
-        assert quant_kern.KERNEL.launches == before + 1
-        for a, w in zip(got, want):
-            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
-    out = dec_ops.quant_paged_decode_attention(q, kq, vq, ks, vs, bt,
-                                               lengths, **kw)
+        _check_split_counts(
+            quant_kern.KERNEL, lambda n: dec_ops.quant_paged_decode_attention(
+                *args, page_size=page_size, splits=n, return_residuals=True,
+                **kw),
+            lambda chunk: dec_ref.quant_paged_decode_attention_ref(
+                *args, chunk=chunk, return_residuals=True, **kw),
+            bt.shape[1] * ps, page_size or ps)
+    out = dec_ops.quant_paged_decode_attention(*args, **kw)
     bf16 = dec_ops.paged_decode_attention(q, kp, vp, bt, lengths, **kw)
     assert float((out.float() - bf16.float()).abs().max()) <= \
         DECODE_TOL[kv_dtype]
 
 
-@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8_e4m3"])
-@pytest.mark.parametrize("k1,d,window", [(5, 128, None), (1, 128, None),
-                                         (3, 64, 40)])
-def test_spec_paged_decode_kernel(cuda, kv_dtype, k1, d, window):
-    """B6 (bf16 pools and its int8 mode) against its plain version, f32
-    residuals at 1e-4; slot 0 is empty, slot 3's window runs past the
-    table's last page."""
-    g = torch.Generator(device=cuda).manual_seed(2)
-    b, hq, hkv, s, ps = 4, 32, 8, 320, 64
-    q = torch.randn(b, k1, hq, d, device=cuda, generator=g).bfloat16()
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+def test_quant_paged_decode_kernel_at_gemma2_table(cuda, kv_dtype):
+    """B5 at gemma2-2b's global layers: 8 slots, 8/4 heads of 256, tables
+    of 128 pages of 64 (8,192 rows), softcap 50, lengths 1..8192; one
+    split, 8 and the served 32, as above."""
+    label, hq, hkv, d, s, lengths, kw = SPLIT_PAGED_CASES[2]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b = len(lengths)
+    q = torch.randn(b, hq, d, device=cuda, generator=g).bfloat16()
     kc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
     vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
-    base = torch.tensor([0, 1, 200, s - k1 + 1], dtype=torch.int32,
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    (kp, vp), bt = _pools_from_caches(kc, vc, 64,
+                                      torch.Generator().manual_seed(1))
+    (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp, kv_dtype)
+    args = (q, kq, vq, ks, vs, bt, ln)
+    _check_split_counts(
+        quant_kern.KERNEL, lambda n: dec_ops.quant_paged_decode_attention(
+            *args, splits=n, return_residuals=True, **kw),
+        lambda chunk: dec_ref.quant_paged_decode_attention_ref(
+            *args, chunk=chunk, return_residuals=True, **kw),
+        bt.shape[1] * 64, 64)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "float32", "int8", "fp8_e4m3"])
+@pytest.mark.parametrize("k1,d,window", [(5, 128, None), (1, 128, None),
+                                         (3, 64, 40), (5, 256, None),
+                                         (5, 256, 100)])
+def test_spec_paged_decode_kernel(cuda, kv_dtype, k1, d, window):
+    """B6 (bf16 and f32 pools and its int8/fp8 mode) at one split, 8 and
+    its served count against its split plain version and the unsplit
+    one, f32 residuals at 1e-4, m bit for bit; slot 0 reads one page,
+    slot 2's horizons straddle a page (and with 8 splits a chunk) edge,
+    slot 3's window runs past the table's last page."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, hq, hkv, s, ps = 4, 32, 8, 320, 64
+    dt = torch.float32 if kv_dtype == "float32" else torch.bfloat16
+    q = torch.randn(b, k1, hq, d, device=cuda, generator=g).to(dt)
+    kc = torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dt)
+    vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dt)
+    base = torch.tensor([0, 1, 126, s - k1 + 1], dtype=torch.int32,
                         device=cuda)
     (kp, vp), bt = _pools_from_caches(kc, vc, ps,
                                       torch.Generator().manual_seed(0))
     bt[0, 0] = bt[3, 0]                # slot 0 reads one page
-    before = spec_kern.KERNEL.launches
-    if kv_dtype is None:
-        got = dec_ops.spec_paged_decode_attention(
-            q, kp, vp, bt, base, window=window, return_residuals=True)
-        want = dec_ref.spec_paged_decode_attention_ref(
-            q, kp, vp, bt, base, window=window, return_residuals=True)
+    if kv_dtype in (None, "float32"):
+        args = (q, kp, vp, bt, base)
+        fn = dec_ops.spec_paged_decode_attention
+        plain = dec_ref.spec_paged_decode_attention_ref
     else:
         (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
                                                                   kv_dtype)
-        got = dec_ops.quant_spec_paged_decode_attention(
-            q, kq, vq, ks, vs, bt, base, window=window,
-            return_residuals=True)
-        want = dec_ref.quant_spec_paged_decode_attention_ref(
-            q, kq, vq, ks, vs, bt, base, window=window,
-            return_residuals=True)
-    assert spec_kern.KERNEL.launches == before + 1
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+        args = (q, kq, vq, ks, vs, bt, base)
+        fn = dec_ops.quant_spec_paged_decode_attention
+        plain = dec_ref.quant_spec_paged_decode_attention_ref
+    _check_split_counts(
+        spec_kern.KERNEL, lambda n: fn(*args, window=window, splits=n,
+                                       return_residuals=True),
+        lambda chunk: plain(*args, window=window, chunk=chunk,
+                            return_residuals=True),
+        bt.shape[1] * ps, ps)
 
 
 def _ring_tables(lengths, window, ps, gen):
