@@ -549,8 +549,9 @@ def _normalized(res):
 
 
 def _check_splits(s: Smoke, what, kernel, run, plain, served, chunk_of):
-    """A split-KV kernel (``kernel``: B3's, B4's, B5's or B6's) at the
-    split count it is served with (``served``) and at SPLIT_CHECK splits,
+    """A split-KV kernel (``kernel``: B3's, B4's, B5's, B6's, B7's or
+    B7q's) at the split count it is served with (``served``) and at
+    SPLIT_CHECK splits,
     each against
     its split plain version (``plain(chunk_of(n))``, its rounding model),
     its one-split launch (the unsplit kernel's arithmetic) against the
@@ -642,6 +643,22 @@ def check_split_spec(s: Smoke, what, args, fn, plain, **kw):
     return _check_splits(
         s, what, spec.KERNEL, lambda n: fn(*args, splits=n,
                                            return_residuals=True, **kw),
+        lambda chunk: plain(*args, return_residuals=True, chunk=chunk, **kw),
+        dk.paged_splits(reach, page), lambda n: dk.split_chunk(reach, n, page))
+
+
+def check_split_window(s: Smoke, what, args, fn, plain, kernel, **kw):
+    """B7 or B7q by :func:`_check_splits` (``args``: q, the pools, their
+    scales for B7q, the ring tables and lengths; ``fn``/``plain``: the op
+    and its plain version), its count from the ring walk's width by B4's
+    rule, its chunks counted from the walk's start."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    pool, bt = args[1], args[-2]
+    page = pool.shape[2]
+    reach = bt.shape[1] * page
+    return _check_splits(
+        s, what, kernel, lambda n: fn(*args, splits=n, return_residuals=True,
+                                      **kw),
         lambda chunk: plain(*args, return_residuals=True, chunk=chunk, **kw),
         dk.paged_splits(reach, page), lambda n: dk.split_chunk(reach, n, page))
 
@@ -922,15 +939,18 @@ def _window_cost(lengths, kv_bytes: int = 2, scale_bytes: int = 0):
 
 def check_window(s: Smoke) -> None:
     """B7 over bf16 pools and B7q over int8 and fp8 pools, at gemma2's
-    shapes: against their plain versions (f32 residuals, 1e-4), at the
-    physical page and a logical page of 16; B7q against bf16 B7 on the
-    unquantized data within DECODE_TOL."""
-    from repro_torch.kernels.decode_attention import ops, ref
+    shapes: by :func:`check_split_window`, against their plain versions
+    (f32 residuals, 1e-4), at the physical page and a logical page of 16;
+    B7q against bf16 B7 on the unquantized data within DECODE_TOL; timed
+    at one split and at SPLIT_CHECK beside their served records."""
+    from repro_torch.kernels.decode_attention import ops, paged, ref
     from repro_torch.quant import DECODE_TOL
     q, kp, vp, bt, ln = _ring_pools(s, G2_LENGTHS)
     kw = dict(window=G2_WINDOW, softcap=G2_SOFTCAP)
-    got = ops.window_paged_decode_attention(q, kp, vp, bt, ln,
-                                            return_residuals=True, **kw)
+    got = check_split_window(
+        s, "window (B 8, 8/4 x 256, window 4096, lengths 1..8192)",
+        (q, kp, vp, bt, ln), ops.window_paged_decode_attention,
+        ref.window_paged_decode_attention_ref, paged.WINDOW_KERNEL, **kw)
     want = ref.window_paged_decode_attention_ref(q, kp, vp, bt, ln,
                                                  return_residuals=True, **kw)
     s.compare("window residuals, B = 8, 8/4 heads of 256, window 4096, "
@@ -943,20 +963,28 @@ def check_window(s: Smoke) -> None:
                   **kw), want)
     bf16 = _normalized(got)
     nbytes, flops = _window_cost(G2_LENGTHS)
+    plain_ms = s.time_ms(lambda: ref.window_paged_decode_attention_ref(
+        q, kp, vp, bt, ln, return_residuals=True, **kw))
     s.record("window_paged_decode_attention",
              "window_paged_decode_attention.cu",
              "src/repro/kernels/decode_attention/paged.py:258", err,
              s.time_ms(lambda: ops.window_paged_decode_attention(
                  q, kp, vp, bt, ln, return_residuals=True, **kw)),
-             s.time_ms(lambda: ref.window_paged_decode_attention_ref(
-                 q, kp, vp, bt, ln, return_residuals=True, **kw)),
-             nbytes, flops, None)
+             plain_ms, nbytes, flops, None)
+    _split_timings(s, "window_paged_decode_attention", "gemma2",
+                   lambda n: ops.window_paged_decode_attention(
+                       q, kp, vp, bt, ln, return_residuals=True, splits=n,
+                       **kw),
+                   plain_ms, nbytes, flops)
     nbytes, flops = _window_cost(G2_LENGTHS, 1, 2 * G2_HKV * 4)
     for kv in ("int8", "fp8_e4m3"):
         kq, vq, ks, vs = _quantize(s, kp, vp, kv)
         args = (q, kq, vq, ks, vs, bt, ln)
-        got = ops.quant_window_paged_decode_attention(
-            *args, return_residuals=True, **kw)
+        got = check_split_window(
+            s, f"quant window {kv}", args,
+            ops.quant_window_paged_decode_attention,
+            ref.quant_window_paged_decode_attention_ref,
+            paged.QUANT_WINDOW_KERNEL, **kw)
         want = ref.quant_window_paged_decode_attention_ref(
             *args, return_residuals=True, **kw)
         s.compare(f"quant window {kv} residuals", got, want)
@@ -970,11 +998,12 @@ def check_window(s: Smoke) -> None:
         s.check(gap <= DECODE_TOL[kv],
                 f"quant window {kv} against bf16 window on the unquantized "
                 f"data: max abs diff {gap:.4f} <= DECODE_TOL {DECODE_TOL[kv]}")
+        plain_ms = s.time_ms(
+            lambda: ref.quant_window_paged_decode_attention_ref(
+                *args, return_residuals=True, **kw))
         times = (s.time_ms(lambda: ops.quant_window_paged_decode_attention(
                      *args, return_residuals=True, **kw)),
-                 s.time_ms(lambda: ref.quant_window_paged_decode_attention_ref(
-                     *args, return_residuals=True, **kw)),
-                 nbytes, flops, None, INT8_OPS_PER_S)
+                 plain_ms, nbytes, flops, None, INT8_OPS_PER_S)
         if kv == "int8":
             s.record("quant_window_paged_decode_attention",
                      "quant_window_paged_decode_attention.cu",
@@ -982,6 +1011,11 @@ def check_window(s: Smoke) -> None:
                      *times)
         else:
             s.timings(f"quant_window_paged_decode_attention ({kv})", *times)
+        _split_timings(s, "quant_window_paged_decode_attention",
+                       f"gemma2 {kv}",
+                       lambda n: ops.quant_window_paged_decode_attention(
+                           *args, return_residuals=True, splits=n, **kw),
+                       plain_ms, nbytes, flops, ops_per_s=INT8_OPS_PER_S)
 
 
 def check_head_dim_256(s: Smoke) -> None:

@@ -25,17 +25,19 @@ so compare two versions only inside one call on one card, in turns:
 Each run builds its kernels into its own checkout's ``build/``, spins
 the card for about a second (a process's first timings otherwise ran
 slow) and prints one JSON line of medians (ms, CUDA events, 50
-launches, L2 flushed between them, then about 0.1 ms of waiting on the
+launches, L2 flushed between them, then about 0.5 ms of waiting on the
 card, so that the host has queued the call before the card reaches the
 start event and the events time the card alone).  The split-KV
-kernels (B3, B4, and B5 and B6 where the package's ops take ``splits``)
-run with the package's own split rule and with one split, B3 and B4
-also with 8 ("one split": a package whose op lacks the argument has
-only the unsplit kernel, so its "one split" is its plain call); only
-the one-split outputs are kept.  Kept untimed besides: B3-B6 at
-granite-8b's shapes with f32 queries (B3, B4 and B6 over f32 caches and
-pools, B5 and B6 over int8 and fp8 pools), B5 and B6 over fp8 pools,
-B5 at head dim 64, and B6 at head dim 256.  ``--compare`` prints, for
+kernels (B3-B6, and B7 and B7q where the package's ops take
+``splits``) run with the package's own split rule and with one split,
+B3, B4, B7 and B7q also with 8 ("one split": a package whose op lacks
+the argument has only the unsplit kernel, so its "one split" is its
+plain call); only the one-split outputs are kept.  Kept untimed
+besides: B3-B6 at granite-8b's shapes with f32 queries (B3, B4 and B6
+over f32 caches and pools, B5 and B6 over int8 and fp8 pools), B5 and
+B6 over fp8 pools, B5 at head dim 64, B6 at head dim 256, and B7 and
+B7q (int8, fp8) at head dims 64 and 128 and with f32 queries (B7 over
+f32 pools).  ``--compare`` prints, for
 every output the two files share, whether they are equal bit for bit,
 and exits 1 if any is not.
 """
@@ -80,11 +82,12 @@ def main() -> int:
     # a process's first timings ran slow: spin about a second
     torch.cuda._sleep(2_000_000_000)
     g = torch.Generator(device=dev).manual_seed(0)
-    one_split, paged_one, quant_one, spec_one = (
+    one_split, paged_one, quant_one, spec_one, window_one = (
         {"splits": 1} if "splits" in inspect.signature(fn).parameters
         else {} for fn in (ops.decode_attention, ops.paged_decode_attention,
                            ops.quant_paged_decode_attention,
-                           ops.spec_paged_decode_attention))
+                           ops.spec_paged_decode_attention,
+                           ops.window_paged_decode_attention))
     outputs = {}
 
     def time_ms(fn, iters=50):
@@ -93,7 +96,7 @@ def main() -> int:
         pairs = []
         for _ in range(iters):
             flush.zero_()
-            torch.cuda._sleep(200_000)  # about 0.1 ms: the call is queued
+            torch.cuda._sleep(1_000_000)  # about 0.5 ms: the call is queued
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -234,17 +237,39 @@ def main() -> int:
             wk, wv = rnd(hkv, 1 + len(lengths) * tw, ps, d), \
                 rnd(hkv, 1 + len(lengths) * tw, ps, d)
             rt = rt.to(dev)
-            out["B7 gemma2"] = time_ms(keep(
-                "B7 gemma2", lambda: ops.window_paged_decode_attention(
-                    q, wk, wv, rt, ln, window=window, softcap=50.0,
-                    return_residuals=True)))
-            (wkq, wks), (wvq, wvs) = (int8.quantize_pages(wk),
-                                      int8.quantize_pages(wv))
-            out["B7q gemma2 int8"] = time_ms(keep(
-                "B7q gemma2 int8",
-                lambda: ops.quant_window_paged_decode_attention(
-                    q, wkq, wvq, wks, wvs, rt, ln, window=window,
-                    softcap=50.0, return_residuals=True)))
+            wkw = dict(window=window, softcap=50.0, return_residuals=True)
+
+            def b7(qq, kk, vv, spec=None, **kw):
+                """B7 over kk, vv, or B7q over them quantized by spec."""
+                if spec is None:
+                    return lambda: ops.window_paged_decode_attention(
+                        qq, kk, vv, rt, ln, **wkw, **kw)
+                quant = quantized(spec, kk, vv)
+                return lambda: ops.quant_window_paged_decode_attention(
+                    qq, *quant, rt, ln, **wkw, **kw)
+
+            for key, spec in (("B7 gemma2", None), ("B7q gemma2 int8", int8),
+                              ("B7q gemma2 fp8", fp8)):
+                out[key] = time_ms(b7(q, wk, wv, spec))
+                out[f"{key} one split"] = time_ms(keep(
+                    f"{key} one split", b7(q, wk, wv, spec, **window_one)))
+                if window_one:
+                    out[f"{key} 8 splits"] = time_ms(
+                        b7(q, wk, wv, spec, splits=8))
+            # untimed: head dims 64 and 128, f32 queries (B7 over f32
+            # pools)
+            for dd in (64, 128):
+                qd, kd, vd = (t[..., :dd].contiguous() for t in (q, wk, wv))
+                keep(f"B7 gemma2 d{dd}", b7(qd, kd, vd, **window_one))
+                for kvn, spec in (("int8", int8), ("fp8", fp8)):
+                    keep(f"B7q gemma2 d{dd} {kvn}",
+                         b7(qd, kd, vd, spec, **window_one))
+                del qd, kd, vd
+            keep("B7 gemma2 f32", b7(q.float(), wk.float(), wv.float(),
+                                     **window_one))
+            for kvn, spec in (("int8", int8), ("fp8", fp8)):
+                keep(f"B7q gemma2 f32 {kvn}",
+                     b7(q.float(), wk, wv, spec, **window_one))
     kw = dict(eps=1e-6, weight_offset=1.0)
     for name, rows, d in (("granite", 4096, 4096), ("gemma2", 18000, 2304),
                           ("jamba", 1022, 8192)):

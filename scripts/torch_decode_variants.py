@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The split count of B3 (dense decode), B4 (paged decode), B5 (paged
-decode over int8 or fp8 pools) or B6 (speculative paged decode) against
-its times and the served paths' teacher-forced gaps, on one CUDA card.
+decode over int8 or fp8 pools), B6 (speculative paged decode) or B7 and
+B7q (sliding-window decode over ring walks, bf16 and int8/fp8 pools)
+against its times and the served paths' teacher-forced gaps, on one CUDA
+card.
 
 B3 (``csrc/decode_attention.cu``) walks each slot's cache in
 ``splits`` chunks and merges their partials in chunk order; the served
@@ -9,8 +11,11 @@ count comes from ``decode_attention.decode_splits`` (chunks of
 SPLIT_ROWS cache rows).  B4 (``csrc/paged_decode_attention.cu``, with
 ``--paged``) does the same over each slot's block-table row, in chunks
 of whole pages (``decode_attention.paged_splits``, from the table's
-reach), and so do B5 (``--paged --kv int8|fp8_e4m3``) and B6
-(``--paged --spec``, over bf16 and int8 pools).  This script passes the
+reach), and so do B5 (``--paged --kv int8|fp8_e4m3``), B6
+(``--paged --spec``, over bf16 and int8 pools) and the window kernels
+(``--window``: B7 and B7q over each ring walk, chunks counted from its
+start, from the walk's width; B4 and B5 keep their shipped chunks of
+PAGED_SPLIT_ROWS).  This script passes the
 kernel other counts instead: one split (the unsplit kernel's
 arithmetic), chunks of a fixed number of rows, and a count that fills
 the card (B x Hkv x splits >= 4 CTAs a SM, were every cache full: the
@@ -28,7 +33,7 @@ in place:
    ``scaled_dot_product_attention`` over the dense cache beside it where
    that computes the same function (B5 at granite-8b's and gemma2-2b's
    shapes only, B6 at granite-8b's with K1 = 5: the paths that run
-   them);
+   them; B7 and B7q at gemma2-2b's ring tables of 65 pages);
 2. serves ``chip_smoke.py``'s 12 requests densely (or paged, with
    ``--paged``: gemma2-2b's local layers keep B7) on granite-8b,
    gemma2-2b, deepseek-v2-lite-16b and jamba-1.5-large-398b cut to 4
@@ -38,10 +43,11 @@ in place:
    tokens were not the plain argmax.  ``--kv``: granite-8b and gemma2-2b
    from pools of that type (gaps reported by ``chip_smoke.py``, not
    held); ``--spec``: granite-8b with n-gram speculation (k = 4) over
-   bf16 pools (held) and int8 pools (reported).
+   bf16 pools (held) and int8 pools (reported); ``--window``: gemma2-2b
+   paged over bf16 pools (held), int8 and fp8 pools (reported).
 
   PYTHONPATH=src python3 scripts/torch_decode_variants.py [--paged \
-      [--kv int8|fp8_e4m3 | --spec]] [--no-gaps]
+      [--kv int8|fp8_e4m3 | --spec] | --window] [--no-gaps]
 """
 from __future__ import annotations
 
@@ -79,7 +85,8 @@ from repro_torch.quant import resolve_kv_spec  # noqa: E402
 LAUNCHERS = {"B3": (dk, "decode_attention_fwd"),
              "B4": (paged, "paged_decode_attention_fwd"),
              "B5": (quant, "quant_paged_decode_attention_fwd"),
-             "B6": (spec, "spec_paged_decode_attention_fwd")}
+             "B6": (spec, "spec_paged_decode_attention_fwd"),
+             "B7": (paged, "window_paged_decode_attention_fwd")}
 SHIPPED = {k: getattr(mod, name) for k, (mod, name) in LAUNCHERS.items()}
 #: the chunks (cache rows a split) served for their gaps, in the order a
 #: fallback takes them should a rule fail a path; timed besides them:
@@ -183,6 +190,43 @@ def _paged_run(kern, kv, q, kc, vc, ln, kw, smoke):
     return run
 
 
+def _dense_or_paged_run(kern, label, kv, q, kc, vc, ln, kw, smoke):
+    """(run, block) of B3 over the dense caches, or of B4, B5 or B6 over
+    chip_smoke's scrambled pages of them (``block``: the chunks' unit)."""
+    if kern != "B3":
+        return _paged_run(kern, label.split()[-1] if kern == "B6" else kv,
+                          q, kc, vc, ln, kw, smoke), cs.PAGE
+
+    def run(n, chunk=None, plain=False):
+        if plain:
+            return ref.decode_attention_ref(
+                q, kc, vc, ln, return_residuals=True, chunk=chunk, **kw)
+        return ops.decode_attention(q, kc, vc, ln, return_residuals=True,
+                                    splits=n, **kw)
+    return run, dk.MAX_BLOCK_KV
+
+
+def _window_run(smoke, kv, kw):
+    """(run, B, Hkv, reach) of B7 (``kv`` "bf16") or B7q (int8, fp8)
+    over chip_smoke's gemma2-2b ring pools: 8 slots, lengths 1..8192,
+    ring tables of 65 pages of 64."""
+    q, kp, vp, bt, ln = cs._ring_pools(smoke, cs.G2_LENGTHS)
+    if kv == "bf16":
+        args = (q, kp, vp, bt, ln)
+        fn, plain_fn = (ops.window_paged_decode_attention,
+                        ref.window_paged_decode_attention_ref)
+    else:
+        args = (q, *cs._quantize(smoke, kp, vp, kv), bt, ln)
+        fn, plain_fn = (ops.quant_window_paged_decode_attention,
+                        ref.quant_window_paged_decode_attention_ref)
+
+    def run(n, chunk=None, plain=False):
+        if plain:
+            return plain_fn(*args, return_residuals=True, chunk=chunk, **kw)
+        return fn(*args, return_residuals=True, splits=n, **kw)
+    return run, q.shape[0], kp.shape[0], bt.shape[1] * kp.shape[2]
+
+
 def time_variants(dev, kern: str, kv: str) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     smoke = cs.Smoke(torch)             # chip_smoke's page scatter
@@ -202,27 +246,27 @@ def time_variants(dev, kern: str, kv: str) -> dict:
     if kern == "B6":    # granite-8b's spec path: K1 = 5 a slot
         shapes = {f"granite spec {m}": shapes["granite"][:5]
                   + (cs.SPEC_BASES, {}) for m in ("bf16", "int8")}
+    if kern == "B7":    # gemma2-2b's local layers, each pool type
+        shapes = {f"gemma2 {m}": shapes["gemma2"][:6]
+                  + (dict(window=cs.G2_WINDOW, softcap=cs.G2_SOFTCAP),)
+                  for m in ("bf16", "int8", "fp8_e4m3")}
     for label, (hq, hkv, dk_, dv, s, lengths, kw) in shapes.items():
         b = len(lengths)
         k1 = (cs.SPEC_K + 1,) if kern == "B6" else ()
-        q = torch.randn(b, *k1, hq, dk_, device=dev, generator=g).bfloat16()
-        kc = torch.randn(b, hkv, s, dk_, device=dev, generator=g).bfloat16()
-        vc = torch.randn(b, hkv, s, dv, device=dev, generator=g).bfloat16()
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        if kern != "B3":
-            run = _paged_run(kern, label.split()[-1] if kern == "B6" else kv,
-                             q, kc, vc, ln, kw, smoke)
+        if kern == "B7":
+            run, b, hkv, s = _window_run(smoke, label.split()[-1], kw)
+            q = kc = vc = None
             block = cs.PAGE
         else:
-            def run(n, chunk=None, plain=False):
-                if plain:
-                    return ref.decode_attention_ref(
-                        q, kc, vc, ln, return_residuals=True, chunk=chunk,
-                        **kw)
-                return ops.decode_attention(q, kc, vc, ln,
-                                            return_residuals=True, splits=n,
-                                            **kw)
-            block = dk.MAX_BLOCK_KV
+            q = torch.randn(b, *k1, hq, dk_, device=dev,
+                            generator=g).bfloat16()
+            kc = torch.randn(b, hkv, s, dk_, device=dev,
+                             generator=g).bfloat16()
+            vc = torch.randn(b, hkv, s, dv, device=dev,
+                             generator=g).bfloat16()
+            ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            run, block = _dense_or_paged_run(kern, label, kv, q, kc, vc, ln,
+                                             kw, smoke)
         fns, errs = {}, {}
         for name, count in variants(TIMED_CHUNKS, shipped=True,
                                     kern=kern).items():
@@ -257,6 +301,10 @@ def _modes(kern: str, kv: str):
         return (("paged", dict(paged=True)),)
     if kern == "B5":
         return ((kv, dict(paged=True, kv_dtype=kv)),)
+    if kern == "B7":
+        return (("paged", dict(paged=True)),
+                ("int8", dict(paged=True, kv_dtype="int8")),
+                ("fp8_e4m3", dict(paged=True, kv_dtype="fp8_e4m3")))
     sp = dict(paged=True, spec_mode="ngram", spec_k=cs.SPEC_K)
     return (("spec", sp), ("spec-int8", dict(sp, kv_dtype="int8")))
 
@@ -278,7 +326,8 @@ def gaps(dev, kern: str, kv: str) -> list:
          dict(prefill=("rmsnorm",), replay=True)),
         ("jamba-1.5-large-398b", cs._jamba_config(),
          dict(prefill=("rmsnorm",), replay=True)))
-    models = models[:{"B5": 2, "B6": 1}.get(kern, len(models))]
+    models = models[slice(*{"B5": (2,), "B6": (1,), "B7": (1, 2)}.get(
+        kern, (None,)))]
     for label, cfg, kw in models:
         gc.collect()
         torch.cuda.empty_cache()
@@ -313,13 +362,19 @@ def main() -> int:
     ap.add_argument("--spec", action="store_true",
                     help="with --paged: B6, speculation over bf16 and "
                          "int8 pools")
+    ap.add_argument("--window", action="store_true",
+                    help="B7 and B7q over gemma2-2b's ring walks and its "
+                         "paged, int8 and fp8 serving (B4 and B5 at their "
+                         "shipped chunks)")
     ap.add_argument("--no-gaps", action="store_true",
                     help="check and time the split counts only")
     args = ap.parse_args()
     if (args.kv or args.spec) and not args.paged or args.kv and args.spec:
         ap.error("--kv or --spec, each with --paged")
-    kern = ("B6" if args.spec else "B5" if args.kv else
-            "B4" if args.paged else "B3")
+    if args.window and args.paged:
+        ap.error("--window runs alone")
+    kern = ("B7" if args.window else "B6" if args.spec else
+            "B5" if args.kv else "B4" if args.paged else "B3")
     if not torch.cuda.is_available():
         print("torch_decode_variants: needs a CUDA card", file=sys.stderr)
         return 1

@@ -4,29 +4,29 @@
 // differ only in where a block of K/V rows comes from, what element
 // type it is stored in, and how far each query row may see.
 //
-// One CTA serves one (batch row, kv head) and the G query rows stacked
-// on that kv head, so each K/V row is read from memory once.  For the
-// one-token kernels (B3, B4, B5, B7, B7q) the rows are the group's Hq /
-// Hkv query heads; for the speculative kernel (B6) they are the K1
-// window positions times the group, position-major (row r = qi * group
-// + gi, `Rows` below), each with its own causal horizon.  Keys may be
-// wider than values (MLA: DK = 192 query/key columns, DV = 128 value
-// columns); the CTA has DV threads, and thread c owns output column c
-// of every row, while the scores, a dot over DK columns per (row,
-// token) pair, are shared out over all the threads.  Per block of up to
-// BK_MAX tokens: score every (row, token) pair against the row's
-// horizon, run the online-softmax update (one warp per row), and
-// accumulate P V in registers.  The outputs are the unnormalized
-// residuals (acc, m, l) of the reference's contract.
+// One CTA serves one (batch row, kv head), one split of its cache, and
+// the G query rows stacked on that kv head, so each K/V row is read
+// from memory once.  For the one-token kernels (B3, B4, B5, B7, B7q)
+// the rows are the group's Hq / Hkv query heads; for the speculative
+// kernel (B6) they are the K1 window positions times the group,
+// position-major (row r = qi * group + gi, `Rows` below), each with its
+// own causal horizon.  Keys may be wider than values (MLA: DK = 192
+// query/key columns, DV = 128 value columns); the CTA has DV threads,
+// and thread c owns output column c of every row, while the scores, a
+// dot over DK columns per (row, token) pair, are shared out over all
+// the threads.  Per block of up to BK_MAX tokens: score every (row,
+// token) pair against the row's horizon, run the online-softmax update
+// (one warp per row), and accumulate P V in registers.  The outputs are
+// the unnormalized residuals (acc, m, l) of the reference's contract.
 //
-// Two bodies share that arithmetic term for term.  The sliding-window
-// kernels B7 and B7q run paged_decode_kernel: one CTA walks the whole
-// window, staging K and V in shared memory as f32 (stage_tile; a
-// quantized block is dequantized there, before any dot).  B3, B4, B5
-// and B6 run the split-KV helpers at the end of this file: the cache
-// cut into chunks walked by CTAs of their own, K and V staged in their
-// storage type with the next block in flight, the chunks' partials
-// merged in split order.
+// Every kernel runs the split-KV helpers below: B3 over a dense cache
+// (csrc/decode_attention.cu), and split_paged_decode_kernel over page
+// pools, through a block table (B4, B5, B6) or a ring table walked from
+// the window's first live page (RING: the sliding-window kernels B7 and
+// B7q).  The cache is cut into chunks
+// walked by CTAs of their own, K and V staged in their storage type
+// with the next block in flight, the chunks' partials merged in split
+// order.
 #pragma once
 
 #include <climits>
@@ -47,32 +47,6 @@ __host__ __device__ constexpr bool per_row_horizon() {
   return G == G_SPEC;
 }
 
-template <int DK, int DV, int G>
-constexpr size_t decode_smem_floats() {
-  return static_cast<size_t>(G) * DK + BK_MAX * (DK + 1) + BK_MAX * DV +
-         G * BK_MAX + 3 * G;
-}
-
-template <int DK, int DV, int G>
-struct DecodeSmem {
-  float* q;   // G x DK, pre-scaled
-  float* k;   // BK_MAX x (DK + 1)
-  float* v;   // BK_MAX x DV
-  float* s;   // G x BK_MAX: scores, then probabilities
-  float* m;   // running max per row
-  float* l;   // running sum per row
-  float* a;   // this block's rescale factor per row
-  __device__ explicit DecodeSmem(float* base) {
-    q = base;
-    k = q + G * DK;
-    v = k + BK_MAX * (DK + 1);
-    s = v + BK_MAX * DV;
-    m = s + G * BK_MAX;
-    l = m + G;
-    a = l + G;
-  }
-};
-
 // Where the CTA's row r lives in the (B, K1, Hq) row space of q and of
 // the outputs: query position r / group, head h * group + r % group.
 // The one-token kernels' rows are consecutive heads (K1 = 1), so their
@@ -90,173 +64,10 @@ struct Rows {
   __device__ size_t operator()(int r) const { return row0 + off(r); }
 };
 
-// Load the CTA's query rows (scaled) and reset the running state.
-template <typename T, int DK, int DV, int G>
-__device__ void decode_init(const DecodeSmem<DK, DV, G>& sm, const T* q,
-                            const Rows<G>& rows, float scale, float acc[G]) {
-  for (int r = 0; r < rows.n; ++r) {
-    if constexpr (DK == DV) {
-      sm.q[r * DK + threadIdx.x] =
-          to_f32(q[rows(r) * DK + threadIdx.x]) * scale;
-    } else {  // a thread per value column: the key's wider row in turns
-      for (int c = threadIdx.x; c < DK; c += DV)
-        sm.q[r * DK + c] = to_f32(q[rows(r) * DK + c]) * scale;
-    }
-  }
-  if (threadIdx.x < G) {
-    sm.m[threadIdx.x] = NEG_INF;
-    sm.l[threadIdx.x] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < G; ++i) acc[i] = 0.f;
-}
-
-// One block update.  `kblk`/`vblk` point at `rows` contiguous K/V rows
-// holding tokens k_start .. k_start + rows - 1, stored as KV; a 1-byte
-// KV is quantized storage, dequantized with `k_scale`/`v_scale`.  Every
-// row masks tokens at or past `length`, and outside the window measured
-// back from it (decode_attention.py:80-83).
-template <typename KV, int DK, int DV, int G>
-__device__ void decode_block(const DecodeSmem<DK, DV, G>& sm,
-                             const KV* __restrict__ kblk,
-                             const KV* __restrict__ vblk, int rows,
-                             int k_start, int n, int length, int window,
-                             float softcap, float k_scale, float v_scale,
-                             float acc[G]) {
-  constexpr int LD = DK + 1;
-  constexpr int NW = DV / 32;
-  constexpr bool kQuant = sizeof(KV) == 1;
-  const int tid = threadIdx.x;
-  __syncthreads();  // the previous block's readers are done
-  stage_tile<KV, BK_MAX, DK, DV>(kblk, sm.k, LD, rows, kQuant ? k_scale : 1.f);
-  stage_tile<KV, BK_MAX, DV, DV>(vblk, sm.v, DV, rows, kQuant ? v_scale : 1.f);
-  __syncthreads();
-  for (int i = tid; i < n * BK_MAX; i += DV) {
-    const int gi = i / BK_MAX, t = i % BK_MAX;
-    const float* qr = sm.q + gi * DK;
-    const float* kr = sm.k + t * LD;
-    float x = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DK; ++c) x = fmaf(qr[c], kr[c], x);
-    if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-    const int kp = k_start + t;
-    bool ok = t < rows && kp < length;
-    if (window > 0) ok = ok && (length - 1 - kp) < window;
-    sm.s[gi * BK_MAX + t] = ok ? x : NEG_INF;
-  }
-  __syncthreads();
-  const int warp = tid / 32, lane = tid % 32;
-  for (int gi = warp; gi < n; gi += NW) {
-    float* sr = sm.s + gi * BK_MAX;
-    const float x0 = sr[lane], x1 = sr[lane + 32];
-    const float m_old = sm.m[gi];
-    const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-    const bool live = m_new > NEG_INF / 2;  // guards of decode_attention.py:84-91
-    const float p0 = live ? expf(x0 - m_new) : 0.f;
-    const float p1 = live ? expf(x1 - m_new) : 0.f;
-    sr[lane] = p0;
-    sr[lane + 32] = p1;
-    const float sum = warp_sum(p0 + p1);
-    if (lane == 0) {
-      const float alpha = live ? expf(m_old - m_new) : 0.f;
-      sm.a[gi] = alpha;
-      sm.l[gi] = alpha * sm.l[gi] + sum;
-      sm.m[gi] = m_new;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-    if (gi < n) acc[gi] *= sm.a[gi];
-  for (int t = 0; t < rows; ++t) {
-    const float vv = sm.v[t * DV + tid];
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi)
-      if (gi < n) acc[gi] = fmaf(sm.s[gi * BK_MAX + t], vv, acc[gi]);
-  }
-}
-
-// Write the residuals of the CTA's rows: acc (rows, DV), m/l (rows).
-template <int DK, int DV, int G>
-__device__ void decode_store(const DecodeSmem<DK, DV, G>& sm, const float acc[G],
-                             const Rows<G>& rows, float* acc_out,
-                             float* m_out, float* l_out) {
-  __syncthreads();
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi)
-    if (gi < rows.n) acc_out[rows(gi) * DV + threadIdx.x] = acc[gi];
-  if (threadIdx.x < rows.n) {
-    m_out[rows(threadIdx.x)] = sm.m[threadIdx.x];
-    l_out[rows(threadIdx.x)] = sm.l[threadIdx.x];
-  }
-}
-
-// The unsplit paged decode body of B7 and B7q: K/V gathered through
-// per-row block tables from head-major page pools (Hkv, P, ps, DK|DV)
-// of KV; a 1-byte KV is quantized storage, with (Hkv, P) f32 scale
-// pools read at scales[h * P + page] for the page a block comes from.
-// Page 0 is the allocator's null page; a table entry outside the pool
-// reads it instead of out-of-bounds memory.  Logical page ik / ps of
-// row b maps to physical page bt[b, ik / ps], and its bk-token
-// sub-block is a contiguous run of rows (bk divides ps; the wrapper
-// clamps it).  The rows all see row_len[b] tokens (its lengths already
-// count the new token), capped at the table's reach unless RING.
-// `row_stride` and `k1` (0 and 1 here) are the arguments the kernel took
-// while it also served the speculative rows: without them nvcc schedules
-// B7's body otherwise, and it ran 9% slower on the H100 (PERF.md §6, the
-// unsplit kernel's trim), so they stay.
-//
-// RING (the sliding-window kernels B7, B7q): the table row is the
-// slot's ring walk, its live window pages in timeline order
-// (kernels/decode_attention/paged.py, ring_walk), and column 0 holds
-// the token at start[b], the first token of the window's first live
-// page.  The block loop runs from start[b] up to the slot's length,
-// at most the row's reach past start[b]; the window mask trims the
-// first page's tokens before length - window.
-template <typename T, typename KV, int DK, int DV, int G, bool RING = false>
-__global__ void __launch_bounds__(DV)
-paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
-                    const KV* __restrict__ vp, const float* __restrict__ ks,
-                    const float* __restrict__ vs, const int* __restrict__ bt,
-                    const int* __restrict__ row_len,
-                    const int* __restrict__ start, int row_stride,
-                    float* acc_out, float* m_out, float* l_out, int k1,
-                    int hq, int hkv, int n_pages, int page_size, int t_cols,
-                    int bk, float scale, int window, float softcap) {
-  static_assert(!per_row_horizon<G>(), "one-token rows only");
-  extern __shared__ float smem[];
-  const DecodeSmem<DK, DV, G> sm(smem);
-  const int h = blockIdx.x, b = blockIdx.y, group = hq / hkv;
-  constexpr bool kQuant = sizeof(KV) == 1;
-  const Rows<G> rows{static_cast<size_t>(b) * k1 * hq + h * group, group, hq,
-                     k1 * group};
-  float acc[G];
-  decode_init<T, DK, DV, G>(sm, q, rows, scale, acc);
-  const int reach = t_cols * page_size;
-  const int lo = RING ? start[b] : 0;
-  int length = RING ? row_len[b] : min(row_len[b], reach);
-  int limit = RING ? min(length, lo + reach) : length;
-  const int* row = bt + static_cast<size_t>(b) * t_cols;
-  for (int k0 = lo; k0 < limit; k0 += bk) {
-    // lo is a whole number of pages, so k0 - lo keeps k0's page offset
-    int page = row[(k0 - lo) / page_size];
-    if (page < 0 || page >= n_pages) page = 0;
-    const size_t pg = static_cast<size_t>(h) * n_pages + page;
-    const size_t row0 = pg * page_size + (k0 - lo) % page_size;
-    const size_t off = row0 * DK;
-    decode_block<KV, DK, DV, G>(sm, kp + off,
-                                vp + (DK == DV ? off : row0 * DV), bk, k0,
-                                rows.n, length, window, softcap,
-                                kQuant ? ks[pg] : 1.f, kQuant ? vs[pg] : 1.f,
-                                acc);
-  }
-  decode_store<DK, DV, G>(sm, acc, rows, acc_out, m_out, l_out);
-}
-
 // The arguments every paged entry point passes through, and their
 // dispatch on the query's element type, the pools' and the head dims.
-// `start` is read by the ring kernels only; `dv` is the value head dim
-// where it differs from the key's `d` (MLA), else 0.
+// `dv` is the value head dim where it differs from the key's `d` (MLA),
+// else 0.
 struct PagedArgs {
   const void *q, *kp, *vp;
   const float *ks, *vs;
@@ -268,7 +79,6 @@ struct PagedArgs {
   int window;
   float softcap;
   cudaStream_t stream;
-  const int* start = nullptr;
   int dv = 0;
   // the split kernel's: rows a split, splits, and (with several) the
   // partials' scratch and the zeroed (B x Hkv) int32 counters
@@ -276,34 +86,6 @@ struct PagedArgs {
   float *part_acc = nullptr, *part_m = nullptr, *part_l = nullptr;
   int* counters = nullptr;
 };
-
-// Launch paged_decode_kernel<T, KV, DK, DV, G, RING> on a (Hkv, B) grid
-// of DV-thread CTAs.
-template <typename T, typename KV, int DK, int DV, int G, bool RING>
-cudaError_t launch_paged(const PagedArgs& a) {
-  const size_t bytes = decode_smem_floats<DK, DV, G>() * sizeof(float);
-  static const cudaError_t attr =
-      allow_smem(paged_decode_kernel<T, KV, DK, DV, G, RING>, bytes);
-  if (attr != cudaSuccess) return attr;
-  paged_decode_kernel<T, KV, DK, DV, G, RING>
-      <<<dim3(a.hkv, a.b), DV, bytes, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
-          static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len, a.start,
-          a.row_stride, a.acc, a.m, a.l, a.k1, a.hq, a.hkv, a.n_pages,
-          a.page_size, a.t_cols, a.bk, a.scale, a.window, a.softcap);
-  return cudaGetLastError();
-}
-
-// Equal key and value head dims 64, 128 and 256 (gemma2); a CTA has D
-// threads.
-template <typename T, typename KV, int G, bool RING = false>
-cudaError_t dispatch_paged_d(const PagedArgs& a) {
-  if (a.dv != 0 && a.dv != a.d) return cudaErrorInvalidValue;
-  if (a.d == 64) return launch_paged<T, KV, 64, 64, G, RING>(a);
-  if (a.d == 128) return launch_paged<T, KV, 128, 128, G, RING>(a);
-  if (a.d == 256) return launch_paged<T, KV, 256, 256, G, RING>(a);
-  return cudaErrorInvalidValue;
-}
 
 // Shape checks shared by the paged entry points: whole groups, at most
 // G rows per CTA, blocks that divide the page.
@@ -318,22 +100,22 @@ inline bool paged_args_ok(const PagedArgs& a) {
 // Split-KV decode: B3 (csrc/decode_attention.cu) over dense caches, and
 // split_paged_decode_kernel over page pools: B4 (csrc/paged_decode_
 // attention.cu), B5 (its int8/fp8 pools, csrc/quant_paged_decode_
-// attention.cu) and B6 (the speculative rows, csrc/spec_paged_decode_
-// attention.cu).  B7 and B7q still run paged_decode_kernel above.
+// attention.cu), B6 (the speculative rows, csrc/spec_paged_decode_
+// attention.cu), and B7 and B7q over ring tables (csrc/window_paged_
+// decode_attention.cu, csrc/quant_window_paged_decode_attention.cu).
 //
 // A CTA serves one (batch row, kv head) and one split of its cache: rows
 // [j * chunk, (j + 1) * chunk), chunk a whole number of blocks.  Its
-// per-block arithmetic is decode_block's, term for term (the scores'
-// fmaf over the key columns in order, a 1-byte key dequantized first as
-// to_f32(x) * scale, the softcap's tanhf, the warp softmax with the
-// same lanes, P V in token order), so a split that is its rows' only
-// live one gives the bits of the unsplit kernel.  What differs is where
-// the bytes go: K and V are staged in their storage type by 16-byte
-// cp.async copies, the next block's while this one computes (two stages
-// when both fit), and the rows of a CTA (the group, or B6's K1 x group)
-// size shared memory and acc[] through G.  Several live splits leave
-// partials (acc, m, l), and the last of them to finish merges them in
-// split order (split_merge).
+// per-block arithmetic is fixed term for term whatever the split (the
+// scores' fmaf over the key columns in order, a 1-byte key dequantized
+// first as to_f32(x) * scale, the softcap's tanhf, the warp softmax with
+// the same lanes, P V in token order), so a split that is its rows' only
+// live one gives the bits of a walk over the whole cache.  K and V are
+// staged in their storage type by 16-byte cp.async copies, the next
+// block's while this one computes (two stages when both fit), and the
+// rows of a CTA (the group, or B6's K1 x group) size shared memory and
+// acc[] through G.  Several live splits leave partials (acc, m, l), and
+// the last of them to finish merges them in split order (split_merge).
 
 // cp.async: 16 bytes global -> shared, through L2 only.
 __device__ __forceinline__ void cp_async16(void* dst_shared,
@@ -432,9 +214,8 @@ __device__ __forceinline__ void split_stage(const SplitSmem<T, DK, DV, G>& sm,
   cp_async_commit();
 }
 
-// decode_init for the split kernels: the scaled query rows (rows past n
-// zeroed; Q the query's type, T the stages') and the reset running
-// state.
+// The CTA's scaled query rows (rows past n zeroed; Q the query's type,
+// T the stages') and the reset running state.
 template <typename T, int DK, int DV, int G, typename Q>
 __device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const Q* q,
                            const Rows<G>& rows, float scale, float acc[G]) {
@@ -452,13 +233,13 @@ __device__ void split_init(const SplitSmem<T, DK, DV, G>& sm, const Q* q,
   for (int i = 0; i < G; ++i) acc[i] = 0.f;
 }
 
-// One block of stage `st`, decode_block's arithmetic: tokens k_start ..
-// k_start + rows - 1, masked at `length` (at sm.hz[r] for the
-// speculative rows) and by the window measured back from it.  Scores:
-// DV / BK_MAX threads a token, each over every (DV / BK_MAX)-th row,
-// reading the key a 16-byte chunk at a time and the query rows as
-// broadcasts.  A 1-byte T is quantized storage, dequantized as
-// stage_tile does (`to_f32(x) * scale`) with the block's page scales.
+// One block of stage `st`: tokens k_start .. k_start + rows - 1, masked
+// at `length` (at sm.hz[r] for the speculative rows) and by the window
+// measured back from it (decode_attention.py:80-83).  Scores: DV /
+// BK_MAX threads a token, each over every (DV / BK_MAX)-th row, reading
+// the key a 16-byte chunk at a time and the query rows as broadcasts.
+// A 1-byte T is quantized storage, dequantized as `to_f32(x) * scale`
+// with the block's page scales (decode_attention.py:69-72).
 template <typename T, int DK, int DV, int G>
 __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
                             int rows, int k_start, int n, int length,
@@ -568,8 +349,8 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
 // that one of its rows sees.  None for an empty group.
 struct SplitRange {
   int lo, hi;
-  // splits covering tokens from `origin` on (a ring walk's start, else
-  // 0), of rows that see tokens [first, limit) between them
+  // splits covering tokens from `origin` on (a ring walk's first token,
+  // else 0), of rows that see tokens [first, limit) between them
   __device__ SplitRange(int origin, int first, int limit, int chunk) {
     const int a = max(first, origin) - origin, e = limit - origin;
     lo = a / chunk;
@@ -657,7 +438,7 @@ __device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
 }
 
 // An empty row group (no live split): split 0 stores acc 0, m NEG_INF,
-// l 0, what the unsplit kernel leaves for it; the other splits store
+// l 0, what a walk over no token leaves; the other splits store
 // nothing.
 template <int DV, int G>
 __device__ __forceinline__ void split_store_empty(int j, const Rows<G>& rows,
@@ -674,7 +455,7 @@ __device__ __forceinline__ void split_store_empty(int j, const Rows<G>& rows,
 }
 
 // The end of a live split's walk.  A row group with one live split
-// stores its residuals directly, so it keeps the unsplit kernel's bits.
+// stores its residuals directly, so it keeps the bits of one split.
 // With several, each stores its partial at part_*[j], fences, and
 // counts itself in `counter`; the last to arrive resets the counter to
 // 0 for the next launch and merges the partials in split order
@@ -716,19 +497,37 @@ __device__ __forceinline__ void split_finish(
                             live.lo, nlive, acc_out, m_out, l_out);
 }
 
-// Split-KV paged decode (B4, B5, B6): the block-table walk of
-// paged_decode_kernel, cut into splits as B3 cuts a dense cache.  The
-// grid is (Hkv, B, nsplit); CTA (h, b, j) walks the slot's logical rows
-// [lo + j * chunk, lo + (j + 1) * chunk), chunk a whole number of pages
-// and so of bk-token blocks (lo: a ring walk's start[b], else 0), for
-// the CTA's rows.  Each block's physical page comes from the table
-// row, an entry outside the pool reading the null page 0, as in
-// paged_decode_kernel; the entry of block i + 2 is read while block i
-// computes and the copy of block i + 1 is in flight (two stages where
-// they fit), and a 1-byte KV's page scales of block i + 1 are read
-// while block i computes.  The per-block arithmetic is split_block's,
-// decode_block's term for term, so one split gives the unsplit
-// kernel's bits.
+// Split-KV paged decode (B4, B5, B6, B7, B7q): K/V gathered through
+// per-row block tables from head-major page pools (Hkv, P, ps, DK|DV)
+// of KV, cut into splits as B3 cuts a dense cache; a 1-byte KV is
+// quantized storage, with (Hkv, P) f32 scale pools read at
+// scales[h * P + page] for the page a block comes from.  The grid is
+// (Hkv, B, nsplit); CTA (h, b, j) walks the slot's logical rows [lo + j
+// * chunk, lo + (j + 1) * chunk), chunk a whole number of pages and so
+// of bk-token blocks (bk divides the page; the wrapper clamps it), for
+// the CTA's rows: logical page ik / ps of row b maps to physical page
+// bt[b, ik / ps], and its bk-token sub-block is a contiguous run of
+// rows.  Page 0 is the allocator's null page; a table entry outside the
+// pool reads it instead of out-of-bounds memory.  The entry of block i
+// + 2 is read while block i computes and the copy of block i + 1 is in
+// flight (two stages where they fit), and a 1-byte KV's page scales of
+// block i + 1 are read while block i computes.  The per-block
+// arithmetic is split_block's, so one split gives the bits of one walk
+// over the whole row.
+//
+// RING (the sliding-window kernels B7 and B7q): the table row is the
+// slot's ring, global page g at column g % t_cols, and the CTA walks it
+// in timeline order from the window's first live page, first = max(0,
+// length - window) / page_size: the walk's column i is the ring's (first
+// + i) % t_cols, as the reference's index maps read it (paged.py:
+// 301-305; kernels/decode_attention/paged.py, ring_walk, lays the same
+// walk out for the plain version), and its first token is lo = first *
+// page_size.  The splits count from lo (SplitRange's origin), so split
+// j holds tokens [lo + j * chunk, lo + (j + 1) * chunk) whatever lo is;
+// the walk runs up to the slot's length, at most the row's reach past
+// lo, so the stale or null columns a ring holds past the live window
+// are never read, and the window mask trims the first page's tokens
+// before length - window.
 //
 // Rows and horizons.  One-token (G <= 8): the group's rows all see
 // `length` tokens (row_len[b], capped at the table's reach unless
@@ -740,16 +539,14 @@ __device__ __forceinline__ void split_finish(
 // largest horizon, capped at the table's reach, so the walk, the live
 // splits and the direct store are the CTA's, as one counter per (slot,
 // kv head) is.  A split of that range where a row sees no token leaves
-// it acc 0, m NEG_INF, l 0, which the merge weighs 0.  Templated on KV
-// and RING (B7 and B7q may take it by a change of dispatch).
+// it acc 0, m NEG_INF, l 0, which the merge weighs 0.
 template <typename T, typename KV, int DK, int DV, int G, bool RING>
 __global__ void __launch_bounds__(DV)
 split_paged_decode_kernel(
     const T* __restrict__ q, const KV* __restrict__ kp,
     const KV* __restrict__ vp, const float* __restrict__ ks,
     const float* __restrict__ vs, const int* __restrict__ bt,
-    const int* __restrict__ row_len, const int* __restrict__ start,
-    int row_stride, float* acc_out, float* m_out, float* l_out,
+    const int* __restrict__ row_len, int row_stride, float* acc_out, float* m_out, float* l_out,
     float* part_acc, float* part_m, float* part_l, int* counters, int k1,
     int hq, int hkv, int n_pages, int page_size, int t_cols, int bk,
     int chunk, float scale, int window, float softcap) {
@@ -757,14 +554,15 @@ split_paged_decode_kernel(
   using Smem = SplitSmem<KV, DK, DV, G>;
   constexpr bool kQuant = sizeof(KV) == 1;
   constexpr bool kSpec = per_row_horizon<G>();
-  // paged_decode_kernel's `smem` above is float
   extern __shared__ __align__(16) unsigned char split_smem[];
   const Smem sm(split_smem);
   const int h = blockIdx.x, b = blockIdx.y, j = blockIdx.z, g = hq / hkv;
   const int k = kSpec ? k1 : 1;  // query positions a slot
   const Rows<G> rows{static_cast<size_t>(b) * k * hq + h * g, g, hq, k * g};
   const int reach = t_cols * page_size;
-  const int lo = RING ? start[b] : 0;
+  // RING: the window's first live page, whose first token heads the walk
+  const int first_page = RING ? max(0, row_len[b] - window) / page_size : 0;
+  const int lo = first_page * page_size;
   int length = 0, first, limit;
   if (kSpec) {
     if (threadIdx.x < rows.n)
@@ -794,7 +592,9 @@ split_paged_decode_kernel(
   const int c_begin = j * chunk;  // the split's first row past lo
   const int nblk = (min(c_begin + chunk, limit - lo) - c_begin + bk - 1) / bk;
   auto page_of = [&](int ib) {  // block ib's physical page
-    const int page = row[(c_begin + ib * bk) / page_size];
+    int col = (c_begin + ib * bk) / page_size;
+    if (RING) col = (first_page + col) % t_cols;
+    const int page = row[col];
     return page < 0 || page >= n_pages ? 0 : page;
   };
   auto stage = [&](int ib, int page) {
@@ -803,14 +603,14 @@ split_paged_decode_kernel(
     split_stage<KV, DK, DV, G>(sm, ib % Smem::STAGES, kp + r0 * DK,
                                vp + r0 * DV, bk);
   };
-  const int first_page = page_of(0);
+  const int page0 = page_of(0);
   int nxt = nblk > 1 ? page_of(1) : 0;
   float k_sc = 1.f, v_sc = 1.f;  // the computing block's page scales
   if (kQuant) {
-    k_sc = ks[static_cast<size_t>(h) * n_pages + first_page];
-    v_sc = vs[static_cast<size_t>(h) * n_pages + first_page];
+    k_sc = ks[static_cast<size_t>(h) * n_pages + page0];
+    v_sc = vs[static_cast<size_t>(h) * n_pages + page0];
   }
-  stage(0, first_page);  // in flight while the query rows are staged
+  stage(0, page0);  // in flight while the query rows are staged
   float acc[G];
   split_init<KV, DK, DV, G>(sm, q, rows, scale, acc);
   for (int ib = 0; ib < nblk; ++ib) {
@@ -851,14 +651,16 @@ cudaError_t launch_split_paged(const PagedArgs& a) {
   split_paged_decode_kernel<T, KV, DK, DV, G, RING>
       <<<dim3(a.hkv, a.b, a.nsplit), DV, bytes, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
-          static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len, a.start,
+          static_cast<const KV*>(a.vp), a.ks, a.vs, a.bt, a.row_len,
           a.row_stride, a.acc, a.m, a.l, a.part_acc, a.part_m, a.part_l,
           a.counters, a.k1, a.hq, a.hkv, a.n_pages, a.page_size, a.t_cols,
           a.bk, a.chunk, a.scale, a.window, a.softcap);
   return cudaGetLastError();
 }
 
-// The group's rows, rounded up to a build: 1, 2, 4 or 8.
+// The group's rows, rounded up to a build: 1, 2, 4 or 8; RING: the
+// table rows are rings, walked from the window's first live page (B7,
+// B7q).
 template <typename T, typename KV, int DK, int DV, bool RING = false>
 cudaError_t dispatch_split_paged_g(const PagedArgs& a) {
   const int g = a.hq / a.hkv;
@@ -869,21 +671,24 @@ cudaError_t dispatch_split_paged_g(const PagedArgs& a) {
 }
 
 // Equal key and value head dims 64, 128 and 256: the group's build, or
-// with SPEC the speculative kernel's G_SPEC rows.
-template <typename T, typename KV, int D, bool SPEC>
+// with SPEC the speculative kernel's G_SPEC rows (never RING).
+template <typename T, typename KV, int D, bool SPEC, bool RING>
 cudaError_t dispatch_split_paged_rows(const PagedArgs& a) {
+  static_assert(!(SPEC && RING), "ring walks are one-token");
   if constexpr (SPEC)
     return launch_split_paged<T, KV, D, D, G_SPEC, false>(a);
   else
-    return dispatch_split_paged_g<T, KV, D, D>(a);
+    return dispatch_split_paged_g<T, KV, D, D, RING>(a);
 }
 
-template <typename T, typename KV, bool SPEC = false>
+template <typename T, typename KV, bool SPEC = false, bool RING = false>
 cudaError_t dispatch_split_paged_d(const PagedArgs& a) {
   if (a.dv != 0 && a.dv != a.d) return cudaErrorInvalidValue;
-  if (a.d == 64) return dispatch_split_paged_rows<T, KV, 64, SPEC>(a);
-  if (a.d == 128) return dispatch_split_paged_rows<T, KV, 128, SPEC>(a);
-  if (a.d == 256) return dispatch_split_paged_rows<T, KV, 256, SPEC>(a);
+  if (a.d == 64) return dispatch_split_paged_rows<T, KV, 64, SPEC, RING>(a);
+  if (a.d == 128)
+    return dispatch_split_paged_rows<T, KV, 128, SPEC, RING>(a);
+  if (a.d == 256)
+    return dispatch_split_paged_rows<T, KV, 256, SPEC, RING>(a);
   return cudaErrorInvalidValue;
 }
 

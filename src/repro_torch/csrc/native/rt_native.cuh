@@ -8,10 +8,11 @@
 // gives both members of a twin pair, as the reference binds one Pallas
 // body to both runtimes.  Nothing under rt/ is included: each member is
 // written here against CUDA itself (blockIdx, gridDim, __syncthreads,
-// an extern __shared__ carve-out, the __shfl_xor_sync butterfly), with
-// the arithmetic of the sm_90a target part instruction for instruction,
-// so the two builds can be bit-identical (src/repro_torch/bench/parity.py
-// holds them so and compares their SASS).
+// an extern __shared__ carve-out, the __shfl_xor_sync butterfly,
+// cp.async), with the arithmetic of the sm_90a target part instruction
+// for instruction, so the two builds can be bit-identical
+// (src/repro_torch/bench/parity.py holds them so and compares their
+// SASS).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,21 +34,48 @@ __device__ __forceinline__ unsigned thread_id() { return threadIdx.x; }
 __device__ __forceinline__ void barrier() { __syncthreads(); }
 
 // Buffers carved in declaration order out of the launch's dynamic
-// shared memory, each aligned to its type; uninitialized.
+// shared memory, each aligned to its type; uninitialized.  The extern
+// array is declared in a static member, as rt/memory.cuh declares it:
+// declared in the template member instead, nvcc laid pbt.cu's kernels
+// out otherwise than the portable build's (other SASS, same bits).
 class Arena {
  public:
   template <typename T>
   __device__ __forceinline__ T* alloc_shared(size_t n) {
-    extern __shared__ __align__(16) unsigned char native_shared[];
     offset_ = (offset_ + alignof(T) - 1) / alignof(T) * alignof(T);
-    T* p = reinterpret_cast<T*>(native_shared + offset_);
+    T* p = reinterpret_cast<T*>(base() + offset_);
     offset_ += n * sizeof(T);
     return p;
   }
 
  private:
+  __device__ __forceinline__ static unsigned char* base() {
+    extern __shared__ __align__(16) unsigned char native_shared[];
+    return native_shared;
+  }
+
   size_t offset_ = 0;
 };
+
+// 16 bytes from global to shared memory with cp.async, waited on by
+// wait_async_copies (every copy this thread issued committed as one
+// group and waited for), the sm_90a target part's instructions.
+constexpr bool has_async_copy = true;
+
+__device__ __forceinline__ void make_async_copy(void* dst_shared,
+                                                const void* src_global) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src_global)
+               : "memory");
+}
+
+template <typename T = void>
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
 
 // Floats of scratch a reduction over a 1-D team of `nt` threads needs.
 __host__ __device__ constexpr int reduce_scratch(int nt) { return nt / 32; }

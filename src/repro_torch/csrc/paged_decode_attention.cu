@@ -19,15 +19,14 @@
 // (kernels/decode_attention/decode_attention.py, paged_splits), never
 // from lengths, which live on the card; a split past lengths[b] or
 // wholly outside the window returns at once.  A row with one live split
-// stores its result directly, with the arithmetic of the unsplit paged
-// kernel (paged_decode_kernel, which B7 and B7q still run), so a
-// one-split launch gives its bits; with several, the last live split to
-// arrive merges the partials in split order and resets its counter,
-// inside the same launch.  The quantized (B5) and speculative (B6)
-// kernels run the same body over their pools and rows.  Key and value
-// head dims are equal (64, 128, 256), or 192 / 128 for MLA, whose 16
-// query heads sit one per kv head: 8 slots make 128 CTAs a split of 128
-// threads, each scoring over 192 columns and writing 128.
+// stores its result directly, so a one-split launch is one walk over
+// the whole row; with several, the last live split to arrive merges the
+// partials in split order and resets its counter, inside the same
+// launch.  The quantized (B5), speculative (B6) and sliding-window (B7,
+// B7q: ring walks) kernels run the same body over their pools and rows.
+// Key and value head dims are equal (64, 128, 256), or 192 / 128 for
+// MLA, whose 16 query heads sit one per kv head: 8 slots make 128 CTAs a
+// split of 128 threads, each scoring over 192 columns and writing 128.
 #include "decode_common.cuh"
 
 namespace {

@@ -7,8 +7,8 @@ kernel (or the call raises).  Both return the unnormalized residuals
 (acc, m, l) internally; the public functions normalize them with the
 ``l == 0 -> 1`` guard unless ``return_residuals`` asks for the raw
 triple.  ``page_size`` (logical, divides the pool's), ``block_kv`` and
-the split-KV kernels' ``splits`` (dense, paged, quantized paged and
-speculative) are schedule choices that change the result only by the
+the split-KV kernels' ``splits`` (every one of them) are schedule
+choices that change the result only by the
 order of f32 sums; on the CPU they have no effect.
 """
 from __future__ import annotations
@@ -120,11 +120,15 @@ def window_paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   scale: Optional[float] = None,
                                   page_size: Optional[int] = None,
                                   block_kv: Optional[int] = None,
+                                  splits: Optional[int] = None,
                                   return_residuals: bool = False):
     """Sliding-window GQA decode over ring block tables (B, T_w), global
     page ``g`` at column ``g % T_w``: ``decode_attention(window=window)``
     over the un-rung cache, read in O(window) however long the context
-    ran.  q: (B, Hq, D); pools (Hkv, P, ps, D); lengths (B,) int32."""
+    ran.  q: (B, Hq, D); pools (Hkv, P, ps, D); lengths (B,) int32.
+    ``splits``: chunks of whole pages of each slot's ring walk, counted
+    from the window's first live page (None: ``decode_attention.
+    paged_splits`` from the ring's width)."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         res = _ref.window_paged_decode_attention_ref(
@@ -135,7 +139,7 @@ def window_paged_decode_attention(q, k_pages, v_pages, block_tables,
             "window_paged_decode_attention", "block_kv")
         res = _paged.window_paged_decode_attention_fwd(
             q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
-            block_kv=block_kv, **kw)
+            block_kv=block_kv, splits=splits, **kw)
     return _finish(q, res, return_residuals)
 
 
@@ -146,9 +150,11 @@ def quant_window_paged_decode_attention(q, k_pages, v_pages, k_scales,
                                         scale: Optional[float] = None,
                                         page_size: Optional[int] = None,
                                         block_kv: Optional[int] = None,
+                                        splits: Optional[int] = None,
                                         return_residuals: bool = False):
     """``window_paged_decode_attention`` over int8/fp8-e4m3 pools with
-    (Hkv, P) f32 scale pools, dequantized before the dots."""
+    (Hkv, P) f32 scale pools, dequantized before the dots; ``splits`` as
+    there."""
     kw = dict(window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         res = _ref.quant_window_paged_decode_attention_ref(
@@ -159,7 +165,8 @@ def quant_window_paged_decode_attention(q, k_pages, v_pages, k_scales,
             "quant_window_paged_decode_attention", "block_kv")
         res = _paged.window_paged_decode_attention_fwd(
             q, k_pages, v_pages, block_tables, lengths, page_size=page_size,
-            block_kv=block_kv, k_scales=k_scales, v_scales=v_scales, **kw)
+            block_kv=block_kv, k_scales=k_scales, v_scales=v_scales,
+            splits=splits, **kw)
     return _finish(q, res, return_residuals)
 
 

@@ -1,7 +1,8 @@
 """Paged decode: the logical-page and ring-walk helpers and the
 launchers of the CUDA paged decode kernel
-(``csrc/paged_decode_attention.cu``) and of its sliding-window twin
-over ring block tables (``csrc/window_paged_decode_attention.cu``).
+(``csrc/paged_decode_attention.cu``) and of its sliding-window twins
+over ring block tables (``csrc/window_paged_decode_attention.cu``,
+``csrc/quant_window_paged_decode_attention.cu``).
 
 Layouts (as ``repro.kernels.decode_attention.paged``):
   q            (B, Hq, D)       one new token per slot
@@ -12,14 +13,16 @@ Layouts (as ``repro.kernels.decode_attention.paged``):
 A sliding-window layer's table is a *ring* (B, T_w), T_w =
 ``window_table_width(window, ps)``: global page ``g`` sits at column
 ``g % T_w``.  ``ring_walk`` lays each row out in timeline order from
-the window's first live page, the walk the window kernels follow.
+the window's first live page, the walk the window kernels follow (they
+index the ring so themselves) and the plain version gathers.
 
 ``repage``, ``repage_scales``, ``clamp_block_kv`` and ``ring_walk`` are
 plain functions so that the CPU tests check the index math the kernel
 launches rely on; ``paged_operands`` applies them for these launchers
 and for the quantized (``quant.py``) and speculative (``spec.py``)
-ones, and ``split_plan`` picks the split-KV launch of B4, B5 and B6
-(chunks of whole pages of each table row, from the table's reach).
+ones, and ``split_plan`` picks the split-KV launch of B4, B5, B6, B7
+and B7q (chunks of whole pages of each table row, from the table's
+reach; a ring walk's counted from its first token).
 """
 from __future__ import annotations
 
@@ -40,8 +43,9 @@ KERNEL = CudaKernel(
     "paged_decode_attention_fwd",
     [_p] * 12 + [_i] * 10 + [_f, _i, _f, _i, _p])
 # the window kernels over bf16/f32 pools (B7) and int8/fp8 pools with
-# scale pools (B7q): one argument list, one launcher
-_WINDOW_ARGS = [_p] * 11 + [_i] * 8 + [_f, _i, _f, _i, _i, _p]
+# scale pools (B7q): one argument list (with B4's split fields), one
+# launcher
+_WINDOW_ARGS = [_p] * 14 + [_i] * 9 + [_f, _i, _f, _i, _i, _p]
 WINDOW_KERNEL = CudaKernel(
     "window_paged_decode_attention", "window_paged_decode_attention.cu",
     "window_paged_decode_attention_fwd", _WINDOW_ARGS)
@@ -99,7 +103,9 @@ def ring_walk(block_tables: torch.Tensor, lengths: torch.Tensor,
     page_size`` the token at the head of column 0 (``repro`` paged.py:
     301-305, where grid step ``ik`` reads column ``(first + ik // spp) %
     T_w``).  Columns past the live window come after it in the walk,
-    and the kernels stop at ``L`` before reaching them."""
+    and the kernels stop at ``L`` before reaching them.  The window
+    kernels read their ring rows in this order on the card; the plain
+    version gathers the walk."""
     t = block_tables.shape[1]
     first = (lengths.long() - window).clamp(min=0) // page_size
     cols = (first[:, None] + torch.arange(t, device=lengths.device)) % t
@@ -141,10 +147,12 @@ def paged_operands(name: str, q, k_pages, v_pages, block_tables, *,
 
 def split_plan(name: str, q, hkv: int, bt, page_size: int,
                splits: Optional[int], dv: Optional[int] = None):
-    """(chunk, scratch) of a split-KV paged launch (B4, B5, B6): chunks
-    of whole logical pages of each table row, ``splits`` of them (None:
-    ``paged_splits`` from the table's reach, never from ``lengths``),
-    and with several the partials' scratch for q's rows ``q.shape[:-1]``
+    """(chunk, scratch) of a split-KV paged launch (B4, B5, B6; B7 and
+    B7q with ``bt`` the ring tables, their chunks counted from the
+    walk's first token): chunks of whole logical pages of each table
+    row, ``splits`` of them (None: ``paged_splits`` from the table's
+    reach, never from ``lengths``), and with several the partials'
+    scratch for q's rows ``q.shape[:-1]``
     (acc (n, ..., dv), m and l (n, ...)) and the merge's zeroed (B x
     Hkv) counters; else four Nones."""
     if splits is not None and not 1 <= splits <= MAX_SPLITS:
@@ -219,12 +227,19 @@ def window_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
                                       scale: Optional[float],
                                       page_size: Optional[int],
                                       block_kv: int, k_scales=None,
-                                      v_scales=None):
+                                      v_scales=None,
+                                      splits: Optional[int] = None):
     """Sliding-window decode over ring tables (B, T_w); lengths (B,)
     int32 count the new token.  With ``k_scales``/``v_scales`` the pools
     are int8/fp8 storage and the quantized kernel (B7q) dequantizes each
-    block, else they hold q's dtype (B7).  Returns unnormalized f32
-    residuals (acc, m, l), as the prefix-table kernel does."""
+    block, else they hold q's dtype (B7).  The kernel walks each ring
+    row from the window's first live page, as ``ring_walk`` lays it out.
+    ``splits``: chunks of whole logical pages of that walk, counted from
+    its first token, that the kernel walks in parallel and merges (None:
+    ``paged_splits`` from the ring's width, T_w x page_size, never from
+    ``lengths``); ``ref.window_paged_decode_attention_ref(chunk=...)``
+    is its rounding model.  Returns unnormalized f32 residuals (acc, m,
+    l), as the prefix-table kernel does."""
     quantized = k_scales is not None
     kern = QUANT_WINDOW_KERNEL if quantized else WINDOW_KERNEL
     name = kern.name
@@ -239,17 +254,18 @@ def window_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
     k_pages, v_pages, bt, ks, vs, page_size, bk = paged_operands(
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv, k_scales=k_scales, v_scales=v_scales)
-    walk, start = ring_walk(bt, lengths, window, page_size)
-    operands = [q, k_pages, v_pages, walk, start, lengths]
+    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits)
+    operands = [q, k_pages, v_pages, bt, lengths]
     if quantized:
         operands += [ks, vs]
     check_cuda(name, *operands)
     acc, m, l = residual_outputs(q)
     kern.launch(
         ptr(q), ptr(k_pages), ptr(v_pages), ptr(ks) if quantized else None,
-        ptr(vs) if quantized else None, ptr(walk), ptr(start), ptr(lengths),
-        ptr(acc), ptr(m), ptr(l), b, hq, hkv, k_pages.shape[1], page_size,
-        walk.shape[1], d, bk, float(d ** -0.5 if scale is None else scale),
+        ptr(vs) if quantized else None, ptr(bt), ptr(lengths), ptr(acc),
+        ptr(m), ptr(l), *scratch_ptrs(scratch), b, hq, hkv,
+        k_pages.shape[1], page_size, bt.shape[1], d, bk, chunk,
+        float(d ** -0.5 if scale is None else scale),
         int(window), float(softcap or 0.0), dtype_code(q),
         dtype_code(k_pages), stream_of(q))
     return acc, m, l

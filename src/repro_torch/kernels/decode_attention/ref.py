@@ -167,19 +167,24 @@ def window_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                       lengths, *, window: int,
                                       softcap: Optional[float] = None,
                                       scale: Optional[float] = None,
+                                      chunk: Optional[int] = None,
                                       return_residuals: bool = False):
     """Sliding-window decode over ring tables (B, T_w), global page
     ``g`` at column ``g % T_w``: gather the ring walk (``paged.
     ring_walk``) dense, so row 0 is the token at ``start``, then the
     dense plain version with the window mask and that offset.  Stale or
     null columns past the live window land past ``lengths`` and never
-    count."""
+    count.  ``chunk``: the split kernel's rounding model (B7, ``csrc/
+    window_paged_decode_attention.cu``): each ``chunk`` rows of the walk
+    on their own, so the chunks count from ``start``, not from token 0,
+    merged in order; a chunk wholly before the window or past the length
+    adds nothing to the merge."""
     walk, start = ring_walk(block_tables, lengths, window,
                             k_pages.shape[2])
     return decode_attention_ref(
         q, gather_pages(k_pages, walk), gather_pages(v_pages, walk),
         lengths, window=window, softcap=softcap, scale=scale,
-        kv_offset=start.long()[:, None, None],
+        kv_offset=start.long()[:, None, None], chunk=chunk,
         return_residuals=return_residuals)
 
 
@@ -188,12 +193,15 @@ def quant_window_paged_decode_attention_ref(q, k_pages, v_pages, k_scales,
                                             *, window: int,
                                             softcap: Optional[float] = None,
                                             scale: Optional[float] = None,
+                                            chunk: Optional[int] = None,
                                             return_residuals: bool = False):
-    """Dequantize the pools densely, then the window plain version."""
+    """Dequantize the pools densely, then the window plain version
+    (``chunk``: B7q's split-KV rounding model, as B7's)."""
     k_dense, v_dense = dequantize_pools(k_pages, v_pages, k_scales, v_scales)
     return window_paged_decode_attention_ref(
         q, k_dense, v_dense, block_tables, lengths, window=window,
-        softcap=softcap, scale=scale, return_residuals=return_residuals)
+        softcap=softcap, scale=scale, chunk=chunk,
+        return_residuals=return_residuals)
 
 
 def spec_paged_decode_attention_ref(q, k_pages, v_pages, block_tables,

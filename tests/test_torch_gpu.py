@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -413,16 +414,45 @@ def _ring_tables(lengths, window, ps, gen):
     return bt, 1 + len(lengths) * tw
 
 
+def _logical_window_args(args, page_size):
+    """The window operands (q, pools, [scales,] ring tables, lengths)
+    re-viewed at a logical page, as the launcher hands them to the
+    kernel: its ring walk then starts on a logical page."""
+    if page_size is None:
+        return args
+    q, kp, vp, *rest = args
+    ps = kp.shape[2]
+    kp_l, bt_l = paged_kern.repage(kp, rest[-2], page_size)
+    vp_l, _ = paged_kern.repage(vp, rest[-2], page_size)
+    scales = [paged_kern.repage_scales(sc, page_size, ps).contiguous()
+              for sc in rest[:-2]]
+    return (q, kp_l, vp_l, *scales, bt_l.to(torch.int32).contiguous(),
+            rest[-1])
+
+
+#: ring geometries of the window kernel checks: (window, page, lengths):
+#: an empty slot, one inside the window, one at its edge, and rings that
+#: have wrapped (lengths up to 5x the window), one split at the served
+#: chunks, then five
+WINDOW_RINGS = [(96, 32, (0, 1, 96, 130, 481)),
+                (1000, 64, (0, 1, 1000, 1301, 4811))]
+
+
+@pytest.mark.parametrize("splits", [1, None, 8],
+                         ids=["one split", "served", "8 splits"])
 @pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8_e4m3"])
-@pytest.mark.parametrize("d", [128, 256])
-def test_window_paged_decode_kernel(cuda, kv_dtype, d):
-    """B7 (bf16 pools) and B7q (int8, fp8) against their plain versions,
-    f32 residuals at 1e-4, at the physical page and a logical one below
-    it: an empty slot, one inside the window, one at its edge, and
-    rings that have wrapped (lengths up to 5x the window)."""
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("ring", WINDOW_RINGS,
+                         ids=[f"window {r[0]}" for r in WINDOW_RINGS])
+def test_window_paged_decode_kernel(cuda, ring, d, kv_dtype, splits):
+    """B7 (bf16 pools) and B7q (int8, fp8) at one split, at their served
+    count and at 8, each in one launch: against their split plain
+    versions (``chunk=``, counted from the ring walk's start) and the
+    unsplit ones, f32 residuals at 1e-4, m bit for bit with a one-split
+    launch, at the physical page and a logical one below it."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    window, ps, hq, hkv = 96, 32, 8, 4
-    lengths = [0, 1, 96, 130, 481]
+    window, ps, lengths = ring
+    hq, hkv = 8, 4
     bt, n_pages = _ring_tables(lengths, window, ps,
                                torch.Generator().manual_seed(1))
     bt = bt.to(cuda)
@@ -443,12 +473,23 @@ def test_window_paged_decode_kernel(cuda, kv_dtype, d):
         fn = dec_ops.quant_window_paged_decode_attention
         plain = dec_ref.quant_window_paged_decode_attention_ref
     want = plain(*args, return_residuals=True, **kw)
+    reach = bt.shape[1] * ps
     for page_size in (None, 16):
+        page = page_size or ps
+        n = splits or dec_kern.paged_splits(reach, page)
         before = kern.launches
-        got = fn(*args, page_size=page_size, return_residuals=True, **kw)
+        got = fn(*args, page_size=page_size, splits=splits,
+                 return_residuals=True, **kw)
         assert kern.launches == before + 1
-        for a, w in zip(got, want):
+        split_want = plain(*_logical_window_args(args, page_size),
+                           chunk=dec_kern.split_chunk(reach, n, page),
+                           return_residuals=True, **kw)
+        for a, w, sw in zip(got, want, split_want):
             torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(a, sw, atol=1e-4, rtol=1e-4)
+        one = fn(*args, page_size=page_size, splits=1, return_residuals=True,
+                 **kw)
+        assert torch.equal(got[1], one[1])
     assert not got[2][0].any()                  # the empty slot: l = 0
 
 
@@ -947,6 +988,31 @@ def test_pbt_sweeps_on_the_card(cuda):
     for g, w in zip(got, sa_ref.pbt_sweeps(*args)):
         torch.testing.assert_close(g, w, atol=1e-5 * float(w.abs().max()),
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 513, 520])
+@pytest.mark.parametrize("nb", [1, 33, 1000])
+def test_pbt_tiles_at_ragged_shapes(cuda, nb, n):
+    """pbt's arena tiles (64 systems a team, 32 columns a tile) at shapes
+    that are not whole teams or tiles, with rows 16-byte aligned (n 64,
+    520) and not (n 1, 7, 513: 4-byte copies): x, cp and dp of the
+    portable, native and generic builds, native = portable bit for bit,
+    each within the stated tolerance of the plain sweeps."""
+    rng = np.random.default_rng(nb * 1000 + n)
+    lo, up, di = (rng.random((nb, n), dtype=np.float32) for _ in "lud")
+    args = tuple(torch.from_numpy(a).to(cuda) for a in (
+        0.4 * lo, 2.0 + di, 0.4 * up,
+        rng.standard_normal((nb, n), dtype=np.float32)))
+    got = sa.pbt_sweeps(*args)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, sa.pbt_sweeps(*args, native=True)))
+    with target("generic"):
+        generic = sa.pbt_sweeps(*args)
+    want = sa_ref.pbt_sweeps(*args)
+    for out in (got, generic):
+        for g, w in zip(out, want):
+            atol, rtol = sa.tolerance("570.pbt", args, w)
+            torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("label", ["reference", "card"])

@@ -41,7 +41,7 @@ JAX_FNS = {"503.postencil": jsa.postencil, "504.polbm": jsa.polbm,
 SOURCES = ("postencil.cu", "polbm.cu", "pomriq.cu", "pep.cu", "pcg.cu",
            "pbt.cu")
 #: the sources that stage nothing in the shared arena
-NO_ARENA = ("polbm.cu", "pcg.cu", "pbt.cu")
+NO_ARENA = ("polbm.cu", "pcg.cu")
 
 
 @pytest.fixture(autouse=True, scope="module")
