@@ -250,6 +250,12 @@ XL_DTYPES = ("bfloat16", "float32")
 XL_LOSS_TOL = 1e-3
 # the registry example's tolerance (repro.kernels.mlstm_scan.ops), f32
 XL_TOL = 2e-4
+# B10 against the plain version of its body (bf16: the chunkwise form,
+# all in f32; f32: the recurrence): f32 outputs at half the op's
+# tolerance, which holds the bf16 kernel's rounding of C, D o S and w V
+# to bf16 high and low halves on the tensor cores (about 2^-17 of each
+# term)
+XL_CHUNK_TOL = 1e-4
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -1503,16 +1509,21 @@ def _with_state(res):
 
 
 def check_mlstm_scan(s: Smoke) -> None:
-    """B10 against its plain version, h and the final state (C, n, m):
+    """B10 against its plain versions, h and the final state (C, n, m):
     the reference's registry example (B 1, 2 heads, S 64, Dk = Dv = 32,
-    f32, at the op's tolerance of 2e-4) and xlstm-1.3b's shapes (B 1 and
-    2 x S 1, 17, 64, 200 and 511, 4 heads of Dk = Dv = 1024; q, k and v
-    in bf16 and the gates in f32, as the mLSTM layer hands them over);
-    timed with its state output at the largest prefill group, B 2 x S
-    511.  No PyTorch call computes an mLSTM recurrence: no library
-    time.  Also B1 at the mLSTM head norm's shape, 2 x 511 rows of
-    4096, into its record under "xlstm"."""
+    f32 and bf16) and xlstm-1.3b's shapes (B 1 and 2 x S 1, 17, 64, 200
+    and 511, 4 heads of Dk = Dv = 1024; q, k and v in bf16 and the gates
+    in f32, as the mLSTM layer hands them over; S 200 in f32 too), each
+    against the recurrent plain version at the op's tolerance (2e-4; bf16
+    h at 2e-2) and against the plain version of the body that ran (the
+    chunkwise form at the bf16 body's chunk, the recurrence for f32) more
+    tightly (``XL_CHUNK_TOL``; bf16 h at one bf16 rounding, 1e-2); timed
+    with its state output at the largest prefill group, B 2 x S 511.
+    No PyTorch call computes an mLSTM recurrence: no library time.  Also
+    B1 at the mLSTM head norm's shape, 2 x 511 rows of 4096, into its
+    record under "xlstm"."""
     torch = s.torch
+    from repro_torch.kernels.mlstm_scan import mlstm_scan as kern
     from repro_torch.kernels.mlstm_scan import ops, ref
     g = torch.Generator(device=s.dev).manual_seed(13)
 
@@ -1522,21 +1533,29 @@ def check_mlstm_scan(s: Smoke) -> None:
         q, k, v = (rnd(b, h, n, d).to(dt) for _ in range(3))
         return q, k, v, rnd(b, h, n), rnd(b, h, n) + 2.0
 
-    args = operands(1, 64, 2, 32, torch.float32)
-    s.compare("mlstm_scan (1, 2, 64, 32), f32 (h, C, n, m)",
-              _with_state(ops.mlstm_scan(*args, return_state=True)),
-              _with_state(ref.mlstm_scan_ref(*args, return_state=True)),
-              tol_f32=XL_TOL)
+    def both(what, args):
+        got = _with_state(ops.mlstm_scan(*args, return_state=True))
+        err = s.compare(what, got, _with_state(
+            ref.mlstm_scan_ref(*args, return_state=True)), tol_f32=XL_TOL)
+        s.compare(f"{what} against its body's plain version", got,
+                  _with_state(ref.mlstm_scan_ref(
+                      *args, return_state=True,
+                      chunk=kern.plain_chunk(args[0].dtype))),
+                  tol_f32=XL_CHUNK_TOL, tol_bf16=1e-2)
+        return err
+
+    for dt in (torch.float32, torch.bfloat16):
+        both(f"mlstm_scan (1, 2, 64, 32), {str(dt)[6:]} (h, C, n, m)",
+             operands(1, 64, 2, 32, dt))
+    both(f"mlstm_scan (1, {XL_H}, 200, {XL_D}), f32 (h, C, n, m)",
+         operands(1, 200, XL_H, XL_D, torch.float32))
     err = 0.0
     for b in (1, 2):
         for n in XL_SCAN_LENS:
-            args = operands(b, n, XL_H, XL_D, torch.bfloat16)
-            err = max(err, s.compare(
+            err = max(err, both(
                 f"mlstm_scan ({b}, {XL_H}, {n}, {XL_D}), bf16 q/k/v, f32 "
-                f"gates (h, C, n, m)",
-                _with_state(ops.mlstm_scan(*args, return_state=True)),
-                _with_state(ref.mlstm_scan_ref(*args, return_state=True)),
-                tol_f32=XL_TOL))
+                f"gates (h, C, n, m)", operands(b, n, XL_H, XL_D,
+                                                torch.bfloat16)))
     b, n = 2, PROMPT_LENS[-1]
     # B1 at the mLSTM head norm of the largest prefill group: 2 x 511
     # rows of d_inner 4096
@@ -1557,9 +1576,9 @@ def check_mlstm_scan(s: Smoke) -> None:
     args = operands(b, n, XL_H, XL_D, torch.bfloat16)
     bh = b * XL_H
     # q, k, v and h in bf16, the two f32 gates, the f32 state (C, n, m)
-    # written once; 5 f32 operations per element of C and per row of n
-    # in every step of every head (a multiply and an FMA to update it, an
-    # FMA for the numerator or n . q)
+    # written once; the function's products on the tensor cores, Q C and
+    # the state's update K^T (w V), 4 S Dk Dv flops a head (the scores
+    # and (D o S) V add 2 S L (Dk + Dv), under 4% at L = 32)
     nbytes = (4 * bh * n * XL_D * 2 + 2 * bh * n * 4
               + bh * (XL_D * XL_D + XL_D + 1) * 4)
     s.record("mlstm_scan", "mlstm_scan.cu",
@@ -1567,8 +1586,13 @@ def check_mlstm_scan(s: Smoke) -> None:
              s.time_ms(lambda: ops.mlstm_scan(*args, return_state=True)),
              s.time_ms(lambda: ref.mlstm_scan_ref(*args, return_state=True),
                        iters=5),
-             nbytes, 5 * bh * n * (XL_D * XL_D + XL_D), None,
-             F32_FLOPS_PER_S)
+             nbytes, 4 * bh * n * XL_D * XL_D, None, BF16_FLOPS_PER_S)
+    # the recurrent form's bound, 5 f32 operations per element of C and
+    # per row of n in every step of every head, printed beside it
+    print(f"  mlstm_scan: the recurrent form's f32-ops bound at "
+          f"({b}, {XL_H}, {n}, {XL_D}): "
+          f"{5 * bh * n * (XL_D * XL_D + XL_D) / F32_FLOPS_PER_S * 1e3:.4f}"
+          f" ms")
 
 
 # ----------------------------------- portable runtime vs native twins -----

@@ -17,10 +17,17 @@ computations over the same tokens:
 
 It prints the teacher-forced gap (A's max logit minus A's logit of the
 served token, largest over the 32 tokens), max |A - served|, max |A - B|
-and max |A - D| over the real vocabulary, with the card's name and
-power limit:
+and max |A - D| over the real vocabulary, then, for the 48 layers in
+each dtype, |loss through the kernels - loss through their plain
+versions| of ``Model.loss`` on one batch of 2 x 512 random tokens and
+labels (``chip_smoke.py``'s loss check; ``--loss-seeds`` draws one batch
+from each seed given, 5 by default, and ``--loss-only`` runs the losses
+alone), with the card's name and power limit.  ``--src DIR`` imports
+``repro_torch`` from another checkout's ``src`` (an earlier tree
+unpacked under ``build/``), so that two trees run in one call:
 
-  PYTHONPATH=src python3 scripts/torch_xlstm_drift.py [--prompt-lens 17 200 511]
+  python3 scripts/torch_xlstm_drift.py [--prompt-lens 17 200 511] \
+      [--loss-seeds 5 6 7] [--loss-only] [--src DIR]
 """
 from __future__ import annotations
 
@@ -30,13 +37,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.models.registry import build_model  # noqa: E402
+import numpy as np
+import torch
 
 STEPS = 32
 CACHE_LEN = 1024
@@ -70,6 +72,7 @@ def _forced(model, params, seq, p: int):
 
 
 def case(name: str, cfg, prompt_len: int, dev) -> None:
+    from repro_torch.models.registry import build_model
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev)
@@ -98,11 +101,43 @@ def case(name: str, cfg, prompt_len: int, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def loss_error(cfg, dev, seeds) -> None:
+    """|Model.loss through the kernels - through their plain versions| on
+    one batch of 2 x 512 random tokens and labels from each seed."""
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    for seed in seeds:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        batch = {name: torch.randint(0, cfg.vocab_size, (2, 512),
+                                     device=dev, generator=g)
+                 for name in ("tokens", "labels")}
+        with torch.no_grad():
+            _, got = model.loss(params, batch)
+            _, want = model.loss(params, batch, plain=True)
+        got, want = float(got["loss"]), float(want["loss"])
+        print(f"48 layers {cfg.dtype} loss of 2 x 512 (batch seed {seed}): "
+              f"kernels {got:.6f}, plain {want:.6f}, |difference| "
+              f"{abs(got - want):.3e}", flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--prompt-lens", type=int, nargs="+",
                     default=[17, 200, 511])
+    ap.add_argument("--loss-seeds", type=int, nargs="+", default=[5])
+    ap.add_argument("--loss-only", action="store_true",
+                    help="run the 48 layers' loss errors alone")
+    ap.add_argument("--src",
+                    default=str(Path(__file__).resolve().parents[1] / "src"),
+                    help="the checkout's src to import repro_torch from")
     args = ap.parse_args(argv)
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
     if not torch.cuda.is_available():
         print("torch_xlstm_drift: needs a CUDA card", file=sys.stderr)
         return 1
@@ -112,11 +147,15 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}")
+    print(f"card: {smi}; torch {torch.__version__}; repro_torch from {src}")
     full = get_config("xlstm-1.3b")
     for dt in ("float32", "bfloat16"):
-        for p in args.prompt_lens:
-            case("48 layers", dataclasses.replace(full, dtype=dt), p, dev)
+        if not args.loss_only:
+            for p in args.prompt_lens:
+                case("48 layers", dataclasses.replace(full, dtype=dt), p, dev)
+        loss_error(dataclasses.replace(full, dtype=dt), dev, args.loss_seeds)
+    if args.loss_only:
+        return 0
     for kind in ("mlstm", "slstm"):
         for dt in ("float32", "bfloat16"):
             cfg = dataclasses.replace(full, dtype=dt, num_layers=8,

@@ -27,9 +27,9 @@ times on its own path):
    with small source changes; the generic build and the plain version
    take their turns too.
 
-4. the tensor-core builds, B2's and B11b's bf16 bodies and B8's, must
-   hold HMMA instructions in their SASS, and B2's generic build none
-   (:func:`hmma_counts`).
+4. the tensor-core builds, B2's and B11b's bf16 bodies, B8's and B10's,
+   must hold HMMA instructions in their SASS, and B2's generic build
+   none (:func:`hmma_counts`).
 
 B1, B2, the stand-ins and the regions are also built for the
 ``generic`` target (the same sources on a target that provides no
@@ -67,6 +67,7 @@ from repro_torch.kernels.flash_attention import native as fa_native
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gmm import gmm as gmm_kern
+from repro_torch.kernels.mlstm_scan import mlstm_scan as mlstm_kern
 from repro_torch.kernels.rmsnorm import native as rms_native
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
@@ -181,14 +182,18 @@ def kernels_of(lib: Path) -> Dict[Tuple[str, ...], dict]:
 
 _NAME = re.compile(r"(\w+)(?:<[^<>]*>)?\(")
 
+#: kernels whose template arguments name no type but whose body is f32:
+#: B10's recurrent body (its bf16 body is ``mlstm_chunk_kernel``)
+F32_BODIES = frozenset({"mlstm_recurrent_kernel"})
+
 
 def tensor_core_counts(sass_text: str, demangled: List[str]
                        ) -> Dict[str, Dict[str, int]]:
     """HMMA instructions of each kernel in ``cuobjdump -sass`` text
     (``demangled``: its kernels' names, in the text's order), split by
     element type: {"bf16": {kernel: count}, "f32": {...}}; an
-    instantiation with ``float`` among its template arguments is f32,
-    any other bf16."""
+    instantiation with ``float`` among its template arguments, or of a
+    kernel in :data:`F32_BODIES`, is f32, any other bf16."""
     hists = opcode_histograms(sass_text)
     out = {"bf16": {}, "f32": {}}
     for mangled, dem in zip(hists, demangled):
@@ -199,14 +204,16 @@ def tensor_core_counts(sass_text: str, demangled: List[str]
         label = f"{name}<{', '.join(key)}>" if key else name
         n = sum(c for op, c in hists[mangled].items()
                 if op.split(".")[0] == "HMMA")
-        out["f32" if "float" in key else "bf16"][label] = n
+        f32 = "float" in key or name in F32_BODIES
+        out["f32" if f32 else "bf16"][label] = n
     return out
 
 
 #: (kernel, target) of each build whose bf16 body is meant for the tensor
 #: cores, and B2's generic build, which must not use them
 TENSOR_CORE_BUILDS = ((fa_kern.KERNEL, "cuda"), (fa_native.KERNEL, "cuda"),
-                      (gmm_kern.KERNEL, "cuda"), (fa_kern.KERNEL, "generic"))
+                      (gmm_kern.KERNEL, "cuda"), (mlstm_kern.KERNEL, "cuda"),
+                      (fa_kern.KERNEL, "generic"))
 
 
 def hmma_counts() -> List[dict]:

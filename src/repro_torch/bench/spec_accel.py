@@ -253,9 +253,16 @@ def tolerance(name: str, args, want: torch.Tensor) -> Tuple[float, float]:
     contraction possible: near-exact, 1e-6 (a few ulps of |x| ~ 1).
     polbm: sums over 9 in another order and FMA contraction of cu and
     feq, amplified 1/0.6 by the relaxation, values up to ~7: 1e-5.
-    pomriq: the phase, up to ~60 rad, rounds to f32 (ulp ~4e-6) and is
-    summed in another way (FMA, dot order), so each cosine may move by
-    a few 1e-6: ~1e-6 nk max|phi| absolute, no relative part.
+    pomriq: the kernel reduces the phase d = x . k (in turns) exactly,
+    r = d - rint(d) (exact in f32 for |d| < 2^22), and takes the
+    special-function unit's cosine of f32(2 pi) r in [-pi, pi]: its
+    absolute error there is about 2^-21.4 (3.6e-7), and f32(2 pi) r
+    rounds by at most 1.2e-7 rad.  The plain version rounds its phase
+    f32(2 pi) d, up to ~60 rad, to f32 (ulp ~4e-6) and carries f32(2 pi)'s
+    own error |d| 1.7e-7 rad; the dot sums in another order (FMA), about
+    2 pi ulp(d).  So each cosine may move by a few 1e-6, with either
+    sign: ~1e-6 nk max|phi| absolute, no relative part (measured on the
+    card: 1.6e-4 of 8.4e-3 at nx 262,144 x nk 2,048).
     pep: logf/cosf/sqrtf differ by ulps (~2e-7 of |z|) and each block
     sums 256 terms in another order: 1e-5 relative, and 1e-5 of the
     largest block's sum |z| absolute, since sum z may be near 0.

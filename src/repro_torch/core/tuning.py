@@ -8,7 +8,8 @@ to 64 tokens.  The grouped matmul keeps the reference's parameter
 names; its N and K tiles are compiled in, and its capacity tile has a
 second build of 8 rows for decode (``kernels/gmm/gmm.py``).  The
 selective scan's and the mLSTM scan's time chunks (the steps staged in
-shared memory per pass) are compiled in too.
+shared memory per pass) are compiled in too; the mLSTM scan's is its
+bf16 body's chunkwise L.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ TABLE = {
     ("gmm", "block_n"): 128,
     ("gmm", "block_k"): 32,
     ("mamba_scan", "chunk"): 32,
-    ("mlstm_scan", "chunk"): 8,
+    ("mlstm_scan", "chunk"): 32,
 }
 
 

@@ -77,6 +77,10 @@ __device__ __forceinline__ void wait_async_copies() {
                    : "memory");
 }
 
+// The special-function unit's cosine, the sm_90a target part's
+// instruction (MUFU.COS).
+__device__ __forceinline__ float approx_cos(float x) { return __cosf(x); }
+
 // Floats of scratch a reduction over a 1-D team of `nt` threads needs.
 __host__ __device__ constexpr int reduce_scratch(int nt) { return nt / 32; }
 

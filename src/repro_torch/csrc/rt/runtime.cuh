@@ -10,11 +10,13 @@
 //
 //   targets/sm90.cuh     default, the `declare variant match(device=
 //                        {arch(nvptx64)})` of this port: warp shuffles,
-//                        rcp.approx, native atomicInc, cp.async, and the
-//                        tensor core (mma.sync, ldmatrix);
+//                        rcp.approx, the special-function unit's cosine
+//                        (approx_cos), native atomicInc, cp.async, and
+//                        the tensor core (mma.sync, ldmatrix);
 //   targets/generic.cuh  -DREPRO_RT_TARGET_GENERIC: no intrinsic at all;
 //                        reductions and the warp matrix product through
-//                        shared memory, an exact reciprocal, and
+//                        shared memory, an exact reciprocal and cosine,
+//                        and
 //                        atomic_inc / make_async_copy that fail to compile
 //                        where they are called (has_async_copy is false).
 //

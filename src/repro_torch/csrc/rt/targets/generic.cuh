@@ -145,6 +145,9 @@ __device__ __forceinline__ void load_matrix_x2_trans(unsigned (&r)[2],
 
 __device__ __forceinline__ float approx_reciprocal(float x) { return 1.f / x; }
 
+// No special-function unit: the accurate cosine.
+__device__ __forceinline__ float approx_cos(float x) { return cosf(x); }
+
 constexpr bool has_async_copy = false;
 
 template <typename T>

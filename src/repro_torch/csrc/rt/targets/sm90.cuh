@@ -86,6 +86,11 @@ __device__ __forceinline__ float approx_reciprocal(float x) {
   return y;
 }
 
+// The special-function unit's cosine (MUFU.COS, through __cosf): an
+// absolute error of about 2^-21.4 on [-pi, pi], growing with |x|
+// beyond, so a caller reduces the argument to one turn first.
+__device__ __forceinline__ float approx_cos(float x) { return __cosf(x); }
+
 // { v = x; x = x >= e ? 0 : x + 1; } return v;  native on CUDA, with
 // exactly the wraparound of src/repro/core/atomics.py atomic_inc.
 __device__ __forceinline__ unsigned atomic_inc(unsigned* x, unsigned e) {

@@ -3,9 +3,10 @@
 The kernel takes q, k and v in one activation type (f32 or bf16) and
 the two gates in f32, exactly as the mLSTM layer hands them over; it is
 built for head dims Dk of 32 (the reference's registry example) and
-1024 (xlstm-1.3b), with Dv a multiple of 32, and its time chunk is
-compiled in (the tuning table's; the kernel refuses any other).  Every
-other mix, shape or device is refused here, by name.
+1024 (xlstm-1.3b), with Dv a multiple of 32.  bf16 runs the chunkwise
+body on the tensor cores, f32 the recurrent one; the chunkwise body's
+chunk is compiled in (the tuning table's "chunk"; the kernel refuses any
+other).  Every other mix, shape or device is refused here, by name.
 """
 from __future__ import annotations
 
@@ -56,6 +57,14 @@ def check_scan_operands(q, k, v, i_gate, f_gate) -> None:
         raise NotImplementedError(f"mlstm_scan: value head dim {dv} must be "
                                   f"a multiple of {V_TILE} (one CTA's "
                                   f"columns)")
+
+
+def plain_chunk(dtype: torch.dtype) -> int | None:
+    """``chunk=`` of the plain version that the kernel's body for
+    ``dtype`` computes: the chunkwise form at the bf16 body's L, the
+    recurrence (None) for the f32 body."""
+    return (tuning.block_size("mlstm_scan", "chunk")
+            if dtype == torch.bfloat16 else None)
 
 
 def mlstm_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -736,16 +736,24 @@ def test_jamba_engine_on_card_matches_cpu(cuda, paged):
 
 @pytest.mark.parametrize("b,h,s,dk,dtype", [
     (1, 2, 64, 32, torch.float32),          # repro's registry example
+    (1, 2, 7, 32, torch.bfloat16),          # fewer steps than a chunk
     (1, 4, 1, 1024, torch.bfloat16),        # one step
     (1, 4, 17, 1024, torch.bfloat16),       # S off a multiple of the chunk
     (2, 4, 64, 1024, torch.bfloat16),       # S a multiple of the chunk
     (1, 4, 200, 1024, torch.float32),
+    (1, 4, 45, 1024, torch.float32),        # f32, a short last chunk
     (2, 4, 511, 1024, torch.bfloat16)])     # the largest prefill group
 def test_mlstm_scan_kernel(cuda, b, h, s, dk, dtype):
-    """B10 against its plain version, h and the final state (C, n, m):
-    f32 outputs (the state, and h of f32 inputs) at the op's 2e-4, bf16
-    h at 2e-2; q/k/v in ``dtype``, the gates in f32, as the mLSTM layer
-    hands them over; one launch with the state and one without."""
+    """B10 against its plain versions, h and the final state (C, n, m):
+    against the recurrent one, f32 outputs (the state, and h of f32
+    inputs) at the op's 2e-4, bf16 h at 2e-2; against the plain version
+    of the body that ran (``plain_chunk``: the chunkwise form at the
+    bf16 body's chunk, all in f32; the recurrence for the f32 body) more
+    tightly, f32 outputs at 1e-4, which holds the bf16 kernel's rounding
+    of C, D o S and w V to bf16 high and low halves, and bf16 h at one
+    bf16 rounding, 1e-2; q/k/v in ``dtype``,
+    the gates in f32, as the mLSTM layer hands them over; one launch
+    with the state and one without."""
     g = torch.Generator(device=cuda).manual_seed(7)
 
     def rnd(*shape):
@@ -766,6 +774,14 @@ def test_mlstm_scan_kernel(cuda, b, h, s, dk, dtype):
     torch.testing.assert_close(alone, out, atol=0, rtol=0)
     for got, ref in ((c, wc), (n, wn), (m, wm)):
         torch.testing.assert_close(got, ref, **mlstm_ops.TOL)
+    ch, (cc, cn, cm) = mlstm_ref.mlstm_scan_ref(
+        q, k, v, ig, fg, return_state=True,
+        chunk=mlstm_kern.plain_chunk(dtype))
+    tight = dict(atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(out.float(), ch.float(), **(
+        tight if dtype == torch.float32 else dict(atol=1e-2, rtol=1e-2)))
+    for got, ref in ((c, cc), (n, cn), (m, cm)):
+        torch.testing.assert_close(got, ref, **tight)
 
 
 def _xlstm_card_config():

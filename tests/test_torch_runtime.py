@@ -529,3 +529,24 @@ def test_parity_counts_hmma_by_instantiation():
         "b (cuda): flash_mma_kernel<64> holds 0 HMMA"]
     assert parity.hmma_failures([dict(card, bf16={})]) == [
         "b (cuda): no bf16 instantiation"]
+
+
+def test_parity_counts_named_f32_body_as_f32():
+    """A kernel whose template arguments name no type but whose body is
+    f32 (B10's recurrent body, beside its bf16 chunkwise body) is held
+    as f32, so the check asks no HMMA of it."""
+    sass = """
+\t\tFunction : _ZN12_GLOBAL__N_118mlstm_chunk_kernelILi1024EEEvPK13__nv_bfloat16
+        /*0000*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+\t\tFunction : _ZN12_GLOBAL__N_19recurrent22mlstm_recurrent_kernelILi1024EEEvPKf
+        /*0000*/                   FFMA R1, R2, R3, R1 ;
+"""
+    names = ["void (anonymous namespace)::mlstm_chunk_kernel<1024>(const "
+             "__nv_bfloat16 *)",
+             "void (anonymous namespace)::recurrent::mlstm_recurrent_kernel"
+             "<1024>(const float *)"]
+    got = parity.tensor_core_counts(sass, names)
+    assert got == {"bf16": {"mlstm_chunk_kernel<1024>": 1},
+                   "f32": {"mlstm_recurrent_kernel<1024>": 0}}
+    assert parity.hmma_failures([{"build": "b", "target": "cuda",
+                                  **got}]) == []
