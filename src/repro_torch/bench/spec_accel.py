@@ -263,9 +263,17 @@ def tolerance(name: str, args, want: torch.Tensor) -> Tuple[float, float]:
     2 pi ulp(d).  So each cosine may move by a few 1e-6, with either
     sign: ~1e-6 nk max|phi| absolute, no relative part (measured on the
     card: 1.6e-4 of 8.4e-3 at nx 262,144 x nk 2,048).
-    pep: logf/cosf/sqrtf differ by ulps (~2e-7 of |z|) and each block
-    sums 256 terms in another order: 1e-5 relative, and 1e-5 of the
-    largest block's sum |z| absolute, since sum z may be near 0.
+    pep: logf and sqrtf differ by ulps (~2e-7 of |z|).  The kernel
+    reduces the phase u2 in (0, 1] exactly to t = u2 - rint(u2) in
+    [-1/2, 1/2] and takes the special-function unit's cosine of f32(2 pi)
+    t in [-pi, pi]: its absolute error there is about 2^-21.4 (3.6e-7),
+    and f32(2 pi) t rounds by at most ulp(pi) / 2 (1.2e-7 rad), against
+    the plain version's f32(2 pi) u2 up to 2 pi (ulp(2 pi) / 2, 2.4e-7
+    rad): about 7e-7 |r|, at most about 5e-6 a z (r <= 6.66).  Each
+    block sums 256 terms in another order (a lane's 8, then the warp's
+    butterfly).  So 1e-5 relative, and 1e-5 of the largest block's sum
+    |z| (about 2.4e-3) absolute, since sum z may be near 0: 256 worst-
+    case errors of a z add up to 1.3e-3.
     pcg: each SpMV row moves by an ulp or two (FMA contraction), the
     dots sum n terms in another order, and CG's 8 iterations on a
     matrix this diagonally dominant (Gershgorin: eigenvalues in [1.2,
@@ -296,8 +304,9 @@ def cost(name: str, args) -> Dict[str, object]:
     """Bytes and operations of one launch on ``args`` (each input read
     once, each output written once) and the least time the card could
     take (``standin.bound``); pomriq and pep count their cos, log and
-    sqrt, pbt its divisions, at the special-function rate, beside their
-    flops at the f32 rate, and the larger of the two stands."""
+    sqrt (pep its two int-to-float conversions too), pbt its divisions,
+    at the special-function rate, beside their flops at the f32 rate,
+    and the larger of the two stands."""
     if name == "503.postencil":
         h, w = args[0].shape
         return bound(2 * 4 * h * w, 5 * h * w)
@@ -312,8 +321,10 @@ def cost(name: str, args) -> Dict[str, object]:
         return bound(4 * (4 * nx + 4 * nk), 8 * nx * nk, nx * nk)
     if name == "552.pep":
         n = args[0].shape[0]
-        # the uniforms 4, -2 log 1, r cos 2, the moments 5; log, sqrt, cos
-        return bound(4 * n + 16 * (n // ref.PEP_BLOCK), 12 * n, 3 * n)
+        # the uniforms 4, -2 log 1, r cos 2, the moments 5; two
+        # conversions (I2F, which sm_90 issues at 16 a clock per SM, as it
+        # does the special-function unit's), log, sqrt and cos
+        return bound(4 * n + 16 * (n // ref.PEP_BLOCK), 12 * n, 5 * n)
     if name == "554.pcg":
         # the SpMV: diag, off, x read, y written; 2 multiplies, 2 adds
         n = args[0].shape[0]

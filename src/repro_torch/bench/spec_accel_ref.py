@@ -92,6 +92,16 @@ def postencil_ref(x: torch.Tensor, iters: int = ITERS) -> torch.Tensor:
     return x
 
 
+def polbm_rest_lattice(h: int, w: int) -> np.ndarray:
+    """An (h, w, 9) lattice with every cell at rest (u = 0) and its own
+    density, rho W9 with rho from 1 to 2.25 by the cell's position: one
+    step collides each cell to itself (within rounding) and only
+    streams."""
+    i, j = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    rho = 1.0 + ((7 * i + 3 * j) % 11).astype(np.float32) / 8
+    return (rho[..., None] * W9).astype(np.float32)
+
+
 def polbm_ref(f: torch.Tensor) -> torch.Tensor:
     """One D2Q9 BGK collision (tau 0.6), then periodic streaming by
     ``torch.roll``, plane by plane, as the reference does."""
@@ -140,6 +150,43 @@ def pep_hash(seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     a = (_mul_u32(s, 1664525) + 1013904223) & _U32
     b = _mul_u32(a ^ (a >> 16), 2246822519)
     return a, b
+
+
+def pep_unhash(a=None, b=None) -> np.ndarray:
+    """The int32 seeds whose :func:`pep_hash` gives the uint32 values
+    ``a`` or, given ``b`` instead, the values ``b``: both steps of the
+    hash are bijections of uint32 (odd multipliers, and x ^ (x >> 16) is
+    its own inverse), so each value has one seed.  For inputs at the
+    ends of the uniforms' range."""
+    if (a is None) == (b is None):
+        raise ValueError("pep_unhash: give a or b")
+    if b is not None:
+        x = [(int(v) * pow(2246822519, -1, 1 << 32)) & _U32 for v in b]
+        a = [v ^ (v >> 16) for v in x]
+    inv = pow(1664525, -1, 1 << 32)
+    s = [((int(v) - 1013904223) * inv) & _U32 for v in a]
+    return np.array(s, dtype=np.uint32).view(np.int32)
+
+
+#: hash values at the ends of the uniforms: a giving u1 = 1 - 2^-24 (log
+#: u1 about -6e-8), u1 = 1 (r = 0) and u1 = 2^-32 (the largest r, 6.66);
+#: b giving u2 = 1 (phase 0), 1/2 (a tie of rint), just past 1/2 and
+#: 2^-32
+PEP_EDGE_A = ((1 << 32) - 200, (1 << 32) - 1, 0)
+PEP_EDGE_B = ((1 << 32) - 1, (1 << 31) - 1, (1 << 31) + 256, 0)
+
+
+def pep_edge_block(seed: int = 0) -> np.ndarray:
+    """One block of :data:`PEP_BLOCK` int32 seeds: those of
+    :data:`PEP_EDGE_A` and :data:`PEP_EDGE_B` among random ones from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    block = rng.integers(-2 ** 31, 2 ** 31, PEP_BLOCK,
+                         dtype=np.int64).astype(np.int32)
+    edges = np.concatenate([pep_unhash(a=PEP_EDGE_A),
+                            pep_unhash(b=PEP_EDGE_B)])
+    block[rng.permutation(PEP_BLOCK)[:edges.size]] = edges
+    return block
 
 
 def pep_ref(seeds: torch.Tensor) -> torch.Tensor:

@@ -81,23 +81,38 @@ __device__ __forceinline__ void wait_async_copies() {
 // instruction (MUFU.COS).
 __device__ __forceinline__ float approx_cos(float x) { return __cosf(x); }
 
+// Warp-shuffle butterfly, the sm_90a target part's: every lane ends
+// with the sum (max) over its aligned group of `width` lanes (a power of
+// two up to 32), the whole warp by default.
+__device__ __forceinline__ float warp_reduce_sum(float v, int width = 32) {
+  for (int o = width / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_reduce_max(float v, int width = 32) {
+  for (int o = width / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Floats of scratch a reduction over a 1-D team of `nt` threads needs.
 __host__ __device__ constexpr int reduce_scratch(int nt) { return nt / 32; }
 
 // The sum (max) over the team of NT threads, returned to every thread:
-// the shuffle butterfly, one hop through `scratch`, the first warp's
+// the warp butterfly, one hop through `scratch`, the first warp's
 // butterfly over the partials.  Every thread must call it.  Every
 // thread reads scratch[0] after the last barrier, so `scratch` may be
 // reused only after a barrier that follows the call: two reductions in
 // a row take a carve-out each.
 template <int NT>
 __device__ __forceinline__ float reduce_sum(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  v = warp_reduce_sum(v);
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x < 32) {
     float p = threadIdx.x < NT / 32 ? scratch[threadIdx.x] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+    p = warp_reduce_sum(p);
     if (threadIdx.x == 0) scratch[0] = p;
   }
   __syncthreads();
@@ -106,15 +121,13 @@ __device__ __forceinline__ float reduce_sum(float v, float* scratch) {
 
 template <int NT>
 __device__ __forceinline__ float reduce_max(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  v = warp_reduce_max(v);
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x < 32) {
     const float neg_inf = __int_as_float(static_cast<int>(0xff800000u));
     float p = threadIdx.x < NT / 32 ? scratch[threadIdx.x] : neg_inf;
-    for (int o = 16; o > 0; o >>= 1)
-      p = fmaxf(p, __shfl_xor_sync(0xffffffffu, p, o));
+    p = warp_reduce_max(p);
     if (threadIdx.x == 0) scratch[0] = p;
   }
   __syncthreads();

@@ -20,7 +20,7 @@ from repro_torch.bench import miniqmc as mq
 from repro_torch.bench import miniqmc_ref as mq_ref
 from repro_torch.bench import spec_accel as sa
 from repro_torch.bench import spec_accel_ref as sa_ref
-from repro_torch.bench.standin import outputs
+from repro_torch.bench.standin import check_builds, outputs
 from repro_torch.configs.base import MLAConfig
 from repro_torch.configs.smoke import smoke_config
 from repro_torch.core import selftest
@@ -973,6 +973,82 @@ def test_spec_accel_twins_and_generic_build(cuda, name, label):
     atol, rtol = sa.tolerance(name, args, want)
     for out in (got, got_native, got_generic):
         torch.testing.assert_close(out, want, atol=atol, rtol=rtol)
+
+
+def _standin_builds_agree(name, args):
+    """A SPEC ACCEL stand-in's native and portable builds bit for bit on
+    ``args``, and each of them and the generic build finite, of the
+    plain shape and within the stated tolerance of the plain version."""
+    fn, plain = sa.FUNCS[name]
+    res = check_builds(fn, plain, args,
+                       lambda want: sa.tolerance(name, args, want))
+    assert res["bit_identical"], res
+    for side in ("native", "portable", "generic"):
+        assert res[f"ok_{side}"], (side, res)
+
+
+@pytest.mark.parametrize("n", [256, 768, (1 << 14) + 256])
+def test_pep_at_ragged_teams(cuda, n):
+    """pep's teams of 8 warps, a block of 256 seeds a warp, where the
+    last team holds 1 block (n 256), 3 (768) or 1 after whole teams
+    (2^14 + 256), on seeds over the whole int32 range."""
+    seeds = np.random.default_rng(n).integers(
+        -2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    _standin_builds_agree("552.pep", (torch.from_numpy(seeds).to(cuda),))
+
+
+def test_pep_at_the_ends_of_the_uniforms(cuda):
+    """A block holding the seeds of u1 = 1 - 2^-24 (log u1 about -6e-8,
+    where an approximate logarithm could make -2 log u1 negative), u1 =
+    1 and 2^-32, and u2 = 1, 1/2 (a tie of the phase's rint), just past
+    1/2 and 2^-32, between two random blocks: no NaN, max z finite."""
+    seeds = np.concatenate([sa_ref.pep_edge_block(s) for s in (1, 2, 3)])
+    seeds[:256] = np.random.default_rng(4).integers(
+        -2 ** 31, 2 ** 31, 256, dtype=np.int64).astype(np.int32)
+    args = (torch.from_numpy(seeds).to(cuda),)
+    _standin_builds_agree("552.pep", args)
+    got = sa.pep(*args)
+    assert bool(torch.isfinite(got).all()), got
+    # a = 0 gives b = 0: u1 = u2 = 2^-32, the largest r (6.6604), cos 1
+    assert float(got[1:, 2].min()) > 6.66
+
+
+@pytest.mark.parametrize("h,w", [(64, 1), (64, 2), (64, 3), (64, 4),
+                                 (64, 5), (64, 130), (64, 196), (64, 2048),
+                                 (128, 128)])
+def test_polbm_tiles_at_every_width(cuda, h, w):
+    """polbm's tiles of 16 rows x 64 cells at widths narrower than the
+    halo (w 1, 2, 3 wrap onto themselves), not whole 16-byte vectors of
+    cells (1, 2, 3, 5, 130: 4-byte copies), whole vectors with a ragged
+    last tile (4, 196) and whole tiles (2048, 128)."""
+    f = np.random.default_rng(h * w).random((h, w, 9), dtype=np.float32)
+    _standin_builds_agree("504.polbm",
+                          (torch.from_numpy(f + np.float32(0.5)).to(cuda),))
+
+
+@pytest.mark.parametrize("w", [1, 3, 4, 130, 2048])
+def test_polbm_streams_periodically_on_the_card(cuda, w):
+    """The card's counterpart of the CPU test of streaming: a lattice at
+    rest collides to itself, so each plane k of every build's output is
+    the input's moved by (cx_k, cy_k), across the tiles' edges (rows 16
+    apart, cells 64 apart) and wrapping at the lattice's; a bump of
+    density 3 at each tile corner moves with its planes.  Held at the
+    stand-in's 1e-5 (the collision rounds rho; a plane moved wrong is
+    off by 0.1 or more)."""
+    f = torch.from_numpy(sa_ref.polbm_rest_lattice(64, w))
+    for i, j in ((0, 0), (15, 63), (16, 64), (63, w - 1), (31, 127)):
+        f[i, j % w] *= 3.0
+    f = f.to(cuda)
+    outs = (sa.polbm(f), sa.polbm(f, native=True))
+    with target("generic"):
+        outs += (sa.polbm(f),)
+    assert torch.equal(outs[0], outs[1])
+    for out in outs:
+        for k, (cx, cy) in enumerate(sa_ref.D2Q9):
+            torch.testing.assert_close(
+                out[..., k],
+                torch.roll(f[..., k], (int(cx), int(cy)), (0, 1)),
+                atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("n", [1, 5, 127, 200, 300, 1024])

@@ -41,7 +41,7 @@ JAX_FNS = {"503.postencil": jsa.postencil, "504.polbm": jsa.polbm,
 SOURCES = ("postencil.cu", "polbm.cu", "pomriq.cu", "pep.cu", "pcg.cu",
            "pbt.cu")
 #: the sources that stage nothing in the shared arena
-NO_ARENA = ("polbm.cu", "pcg.cu")
+NO_ARENA = ("pep.cu", "pcg.cu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,6 +108,52 @@ def test_pep_hash_on_the_whole_int32_range():
     np.testing.assert_allclose(got.numpy(), _jax("552.pep", "native",
                                                  (seeds,)),
                                atol=atol, rtol=rtol)
+
+
+def test_pep_seeds_at_the_ends_of_the_uniforms():
+    """The seeds whose hash gives u1 = 1 - 2^-24, u1 = 1, u1 = 2^-32 and
+    u2 = 1, 1/2, just past 1/2, 2^-32 (``pep_unhash``): the hash gives
+    them back, and pep's block of them is finite and the reference's."""
+    seeds = ref.pep_edge_block(7)
+    a, b = ref.pep_hash(torch.from_numpy(seeds))
+    assert set(ref.PEP_EDGE_A) <= set(a.tolist())
+    assert set(ref.PEP_EDGE_B) <= set(b.tolist())
+    u1 = (a.to(torch.float32) + 1.0) / 4294967296.0
+    u2 = (b.to(torch.float32) + 1.0) / 4294967296.0
+    for u, ends in ((u1, (1 - 2 ** -24, 1.0, 2 ** -32)),
+                    (u2, (1.0, 0.5, 0.5 + 2 ** -24, 2 ** -32))):
+        assert all(bool((u == e).any()) for e in ends), ends
+    got = sa.pep(torch.from_numpy(seeds))
+    assert bool(torch.isfinite(got).all())
+    assert float(got[0, 2]) == pytest.approx(6.6604, abs=1e-4)  # r at 2^-32
+    atol, rtol = sa.tolerance("552.pep", (), got)
+    np.testing.assert_allclose(got.numpy(), _jax("552.pep", "native",
+                                                 (seeds,)),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 130])
+def test_polbm_matches_the_reference_at_any_width(w):
+    """Widths that are not whole 16-byte vectors of cells, or narrower
+    than the halo (w 1 and 2 wrap onto themselves): the port's polbm
+    against the reference's under NativeRuntime."""
+    f = np.random.default_rng(w).random((64, w, 9), dtype=np.float32) + 0.5
+    got = sa.polbm(torch.from_numpy(f))
+    atol, rtol = sa.tolerance("504.polbm", (), got)
+    np.testing.assert_allclose(got.numpy(), _jax("504.polbm", "native", (f,)),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("w", [1, 3, 130])
+def test_polbm_streams_every_plane_of_a_lattice_at_rest(w):
+    """A lattice at rest collides to itself, so plane k of the output is
+    plane k of the input moved by (cx_k, cy_k), wrapping at every edge."""
+    f = torch.from_numpy(ref.polbm_rest_lattice(64, w))
+    out = sa.polbm(f)
+    for k, (cx, cy) in enumerate(ref.D2Q9):
+        torch.testing.assert_close(
+            out[..., k], torch.roll(f[..., k], (int(cx), int(cy)), (0, 1)),
+            atol=1e-6, rtol=0)
 
 
 def test_postencil_border_is_zero_and_sweeps_count():
@@ -246,6 +292,9 @@ def test_cost_counts_the_bound_of_one_launch():
     assert got["504.polbm"]["bound_ms"] == pytest.approx(0.0901, 1e-3)
     assert got["552.pep"]["bound_by"] == "bytes"
     assert got["552.pep"]["bound_ms"] == pytest.approx(0.0814, 1e-3)
+    # two conversions, a log, a sqrt and a cos a seed at 16 a clock per SM
+    assert got["552.pep"]["ops"] == 5 << 26
+    assert got["552.pep"]["unit"] == "G special-function ops"
     assert got["514.pomriq"]["bound_by"] == "operations"
     assert got["514.pomriq"]["ops"] == 262144 * 2048
     assert got["554.pcg"]["bytes"] == 16 << 24
@@ -290,6 +339,6 @@ def test_native_binding_hard_codes_cuda():
                    "__shfl_xor_sync"):
         assert direct in code, direct
     for member in ("team_id", "num_teams", "thread_id", "barrier",
-                   "class Arena", "reduce_scratch", "reduce_sum",
-                   "reduce_max"):
+                   "class Arena", "warp_reduce_sum", "warp_reduce_max",
+                   "reduce_scratch", "reduce_sum", "reduce_max"):
         assert member in code, member
