@@ -27,7 +27,12 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    ``spec_paged_decode_attention_ref(chunk=...)`` and its quantized
    twin) and, as a control, at one split to the unsplit plain versions,
    with m of every launch bit for bit, each launch a single one, and
-   timed at one split and at SPLIT_CHECK beside their served records; B1
+   timed at one split and at SPLIT_CHECK beside their served records;
+   B3-B7q again with NaN in one K page (or K scale) of a slot and,
+   separately, one V page (or V scale), a page neither the slot's first
+   nor its last, at one split, the served count and SPLIT_CHECK: the same
+   finiteness mask as their plain versions (the slot exactly 0 for K, NaN
+   for V, the others finite), the finite values within TOL_F32; B1
    at granite's, gemma2's and jamba's
    rows in bf16 and f32 is held bit for bit to its native twin B11a and
    its generic build, and timed in turns with B11a and ``F.rms_norm``;
@@ -95,7 +100,23 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    bf16 pools, checked as phase 4 plus: the speculative kernel launched
    36 times per step, at least one rejected draft; and again over an
    int8 pool;
-8. free granite-8b and serve 12 greedy requests of 17 to 6,000 tokens
+8. the same requests paged under injected faults (``serve/faults.py``),
+   three runs: (a) bf16 pools at a random fault rate of 0.05 (seed 0)
+   plus one scheduled fault of each kind, the watchdog at 10x the
+   slowest unfaulted decode step (at least 1 s) and stalls of twice
+   that; (b) int8 pools, a corrupted V scale page, then NaN logits on
+   slot 0 at every step from 6 to 17 with 2 retries; (c) spec k = 4,
+   NaN logits on slot 0 at steps 2 and 3, drafting disabled after 2
+   faults; each audited after every step, every request done (with its
+   32 tokens) or failed, the host copies one per decode step (discarded
+   ones too), admitted group and page scan, the decode kernel 36 times
+   per decode step, the teacher-forced gap of the done requests (bf16),
+   and (a) a recovery of each kind, watchdog trips = stalls injected, a
+   failure only where a random draw hit; (a), (b) pages quarantined and
+   the pool drained to what quarantine left; (b) a request failed; (c) a
+   request degraded to plain decode; printed as a ``serving_faults``
+   line;
+9. free granite-8b and serve 12 greedy requests of 17 to 6,000 tokens
    on ``gemma2-2b`` at full width and depth (26 layers alternating a
    4,096-token window and global attention, random weights from a
    seed), cache 8,192: paged (global layers through the paged kernel,
@@ -109,7 +130,7 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    reported, and for each request whose dense and paged tokens differ,
    at the first token where they do, the top-2 logit margins each run
    served there and a plain forward's over the common prefix;
-9. free gemma2-2b and serve the same 12 requests as granite on
+10. free gemma2-2b and serve the same 12 requests as granite on
    ``deepseek-v2-lite-16b`` at full width and depth (27 MLA layers,
    the first dense, then 64 routed experts top-6 and 2 shared experts
    on each of the other 26; random weights from a seed), paged and
@@ -120,24 +141,24 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    own calls (same prefill groups, same decode batches, the served
    tokens and expert choices fed back, so each MoE call drops what it
    dropped when served; a replay routing by its own top-k is reported);
-10. free deepseek-v2-lite-16b and serve the same 12 requests on
+11. free deepseek-v2-lite-16b and serve the same 12 requests on
    ``jamba-1.5-large-398b`` at full width cut to 4 layers (an attention
    layer with a dense MLP, then three mamba layers, the first and third
    with 16 experts top-2 of d_ff 24,576; 23 B parameters, 46 GB; random
-   weights from a seed), paged and dense: checked as phase 9, with 1
+   weights from a seed), paged and dense: checked as phase 10, with 1
    launch of the mode's decode kernel and 6 of the grouped matmul per
    decode step (and 6 per admitted group), and 3 of the selective scan
    per admitted group and none in a decode step;
-11. free jamba-1.5-large-398b and serve the same 12 requests on
-   ``xlstm-1.3b`` at full width and depth (48 layers: seven mLSTM, then
-   one sLSTM, six times; no attention layer; 3.6 B parameters, random
-   from a seed), paged and dense: checked as phase 4, with 42 launches
-   of the mLSTM scan per admitted group (every mLSTM layer's prefill,
+12. free jamba-1.5-large-398b and serve the same 12 requests on
+   ``xlstm-1.3b`` at full width cut to 16 of its 48 layers (seven mLSTM,
+   then one sLSTM, twice; no attention layer; random from a seed),
+   paged and dense, in bf16 and in f32: checked as phase 4, with 14
+   launches of the mLSTM scan per admitted group (every mLSTM layer's prefill,
    with its state output) and none in a decode step, and no attention
    kernel launched; then ``Model.loss`` of one batch of 2 x 512 tokens
    through the kernels (the mLSTM scan once per mLSTM layer) and
    through their plain versions, the two within XL_LOSS_TOL;
-12. trace five paged decode steps of each model for the card's busy
+13. trace five paged decode steps of each model for the card's busy
    share (reported, not checked).
 
 Each phase prints its wall time.
@@ -224,10 +245,12 @@ JB_LAYERS, JB_HQ, JB_HKV, JB_DM = 4, 64, 8, 8192
 JB_DI, JB_N, JB_E, JB_TOPK, JB_FF = 16384, 16, 16, 2, 24576
 # the scan's check lengths: below, at and off multiples of the chunk
 JB_SCAN_LENS = (17, 64, 200, 511)
-# xlstm-1.3b at full width and depth: 48 layers (seven mLSTM, then one
-# sLSTM, six times), d_model 2048, mLSTM d_inner 4096 in 4 heads of
-# 1024, so B10 runs at Dk = Dv = 1024
-XL_H, XL_D = 4, 1024
+# xlstm-1.3b at full width: d_model 2048, mLSTM d_inner 4096 in 4 heads
+# of 1024, so B10 runs at Dk = Dv = 1024.  Served and its loss taken at
+# 16 of its 48 layers (two of its six periods of seven mLSTM and one
+# sLSTM): the whole depth took 281 s of the run's 1,200, and the fault
+# phase needed the time
+XL_H, XL_D, XL_LAYERS = 4, 1024, 16
 # the mLSTM scan's check lengths: one step, off and at multiples of its
 # chunk of 8, and the longest prompt
 XL_SCAN_LENS = (1, 17, 64, 200, 511)
@@ -259,6 +282,14 @@ XL_CHUNK_TOL = 1e-4
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
+# the fault phase (granite-8b, paged): the random draws of run (a), one
+# scheduled fault of each kind at these steps, the watchdog's deadline
+# as a multiple of the slowest decode step of the unfaulted paged run
+# (at least WATCHDOG_MIN_S), and a stall of twice the deadline
+FAULT_RATE, FAULT_SEED = 0.05, 0
+FAULT_STEPS = (("kv_corrupt", 3), ("nan_logits", 6), ("alloc_fail", 9),
+               ("stall", 12))
+WATCHDOG_STEPS, WATCHDOG_MIN_S = 10, 1.0
 
 
 def _die(msg: str) -> None:
@@ -1022,6 +1053,168 @@ def check_window(s: Smoke) -> None:
                        lambda n: ops.quant_window_paged_decode_attention(
                            *args, return_residuals=True, splits=n, **kw),
                        plain_ms, nbytes, flops, ops_per_s=INT8_OPS_PER_S)
+
+
+def _nan_compare(s: Smoke, what, got, want):
+    """The NaN law's comparison: the residuals (acc, m, l) and acc / l of
+    a kernel and of its plain version have the same finiteness mask, and
+    their finite values agree within TOL_F32 (the f32 residuals' tol);
+    returns the kernel's acc / l."""
+    torch = s.torch
+
+    def norm(res):
+        return res[0] / torch.where(res[2] == 0, 1.0, res[2])[..., None]
+
+    ok, err = True, 0.0
+    for a, w in zip(tuple(got) + (norm(got),), tuple(want) + (norm(want),)):
+        fa, fw = torch.isfinite(a), torch.isfinite(w)
+        if not torch.equal(fa, fw):
+            ok = False
+            continue
+        if fa.any():
+            err = max(err, float((a[fa] - w[fw]).abs().max()))
+            ok &= bool(torch.allclose(a[fa], w[fw], atol=TOL_F32,
+                                      rtol=TOL_F32))
+    out = norm(got)
+    s.check(ok, f"{what}: finiteness masks equal "
+                f"({int((~torch.isfinite(out)).sum())} non-finite outputs), "
+                f"finite values within {TOL_F32} (max abs diff {err:.3e})")
+    return out
+
+
+def _nan_splits(s: Smoke, what, kernel, run, plain, served, chunk_of, slot,
+                kside):
+    """A split-KV kernel on operands with NaN in one K-side or V-side page
+    of ``slot`` that is neither its first nor its last, at one split, at
+    the served count and at SPLIT_CHECK, each against its plain version
+    (unsplit at one split, else split: its rounding model): the slot
+    comes out exactly 0 for a K-side NaN (m NaN, p and l 0, as jnp.max
+    leaves the reference's), NaN for a V-side one, every other slot
+    finite."""
+    torch = s.torch
+    for n in sorted({1, served, SPLIT_CHECK}):
+        before = kernel.launches
+        got = run(n)
+        s.check(kernel.launches == before + 1,
+                f"{what}: {n} split(s) in one launch")
+        out = _nan_compare(s, f"{what}, {n} split(s)", got,
+                           plain(None if n == 1 else chunk_of(n)))
+        rest = torch.cat([out[:slot], out[slot + 1:]])
+        hit = (bool((out[slot] == 0).all()) if kside
+               else bool(torch.isnan(out[slot]).all()))
+        s.check(hit and bool(torch.isfinite(rest).all()),
+                f"{what}, {n} split(s): slot {slot} "
+                f"{'exactly 0' if kside else 'NaN'}, every other slot "
+                f"finite")
+
+
+def check_nan_law(s: Smoke) -> None:
+    """B3-B7q at the served shapes with NaN in one K page (or K scale) of
+    a slot and, separately, in one V page (or V scale), a page neither
+    the slot's first nor its last: the kernels take the reference's K/V
+    NaN semantics (:func:`_nan_splits`).  granite's shapes for B3 (slot 7,
+    1,024 rows, rows 320-383), B4 and B5 (int8, fp8; slot 7's sixth
+    page) and B6 (bf16, int8; slot 6's sixth page, K1 5); gemma2's rings
+    for B7 and B7q (int8, fp8; the middle of slot 5's 65 live pages)."""
+    from repro_torch.kernels.decode_attention import decode_attention as dk
+    from repro_torch.kernels.decode_attention import ops, paged, quant, \
+        ref, spec
+    from repro_torch.serve.paging import live_window_pages
+    nan = float("nan")
+    q, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS)
+    kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
+    reach = bt.shape[1] * PAGE
+    paged_n = dk.paged_splits(reach, PAGE)
+
+    def chunk(n):
+        return dk.split_chunk(reach, n, PAGE)
+
+    page = int(bt[7, 5])
+    for side in ("K", "V"):
+        k, v = kc.clone(), vc.clone()
+        (k if side == "K" else v)[7, :, 320:384] = nan
+        _nan_splits(s, f"B3 decode, NaN in slot 7's {side} rows 320-383",
+                    dk.KERNEL, lambda n: ops.decode_attention(
+                        q, k, v, ln, splits=n, return_residuals=True),
+                    lambda c: ref.decode_attention_ref(
+                        q, k, v, ln, chunk=c, return_residuals=True),
+                    dk.decode_splits(CACHE_LEN),
+                    lambda n: dk.split_chunk(CACHE_LEN, n), 7, side == "K")
+        k, v = kp.clone(), vp.clone()
+        (k if side == "K" else v)[:, page] = nan
+        _nan_splits(s, f"B4 paged, NaN in slot 7's sixth {side} page",
+                    paged.KERNEL, lambda n: ops.paged_decode_attention(
+                        q, k, v, bt, ln, splits=n, return_residuals=True),
+                    lambda c: ref.paged_decode_attention_ref(
+                        q, k, v, bt, ln, chunk=c, return_residuals=True),
+                    paged_n, chunk, 7, side == "K")
+        for kv in ("int8", "fp8_e4m3"):
+            kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+            (ks if side == "K" else vs)[:, page] = nan
+            args = (q, kq, vq, ks, vs, bt, ln)
+            _nan_splits(
+                s, f"B5 {kv}, NaN in the {side} scale of slot 7's sixth "
+                   f"page", quant.KERNEL,
+                lambda n: ops.quant_paged_decode_attention(
+                    *args, splits=n, return_residuals=True),
+                lambda c: ref.quant_paged_decode_attention_ref(
+                    *args, chunk=c, return_residuals=True),
+                paged_n, chunk, 7, side == "K")
+    k1 = SPEC_K + 1
+    g = s.torch.Generator(device=s.dev).manual_seed(5)
+    sq = s.torch.randn(len(SPEC_BASES), k1, 32, 128, device=s.dev,
+                       generator=g).bfloat16()
+    skp, svp, sbt = _pages(s, kc, vc, [n + k1 for n in SPEC_BASES], PAGE)
+    base = s.torch.tensor(SPEC_BASES, dtype=s.torch.int32, device=s.dev)
+    page = int(sbt[6, 5])
+    for side in ("K", "V"):
+        for kv in (None, "int8"):
+            if kv is None:
+                k, v = skp.clone(), svp.clone()
+                (k if side == "K" else v)[:, page] = nan
+                args = (sq, k, v, sbt, base)
+                fn, plain = (ops.spec_paged_decode_attention,
+                             ref.spec_paged_decode_attention_ref)
+            else:
+                kq, vq, ks, vs = _quantize(s, skp, svp, kv)
+                (ks if side == "K" else vs)[:, page] = nan
+                args = (sq, kq, vq, ks, vs, sbt, base)
+                fn, plain = (ops.quant_spec_paged_decode_attention,
+                             ref.quant_spec_paged_decode_attention_ref)
+            _nan_splits(
+                s, f"B6 spec K1 {k1} {kv or 'bf16'}, NaN in slot 6's sixth "
+                   f"{side} page{' scale' if kv else ''}", spec.KERNEL,
+                lambda n: fn(*args, splits=n, return_residuals=True),
+                lambda c: plain(*args, chunk=c, return_residuals=True),
+                paged_n, chunk, 6, side == "K")
+    q, kp, vp, bt, ln = _ring_pools(s, G2_LENGTHS)
+    live = list(live_window_pages(G2_LENGTHS[5], G2_WINDOW, PAGE))
+    page = int(bt[5, live[len(live) // 2] % bt.shape[1]])
+    kw = dict(window=G2_WINDOW, softcap=G2_SOFTCAP)
+    reach = bt.shape[1] * PAGE
+    for side in ("K", "V"):
+        for kv in (None, "int8", "fp8_e4m3"):
+            if kv is None:
+                k, v = kp.clone(), vp.clone()
+                (k if side == "K" else v)[:, page] = nan
+                args, kern = (q, k, v, bt, ln), paged.WINDOW_KERNEL
+                fn, plain = (ops.window_paged_decode_attention,
+                             ref.window_paged_decode_attention_ref)
+            else:
+                kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+                (ks if side == "K" else vs)[:, page] = nan
+                args = (q, kq, vq, ks, vs, bt, ln)
+                kern = paged.QUANT_WINDOW_KERNEL
+                fn, plain = (ops.quant_window_paged_decode_attention,
+                             ref.quant_window_paged_decode_attention_ref)
+            _nan_splits(
+                s, f"{'B7q ' + kv if kv else 'B7'} gemma2 window, NaN in "
+                   f"the middle {side} page{' scale' if kv else ''} of slot "
+                   f"5's live window", kern,
+                lambda n: fn(*args, splits=n, return_residuals=True, **kw),
+                lambda c: plain(*args, chunk=c, return_residuals=True, **kw),
+                dk.paged_splits(reach, PAGE),
+                lambda n: dk.split_chunk(reach, n, PAGE), 5, side == "K")
 
 
 def check_head_dim_256(s: Smoke) -> None:
@@ -1902,14 +2095,41 @@ class _Replayer(_Recorder):
         return self._answer(logits, self.engine.active_mask)
 
 
+class _Dispatches:
+    """The served model, counting the decode steps that reach the card
+    (``decode_step`` and ``spec_decode_step`` calls: a step the watchdog
+    discards counts, it launched; one an injected allocation failure
+    emptied does not)."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.decodes = model, model.cfg, 0
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, *args, **kw):
+        self.decodes += 1
+        return self.model.decode_step(*args, **kw)
+
+    def spec_decode_step(self, *args, **kw):
+        self.decodes += 1
+        return self.model.spec_decode_step(*args, **kw)
+
+
 def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
-          prompt_lens=PROMPT_LENS, record=False, margins=False, **mode):
+          prompt_lens=PROMPT_LENS, record=False, margins=False, plan=None,
+          **mode):
     """Drive the engine over the 12 requests in a serving ``mode``
-    (ServeConfig fields); returns (requests, stats).  ``record`` keeps
-    every call's sampled tokens in ``stats["calls"]`` for the replay;
-    ``margins`` every emitted token's two largest served logits in
-    ``stats["top2"]`` (``_Top2.by_request``); an MoE model's dropped
-    assignments are counted on the card and read after the run."""
+    (ServeConfig fields), under the fault ``plan`` if one is given, the
+    allocator audited after every step (outside ``wall_s``, so
+    ``tok_per_s`` is the engine's alone); returns (requests, stats).  Counts the host copies (the step's, the admitted groups'
+    and the page scans'), the syncs hidden elsewhere (sync debug mode),
+    the decode steps that launched and every fault the recovery ladder
+    took (step, request, kind).  ``record`` keeps every call's sampled
+    tokens in ``stats["calls"]`` for the replay; ``margins`` every
+    emitted token's two largest served logits in ``stats["top2"]``
+    (``_Top2.by_request``); an MoE model's dropped assignments are
+    counted on the card and read after the run."""
     torch = s.torch
     from repro_torch.core.build import KERNELS
     from repro_torch.models import moe
@@ -1918,17 +2138,20 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
     sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=cache_len,
                                 max_new_tokens=MAX_NEW, page_size=PAGE,
                                 **mode)
-    served = _Recorder(model) if record else \
+    inner = _Recorder(model) if record else \
         _Top2(model) if margins else model
-    engine = engine_mod.Engine(served, params, sc, device=s.dev)
+    served = _Dispatches(inner)
+    engine = engine_mod.Engine(served, params, sc, device=s.dev,
+                               fault_plan=plan)
     if margins:
-        served.engine = engine
+        inner.engine = engine
     real_route = moe._route
     if record:
-        moe._route = served.route(real_route)
+        moe._route = inner.route(real_route)
     reqs = _requests(model.cfg.vocab_size, prompt_lens)
-    syncs, groups = [0], [0]
-    real_get, real_admit = engine_mod._device_get, engine._admit_group
+    syncs, groups, scans, events = [0], [0], [0], []
+    real_get, real_scan = engine_mod._device_get, engine_mod.nonfinite_pages
+    real_admit, real_requeue = engine._admit_group, engine._fault_requeue
 
     def counted_get(t):
         # the engine's own copy; sync debugging flags every other sync
@@ -1944,14 +2167,25 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
         groups[0] += n > 0
         return n
 
+    def counted_scan(*args):
+        scans[0] += 1
+        return real_scan(*args)
+
+    def logged_requeue(slot, kind):
+        events.append((engine.step_count, engine.active[slot].rid, kind))
+        return real_requeue(slot, kind)
+
     engine_mod._device_get = counted_get
+    engine_mod.nonfinite_pages = counted_scan
     engine._admit_group = counted_admit
+    engine._fault_requeue = logged_requeue
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
         k.launches = 0
     drops = moe.count_drops(s.dev) if model.cfg.moe is not None else None
-    step_s, decode_steps, hidden = [], 0, {"admitting": 0, "decoding": 0}
+    step_s, audits, audit_s = [], [], 0.0
+    hidden = {"admitting": 0, "decoding": 0}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode(1)     # warn on every other sync
@@ -1966,47 +2200,63 @@ def serve(s: Smoke, model, params, cache_len=CACHE_LEN,
                 n = sum("synchroniz" in str(w.message)
                         for w in caught[n0:])
                 hidden["decoding" if groups[0] == g0 else "admitting"] += n
-                if busy:
-                    decode_steps += 1
-                    if groups[0] == g0:
-                        step_s.append(dt)
+                if busy and groups[0] == g0:
+                    step_s.append(dt)
+                ta = time.perf_counter()
+                audits += [(engine.step_count, p) for p in engine.audit()]
+                audit_s += time.perf_counter() - ta
                 if not busy and not engine.queue and not engine.requeue:
                     break
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0 - audit_s
         finally:
             torch.cuda.set_sync_debug_mode(0)
             moe.stop_counting_drops()
             moe._route = real_route
             engine_mod._device_get = real_get
-            # the wrapper holds the engine's bound method: without this
+            engine_mod.nonfinite_pages = real_scan
+            # the wrappers hold the engine's bound methods: without this
             # the cycle keeps its weights and pools alive after the run
-            del engine._admit_group
+            del engine._admit_group, engine._fault_requeue
     launches = {k.name: k.launches for k in KERNELS}
-    stats = {"wall_s": wall, "decode_steps": decode_steps,
-             "groups": groups[0], "syncs": syncs[0],
+    est = engine.stats()
+    stats = {"wall_s": wall, "steps": est["steps"],
+             "decode_steps": served.decodes, "groups": groups[0],
+             "syncs": syncs[0], "page_scans": scans[0],
              "step_ms_median": 1e3 * statistics.median(step_s),
+             "step_ms_max": 1e3 * max(step_s),
              "tokens": sum(len(r.out) for r in reqs),
              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "launches": launches, "preemptions": engine.preemptions,
-             "hidden_syncs": hidden}
+             "hidden_syncs": hidden, "audit": audits,
+             "statuses": {x: sum(r.status == x for r in reqs)
+                          for x in ("done", "failed", "pending")}}
     stats["tok_per_s"] = stats["tokens"] / wall
+    if plan is not None:
+        stats["injections"] = list(plan.injection_log)
+        stats["events"] = events
+        for key in ("recoveries", "recoveries_total", "failed_requests",
+                    "watchdog_trips", "last_watchdog_trip", "last_recovery",
+                    "faults_injected", "quarantined", "available",
+                    "total_pages"):
+            stats[key] = est[key]
+        stats["usable"] = engine.allocator.usable
+        if engine.spec:
+            stats["spec_disabled"] = sum(r.spec_disabled for r in reqs)
     if drops is not None:
         stats["moe_dropped"] = int(drops)
     if record:
-        stats["calls"] = (served.calls, served.routes)
+        stats["calls"] = (inner.calls, inner.routes)
     if margins:
-        stats["top2"] = served.by_request(reqs)
-        served.engine = None
+        stats["top2"] = inner.by_request(reqs)
+        inner.engine = None
     if engine.paged:
         stats["kv_dtype"] = (None if engine.kv_spec is None
                              else engine.kv_spec.dtype)
         stats["pool_bytes_per_slot"] = paged_bytes_per_slot(
             engine.caches, engine.allocator.total_pages,
             engine.pages_per_slot)
-        stats["audit"] = engine.audit()
         if engine.windowed:
-            est = engine.stats()
             stats["window_prefix_frees"] = est["window_prefix_frees"]
             stats["window_peak_in_use"] = \
                 est["pool_groups"]["window"]["peak_in_use"]
@@ -2158,16 +2408,18 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
     for kname in kernels_idle:
         s.check(st["launches"][kname] == 0,
                 f"{name}: {kname} not launched ({st['launches'][kname]})")
-    s.check(st["syncs"] == st["decode_steps"] + st["groups"],
+    s.check(st["syncs"] == st["decode_steps"] + st["groups"]
+            and st["page_scans"] == 0,
             f"{name}: {st['syncs']} host syncs = {st['decode_steps']} "
-            f"decode steps + {st['groups']} admitted groups")
+            f"decode steps + {st['groups']} admitted groups "
+            f"({st['page_scans']} page scans)")
     s.check(st["hidden_syncs"]["decoding"] == 0,
             f"{name}: no other sync in steps that admitted nothing "
             f"({st['hidden_syncs']['decoding']}; "
             f"{st['hidden_syncs']['admitting']} in admitting steps)")
-    if "audit" in st:
-        s.check(st["audit"] == [], f"{name}: allocator audit clean at the "
-                                   f"end ({st['audit'][:3]})")
+    s.check(st["audit"] == [], f"{name}: allocator audit clean after every "
+                               f"step ({st['audit'][:3]})")
+    del st["audit"]
     if "window_prefix_frees" in st:
         s.check(st["window_prefix_frees"] > 0,
                 f"{name}: {st['window_prefix_frees']} pages behind the "
@@ -2320,12 +2572,157 @@ def run_serving(s: Smoke):
     print(f"  spec-int8 and int8 agree on "
           f"{_agree(runs['spec-int8'], runs['int8'])} of "
           f"{stats['spec-int8']['tokens']} tokens")
+    s.serving_faults = s.phase(
+        "serve granite-8b at full width under injected faults", run_faults,
+        s, model, params, runs, stats["paged"]["step_ms_max"])
     return dict(stats, tokens_agree={
         "dense_paged": _agree(runs["paged"], runs["dense"]),
         "spec_paged": _agree(runs["spec"], runs["paged"]),
         "int8_paged": _agree(runs["int8"], runs["paged"]),
         "fp8_e4m3_paged": _agree(runs["fp8_e4m3"], runs["paged"]),
         "spec_int8_int8": _agree(runs["spec-int8"], runs["int8"])})
+
+
+def run_faults(s: Smoke, model, params, unfaulted, step_ms_max):
+    """granite-8b at full width served paged under injected faults, three
+    runs (``serve/faults.py``; the engine's recovery ladder):
+
+    (a) bf16 pools, ``FaultPlan(FAULT_RATE, FAULT_SEED)`` plus one
+        scheduled fault of each kind (FAULT_STEPS), the watchdog at
+        WATCHDOG_STEPS x the slowest decode step of the unfaulted paged
+        run (at least WATCHDOG_MIN_S), a stall of twice that;
+    (b) int8 pools (B5): kv_corrupt at step 3 (NaN in a V scale page),
+        then nan_logits on slot 0 at steps 6-17, max_retries 2;
+    (c) spec, ngram, k 4 (B6): nan_logits on slot 0 at steps 2 and 3,
+        spec_disable_after 2 (retry_backoff 1, so that the same request
+        takes both).
+
+    Each is checked: audit clean after every step; every request done or
+    failed, a done one with MAX_NEW tokens; the host copies = decode
+    steps (discarded ones too) + admitted groups + page scans, no other
+    sync in a step that admitted nothing; the decode kernel launched 36
+    times a decode step; the teacher-forced gap of every done request's
+    tokens (bf16 runs; int8 reported); and each run's own contract
+    below.  The share of tokens equal to the same mode's unfaulted run is
+    reported: a resumed request's next token comes from re-prefill, B2's
+    rounding instead of B4's, so a near tie may flip."""
+    from repro_torch.serve.faults import FaultPlan
+    watchdog = max(WATCHDOG_MIN_S, WATCHDOG_STEPS * step_ms_max / 1e3)
+    plan_a = FaultPlan(rate=FAULT_RATE, seed=FAULT_SEED, stall_s=2 * watchdog)
+    for kind, step in FAULT_STEPS:
+        plan_a.at(step, kind)
+    plan_b = FaultPlan().at(3, "kv_corrupt")
+    for step in range(6, 18):
+        plan_b.at(step, "nan_logits", slot=0)
+    plan_c = FaultPlan().at(2, "nan_logits", slot=0).at(3, "nan_logits",
+                                                       slot=0)
+    print(f"  watchdog {watchdog:.3f} s ({WATCHDOG_STEPS} x the slowest "
+          f"unfaulted paged decode step, {step_ms_max:.2f} ms; at least "
+          f"{WATCHDOG_MIN_S} s), stall {2 * watchdog:.3f} s")
+    runs = (("a", "paged", plan_a, dict(watchdog_s=watchdog),
+             "paged_decode_attention", True),
+            ("b", "int8", plan_b, dict(kv_dtype="int8", max_retries=2),
+             "quant_paged_decode_attention", False),
+            ("c", "spec", plan_c, dict(spec_mode="ngram", spec_k=SPEC_K,
+                                       spec_disable_after=2,
+                                       retry_backoff=1),
+             "spec_paged_decode_attention", True))
+    out = {}
+    for run, mode_name, plan, mode, kernel, checked in runs:
+        name = f"faults ({run}) {mode_name}"
+        print(f"== serve, {name}", flush=True)
+        reqs, st = serve(s, model, params, plan=plan, paged=True, **mode)
+        print(f"  {name}: {st['steps']} steps, {st['decode_steps']} decode "
+              f"steps, {st['groups']} groups, {st['page_scans']} page scans, "
+              f"{st['wall_s']:.2f} s; statuses {st['statuses']}; injected "
+              f"{st['faults_injected']}; recoveries {st['recoveries']}; "
+              f"failed {st['failed_requests']}; watchdog trips "
+              f"{st['watchdog_trips']}; quarantined {st['quarantined']}")
+        print(f"  {name}: injections {st['injections']}")
+        print(f"  {name}: ladder (step, request, kind) {st['events']}")
+        s.check(st["audit"] == [], f"{name}: allocator audit clean after "
+                                   f"every step ({st['audit'][:3]})")
+        s.check(st["statuses"]["pending"] == 0,
+                f"{name}: every request done or failed "
+                f"({st['statuses']})")
+        done = [r for r in reqs if r.done]
+        failed = [r for r in reqs if r.failed]
+        s.check(all(len(r.out) == MAX_NEW for r in done),
+                f"{name}: every done request emitted {MAX_NEW} tokens")
+        s.check(st["failed_requests"] == len(failed),
+                f"{name}: failed_requests {st['failed_requests']} = the "
+                f"failed requests {len(failed)}")
+        s.check(st["syncs"] == st["decode_steps"] + st["groups"]
+                + st["page_scans"],
+                f"{name}: {st['syncs']} host syncs = {st['decode_steps']} "
+                f"decode steps + {st['groups']} admitted groups + "
+                f"{st['page_scans']} page scans")
+        s.check(st["hidden_syncs"]["decoding"] == 0,
+                f"{name}: no other sync in steps that admitted nothing "
+                f"({st['hidden_syncs']['decoding']})")
+        n = model.cfg.num_layers
+        s.check(st["launches"][kernel] == n * st["decode_steps"],
+                f"{name}: {kernel} launched {n} times a decode step "
+                f"({st['launches'][kernel]} = {n} x {st['decode_steps']})")
+        s.kernels[kernel]["launches_by_path"][name] = st["launches"][kernel]
+        drained = st["total_pages"] - 1 - st["quarantined"]
+        s.check(st["available"] == drained == st["usable"],
+                f"{name}: the pool drained to total - 1 - quarantined = "
+                f"{drained} ({st['available']} free, usable "
+                f"{st['usable']})")
+        if run == "a":
+            s.check(all(v >= 1 for v in st["recoveries"].values()),
+                    f"{name}: a recovery of each kind ({st['recoveries']})")
+            # stalls drawn for one step sleep once
+            stalls = {step for step, kind, _ in st["injections"]
+                      if kind == "stall"}
+            s.check(st["watchdog_trips"] == len(stalls),
+                    f"{name}: watchdog trips {st['watchdog_trips']} = the "
+                    f"steps a stall was injected at {sorted(stalls)}")
+            scheduled = list(FAULT_STEPS)
+            random_steps = set()
+            for step, kind, _ in st["injections"]:
+                if (kind, step) in scheduled:
+                    scheduled.remove((kind, step))
+                else:
+                    random_steps.add(step)
+            hit = {rid for step, rid, _ in st["events"]
+                   if step in random_steps}
+            s.check(all(r.rid in hit for r in failed),
+                    f"{name}: every failed request was hit by a random draw "
+                    f"(failed {[r.rid for r in failed]}; random draws at "
+                    f"steps {sorted(random_steps)})")
+        if run in ("a", "b"):
+            s.check(st["quarantined"] >= 1,
+                    f"{name}: {st['quarantined']} pages quarantined (>= 1)")
+        if run == "b":
+            s.check(len(failed) >= 1,
+                    f"{name}: {len(failed)} requests failed past "
+                    f"max_retries 2 (>= 1)")
+        if run == "c":
+            s.check(st["spec_disabled"] >= 1,
+                    f"{name}: {st['spec_disabled']} requests degraded to "
+                    f"plain decode (>= 1)")
+        gap, where, tokens, flipped = teacher_gap(s, model, params, done)
+        st.update(teacher_gap=gap, teacher_gap_at=where,
+                  teacher_tokens=tokens, teacher_flipped=flipped)
+        what = (f"{name}: largest teacher-forced gap over the {tokens} "
+                f"tokens of the done requests {gap:.4f} logits "
+                f"({flipped} not the plain argmax)")
+        if checked:
+            s.check(gap <= TEACHER_GAP, f"{what} <= {TEACHER_GAP}")
+        else:
+            print(f"  {what} (reported)")
+        base = {r.rid: r.out for r in unfaulted[mode_name]}
+        same = sum(a == b for r in done for a, b in zip(r.out, base[r.rid]))
+        st["tokens_equal_unfaulted"] = same
+        st["done_tokens"] = sum(len(r.out) for r in done)
+        print(f"  {name}: {same} of {st['done_tokens']} tokens of done "
+              f"requests equal the unfaulted {mode_name} run's (reported)")
+        del st["audit"]
+        out[run] = st
+        s.torch.cuda.empty_cache()
+    return out
 
 
 def run_traces(s: Smoke):
@@ -2613,14 +3010,15 @@ def run_serving_jamba(s: Smoke):
 
 
 def run_serving_xlstm(s: Smoke):
-    """xlstm-1.3b at full width and depth (48 layers: seven mLSTM, then
-    one sLSTM, six times; no attention layer), served paged and dense in
-    bf16 and again, on the same weights, in f32 (XL_DTYPES): B10 with its
-    state output on every mLSTM layer of every prefill (42 launches per
-    admitted group), none in a decode step (the one-token recurrences are
-    plain PyTorch); then ``Model.loss`` of one batch through the kernels
-    and through their plain versions.  The teacher-forced gap and the
-    loss are checked in f32 and reported in bf16 (see XL_DTYPES)."""
+    """xlstm-1.3b at full width cut to XL_LAYERS = 16 of its 48 layers
+    (two periods of seven mLSTM and one sLSTM; no attention layer),
+    served paged and dense in bf16 and again, on the same weights, in
+    f32 (XL_DTYPES): B10 with its state output on every mLSTM layer of
+    every prefill (14 launches per admitted group), none in a decode step
+    (the one-token recurrences are plain PyTorch); then ``Model.loss`` of
+    one batch through the kernels and through their plain versions.  The
+    teacher-forced gap and the loss are checked in f32 and reported in
+    bf16 (see XL_DTYPES)."""
     import dataclasses
     import gc
     torch = s.torch
@@ -2637,7 +3035,8 @@ def run_serving_xlstm(s: Smoke):
             "spec_paged_decode_attention")
     out, paged_runs = {}, {}
     for dt in XL_DTYPES:
-        cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype=dt)
+        cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype=dt,
+                                  num_layers=XL_LAYERS)
         checked = dt == "float32"
         model = build_model(cfg)
         torch.cuda.reset_peak_memory_stats()
@@ -2808,6 +3207,7 @@ def main() -> int:
                      ("quant paged", check_quant_paged),
                      ("spec paged", check_spec),
                      ("window paged (gemma2 shapes)", check_window),
+                     ("decode NaN law (B3-B7q)", check_nan_law),
                      ("head-dim-256 builds (gemma2 shapes)",
                       check_head_dim_256),
                      ("gmm (deepseek shapes)", check_gmm),
@@ -2823,6 +3223,7 @@ def main() -> int:
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
         _die("failed before serving:\n  " + "\n  ".join(s.failures))
+    s.serving_faults = None
     serving = s.phase("serve granite-8b at full width", run_serving, s)
     torch.cuda.empty_cache()
     serving_g2 = s.phase("serve gemma2-2b at full width", run_serving_gemma2,
@@ -2832,8 +3233,8 @@ def main() -> int:
                          run_serving_deepseek, s)
     serving_jb = s.phase("serve jamba-1.5-large-398b at full width, "
                          f"{JB_LAYERS} layers", run_serving_jamba, s)
-    serving_xl = s.phase("serve xlstm-1.3b at full width and depth, and "
-                         "its loss", run_serving_xlstm, s)
+    serving_xl = s.phase(f"serve xlstm-1.3b at full width, {XL_LAYERS} "
+                         f"layers, and its loss", run_serving_xlstm, s)
     traces = s.phase("trace the card over paged decode steps", run_traces, s)
 
     for k in s.kernels.values():
@@ -2842,6 +3243,8 @@ def main() -> int:
                               if n), 0)
     if serving is not None:
         print(json.dumps({"serving": serving}))
+    if s.serving_faults is not None:
+        print(json.dumps({"serving_faults": s.serving_faults}))
     if serving_g2 is not None:
         print(json.dumps({"serving_gemma2": serving_g2}))
     if serving_ds is not None:

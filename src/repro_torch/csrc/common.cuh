@@ -46,8 +46,24 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
+// max(a, b) that propagates NaN, as jnp.max and torch.amax do (fmaxf
+// drops it): a NaN score must make the decode kernels' running max NaN,
+// so that the row comes out 0 as the reference's does.  sm_80 and later
+// have it as one instruction (max.NaN.f32, an FMNMX); elsewhere the test
+// is spelled out.  On finite inputs it is fmaxf, bit for bit.
+__device__ __forceinline__ float max_nan(float a, float b) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 800 && !defined(REPRO_RT_TARGET_GENERIC)
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return a != a ? a : b != b ? b : fmaxf(a, b);
+#endif
+}
+
+// The warp's max, NaN if any lane holds NaN (max_nan).
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

@@ -298,7 +298,9 @@ __device__ void split_block(const SplitSmem<T, DK, DV, G>& sm, int st,
     float* sr = sm.s + gi * BK_MAX;
     const float x0 = sr[lane], x1 = sr[lane + 32];
     const float m_old = sm.m[gi];
-    const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
+    // NaN-propagating: a NaN score (NaN in a K page or a K scale) makes
+    // m NaN, p and l 0, and the row 0, as the plain versions leave it
+    const float m_new = max_nan(m_old, warp_max(max_nan(x0, x1)));
     const bool live = m_new > NEG_INF / 2;
     const float p0 = live ? expf(x0 - m_new) : 0.f;
     const float p1 = live ? expf(x1 - m_new) : 0.f;
@@ -393,7 +395,7 @@ __device__ void split_merge(const SplitSmem<T, DK, DV, G>& sm,
   __syncthreads();
   if (tid < n) {
     float m = NEG_INF;
-    for (int jj = 0; jj < nlive; ++jj) m = fmaxf(m, sm.s[tid * BK_MAX + jj]);
+    for (int jj = 0; jj < nlive; ++jj) m = max_nan(m, sm.s[tid * BK_MAX + jj]);
     sm.m[tid] = m;
   }
   __syncthreads();

@@ -47,10 +47,18 @@ On the CPU, through the plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --smoke --prompts 6 --max-new 12 --paged --device cpu
 
-Prints one JSON summary: completion, token counts, wall time, the
-speculative counters, the pages freed behind sliding windows, the MoE
-assignments that capacity dropped and the launch count of every kernel
-in the run.
+Under injected faults (``serve/faults.py``: corrupted KV pages, NaN
+logits, failed allocations, stalled steps, drawn at this per-step rate
+from a seed), recovered by the engine's ladder:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --smoke --paged --page-size 4 --device cpu --fault-rate 0.1 \
+      --watchdog-s 1.0
+
+Prints one JSON summary: completion and request statuses, token counts,
+wall time, the recovery counters and quarantined pages, the speculative
+counters, the pages freed behind sliding windows, the MoE assignments
+that capacity dropped and the launch count of every kernel in the run.
 """
 from __future__ import annotations
 
@@ -72,6 +80,7 @@ def main(argv=None):
     from repro_torch.quant import KV_DTYPES
     from repro_torch.serve.engine import (PREEMPT_POLICIES, SPEC_MODES,
                                          Engine, Request, ServeConfig)
+    from repro_torch.serve.faults import FaultPlan
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -102,13 +111,28 @@ def main(argv=None):
                          "ngram drafts from each request's own history")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per speculative step")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="inject faults (KV-page corruption, NaN logits, "
+                         "allocation failure, stalled step) at this "
+                         "per-step probability (requires --paged); the "
+                         "engine detects and recovers them")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault plan")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="per-request fault-retry budget; past it the "
+                         "request finishes with status 'failed'")
+    ap.add_argument("--watchdog-s", type=float, default=None,
+                    help="per-step wall-clock deadline; a step past it is "
+                         "discarded and its slots requeued (armed after "
+                         "the first step)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no card and no --device "
                          "cpu is an error")
     args = ap.parse_args(argv)
     for flag, used in (("--total-pages", args.total_pages is not None),
                        ("--kv-dtype", args.kv_dtype is not None),
-                       ("--spec-mode", args.spec_mode != "off")):
+                       ("--spec-mode", args.spec_mode != "off"),
+                       ("--fault-rate", bool(args.fault_rate))):
         if used and not args.paged:
             ap.error(f"{flag} requires --paged")
 
@@ -122,8 +146,11 @@ def main(argv=None):
                      page_size=args.page_size, total_pages=args.total_pages,
                      preempt_policy=args.preempt_policy,
                      kv_dtype=args.kv_dtype, spec_mode=args.spec_mode,
-                     spec_k=args.spec_k)
-    engine = Engine(model, params, sc, device=dev)
+                     spec_k=args.spec_k, max_retries=args.max_retries,
+                     watchdog_s=args.watchdog_s)
+    plan = (FaultPlan(rate=args.fault_rate, seed=args.fault_seed)
+            if args.fault_rate > 0 else None)
+    engine = Engine(model, params, sc, device=dev, fault_plan=plan)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, tokens=rng.integers(
         0, cfg.vocab_size, size=args.prompt_len).tolist())
@@ -146,9 +173,19 @@ def main(argv=None):
         "arch": args.arch, "smoke": args.smoke, "device": str(dev),
         "paged": args.paged, "requests": len(reqs),
         "all_done": all(r.done for r in reqs),
+        "statuses": {s: sum(r.status == s for r in reqs)
+                     for s in ("done", "failed", "pending")},
         "new_tokens": new_tokens, "wall_s": dt,
         "tok_per_s": new_tokens / dt, "steps": st["steps"],
         "preemptions": st["preemptions"],
+        "recoveries": st["recoveries"],
+        "failed_requests": st["failed_requests"],
+        "watchdog_trips": st["watchdog_trips"],
+        "last_watchdog_trip": st["last_watchdog_trip"],
+        "last_recovery": st["last_recovery"],
+        **({"quarantined_pages": st["quarantined"]} if args.paged else {}),
+        **({"faults_injected": st["faults_injected"]}
+           if plan is not None else {}),
         "kv_dtype": st.get("kv_dtype"), "spec_mode": args.spec_mode,
         "spec_rejections": st.get("spec_rejections"),
         "accepted_tokens_per_step": (st["spec_emitted"] / st["spec_steps"]

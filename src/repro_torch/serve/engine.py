@@ -67,15 +67,40 @@ longest prefix that agrees with the argmax chain, and rolls the
 rejected tail's pages back with ``paging.truncate_suffix``.  Still one
 device-to-host copy per step, of (tokens, accepted count, done).
 
+Fault recovery (paged; ``serve/faults.py`` injects the faults): the
+step computes a NaN/Inf logits sentinel ``bad`` per slot and carries it
+in its one copy, beside the tokens and ``done``, so detection costs no
+extra sync.  A host watchdog bounds the time from dispatch to that
+copy.  Nothing of a step commits before the watchdog check: a step past
+its deadline is discarded and every active slot requeues.  A flagged
+slot commits nothing either; its live pages are scanned on the device
+(one more copy, of the per-page flags, on the fault path only), the
+corrupted ones quarantined, and the request checkpointed onto the
+requeue deque, with a retry budget (``max_retries``) and an exponential
+backoff in engine steps (``retry_backoff``, read at admission through
+``Request.not_before``).  An exhausted budget ends the request with
+status ``failed`` instead of raising.  An injected allocation failure
+sends the slot asking for a page down the same ladder.  In speculative
+mode, ``spec_disable_after`` faults of one request pin it to one token
+a step (``spec_ok``, a device mask re-uploaded only when it changes).
+The decode step writes K/V rows, recurrent state and the token history
+in place, so a discarded or flagged step has already written them: it
+is still safe, because every such slot is requeued and re-prefilled,
+and re-admission rewrites all of its rows.  Recovery is re-prefill of
+the committed checkpoint, so under greedy decoding a recovered request
+emits the tokens of an unfaulted run (on the card, up to the prefill
+kernel's rounding at a near tie).
+
 Left for later slices (ROADMAP.md queue A): sampling at temperature >
-0, fault recovery (with the spec-degrade rung
-``spec_ok``/``spec_disable_after``, the NaN sentinel and the watchdog),
-telemetry, the priority policy and per-request budgets.
+0, telemetry (with its fault hooks ``on_fault_*``, ``on_fail`` and
+``on_spec_degraded``: item 9), the priority policy and per-request
+budgets.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 import warnings
 from typing import Any, Dict, List, Optional
 
@@ -90,6 +115,8 @@ from repro_torch.models.transformer import (RECURRENT_KINDS, kv_dims,
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.quant import resolve_kv_spec
 from repro_torch.serve import paging
+from repro_torch.serve.faults import (FAULT_KINDS, FaultPlan, corrupt_page,
+                                      nonfinite_pages)
 
 
 def _device_get(t: torch.Tensor) -> np.ndarray:
@@ -118,6 +145,16 @@ class ServeConfig:
     # tokens per step from the slot's own history; "off" is plain
     spec_mode: str = "off"
     spec_k: int = 4
+    # fault recovery (paged): a faulted slot is requeued and re-prefilled
+    # at most max_retries times, retry_backoff * 2**(retries - 1) engine
+    # steps apart, then fails; watchdog_s bounds one step's dispatch and
+    # copy (None: off), armed after the engine's first step, which
+    # builds the kernels; spec_disable_after faults of one request in
+    # speculative steps pin it to one token a step
+    max_retries: int = 3
+    retry_backoff: int = 2
+    watchdog_s: Optional[float] = None
+    spec_disable_after: int = 2
 
 
 #: Valid ServeConfig.preempt_policy values (launch/serve.py choices).
@@ -135,11 +172,28 @@ class Request:
     done: bool = False
     truncated: bool = False
     preempts: int = 0       # times this request was preempted/requeued
+    # fault recovery (engine-managed): retries spent, the earliest engine
+    # step of re-admission (the backoff stamp), the terminal failure, and
+    # the speculative-step faults that disable drafting at
+    # ServeConfig.spec_disable_after
+    retries: int = 0
+    not_before: int = 0
+    failed: bool = False
+    spec_faults: int = 0
+    spec_disabled: bool = False
+
+    @property
+    def status(self) -> str:
+        """'done' | 'failed' | 'pending'."""
+        if self.failed:
+            return "failed"
+        return "done" if self.done else "pending"
 
 
 class Engine:
     def __init__(self, model: Model, params: Dict[str, Any],
-                 sc: ServeConfig, device: DeviceLike = None):
+                 sc: ServeConfig, device: DeviceLike = None,
+                 fault_plan: Optional[FaultPlan] = None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -198,6 +252,15 @@ class Engine:
         if sc.on_overflow not in ("reject", "truncate"):
             raise ValueError(f"on_overflow must be 'reject' or 'truncate', "
                              f"got {sc.on_overflow!r}")
+        if sc.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got "
+                             f"{sc.max_retries}")
+        if sc.retry_backoff < 0:
+            raise ValueError(f"retry_backoff must be >= 0, got "
+                             f"{sc.retry_backoff}")
+        if fault_plan is not None and not sc.paged:
+            raise ValueError("fault injection requires paged=True "
+                             "(kv_corrupt/alloc_fail target the page pool)")
         self.model, self.params, self.sc = model, params, sc
         self.cfg = cfg = model.cfg
         slots, dev = sc.slots, self.device
@@ -283,11 +346,30 @@ class Engine:
             self.metrics.counter(f"serve.preemptions.{p}")
         self.metrics.gauge("serve.requeue_peak_depth")
         for name in ("spec_steps", "spec_emitted", "spec_rejections",
-                     "window_prefix_frees"):
+                     "window_prefix_frees", "failed_requests",
+                     "watchdog_trips"):
             self.metrics.counter(f"serve.{name}")
+        for k in FAULT_KINDS:
+            self.metrics.counter(f"serve.recoveries.{k}")
         self._admit_seq = np.zeros((slots,), np.int64)   # lru stamps
         self._seq = 0
+        # the step counter backoff stamps are quoted in: it ticks on idle
+        # steps too, so a request backing off always comes back
         self.step_count = 0
+        # fault recovery: the plan (None in production), the watchdog's
+        # deadline, the sticky injected allocation failure, the (step,
+        # wall time) of the last trip and recovery, the all-false NaN
+        # mask kept on the device for steps that inject none, and the
+        # per-slot drafting enable of the speculative step
+        self.fault_plan = fault_plan
+        self.watchdog_s = sc.watchdog_s
+        self._alloc_deny = False
+        self.last_watchdog_trip: Optional[Dict[str, Any]] = None
+        self.last_recovery: Optional[Dict[str, Any]] = None
+        self._nan_none = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self._spec_ok_h = np.ones((slots,), bool)
+        self._spec_ok_dev = self._upload(self._spec_ok_h)
+        self._spec_ok_dirty = False
 
     @property
     def preemptions(self) -> int:
@@ -308,6 +390,19 @@ class Engine:
     @property
     def window_prefix_frees(self) -> int:
         return self.metrics.counter("serve.window_prefix_frees").value
+
+    @property
+    def recoveries(self) -> Dict[str, int]:
+        return {k: self.metrics.counter(f"serve.recoveries.{k}").value
+                for k in FAULT_KINDS}
+
+    @property
+    def failed_requests(self) -> int:
+        return self.metrics.counter("serve.failed_requests").value
+
+    @property
+    def watchdog_trips(self) -> int:
+        return self.metrics.counter("serve.watchdog_trips").value
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device, without waiting for the
@@ -363,13 +458,19 @@ class Engine:
         return [s for s in range(self.sc.slots) if self.active[s] is None]
 
     def _take_waiting(self, n: int) -> List[Request]:
-        """Up to ``n`` waiting requests: preempted checkpoints first (the
-        starvation guard), then the fresh queue, FIFO within each."""
-        picked = []
-        while len(picked) < n and self.requeue:
-            picked.append(self.requeue.popleft())
-        while len(picked) < n and self.queue:
-            picked.append(self.queue.pop(0))
+        """Up to ``n`` waiting requests whose backoff has expired:
+        checkpoints first (the starvation guard), then the fresh queue,
+        FIFO within each; the others keep their order."""
+        picked: List[Request] = []
+        for pool in (self.requeue, self.queue):
+            keep = []
+            for r in pool:
+                if len(picked) < n and r.not_before <= self.step_count:
+                    picked.append(r)
+                else:
+                    keep.append(r)
+            pool.clear()
+            pool.extend(keep)
         return picked
 
     def _requeue_front(self, reqs: List[Request]) -> None:
@@ -385,6 +486,10 @@ class Engine:
         one batched cache scatter per effective-prompt-length group."""
         while self._free_slots() and (self.requeue or self.queue):
             batch = self._take_waiting(len(self._free_slots()))
+            if not batch:
+                # everything waiting backs off; idle steps tick
+                # step_count, so the stamps expire
+                return
             groups: Dict[int, List[Request]] = {}
             for r in batch:
                 groups.setdefault(len(r.tokens) + len(r.out), []).append(r)
@@ -484,6 +589,11 @@ class Engine:
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             self._seq += 1
             self._admit_seq[slot] = self._seq
+            if self.spec and self._spec_ok_h[slot] == req.spec_disabled:
+                # the degrade rung: a request that faulted in speculative
+                # steps too often decodes one token a step from now on
+                self._spec_ok_h[slot] = not req.spec_disabled
+                self._spec_ok_dirty = True
             if admit_active[i]:
                 self.active[slot] = req
                 self._active_h[slot] = True
@@ -542,14 +652,18 @@ class Engine:
         self.requeue.append(req)
         self.metrics.gauge("serve.requeue_peak_depth").set_max(
             len(self.requeue))
-        self.active_mask[slot] = False   # before the next decode, not after
+        # before the next decode, not after; a fill, not a copy of a host
+        # scalar, which would wait on the card
+        self.active_mask[slot].fill_(False)
         self._release(slot)
 
     def _ensure_pages(self, horizon: int = 1) -> None:
         """Allocate the pages the next ``horizon`` tokens of each active
         slot write into (plain decode: 1; the spec step: its whole
         window, capped at the cache), preempting a victim when the pool
-        is dry (unless "fail")."""
+        is dry (unless "fail").  An injected allocation failure denies
+        the first slot that asks for a page: it goes down the recovery
+        ladder instead (before any preemption, as the reference does)."""
         for slot in np.nonzero(self._active_h)[0]:
             slot = int(slot)
             if not self._active_h[slot]:       # preempted earlier in loop
@@ -569,13 +683,22 @@ class Engine:
                     self._btw_dirty = True
                 self.win_first[slot] = new_first
             needed = paging.pages_per_slot(target, self.page_size)
-            self._ensured[slot] = needed
+            faulted = False
             for j in range(needed):
                 if self.block_tables[slot, j] != paging.NULL_PAGE:
                     continue
+                if self._alloc_deny:
+                    # sticky until it bites, one-shot once it has
+                    self._alloc_deny = False
+                    self._fault_requeue(slot, "alloc_fail")
+                    faulted = True
+                    break
                 self._make_room(self.allocator, slot, "total_pages")
                 self.block_tables[slot, j] = self.allocator.alloc()
                 self._bt_dirty = True
+            if faulted:
+                continue
+            self._ensured[slot] = needed
             if not self.windowed:
                 continue
             # the column a fresh page lands in was vacated by free_prefix
@@ -605,6 +728,112 @@ class Engine:
                     f"ServeConfig.{knob} (or lower cache_len)")
             self._preempt(victim)
 
+    # -- fault injection and the recovery ladder ----------------------------
+    def _draw_faults(self):
+        """Query the plan once for this step: kv_corrupt writes its NaN
+        page now, alloc_fail arms the sticky deny; returns the
+        nan_logits slots and the stall for the step to apply."""
+        nan_slots: List[int] = []
+        stall = 0.0
+        if self.fault_plan is None:
+            return nan_slots, stall
+        active = [int(s) for s in np.nonzero(self._active_h)[0]]
+        for kind, slot in self.fault_plan.faults_for(self.step_count,
+                                                     active):
+            if kind == "alloc_fail":
+                self._alloc_deny = True
+            elif kind == "stall":
+                stall = max(stall, self.fault_plan.stall_s)
+            elif kind == "nan_logits":
+                nan_slots.append(int(slot))
+            elif kind == "kv_corrupt":
+                # the slot's first page: inside its read prefix, since an
+                # active slot holds position 0 there
+                corrupt_page(self.caches, int(self.block_tables[slot, 0]))
+        return nan_slots, stall
+
+    def _inject_nan(self, logits: torch.Tensor,
+                    nan_slots: List[int]) -> torch.Tensor:
+        """nan_logits: NaN over the target slots' logits rows, before
+        the sentinel, as a compute fault would leave them.  The all-false
+        mask stays on the device; a step that injects uploads its own."""
+        mask = self._nan_none
+        targets = [s for s in nan_slots if self._active_h[s]]
+        if targets:
+            m = np.zeros((self.sc.slots,), bool)
+            m[targets] = True
+            mask = self._upload(m)
+        shape = (-1,) + (1,) * (logits.dim() - 1)
+        return torch.where(mask.view(shape), float("nan"), logits)
+
+    def _watchdog_tripped(self, t0: float) -> bool:
+        """The deadline check around one dispatch and its copy.  On a
+        trip the step's results are dropped (nothing was committed) and
+        every active slot goes down the ladder; the step's in-place
+        writes belong to those slots, whose re-admission rewrites them."""
+        # armed after the first step: its dispatch builds the kernels
+        if self.watchdog_s is None or self.step_count == 1:
+            return False
+        if time.perf_counter() - t0 <= self.watchdog_s:
+            return False
+        self.metrics.counter("serve.watchdog_trips").inc()
+        self.last_watchdog_trip = {"step": self.step_count,
+                                   "wall_time_s": time.time()}
+        for slot in np.nonzero(self._active_h)[0]:
+            self._fault_requeue(int(slot), "stall")
+        return True
+
+    def _handle_bad_slot(self, slot: int) -> None:
+        """The sentinel flagged ``slot``: scan its live pages (one copy,
+        on the fault path only), quarantine the corrupted ones, which
+        tells kv_corrupt from nan_logits, and requeue the request."""
+        kind = "nan_logits"
+        corrupt = []
+        if self.paged:
+            live = [int(p) for p in self.block_tables[slot]
+                    if int(p) != paging.NULL_PAGE]
+            corrupt = nonfinite_pages(self.caches, live, _device_get)
+        if corrupt:
+            kind = "kv_corrupt"
+            # out of the allocated set, and out of the row before
+            # _release reclaims it
+            self.allocator.quarantine(corrupt)
+            row = self.block_tables[slot]
+            row[np.isin(row, corrupt)] = paging.NULL_PAGE
+            self._bt_dirty = True
+        self._fault_requeue(slot, kind)
+
+    def _fault_requeue(self, slot: int, kind: str) -> None:
+        """One rung down the ladder: park the slot as a preemption does,
+        spend one retry, stamp the backoff and checkpoint the request
+        onto the requeue deque; past the budget, or when the quarantined
+        pool can no longer hold its checkpoint, it fails instead."""
+        req = self.active[slot]
+        self.active_mask[slot].fill_(False)
+        req.retries += 1
+        if self.spec:
+            req.spec_faults += 1
+            if req.spec_faults >= self.sc.spec_disable_after:
+                req.spec_disabled = True
+        eff = len(req.tokens) + len(req.out)
+        if req.retries > self.sc.max_retries or (self.paged and (
+                paging.pages_per_slot(min(eff + 1, self.sc.cache_len),
+                                      self.page_size)
+                > self.allocator.usable)):
+            req.failed = True
+            self.metrics.counter("serve.failed_requests").inc()
+            self._release(slot)
+            return
+        self.metrics.counter(f"serve.recoveries.{kind}").inc()
+        self.last_recovery = {"step": self.step_count, "kind": kind,
+                              "wall_time_s": time.time()}
+        req.not_before = (self.step_count
+                          + self.sc.retry_backoff * 2 ** (req.retries - 1))
+        self.requeue.append(req)
+        self.metrics.gauge("serve.requeue_peak_depth").set_max(
+            len(self.requeue))
+        self._release(slot)
+
     def audit(self) -> List[str]:
         """paging.audit over the live scheduler state (dense: nothing)."""
         if not self.paged:
@@ -633,36 +862,60 @@ class Engine:
     # -- main loop ---------------------------------------------------------
     @torch.no_grad()
     def step(self) -> bool:
-        """One decode step for all active slots; returns busy-ness."""
+        """One decode step for all active slots; returns busy-ness.
+
+        The step's results stay in locals until its one copy has come
+        back inside the watchdog's deadline; a slot the sentinel flags
+        commits nothing and goes down the recovery ladder instead."""
         self.step_count += 1
         self._admit()
         if not self._active_h.any():
             return False
+        nan_slots, stall = self._draw_faults()
         if self.spec:
-            return self._spec_step()
+            return self._spec_step(nan_slots, stall)
         bt = None
         if self.paged:
             self._ensure_pages()
+            if not self._active_h.any():   # alloc_fail took the last slot
+                return True
             bt = self._table_dev()
         sc, active = self.sc, self.active_mask
+        t0 = time.perf_counter()
+        # writes this step's K/V rows (and recurrent state) in place
         logits = self.model.decode_step(self.params, self.caches,
                                         self.cur_tok, self.lengths,
                                         block_tables=bt)
+        if self.fault_plan is not None:
+            logits = self._inject_nan(logits, nan_slots)
+        # the NaN/Inf sentinel: a flagged slot's token is garbage
+        bad = active & ~torch.isfinite(logits).all(dim=-1)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         adv = active.to(torch.int32)
         new_lengths = self.lengths + adv
         new_n_out = self.n_out + adv
         eos = -1 if sc.eos_id is None else sc.eos_id
         # finish: budget spent, EOS sampled, or no cache row left for the
-        # next token (the final row at cache_len - 1 is usable)
-        done = active & ((new_n_out >= sc.max_new_tokens) | (next_tok == eos)
-                         | (new_lengths + 1 > sc.cache_len))
-        # THE one device-to-host copy of the step
-        nt, dn = _device_get(torch.stack([next_tok, done.to(torch.int32)]))
+        # next token (the final row at cache_len - 1 is usable); a
+        # flagged slot never finishes here
+        done = active & ~bad & ((new_n_out >= sc.max_new_tokens)
+                                | (next_tok == eos)
+                                | (new_lengths + 1 > sc.cache_len))
+        if stall:
+            time.sleep(stall)                      # injected device stall
+        # THE one device-to-host copy of the step, the sentinel's lane
+        # beside the tokens and done
+        nt, dn, bh = _device_get(torch.stack(
+            [next_tok, done.to(torch.int32), bad.to(torch.int32)]))
+        if self._watchdog_tripped(t0):
+            return True            # discarded; the active slots requeued
         self.lengths, self.n_out, self.cur_tok = new_lengths, new_n_out, next_tok
         self.active_mask = active & ~done
         for slot in np.nonzero(self._active_h)[0]:
             slot = int(slot)
+            if bh[slot]:
+                self._handle_bad_slot(slot)
+                continue
             req = self.active[slot]
             req.out.append(int(nt[slot]))
             self._len_h[slot] += 1
@@ -695,23 +948,33 @@ class Engine:
         d = hist.gather(1, di.clamp(max=w - 1).long())
         return torch.where(found[:, None] & (di <= big), d, cur[:, None])
 
-    def _spec_step(self) -> bool:
+    def _spec_step(self, nan_slots: List[int], stall: float) -> bool:
         """One speculative verify step for all active slots: ensure the
         window's pages, write ``cur_tok`` into the history, draft,
         verify the K1 window in one model call, accept the longest
         prefix that agrees with the argmax chain, then commit and roll
         the rejected tail's pages back (``repro`` engine.py:1300).  One
-        device-to-host copy, of (tokens, accepted count, done).  After
-        every step in_use == sum over active slots of
-        pages_per_slot(length)."""
+        device-to-host copy, of (tokens, accepted count, done, bad).
+        After every step in_use == sum over active slots of
+        pages_per_slot(length).  The plain step's sentinel, watchdog and
+        ladder apply; a flagged slot skips commit and rollback, and its
+        release reclaims the whole ensured row."""
         sc = self.sc
         k1 = sc.spec_k + 1
         self._ensure_pages(horizon=k1)
+        if not self._active_h.any():       # alloc_fail took the last slot
+            return True
         bt = self._table_dev()
+        if self._spec_ok_dirty:
+            self._spec_ok_dev = self._upload(self._spec_ok_h)
+            self._spec_ok_dirty = False
+        t0 = time.perf_counter()
         active, lengths, rows = self.active_mask, self.lengths, self._rows
         hist = self.tok_hist
         # commit cur_tok at its cache position L before proposing, so
-        # drafts that read up to L see it
+        # drafts that read up to L see it (in place, like the K/V rows
+        # the model call writes: a discarded or flagged step's rows
+        # belong to slots that requeue, whose re-admission rewrites them)
         p0 = lengths.clamp(max=sc.cache_len).long()
         hist[rows, p0] = torch.where(active, self.cur_tok, hist[rows, p0])
         window = torch.cat([self.cur_tok[:, None], self._propose(hist)], 1)
@@ -724,25 +987,37 @@ class Engine:
                                               hist[rows[:, None], pt])
         logits = self.model.spec_decode_step(self.params, self.caches,
                                              window, lengths, bt)
+        if self.fault_plan is not None:
+            logits = self._inject_nan(logits, nan_slots)
+        # the sentinel over the whole verify window
+        bad = active & ~torch.isfinite(logits).all(dim=2).all(dim=1)
         y = torch.argmax(logits, dim=-1).to(torch.int32)      # (B, K1)
         # accept-longest-prefix: row t is emitted iff every earlier row
-        # was, did not finish, and its draft equals the argmax chain
+        # was, did not finish, and its draft equals the argmax chain;
+        # spec_ok off (a degraded request) accepts row 0 only, the plain
+        # step's token
         t_idx = self._win_idx
         eos = -1 if sc.eos_id is None else sc.eos_id
         done_t = active[:, None] & (
             (self.n_out[:, None] + t_idx + 1 >= sc.max_new_tokens)
             | (y == eos) | (lengths[:, None] + t_idx + 2 > sc.cache_len))
-        cont = (window[:, 1:] == y[:, :-1]) & ~done_t[:, :-1]
+        cont = ((window[:, 1:] == y[:, :-1]) & ~done_t[:, :-1]
+                & self._spec_ok_dev[:, None])
         prefix = torch.cat(
             [active[:, None],
              active[:, None] & torch.cumprod(cont.to(torch.int32), 1).bool()],
             1)
         n_emit = prefix.sum(dim=1, dtype=torch.int32)
-        done = (prefix & done_t).any(dim=1)
+        done = (prefix & done_t).any(dim=1) & ~bad
         last = y.gather(1, (n_emit - 1).clamp(min=0).long()[:, None])[:, 0]
+        if stall:
+            time.sleep(stall)                      # injected device stall
         # THE one device-to-host copy of the step
         out = _device_get(torch.cat(
-            [y, n_emit[:, None], done[:, None].to(torch.int32)], 1))
+            [y, n_emit[:, None], done[:, None].to(torch.int32),
+             bad[:, None].to(torch.int32)], 1))
+        if self._watchdog_tripped(t0):
+            return True            # discarded; the active slots requeued
         self.lengths = lengths + n_emit
         self.n_out = self.n_out + n_emit
         self.cur_tok = torch.where(active, last, self.cur_tok)
@@ -750,6 +1025,9 @@ class Engine:
         self.metrics.counter("serve.spec_steps").inc()
         for slot in np.nonzero(self._active_h)[0]:
             slot = int(slot)
+            if out[slot, k1 + 2]:
+                self._handle_bad_slot(slot)   # release reclaims the row
+                continue
             req, m = self.active[slot], int(out[slot, k1])
             req.out.extend(int(t) for t in out[slot, :m])
             self._len_h[slot] += m
@@ -780,7 +1058,8 @@ class Engine:
         return requests
 
     def stats(self) -> Dict[str, Any]:
-        """Scheduler and allocator counters (host-side; no device sync)."""
+        """Scheduler, allocator and recovery counters (host-side; no
+        device sync)."""
         m = self.metrics
         d = {"preemptions": self.preemptions,
              "preemptions_by_policy": {
@@ -790,7 +1069,15 @@ class Engine:
              "requeue_peak_depth": int(
                  m.gauge("serve.requeue_peak_depth").value),
              "queued_waiting": len(self.queue),
-             "steps": self.step_count}
+             "steps": self.step_count,
+             "recoveries": self.recoveries,
+             "recoveries_total": sum(self.recoveries.values()),
+             "failed_requests": self.failed_requests,
+             "watchdog_trips": self.watchdog_trips,
+             "last_watchdog_trip": self.last_watchdog_trip,
+             "last_recovery": self.last_recovery}
+        if self.fault_plan is not None:
+            d["faults_injected"] = dict(self.fault_plan.injected)
         if self.paged:
             d.update(self.allocator.pressure())
             d["kv_dtype"] = (self.kv_spec.dtype if self.kv_spec is not None

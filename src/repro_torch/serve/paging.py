@@ -19,7 +19,9 @@ over their own page pool, addressed through ring block tables of width
 which ``free_prefix`` eagerly returns the pages the window slid past.
 Recurrent layers (mamba, mLSTM, sLSTM) keep their state dense and
 slot-major beside the pools; a model of recurrent layers alone has no
-pool, yet its block tables and allocator are kept as for any other.  Fault quarantine arrives with a later slice.
+pool, yet its block tables and allocator are kept as for any other.
+A page found corrupted (``serve/faults.py``) is quarantined: it leaves
+circulation for good and the pool's usable capacity shrinks.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ class PageAllocator:
     O(1) alloc/free, LIFO reuse.  ``free`` is strict: double-freeing a
     page, or freeing the null page, would hand one physical page to two
     live sequences, so it raises and leaves the allocator unchanged.
+    Free, allocated and quarantined pages partition the non-null pages.
     """
 
     def __init__(self, total_pages: int):
@@ -46,8 +49,12 @@ class PageAllocator:
         self.total_pages = int(total_pages)
         self._free: List[int] = list(range(total_pages - 1, 0, -1))
         self._allocated: Set[int] = set()
+        # corrupted pages, out of circulation for good: recycled to a new
+        # sequence, one would poison it again
+        self._quarantined: Set[int] = set()
         self.alloc_count = 0
         self.free_count = 0
+        self.quarantine_count = 0
         self.peak_in_use = 0
 
     @property
@@ -59,14 +66,20 @@ class PageAllocator:
         return len(self._allocated)
 
     @property
+    def quarantined(self) -> int:
+        return len(self._quarantined)
+
+    @property
     def usable(self) -> int:
-        """Pages a sequence can ever hold: all but the null page."""
-        return self.total_pages - 1
+        """Pages a sequence can ever hold: all but the null page and
+        the quarantined ones (admission and checkpoint fits read this)."""
+        return self.total_pages - 1 - len(self._quarantined)
 
     def pressure(self) -> dict:
         return {"total_pages": self.total_pages,
                 "available": self.available,
                 "in_use": self.in_use,
+                "quarantined": self.quarantined,
                 "peak_in_use": self.peak_in_use,
                 "allocs": self.alloc_count,
                 "frees": self.free_count}
@@ -109,6 +122,28 @@ class PageAllocator:
             self._allocated.discard(p)
             self._free.append(p)
         self.free_count += len(pages)
+
+    def quarantine(self, pages: Sequence[int]) -> None:
+        """Take ``pages`` (allocated or free) out of circulation for
+        good; ``usable`` shrinks.  Validates the whole batch first, like
+        ``free``.  The caller resets a quarantined page's table entries
+        to NULL_PAGE before the row is reclaimed."""
+        pages = [int(p) for p in pages]
+        seen: Set[int] = set()
+        for p in pages:
+            if p == NULL_PAGE or not 0 < p < self.total_pages:
+                raise ValueError(f"cannot quarantine page {p}: not a real "
+                                 f"pool page (1..{self.total_pages - 1})")
+            if p in self._quarantined or p in seen:
+                raise ValueError(f"page {p} is already quarantined")
+            seen.add(p)
+        for p in pages:
+            if p in self._allocated:
+                self._allocated.discard(p)
+            else:
+                self._free.remove(p)
+            self._quarantined.add(p)
+        self.quarantine_count += len(pages)
 
     def reclaim(self, table_row: Sequence[int]) -> int:
         """Free every real page of a block-table row (NULL_PAGE entries
@@ -214,7 +249,8 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
     """Allocator and block-table invariants at a step boundary; returns
     the problems found (empty = consistent):
 
-    * free and allocated partition the non-null pages exactly;
+    * free, allocated and quarantined partition the non-null pages
+      exactly (disjoint, no duplicates, in range);
     * an active slot's live prefix ``row[:pages_per_slot(len)]`` holds
       only allocated pages, no NULL_PAGE hole;
     * nothing past a live prefix, or in an inactive row, holds a page;
@@ -229,24 +265,27 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
     problems: List[str] = []
     total = allocator.total_pages
     free_list = [int(p) for p in allocator._free]
-    free = set(free_list)
-    alloc = set(allocator._allocated)
+    sets = {"free": set(free_list), "allocated": set(allocator._allocated),
+            "quarantined": set(allocator._quarantined)}
+    free, alloc, quar = sets.values()
     if len(free_list) != len(free):
         dups = sorted(p for p in free if free_list.count(p) > 1)
         problems.append(f"free list holds duplicate pages {dups}")
-    for name, s in (("free", free), ("allocated", alloc)):
+    for name, s in sets.items():
         if NULL_PAGE in s:
             problems.append(f"reserved null page in the {name} set")
         bad = sorted(p for p in s if not 0 < p < total)
         if bad:
             problems.append(f"{name} set holds out-of-range pages {bad}")
-    both = sorted(free & alloc)
-    if both:
-        problems.append(f"pages {both} are both free and allocated")
-    if not problems and len(free | alloc) != total - 1:
-        missing = sorted(set(range(1, total)) - free - alloc)
+    for a, b in (("free", "allocated"), ("free", "quarantined"),
+                 ("allocated", "quarantined")):
+        both = sorted(sets[a] & sets[b])
+        if both:
+            problems.append(f"pages {both} are both {a} and {b}")
+    if not problems and len(free | alloc | quar) != total - 1:
+        missing = sorted(set(range(1, total)) - free - alloc - quar)
         problems.append(f"pages {missing} vanished from the allocator "
-                        f"(neither free nor allocated)")
+                        f"(not free, allocated, or quarantined)")
 
     leased: Dict[int, int] = {}
     need_total = 0
@@ -268,8 +307,10 @@ def audit(allocator: PageAllocator, block_tables, lengths, active,
                     problems.append(f"slot {slot}: NULL_PAGE inside the "
                                     f"{where} {j} (length {length})")
                 elif p not in alloc:
+                    where = ("quarantine" if p in quar else "free list"
+                             if p in free else "limbo")
                     problems.append(f"slot {slot}: live page {p} is not "
-                                    f"allocated")
+                                    f"allocated (in {where})")
             elif p != NULL_PAGE:
                 where = ("past the live prefix at index" if window is None
                          else "mapped behind the live window at column")

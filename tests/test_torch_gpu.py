@@ -1131,3 +1131,214 @@ def test_miniqmc_twins_and_generic_build(cuda, name, label):
         assert len(outputs(out)) == len(want)
         for o, w in zip(outputs(out), want):
             torch.testing.assert_close(o, w, atol=atol, rtol=rtol)
+
+
+# ------------------------------------- faults: the K/V NaN law, B3-B7q --
+
+def _nan_same(got, want):
+    """The residuals (acc, m, l) and the normalised output: the same
+    finiteness mask, finite values within the f32 residuals' 1e-4."""
+    def norm(res):
+        return res[0] / torch.where(res[2] == 0, 1.0, res[2])[..., None]
+    for a, w in zip(tuple(got) + (norm(got),), tuple(want) + (norm(want),)):
+        fa, fw = torch.isfinite(a), torch.isfinite(w)
+        assert torch.equal(fa, fw)
+        torch.testing.assert_close(a[fa], w[fw], atol=1e-4, rtol=1e-4)
+    return norm(got)
+
+
+def _nan_splits(kern, run, plain, served, chunk_of, slot, kside):
+    """A split-KV kernel at one split, at 4 and at its served count, each
+    in one launch, against its plain version (split, or unsplit at one
+    split) on operands with NaN in one K-side or V-side page of ``slot``
+    that is neither its first nor its last: a K-side NaN leaves the slot
+    exactly 0 (m NaN, l 0), a V-side one makes it NaN, nothing else."""
+    for splits in (1, 4, served):
+        before = kern.launches
+        got = run(splits)
+        assert kern.launches == before + 1
+        out = _nan_same(got, plain(None if splits == 1
+                                   else chunk_of(splits)))
+        others = torch.ones(out.shape[0], dtype=torch.bool)
+        others[slot] = False
+        assert torch.isfinite(out[others.to(out.device)]).all()
+        if kside:
+            assert (out[slot] == 0).all() and torch.isnan(got[1][slot]).all()
+        else:
+            assert torch.isnan(out[slot]).all()
+
+
+def _nan_operands(cuda, d=128, s=320, ps=64, k1=None, seed=7):
+    """q and K/V pools of scrambled pages, each slot's table row whole
+    (5 pages of 64); slot 2's third page (rows 128..191) is a middle one
+    for the lengths used (200 to 300)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, hq, hkv, t = 4, 32, 8, s // ps
+    qshape = (b, hq, d) if k1 is None else (b, k1, hq, d)
+    q = torch.randn(*qshape, device=cuda, generator=g).bfloat16()
+    kp, vp = (torch.randn(hkv, 1 + b * t, ps, d, device=cuda,
+                          generator=g).bfloat16() for _ in range(2))
+    bt = (torch.randperm(b * t, generator=torch.Generator().manual_seed(2))
+          .reshape(b, t) + 1).to(torch.int32).to(cuda)
+    return q, kp, vp, bt
+
+
+@pytest.mark.parametrize("side", ["k", "v"])
+def test_dense_decode_kernel_nan_law(cuda, side):
+    """B3: NaN in rows 128..191 of slot 2's K or V cache."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, hq, hkv, s, d = 4, 32, 8, 300, 128
+    q = torch.randn(b, hq, d, device=cuda, generator=g).bfloat16()
+    kc, vc = (torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+              for _ in range(2))
+    (kc if side == "k" else vc)[2, :, 128:192] = float("nan")
+    ln = torch.tensor([64, 200, 299, 300], dtype=torch.int32, device=cuda)
+    _nan_splits(
+        dec_kern.KERNEL, lambda n: dec_ops.decode_attention(
+            q, kc, vc, ln, splits=n, return_residuals=True),
+        lambda chunk: dec_ref.decode_attention_ref(
+            q, kc, vc, ln, chunk=chunk, return_residuals=True),
+        max(2, dec_kern.decode_splits(s)),
+        lambda n: dec_kern.split_chunk(s, n), 2, side == "k")
+
+
+@pytest.mark.parametrize("side", ["k", "v"])
+def test_paged_decode_kernel_nan_law(cuda, side):
+    """B4: NaN in slot 2's third page of the K or V pool."""
+    q, kp, vp, bt = _nan_operands(cuda)
+    ln = torch.tensor([64, 200, 299, 300], dtype=torch.int32, device=cuda)
+    (kp if side == "k" else vp)[:, int(bt[2, 2])] = float("nan")
+    reach = bt.shape[1] * 64
+    _nan_splits(
+        paged_kern.KERNEL, lambda n: dec_ops.paged_decode_attention(
+            q, kp, vp, bt, ln, splits=n, return_residuals=True),
+        lambda chunk: dec_ref.paged_decode_attention_ref(
+            q, kp, vp, bt, ln, chunk=chunk, return_residuals=True),
+        max(2, dec_kern.paged_splits(reach, 64)),
+        lambda n: dec_kern.split_chunk(reach, n, 64), 2, side == "k")
+
+
+@pytest.mark.parametrize("side", ["k", "v"])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+def test_quant_paged_decode_kernel_nan_law(cuda, kv_dtype, side):
+    """B5: NaN in the K or V scale of slot 2's third page."""
+    q, kp, vp, bt = _nan_operands(cuda)
+    (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp, kv_dtype)
+    (ks if side == "k" else vs)[:, int(bt[2, 2])] = float("nan")
+    ln = torch.tensor([64, 200, 299, 300], dtype=torch.int32, device=cuda)
+    args = (q, kq, vq, ks, vs, bt, ln)
+    reach = bt.shape[1] * 64
+    _nan_splits(
+        quant_kern.KERNEL, lambda n: dec_ops.quant_paged_decode_attention(
+            *args, splits=n, return_residuals=True),
+        lambda chunk: dec_ref.quant_paged_decode_attention_ref(
+            *args, chunk=chunk, return_residuals=True),
+        max(2, dec_kern.paged_splits(reach, 64)),
+        lambda n: dec_kern.split_chunk(reach, n, 64), 2, side == "k")
+
+
+@pytest.mark.parametrize("side", ["k", "v"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_spec_paged_decode_kernel_nan_law(cuda, kv_dtype, side):
+    """B6 (K1 = 5, bf16 and int8 pools): every row of slot 2 sees the
+    poisoned third page."""
+    q, kp, vp, bt = _nan_operands(cuda, k1=5)
+    page = int(bt[2, 2])
+    base = torch.tensor([40, 150, 250, 300], dtype=torch.int32, device=cuda)
+    if kv_dtype is None:
+        (kp if side == "k" else vp)[:, page] = float("nan")
+        args = (q, kp, vp, bt, base)
+        fn = dec_ops.spec_paged_decode_attention
+        plain = dec_ref.spec_paged_decode_attention_ref
+    else:
+        (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
+                                                                  kv_dtype)
+        (ks if side == "k" else vs)[:, page] = float("nan")
+        args = (q, kq, vq, ks, vs, bt, base)
+        fn = dec_ops.quant_spec_paged_decode_attention
+        plain = dec_ref.quant_spec_paged_decode_attention_ref
+    reach = bt.shape[1] * 64
+    _nan_splits(
+        spec_kern.KERNEL, lambda n: fn(*args, splits=n,
+                                       return_residuals=True),
+        lambda chunk: plain(*args, chunk=chunk, return_residuals=True),
+        max(2, dec_kern.paged_splits(reach, 64)),
+        lambda n: dec_kern.split_chunk(reach, n, 64), 2, side == "k")
+
+
+@pytest.mark.parametrize("side", ["k", "v"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8_e4m3"])
+def test_window_paged_decode_kernel_nan_law(cuda, kv_dtype, side):
+    """B7 and B7q over rings of window 1000 (pages of 64): NaN in the
+    middle page of slot 3's live window (length 1301, 17 live pages)."""
+    window, ps, lengths = 1000, 64, (1, 1000, 1301, 1301)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    bt, n_pages = _ring_tables(lengths, window, ps,
+                               torch.Generator().manual_seed(3))
+    live = list(live_window_pages(1301, window, ps))
+    page = int(bt[2, live[len(live) // 2] % bt.shape[1]])
+    bt = bt.to(cuda)
+    q = torch.randn(len(lengths), 8, 128, device=cuda, generator=g).bfloat16()
+    kp, vp = (torch.randn(4, n_pages, ps, 128, device=cuda,
+                          generator=g).bfloat16() for _ in range(2))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if kv_dtype is None:
+        (kp if side == "k" else vp)[:, page] = float("nan")
+        args, kern = (q, kp, vp, bt, ln), paged_kern.WINDOW_KERNEL
+        fn = dec_ops.window_paged_decode_attention
+        plain = dec_ref.window_paged_decode_attention_ref
+    else:
+        (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
+                                                                  kv_dtype)
+        (ks if side == "k" else vs)[:, page] = float("nan")
+        args = (q, kq, vq, ks, vs, bt, ln)
+        kern = paged_kern.QUANT_WINDOW_KERNEL
+        fn = dec_ops.quant_window_paged_decode_attention
+        plain = dec_ref.quant_window_paged_decode_attention_ref
+    reach = bt.shape[1] * ps
+    _nan_splits(
+        kern, lambda n: fn(*args, window=window, splits=n,
+                           return_residuals=True),
+        lambda chunk: plain(*args, window=window, chunk=chunk,
+                            return_residuals=True),
+        max(2, dec_kern.paged_splits(reach, ps)),
+        lambda n: dec_kern.split_chunk(reach, n, ps), 2, side == "k")
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(kv_dtype="int8")],
+                         ids=["bf16", "int8"])
+def test_engine_on_card_recovers_from_faults(cuda, mode):
+    """A small paged engine on the card under a scheduled kv_corrupt and
+    nan_logits: audit-clean after every step, every request done, a page
+    quarantined, and the tokens of the same run on the CPU."""
+    from repro_torch.serve.faults import FaultPlan
+    cfg = dataclasses.replace(smoke_config("granite-8b", num_layers=2),
+                              d_model=256, num_heads=8, num_kv_heads=2,
+                              head_dim=64, d_ff=512, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        plan = FaultPlan().at(3, "kv_corrupt").at(5, "nan_logits")
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=True, retry_backoff=1, **mode)
+        eng = Engine(model, _to(params, dev), sc, device=dev,
+                     fault_plan=plan)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 5 * i))
+                for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(500):
+            busy = eng.step()
+            assert eng.audit() == []
+            if not busy and not eng.queue and not eng.requeue:
+                break
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        st = eng.stats()
+        assert st["quarantined"] >= 1
+        assert st["recoveries"]["kv_corrupt"] >= 1
+        assert st["recoveries"]["nan_logits"] >= 1
+        assert st["available"] == st["total_pages"] - 1 - st["quarantined"]
+        outs[dev] = ([r.out for r in reqs], st["recoveries"],
+                     st["quarantined"])
+    assert outs["cuda"] == outs["cpu"]

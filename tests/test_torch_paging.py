@@ -106,9 +106,9 @@ def test_allocator_pressure_stats_match_reference_keys():
         alloc.free(got[:2])
         alloc.alloc()
     want = ja.pressure()
-    want.pop("quarantined")             # quarantine arrives with faults
     assert a.pressure() == want
     assert want["peak_in_use"] == 3 and want["frees"] == 2
+    assert want["quarantined"] == 0
 
 
 def test_allocator_reclaim_filters_null_strict_otherwise():
@@ -120,6 +120,34 @@ def test_allocator_reclaim_filters_null_strict_otherwise():
     with pytest.raises(ValueError, match="double free"):
         a.reclaim(row)
     assert a.reclaim([paging.NULL_PAGE] * 4) == 0
+
+
+def test_allocator_quarantine_matches_reference():
+    """Quarantine takes allocated and free pages out of circulation for
+    good, shrinks ``usable``, validates the batch before changing
+    anything, and leaves both allocators in the same state."""
+    a, ja = paging.PageAllocator(8), jpaging.PageAllocator(8)
+    for alloc in (a, ja):
+        got = alloc.alloc_many(3)
+        alloc.quarantine([got[1], 6])           # one allocated, one free
+        assert alloc.usable == 5 and alloc.quarantined == 2
+        assert alloc.in_use == 2 and alloc.available == 3
+        for bad, match in (([got[1]], "already quarantined"),
+                           ([7, 7], "already quarantined"),
+                           ([paging.NULL_PAGE], "not a real"),
+                           ([8], "not a real")):
+            with pytest.raises(ValueError, match=match):
+                alloc.quarantine(bad)
+        assert alloc.quarantined == 2          # unchanged by a refusal
+        with pytest.raises(ValueError, match="double free"):
+            alloc.free([got[1]])               # no longer allocated
+        alloc.free([got[0], got[2]])
+        assert alloc.alloc_many(5) and alloc.available == 0
+        with pytest.raises(RuntimeError, match="exhausted"):
+            alloc.alloc()
+    assert a.pressure() == ja.pressure()
+    assert a.quarantine_count == ja.quarantine_count == 2
+    assert sorted(a._quarantined) == sorted(ja._quarantined)
 
 
 @pytest.mark.parametrize("cache_len,ps", [(32, 8), (33, 8), (12, 4), (5, 64)])
@@ -200,6 +228,38 @@ def test_audit_agrees_with_reference_on_the_same_state():
     active[:] = True
     assert paging.audit(a, bt, lengths, active, ps) == \
         jpaging.audit(ja, bt, lengths, active, ps)
+
+
+@pytest.mark.parametrize("fault", ["clean", "free and quarantined",
+                                   "allocated and quarantined",
+                                   "live page quarantined", "vanished"])
+def test_audit_three_way_partition_agrees_with_reference(fault):
+    """free, allocated and quarantined partition the non-null pages: each
+    way of breaking that (and a clean quarantine) is reported as the
+    reference reports it, message for message."""
+    a, bt, lengths, active, ps = _audit_fixture()
+    ja = jpaging.PageAllocator(a.total_pages)
+    for alloc in (a, ja):
+        got = alloc.alloc_many(3)
+        alloc.quarantine([got[2]])
+        if fault == "free and quarantined":
+            alloc._free.append(got[2])
+        elif fault == "allocated and quarantined":
+            alloc._allocated.add(got[2])
+        elif fault == "vanished":
+            alloc._allocated.discard(got[1])
+    bt[0, :2] = got[:2]
+    if fault == "live page quarantined":
+        bt[1, 0] = got[2]
+    lengths[:] = [5, 3]
+    active[:] = [True, fault == "live page quarantined"]
+    errs = paging.audit(a, bt, lengths, active, ps)
+    assert errs == jpaging.audit(ja, bt, lengths, active, ps)
+    assert (errs == []) == (fault == "clean")
+    if fault == "live page quarantined":
+        assert any("(in quarantine)" in e for e in errs)
+    if fault == "vanished":
+        assert any("vanished" in e and "quarantined" in e for e in errs)
 
 
 # ---------------------------------------------------------- page scatter ----
