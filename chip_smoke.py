@@ -115,7 +115,24 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    failure only where a random draw hit; (a), (b) pages quarantined and
    the pool drained to what quarantine left; (b) a request failed; (c) a
    request degraded to plain decode; printed as a ``serving_faults``
-   line;
+   line; then the SLO phase: a bursty trace of 40 requests in three
+   classes (chat, longdoc, batch; priorities 2, 1, 0; prompts 26 to 896
+   tokens, budgets up to 96) from ``serve/workload.py``'s generator,
+   replayed on the engine's step clock through
+   ``workload.replay(audit=True)``, eight runs: priority over an
+   oversubscribed pool (1 + 48 pages) twice with telemetry and once
+   without, lru, priority with the pool unconstrained, and sampled at
+   temperature 0.8 with seed 0 twice and seed 1; after a check of the
+   sampler's frequencies against softmax on the card; each run audited
+   every step, every request done with its budget, one copy per decode
+   step and admitted group, 36 B4 launches a decode step, the trace
+   valid; the three priority runs' tokens, admission and preemption
+   orders equal, the seeded runs' tokens equal and the other seed's
+   not, a preemption at admission, the gap against an f32 forward, and
+   the decisions (kind, request, slot, step) of the greedy and the
+   sampled run equal to the port's engine on the CPU over the same
+   trace; per-class TTFT in steps and seconds and telemetry's step cost
+   reported; printed as a ``serving_slo`` line;
 9. free granite-8b and serve 12 greedy requests of 17 to 6,000 tokens
    on ``gemma2-2b`` at full width and depth (26 layers alternating a
    4,096-token window and global attention, random weights from a
@@ -290,6 +307,23 @@ FAULT_RATE, FAULT_SEED = 0.05, 0
 FAULT_STEPS = (("kv_corrupt", 3), ("nan_logits", 6), ("alloc_fail", 9),
                ("stall", 12))
 WATCHDOG_STEPS, WATCHDOG_MIN_S = 10, 1.0
+# the SLO phase (granite-8b paged, 8 slots, pages of 64): a bursty trace
+# (gamma arrivals at SLO_RATE a step, squared CV SLO_BURSTINESS) of
+# SLO_REQUESTS requests in three classes, token ids below SLO_VOCAB (ids
+# granite and the CPU smoke model both embed), replayed on the engine's
+# step clock; "oversubscribed" is SLO_PAGES = 1 + 48 pages, 0.375 of the
+# 128-page working set and above the 16 pages the largest request ends
+# with (896 + 96 tokens)
+SLO_REQUESTS, SLO_RATE, SLO_BURSTINESS, SLO_SEED = 40, 0.3, 4.0, 0
+SLO_VOCAB, SLO_MAX_NEW, SLO_PAGES, SLO_TEMPERATURE = 256, 96, 1 + 48, 0.8
+# (name, priority, mix, prompt mean, sigma, lo, hi, out mean, sigma, lo,
+# hi): serve/workload.py's TrafficClass, capped to fit CACHE_LEN
+SLO_CLASSES = (("chat", 2, 0.5, 128, 0.6, 16, 512, 24, 0.5, 4, 64),
+               ("longdoc", 1, 0.2, 640, 0.3, 256, 896, 16, 0.4, 4, 64),
+               ("batch", 0, 0.3, 192, 0.7, 32, 512, 48, 0.5, 16, 96))
+# the sampler's check: draws from one 32-way row, each class's frequency
+# within SAMPLER_SE standard errors of softmax(logits / T)
+SAMPLER_DRAWS, SAMPLER_SE = 1 << 18, 5.0
 
 
 def _die(msg: str) -> None:
@@ -2575,6 +2609,9 @@ def run_serving(s: Smoke):
     s.serving_faults = s.phase(
         "serve granite-8b at full width under injected faults", run_faults,
         s, model, params, runs, stats["paged"]["step_ms_max"])
+    s.serving_slo = s.phase(
+        "serve granite-8b at full width under a replayed bursty SLO "
+        "workload", run_slo, s, model, params)
     return dict(stats, tokens_agree={
         "dense_paged": _agree(runs["paged"], runs["dense"]),
         "spec_paged": _agree(runs["spec"], runs["paged"]),
@@ -2723,6 +2760,397 @@ def run_faults(s: Smoke, model, params, unfaulted, step_ms_max):
         out[run] = st
         s.torch.cuda.empty_cache()
     return out
+
+
+def slo_trace():
+    """The SLO phase's trace, from the port's generator."""
+    from repro_torch.serve import workload
+    spec = workload.WorkloadSpec(
+        classes=tuple(workload.TrafficClass(*c) for c in SLO_CLASSES),
+        arrival=workload.ArrivalProcess("gamma", SLO_RATE, SLO_BURSTINESS),
+        vocab_size=SLO_VOCAB, seed=SLO_SEED)
+    return workload.generate_trace(spec, SLO_REQUESTS)
+
+
+def _decisions(tel):
+    """Every scheduling decision of a run: (kind, request, slot, step) of
+    each trace event.  With eos_id unset none reads a token value."""
+    return [(e.kind, e.rid, e.slot, e.step) for e in tel.trace.events]
+
+
+def replay_slo(s: Smoke, model, params, trace, name, telemetry=True,
+               **mode):
+    """Replay ``trace`` through a paged granite engine on the card
+    (``workload.replay(audit=True)``) in ``mode`` (ServeConfig fields),
+    with a ServeTelemetry unless ``telemetry`` is false; returns
+    (requests, stats, telemetry).  Counts what ``serve`` counts (the
+    engine's host copies, other syncs by sync debug mode, admitted
+    groups, decode steps, launches, decode-only step times), and logs
+    the admission order, the preemption order and the preemptions made
+    at admission by the priority rule."""
+    torch = s.torch
+    from repro_torch.core.build import KERNELS
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import workload
+    from repro_torch.serve.telemetry import ServeTelemetry
+    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=CACHE_LEN,
+                                max_new_tokens=SLO_MAX_NEW, page_size=PAGE,
+                                paged=True, **mode)
+    served = _Dispatches(model)
+    tel = ServeTelemetry() if telemetry else None
+    engine = engine_mod.Engine(served, params, sc, device=s.dev,
+                               telemetry=tel)
+    syncs, groups, evictions = [0], [0], [0]
+    admits, preempts, step_s, caught = [], [], [], []
+    hidden = {"admitting": 0, "decoding": 0}
+    real_get = engine_mod._device_get
+    real_step, real_admit = engine.step, engine._admit_group
+    real_preempt = engine._preempt
+    real_evict = engine._priority_admission_preempt
+
+    def counted_get(t):
+        syncs[0] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_get(t)
+        finally:
+            torch.cuda.set_sync_debug_mode(1)
+
+    def counted_admit(reqs_, plen):
+        n = real_admit(reqs_, plen)
+        groups[0] += n > 0
+        admits.extend(r.rid for r in reqs_[:n])
+        return n
+
+    def logged_preempt(slot):
+        preempts.append(engine.active[slot].rid)
+        return real_preempt(slot)
+
+    def counted_evict():
+        n0 = len(preempts)
+        real_evict()
+        evictions[0] += len(preempts) - n0
+
+    def timed_step():
+        g0, n0, t0 = groups[0], len(caught), time.perf_counter()
+        busy = real_step()              # ends in its host copy: synced
+        dt = time.perf_counter() - t0
+        n = sum("synchroniz" in str(w.message) for w in caught[n0:])
+        hidden["decoding" if groups[0] == g0 else "admitting"] += n
+        if busy and groups[0] == g0:
+            step_s.append(dt)
+        return busy
+
+    engine_mod._device_get = counted_get
+    engine._admit_group, engine._preempt = counted_admit, logged_preempt
+    engine._priority_admission_preempt = counted_evict
+    engine.step = timed_step
+    for k in KERNELS:
+        k.launches = 0
+    error = None
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        caught = rec
+        torch.cuda.set_sync_debug_mode(1)
+        t0 = time.perf_counter()
+        try:
+            reqs = workload.replay(engine, trace, audit=True)
+        except AssertionError as e:           # audit or drain: reported
+            error, reqs = str(e)[:300], []
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            engine_mod._device_get = real_get
+            wall = time.perf_counter() - t0
+            del (engine.step, engine._admit_group, engine._preempt,
+                 engine._priority_admission_preempt)
+    st = {"error": error, "wall_s": wall, "steps": engine.step_count,
+          "decode_steps": served.decodes, "groups": groups[0],
+          "syncs": syncs[0], "hidden_syncs": hidden,
+          "preemptions": engine.preemptions,
+          "admission_evictions": evictions[0],
+          "step_ms_median": (1e3 * statistics.median(step_s)
+                             if step_s else None),
+          "tokens": sum(len(r.out) for r in reqs),
+          "launches": {k.name: k.launches for k in KERNELS}}
+    print(f"  {name}: {st['steps']} steps, {st['decode_steps']} decode "
+          f"steps (median {st['step_ms_median']:.2f} ms), {st['groups']} "
+          f"groups, {st['preemptions']} preemptions "
+          f"({st['admission_evictions']} at admission), {st['tokens']} "
+          f"tokens in {wall:.2f} s" if error is None else
+          f"  {name}: {error}")
+    n = model.cfg.num_layers
+    s.check(error is None, f"{name}: replay drained, allocator audit clean "
+                           f"after every step ({error})")
+    s.check(len(reqs) == len(trace.entries) and all(
+        r.done and len(r.out) == min(r.max_new, SLO_MAX_NEW) for r in reqs),
+        f"{name}: every request done with min(max_new, {SLO_MAX_NEW}) "
+        f"tokens")
+    s.check(st["syncs"] == st["decode_steps"] + st["groups"]
+            and hidden["decoding"] == 0,
+            f"{name}: {st['syncs']} host syncs = {st['decode_steps']} "
+            f"decode steps + {st['groups']} admitted groups, 0 others in "
+            f"steps that admitted nothing ({hidden['decoding']}; "
+            f"{hidden['admitting']} in admitting steps)")
+    b4 = st["launches"]["paged_decode_attention"]
+    s.check(b4 == n * st["decode_steps"],
+            f"{name}: paged_decode_attention launched {n} times a decode "
+            f"step ({b4} = {n} x {st['decode_steps']})")
+    for kname in ("rmsnorm", "flash_attention"):
+        s.check(st["launches"][kname] > 0,
+                f"{name}: {kname} launched {st['launches'][kname]} times")
+    for kname in ("rmsnorm", "flash_attention", "paged_decode_attention"):
+        s.kernels[kname]["launches_by_path"][f"slo ({name})"] = \
+            st["launches"][kname]
+    if tel is not None:
+        problems = tel.trace.validate()
+        s.check(problems == [], f"{name}: Trace.validate() found no problem "
+                                f"({problems[:3]})")
+    st.update(admits=admits, preempts=preempts)
+    del engine
+    torch.cuda.empty_cache()
+    return reqs, st, tel
+
+
+def cpu_decisions(trace, **mode):
+    """The decisions of the port's engine on the CPU over ``trace``, the
+    same slots, pages and budgets, on a one-layer float32 granite smoke
+    model (random from seed 0): decisions read no token value, so the
+    full-width run on the card must make the same ones."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.smoke import smoke_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import workload
+    from repro_torch.serve.telemetry import ServeTelemetry
+    cfg = dataclasses.replace(smoke_config("granite-8b", num_layers=1),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    sc = engine_mod.ServeConfig(slots=SLOTS, cache_len=CACHE_LEN,
+                                max_new_tokens=SLO_MAX_NEW, page_size=PAGE,
+                                paged=True, **mode)
+    tel = ServeTelemetry()
+    engine = engine_mod.Engine(model, params, sc, device="cpu",
+                               telemetry=tel)
+    workload.replay(engine, trace, audit=True)
+    return _decisions(tel)
+
+
+def ttft_by_class(tel):
+    """Per class: TTFT p50/p99 in engine steps (the trace's step fields,
+    first token minus submission) and in seconds (the telemetry's)."""
+    import numpy as np
+    sub, first = {}, {}
+    for e in tel.trace.events:
+        if e.kind == "submitted":
+            sub[e.rid] = e.step
+        elif e.kind == "first_token":
+            first[e.rid] = e.step
+    out = {}
+    for label in tel.class_labels():
+        rids = [rid for rid, rec in tel.requests.items()
+                if tel._class_label(rec) == label]
+        steps = [first[r] - sub[r] for r in rids]
+        secs = tel.samples("ttft_s", cls=label)
+        out[label] = {
+            "requests": len(rids),
+            "ttft_steps_p50": float(np.percentile(steps, 50)),
+            "ttft_steps_p99": float(np.percentile(steps, 99)),
+            "ttft_s_p50": float(np.percentile(secs, 50)),
+            "ttft_s_p99": float(np.percentile(secs, 99))}
+    return out
+
+
+def _f32_model(model, params):
+    """The same weights upcast to f32, and a model that computes in f32:
+    the exact function the bf16 served path approximates.  The SLO
+    phase's gap is taken against it: over its 1,075 tokens the bf16 plain
+    forward's own rounding reaches past TEACHER_GAP where the served
+    token is the f32 argmax (PERF.md §6, PR 28)."""
+    import dataclasses
+    from repro_torch.models.registry import build_model
+
+    def up(tree):
+        if isinstance(tree, dict):
+            return {k: up(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(up(v) for v in tree)
+        return tree.float() if tree.is_floating_point() else tree
+
+    return (build_model(dataclasses.replace(model.cfg, dtype="float32")),
+            up(params))
+
+
+def check_sampler(s: Smoke):
+    """The engine's sampling function on the card: SAMPLER_DRAWS draws
+    from one fixed 32-way row at SLO_TEMPERATURE, a generator seeded 0;
+    returns the largest |frequency - softmax| in standard errors."""
+    import numpy as np
+    torch = s.torch
+    from repro_torch.serve.engine import sample
+    row = torch.from_numpy(
+        np.random.default_rng(0).standard_normal(32).astype(np.float32) * 2)
+    logits = row.to(s.dev).expand(SAMPLER_DRAWS, 32).contiguous()
+    got = sample(logits, SLO_TEMPERATURE,
+                 torch.Generator(device=s.dev).manual_seed(0))
+    freq = torch.bincount(got.long(), minlength=32).double().cpu() \
+        / SAMPLER_DRAWS
+    p = torch.softmax(row.double() / SLO_TEMPERATURE, dim=0)
+    z = float(((freq - p).abs() / torch.sqrt(p * (1 - p) / SAMPLER_DRAWS))
+              .max())
+    s.check(z <= SAMPLER_SE,
+            f"sampler: {SAMPLER_DRAWS} Gumbel-max draws at T "
+            f"{SLO_TEMPERATURE} on the card, every class within "
+            f"{SAMPLER_SE} standard errors of softmax (largest {z:.3f})")
+    return z
+
+
+def run_slo(s: Smoke, model, params):
+    """granite-8b at full width, paged, serving a replayed bursty
+    three-class trace (``slo_trace``) on the engine's step clock through
+    ``workload.replay(audit=True)``, eight runs:
+
+    (a1), (a2) priority, oversubscribed (SLO_PAGES), greedy, telemetry;
+    (a3) the same without telemetry;
+    (b) lru, oversubscribed, greedy, telemetry;
+    (c) priority, the pool unconstrained, greedy, telemetry;
+    (d1), (d2) priority, oversubscribed, temperature 0.8, seed 0;
+    (d3) the same with seed 1.
+
+    Each run is checked by ``replay_slo``; across runs: (a1)-(a3) the
+    same tokens, admission and preemption orders, (a1) and (a2) the same
+    per-class telemetry counts (the reference's workload-smoke
+    contract), a preemption and an admission-time eviction in (a1), its
+    teacher-forced gap against an f32 forward of the same weights (the
+    bf16 plain forward's is reported), (d1) = (d2) and (d3) != (d1) in
+    tokens, and the
+    decisions of (a1) and (d1) equal to the port's engine on the CPU
+    over the same trace (``cpu_decisions``).  Reported: per-class TTFT
+    in steps and seconds for (a1), (b), (c), the top class's p99 TTFT
+    over its unloaded p50, in steps, and the median decode step with
+    telemetry on, (a1) and (a2), and off, (a3)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    trace = slo_trace()
+    classes = {c: sum(e.cls == c for e in trace.entries)
+               for c in trace.classes_present()}
+    span = trace.entries[-1].arrival_step
+    print(f"  trace: {len(trace.entries)} requests over {span} steps, "
+          f"classes {classes}, prompts {min(len(e.tokens) for e in trace.entries)}"
+          f"-{max(len(e.tokens) for e in trace.entries)} tokens")
+    s.check(len(classes) >= 2, f"trace holds {len(classes)} classes (>= 2)")
+    z = check_sampler(s)
+    oversub = dict(preempt_policy="priority", total_pages=SLO_PAGES)
+    sampled = dict(oversub, temperature=SLO_TEMPERATURE)
+    plan = (("a1", oversub, True), ("a2", oversub, True),
+            ("a3", oversub, False),
+            ("b", dict(oversub, preempt_policy="lru"), True),
+            ("c", dict(preempt_policy="priority"), True),
+            ("d1", dict(sampled, seed=0), True),
+            ("d2", dict(sampled, seed=0), True),
+            ("d3", dict(sampled, seed=1), True))
+    runs = {}
+    for name, mode, tel_on in plan:
+        print(f"== serve, slo ({name})", flush=True)
+        runs[name] = replay_slo(s, model, params, trace, name,
+                                telemetry=tel_on, **mode)
+    outs = {k: [r.out for r in v[0]] for k, v in runs.items()}
+    st = {k: v[1] for k, v in runs.items()}
+    tel = {k: v[2] for k, v in runs.items()}
+    a1 = st["a1"]
+    s.check(a1["preemptions"] >= 1 and a1["admission_evictions"] >= 1,
+            f"(a1): {a1['preemptions']} preemptions (>= 1), "
+            f"{a1['admission_evictions']} at admission by class (>= 1)")
+    for other in ("a2", "a3"):
+        s.check(outs[other] == outs["a1"]
+                and st[other]["admits"] == a1["admits"]
+                and st[other]["preempts"] == a1["preempts"],
+                f"({other}) and (a1): equal tokens, admission order and "
+                f"preemption order")
+    counts = {k: {c: {f: blk[f] for f in ("requests", "completed",
+                                          "preempts")}
+                  for c, blk in tel[k].summary_by_class().items()}
+              for k in ("a1", "a2")}
+    s.check(counts["a1"] == counts["a2"],
+            f"(a1) and (a2): equal per-class telemetry counts "
+            f"{counts['a1']}")
+    s.check([e.rid for e in tel["a1"].trace.events if e.kind == "admitted"]
+            == a1["admits"], "(a1): the trace's admissions are the "
+                             "engine's")
+    bgap, bwhere, _, bflipped = teacher_gap(s, model, params, runs["a1"][0])
+    print(f"  (a1): against the bf16 plain forward, largest gap {bgap:.4f} "
+          f"at {bwhere}, {bflipped} tokens not its argmax (reported)")
+    model32, params32 = _f32_model(model, params)
+    gap, where, tokens, flipped = teacher_gap(s, model32, params32,
+                                              runs["a1"][0])
+    del params32
+    s.torch.cuda.empty_cache()
+    s.check(gap <= TEACHER_GAP,
+            f"(a1): every emitted token within {TEACHER_GAP} logits of the "
+            f"f32 plain forward's argmax (largest gap {gap:.4f} at {where}; "
+            f"{flipped} of {tokens} not the argmax)")
+    s.check(outs["d1"] == outs["d2"],
+            "(d1) and (d2): the same seed samples the same tokens")
+    differ = sum(a != b for p, q in zip(outs["d1"], outs["d3"])
+                 for a, b in zip(p, q))
+    s.check(differ >= 1, f"(d3) differs from (d1) in {differ} tokens (>= 1)")
+    t_cpu = time.perf_counter()
+    for name, mode in (("a1", oversub), ("d1", dict(sampled, seed=0))):
+        want = cpu_decisions(trace, **mode)
+        got = _decisions(tel[name])
+        first = next((i for i, (a, b) in enumerate(zip(got, want))
+                      if a != b), None)
+        s.check(got == want,
+                f"({name}): its {len(got)} decisions (kind, request, slot, "
+                f"step) equal the CPU engine's {len(want)} (first "
+                f"difference at {first})")
+    t_cpu = time.perf_counter() - t_cpu
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "trace.json")
+        doc = tel["a1"].trace.export(path)
+        with open(path) as f:
+            back = json.load(f)
+        mpath = os.path.join(td, "metrics.json")
+        tel["a1"].registry.export(mpath)
+        with open(mpath) as f:
+            metrics = json.load(f)
+        s.check(back == doc and metrics["counters"]["serve.finished"]
+                == SLO_REQUESTS,
+                f"(a1): Chrome trace ({len(doc['traceEvents'])} events) "
+                f"and metrics export read back")
+    ttft = {k: ttft_by_class(tel[k]) for k in ("a1", "b", "c")}
+    for k, rows in ttft.items():
+        for label, row in rows.items():
+            print(f"  ({k}) {label}: {row['requests']} requests, TTFT p50 "
+                  f"{row['ttft_steps_p50']:g} / p99 {row['ttft_steps_p99']:g}"
+                  f" steps, {row['ttft_s_p50']:.4f} / {row['ttft_s_p99']:.4f}"
+                  f" s")
+    top = tel["a1"].class_labels()[0]
+    ratio = ttft["a1"][top]["ttft_steps_p99"] / \
+        ttft["c"][top]["ttft_steps_p50"]
+    print(f"  top class {top}: p99 TTFT loaded (a1) over its unloaded p50 "
+          f"(c), in steps: {ratio:.3f} (reported)")
+    medians = {k: st[k]["step_ms_median"] for k in ("a1", "a2", "a3")}
+    print(f"  median decode step, telemetry on (a1) {medians['a1']:.3f} ms, "
+          f"(a2) {medians['a2']:.3f} ms, off (a3) {medians['a3']:.3f} ms "
+          f"(reported)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  SLO phase {phase_s:.1f} s ({t_cpu:.1f} s of it the CPU "
+          f"engine's decisions)")
+    keep = ("wall_s", "steps", "decode_steps", "groups", "syncs",
+            "preemptions", "admission_evictions", "step_ms_median",
+            "tokens")
+    return {"trace": {"requests": len(trace.entries), "span_steps": span,
+                      "classes": classes},
+            "sampler_max_se": z, "teacher_gap_a1": gap,
+            "teacher_gap_a1_at": where, "teacher_gap_a1_bf16": bgap,
+            "teacher_gap_a1_bf16_at": bwhere,
+            "runs": {k: {f: v[f] for f in keep} for k, v in st.items()},
+            "ttft_by_class": ttft, "top_class_p99_over_unloaded_p50": ratio,
+            "d3_tokens_differing": differ, "phase_s": phase_s,
+            "cpu_decisions_s": t_cpu}
 
 
 def run_traces(s: Smoke):
@@ -3223,7 +3651,7 @@ def main() -> int:
     if s.failures:
         # a kernel that is wrong would make the serving run meaningless
         _die("failed before serving:\n  " + "\n  ".join(s.failures))
-    s.serving_faults = None
+    s.serving_faults = s.serving_slo = None
     serving = s.phase("serve granite-8b at full width", run_serving, s)
     torch.cuda.empty_cache()
     serving_g2 = s.phase("serve gemma2-2b at full width", run_serving_gemma2,
@@ -3245,6 +3673,8 @@ def main() -> int:
         print(json.dumps({"serving": serving}))
     if s.serving_faults is not None:
         print(json.dumps({"serving_faults": s.serving_faults}))
+    if s.serving_slo is not None:
+        print(json.dumps({"serving_slo": s.serving_slo}))
     if serving_g2 is not None:
         print(json.dumps({"serving_gemma2": serving_g2}))
     if serving_ds is not None:

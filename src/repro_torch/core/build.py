@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core.context import TargetContext, current_context
 from repro_torch.core.runtime import DeviceRuntime, runtime
+from repro_torch.obs import profile
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -121,7 +122,12 @@ class CudaKernel:
         """Launch the build of the current target context."""
         ctx = current_context()
         lib, fn = self._entries.get(ctx) or self._entry(ctx)
-        code = fn(*args)
+        if profile._ENABLED:
+            # host dispatch of an asynchronous launch, not kernel time
+            with profile.timed(f"kernel_call.{self.name}"):
+                code = fn(*args)
+        else:
+            code = fn(*args)
         if code != 0:
             msg = lib.repro_cuda_error_string(code).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "

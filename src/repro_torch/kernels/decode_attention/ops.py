@@ -21,6 +21,7 @@ from repro_torch.kernels.decode_attention import paged as _paged
 from repro_torch.kernels.decode_attention import quant as _quant
 from repro_torch.kernels.decode_attention import ref as _ref
 from repro_torch.kernels.decode_attention import spec as _spec
+from repro_torch.obs.profile import device_op
 
 #: Tolerance of the reference ops (``core/op.py`` default), f32.
 TOL = {"atol": 2e-5, "rtol": 2e-5}
@@ -34,6 +35,7 @@ def _finish(q, res, return_residuals: bool):
     return _ref.normalize(acc, l, q.dtype)
 
 
+@device_op
 def decode_attention(q, k_cache, v_cache, lengths, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
@@ -59,6 +61,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     return _finish(q, res, return_residuals)
 
 
+@device_op
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
@@ -87,6 +90,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
     return _finish(q, res, return_residuals)
 
 
+@device_op
 def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
                                  block_tables, lengths, *,
                                  window: Optional[int] = None,
@@ -114,6 +118,7 @@ def quant_paged_decode_attention(q, k_pages, v_pages, k_scales, v_scales,
     return _finish(q, res, return_residuals)
 
 
+@device_op
 def window_paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   lengths, *, window: int,
                                   softcap: Optional[float] = None,
@@ -143,6 +148,7 @@ def window_paged_decode_attention(q, k_pages, v_pages, block_tables,
     return _finish(q, res, return_residuals)
 
 
+@device_op
 def quant_window_paged_decode_attention(q, k_pages, v_pages, k_scales,
                                         v_scales, block_tables, lengths, *,
                                         window: int,
@@ -170,6 +176,7 @@ def quant_window_paged_decode_attention(q, k_pages, v_pages, k_scales,
     return _finish(q, res, return_residuals)
 
 
+@device_op
 def spec_paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                                 *, window: Optional[int] = None,
                                 softcap: Optional[float] = None,
@@ -197,6 +204,7 @@ def spec_paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     return _finish(q, res, return_residuals)
 
 
+@device_op
 def quant_spec_paged_decode_attention(q, k_pages, v_pages, k_scales,
                                       v_scales, block_tables, lengths, *,
                                       window: Optional[int] = None,

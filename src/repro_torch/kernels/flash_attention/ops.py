@@ -13,11 +13,13 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as _kern
 from repro_torch.kernels.flash_attention import ref as _ref
+from repro_torch.obs.profile import device_op
 
 #: Tolerance of the reference op (``core/op.py`` default), f32.
 TOL = {"atol": 2e-5, "rtol": 2e-5}
 
 
+@device_op
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,

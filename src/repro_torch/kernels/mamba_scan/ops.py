@@ -9,11 +9,13 @@ import torch
 
 from repro_torch.kernels.mamba_scan import mamba_scan as _kern
 from repro_torch.kernels.mamba_scan import ref as _ref
+from repro_torch.obs.profile import device_op
 
 #: Tolerance of the reference op (``repro.kernels.mamba_scan.ops``), f32.
 TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 
+@device_op
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor):
     """Selective scan; returns (y (B, S, d_inner) in x's dtype, h_T

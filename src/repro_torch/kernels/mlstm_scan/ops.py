@@ -13,11 +13,13 @@ import torch
 
 from repro_torch.kernels.mlstm_scan import mlstm_scan as _kern
 from repro_torch.kernels.mlstm_scan import ref as _ref
+from repro_torch.obs.profile import device_op
 
 #: Tolerance of the reference op (``repro.kernels.mlstm_scan.ops``), f32.
 TOL = {"atol": 2e-4, "rtol": 2e-4}
 
 
+@device_op
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i_gate: torch.Tensor, f_gate: torch.Tensor, *,
                return_state: bool = False):

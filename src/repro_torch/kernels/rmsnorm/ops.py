@@ -6,11 +6,13 @@ import torch
 
 from repro_torch.kernels.rmsnorm import ref as _ref
 from repro_torch.kernels.rmsnorm import rmsnorm as _kern
+from repro_torch.obs.profile import device_op
 
 #: Tolerance of the reference op (``repro.kernels.rmsnorm.ops``), f32.
 TOL = {"atol": 1e-5, "rtol": 1e-5}
 
 
+@device_op
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             weight_offset: float = 0.0) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * (w + weight_offset)."""

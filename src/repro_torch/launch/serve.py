@@ -55,10 +55,28 @@ from a seed), recovered by the engine's ladder:
       --smoke --paged --page-size 4 --device cpu --fault-rate 0.1 \
       --watchdog-s 1.0
 
+Replaying a frozen workload trace (``python -m
+repro_torch.serve.workload --out PATH`` freezes one) on the engine's
+step clock, each request submitted at its ``arrival_step`` with its own
+priority class and decode budget (capped by ``--max-new``), under the
+priority policy, with the lifecycle trace written for Perfetto
+(ui.perfetto.dev -> "Open trace file") and the metric registries as
+JSON:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+      --smoke --paged --page-size 8 --total-pages 16 --device cpu \
+      --preempt-policy priority --max-new 16 \
+      --trace-file benchmarks/traces/bursty_smoke.jsonl \
+      --trace-out build/trace.json --metrics-out build/metrics.json
+
 Prints one JSON summary: completion and request statuses, token counts,
 wall time, the recovery counters and quarantined pages, the speculative
 counters, the pages freed behind sliding windows, the MoE assignments
-that capacity dropped and the launch count of every kernel in the run.
+that capacity dropped, the launch count of every kernel in the run,
+and from the always-on telemetry the run's latency percentiles (TTFT,
+queue wait, inter-token, preemption stall, recovery, end to end), per
+class where requests carry classes (``latency_by_class``), and per
+request.
 """
 from __future__ import annotations
 
@@ -81,6 +99,8 @@ def main(argv=None):
     from repro_torch.serve.engine import (PREEMPT_POLICIES, SPEC_MODES,
                                          Engine, Request, ServeConfig)
     from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.telemetry import LATENCY_METRICS, ServeTelemetry
+    from repro_torch.serve.workload import load_trace, replay
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -91,6 +111,9 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=64)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0: greedy; above it, sampled (Gumbel-max from "
+                         "a generator seeded 0)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache + paged decode kernel")
     ap.add_argument("--page-size", type=int, default=None,
@@ -125,6 +148,25 @@ def main(argv=None):
                     help="per-step wall-clock deadline; a step past it is "
                          "discarded and its slots requeued (armed after "
                          "the first step)")
+    ap.add_argument("--trace-file", default=None, metavar="PATH",
+                    help="replay a frozen workload trace (JSONL from "
+                         "repro_torch.serve.workload) instead of synthetic "
+                         "prompts: each request is submitted when the "
+                         "engine's step counter reaches its arrival_step, "
+                         "with its own priority class and decode budget "
+                         "(capped by --max-new)")
+    ap.add_argument("--priority-class", type=int, default=0,
+                    help="priority class of every synthetic request "
+                         "(higher = more latency-sensitive; pairs with "
+                         "--preempt-policy priority; a trace carries its "
+                         "own classes)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the lifecycle trace as Chrome trace-event "
+                         "JSON (open in Perfetto: ui.perfetto.dev)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the engine's and the telemetry's metric "
+                         "registries (counters, gauges, histograms) as "
+                         "JSON")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; no card and no --device "
                          "cpu is an error")
@@ -135,6 +177,9 @@ def main(argv=None):
                        ("--fault-rate", bool(args.fault_rate))):
         if used and not args.paged:
             ap.error(f"{flag} requires --paged")
+    if args.trace_file and args.priority_class:
+        ap.error("--priority-class only applies to synthetic prompts; "
+                 "a trace carries per-request classes")
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -142,7 +187,8 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, device=dev)
     sc = ServeConfig(slots=args.slots, cache_len=args.cache_len,
-                     max_new_tokens=args.max_new, paged=args.paged,
+                     max_new_tokens=args.max_new,
+                     temperature=args.temperature, paged=args.paged,
                      page_size=args.page_size, total_pages=args.total_pages,
                      preempt_policy=args.preempt_policy,
                      kv_dtype=args.kv_dtype, spec_mode=args.spec_mode,
@@ -150,18 +196,28 @@ def main(argv=None):
                      watchdog_s=args.watchdog_s)
     plan = (FaultPlan(rate=args.fault_rate, seed=args.fault_seed)
             if args.fault_rate > 0 else None)
-    engine = Engine(model, params, sc, device=dev, fault_plan=plan)
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, tokens=rng.integers(
-        0, cfg.vocab_size, size=args.prompt_len).tolist())
-        for i in range(args.prompts)]
+    # always on: the latency fields of the summary come from it
+    telemetry = ServeTelemetry()
+    engine = Engine(model, params, sc, device=dev, fault_plan=plan,
+                    telemetry=telemetry)
+    trace = load_trace(args.trace_file) if args.trace_file else None
+    if trace is None:
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, tokens=rng.integers(
+            0, cfg.vocab_size, size=args.prompt_len).tolist(),
+            priority_class=args.priority_class)
+            for i in range(args.prompts)]
 
     for k in KERNELS:
         k.launches = 0
     drops = moe.count_drops(dev) if cfg.moe is not None else None
     try:
         t0 = time.perf_counter()
-        engine.run_to_completion(reqs)
+        if trace is None:
+            engine.run_to_completion(reqs)
+        else:
+            # each request arrives at its step of the engine's own clock
+            reqs = replay(engine, trace)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
@@ -169,6 +225,28 @@ def main(argv=None):
         moe.stop_counting_drops()
     new_tokens = sum(len(r.out) for r in reqs)
     st = engine.stats()
+
+    def percentiles(block):
+        return {m: ({"p50": v["p50"], "p99": v["p99"], "count": v["count"]}
+                    if v else None)
+                for m, v in block.items() if m in LATENCY_METRICS}
+
+    latency_by_class = {
+        label: {**{k: blk[k] for k in ("priority_class", "requests",
+                                       "completed", "completion_rate",
+                                       "preempts")},
+                **percentiles(blk)}
+        for label, blk in telemetry.summary_by_class().items()}
+    classes_present = (len(latency_by_class) > 1
+                       or any(label != "0" for label in latency_by_class))
+    if args.trace_out:
+        telemetry.trace.export(args.trace_out)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump({"engine": engine.metrics.snapshot(),
+                       "telemetry": telemetry.registry.snapshot()},
+                      f, indent=1, sort_keys=True)
+            f.write("\n")
     print(json.dumps({
         "arch": args.arch, "smoke": args.smoke, "device": str(dev),
         "paged": args.paged, "requests": len(reqs),
@@ -183,7 +261,8 @@ def main(argv=None):
         "watchdog_trips": st["watchdog_trips"],
         "last_watchdog_trip": st["last_watchdog_trip"],
         "last_recovery": st["last_recovery"],
-        **({"quarantined_pages": st["quarantined"]} if args.paged else {}),
+        **({"quarantined_pages": st["quarantined"],
+            "pool_groups": st["pool_groups"]} if args.paged else {}),
         **({"faults_injected": st["faults_injected"]}
            if plan is not None else {}),
         "kv_dtype": st.get("kv_dtype"), "spec_mode": args.spec_mode,
@@ -193,6 +272,15 @@ def main(argv=None):
         "window_prefix_frees": st.get("window_prefix_frees"),
         "moe_dropped": None if drops is None else int(drops),
         "kernel_launches": {k.name: k.launches for k in KERNELS},
+        "latency": percentiles(telemetry.summary()),
+        **({"latency_by_class": latency_by_class}
+           if classes_present else {}),
+        "per_request": [
+            {k: row[k] for k in ("rid", "status", "priority_class",
+                                 "traffic_class", "tokens", "ttft_s",
+                                 "itl_p50_s", "queue_wait_s",
+                                 "preempt_stall_s", "recovery_s")}
+            for row in telemetry.request_metrics()],
         "sample_output": reqs[0].out,
     }, indent=1))
     return reqs

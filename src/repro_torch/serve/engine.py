@@ -1,29 +1,44 @@
 """Continuous-batching serving engine (``repro.serve.engine``): batched
 prefill admission and a device-resident decode loop over a paged or a
-dense KV cache, greedy sampling.
+dense KV cache.
 
 Scheduler state (active mask, lengths, current tokens, emitted-token
-counts) lives on the device.  ``step()`` runs the model step, argmax,
-and the length/finish updates as device ops and then makes exactly one
-device-to-host copy (:func:`_device_get`) of the (next token, done)
-pair.  The host keeps numpy mirrors, updated from that copy, for
+counts, per-slot decode budgets) lives on the device.  ``step()`` runs
+the model step, the sampling and the length/finish updates as device
+ops and then makes exactly one device-to-host copy
+(:func:`_device_get`) of the (next token, done) pair.  The host keeps numpy mirrors, updated from that copy, for
 admission and page allocation only.  Admission groups queued requests
 by exact effective prompt length and prefills each group in one batched
 call (one more copy per group, for the first sampled tokens), then
 scatters the group's K/V into slot rows (dense) or fresh pages (paged).
 
-Termination: a slot finishes when it has emitted ``max_new_tokens``,
-sampled ``eos_id``, or filled its cache (``lengths == cache_len`` after
-the final row is written, so the last row is usable).
+Sampling: greedy (argmax) at ``temperature`` 0; above it, Gumbel-max
+over the whole (slots, vocab) logits, ``argmax(logits / T + g)`` in f32
+with ``g = -log(-log(u))`` and ``u`` from one ``torch.Generator`` on the
+engine's device seeded from ``ServeConfig.seed`` (the law
+``jax.random.categorical`` samples by).  The same seed gives the same
+tokens on one device; a CPU and a CUDA generator give different
+streams, and neither gives the reference's threefry stream.
+
+Termination: a slot finishes when it has emitted its budget
+(``min(Request.max_new, max_new_tokens)``, held on the device per slot
+and written by the admission's upload), sampled ``eos_id``, or filled
+its cache (``lengths == cache_len`` after the final row is written, so
+the last row is usable).
 
 Oversubscription (paged): when an explicit ``total_pages`` leaves the
 pool smaller than the working set, a slot crossing a page boundary can
 find the pool dry.  ``preempt_policy`` "lru" preempts the least-recently
 admitted other slot, "shortest" the one with the fewest generated
-tokens, "fail" raises the allocator's error.  A preempted request is
-checkpointed as prompt + tokens so far onto a requeue deque that admits
-ahead of fresh requests, and re-prefills on re-admission, which under
-greedy decoding reproduces the un-preempted outputs token for token.
+tokens, "priority" the lowest ``Request.priority_class`` (oldest
+admission on ties; it also lets a waiting request of a strictly higher
+class evict at admission), "fail" raises the allocator's error.  A
+preempted request is checkpointed as prompt + tokens so far onto a
+requeue deque and re-prefills on re-admission, which under greedy
+decoding reproduces the un-preempted outputs token for token.
+Admission takes the highest ``priority_class`` first and, within a
+class, checkpoints ahead of fresh requests (the starvation guard), FIFO
+within each; with uniform classes that is checkpoints, then the queue.
 
 Quantized KV (paged): ``kv_dtype`` "int8" or "fp8_e4m3" stores the
 pools in that type with per-(head, page) f32 scales, resolved against
@@ -91,10 +106,14 @@ the committed checkpoint, so under greedy decoding a recovered request
 emits the tokens of an unfaulted run (on the card, up to the prefill
 kernel's rounding at a near tie).
 
-Left for later slices (ROADMAP.md queue A): sampling at temperature >
-0, telemetry (with its fault hooks ``on_fault_*``, ``on_fail`` and
-``on_spec_degraded``: item 9), the priority policy and per-request
-budgets.
+Telemetry (``serve/telemetry.py``): ``Engine(..., telemetry=...)``
+records every lifecycle transition (submit, admit, first token, tokens,
+preempt, fault, requeue, spec degrade, finish, fail, watchdog trip) and
+a per-step sample (emitted and accepted tokens, flagged slots, page
+pools) into a bounded trace and latency histograms.  The hooks run on
+the host after the step's one copy and read host state only: they add
+no copy and no launch, and without telemetry each site costs one ``is
+None`` check.
 """
 from __future__ import annotations
 
@@ -124,20 +143,40 @@ def _device_get(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def sample(logits: torch.Tensor, temperature: float,
+           generator: torch.Generator) -> torch.Tensor:
+    """Next tokens (int32) from (..., vocab) logits: the argmax at
+    ``temperature`` 0, else Gumbel-max, ``argmax(logits / T + g)`` in
+    f32 with ``g = -log(-log(u))``, ``u`` uniform from ``generator``
+    (on the logits' device) and clamped away from 0.  Device ops only:
+    no host sync."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32)
+    g = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits.float() / temperature + g,
+                        dim=-1).to(torch.int32)
+
+
 @dataclasses.dataclass
 class ServeConfig:
     slots: int = 4
     cache_len: int = 128
     max_new_tokens: int = 16
-    temperature: float = 0.0           # greedy only in this slice
+    temperature: float = 0.0           # 0: greedy; > 0: Gumbel-max
     eos_id: Optional[int] = None
+    seed: int = 0                      # the sampler's generator
     paged: bool = False
     page_size: Optional[int] = None    # None -> the tuning table (64)
     total_pages: Optional[int] = None  # None -> 1 + slots*pages_per_slot
     # the window group's pool (paged, local layers): None -> 1 + slots*T_w
     total_pages_window: Optional[int] = None
     on_overflow: str = "reject"        # "reject" | "truncate"
-    preempt_policy: str = "lru"        # "lru" | "shortest" | "fail"
+    # "lru" | "shortest" | "priority" (lowest Request.priority_class
+    # first, and admission-time eviction by a strictly higher class) |
+    # "fail"
+    preempt_policy: str = "lru"
     # KV pool dtype (paged only): None = the model's dtype; "bf16" |
     # "int8" | "fp8_e4m3" resolve against what the device holds
     kv_dtype: Optional[str] = None
@@ -158,7 +197,7 @@ class ServeConfig:
 
 
 #: Valid ServeConfig.preempt_policy values (launch/serve.py choices).
-PREEMPT_POLICIES = ("lru", "shortest", "fail")
+PREEMPT_POLICIES = ("lru", "shortest", "priority", "fail")
 
 #: Valid ServeConfig.spec_mode values (launch/serve.py choices).
 SPEC_MODES = ("off", "ngram")
@@ -172,6 +211,14 @@ class Request:
     done: bool = False
     truncated: bool = False
     preempts: int = 0       # times this request was preempted/requeued
+    # SLO class: higher = more latency-sensitive (admission order, the
+    # "priority" policy, per-class telemetry); traffic_class is the
+    # workload's label ("chat", "longdoc", "batch")
+    priority_class: int = 0
+    traffic_class: Optional[str] = None
+    # this request's decode budget, capped by ServeConfig.max_new_tokens
+    # (None: the engine's)
+    max_new: Optional[int] = None
     # fault recovery (engine-managed): retries spent, the earliest engine
     # step of re-admission (the backoff stamp), the terminal failure, and
     # the speculative-step faults that disable drafting at
@@ -193,7 +240,7 @@ class Request:
 class Engine:
     def __init__(self, model: Model, params: Dict[str, Any],
                  sc: ServeConfig, device: DeviceLike = None,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None, telemetry=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -238,14 +285,6 @@ class Engine:
         if sc.kv_dtype is not None and not sc.paged:
             raise ValueError("kv_dtype requires paged=True (only paged "
                              "pools are dtype-parametric)")
-        if sc.temperature > 0.0:
-            raise NotImplementedError(
-                "sampling at temperature > 0 is not ported yet (slice 1 "
-                "serves greedy decoding)")
-        if sc.preempt_policy == "priority":
-            raise NotImplementedError(
-                "preempt_policy='priority' arrives with the workload and "
-                "priority slice")
         if sc.preempt_policy not in PREEMPT_POLICIES:
             raise ValueError(f"preempt_policy must be one of "
                              f"{PREEMPT_POLICIES}, got {sc.preempt_policy!r}")
@@ -324,6 +363,9 @@ class Engine:
         self.cur_tok = torch.zeros((slots,), **i32)
         self.n_out = torch.zeros((slots,), **i32)
         self.active_mask = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        # each slot's decode budget, written by the admission's upload
+        self.max_new = torch.full((slots,), sc.max_new_tokens, **i32)
+        self.generator = torch.Generator(device=dev).manual_seed(sc.seed)
         if self.spec:
             # committed token history: position p holds the token whose
             # K/V sits in cache row p; column cache_len absorbs writes
@@ -341,6 +383,9 @@ class Engine:
         # preempted checkpoints, re-admitted ahead of the fresh queue
         self.requeue: collections.deque = collections.deque()
         self.metrics = MetricsRegistry()
+        # the optional ServeTelemetry: every hook site costs one ``is
+        # None`` check without it
+        self.telemetry = telemetry
         self.metrics.counter("serve.preemptions")
         for p in PREEMPT_POLICIES:
             self.metrics.counter(f"serve.preemptions.{p}")
@@ -452,25 +497,36 @@ class Engine:
                     f"to clip instead)")
         if not req.tokens:
             raise ValueError(f"request {req.rid}: empty prompt")
+        if req.max_new is not None and req.max_new < 1:
+            raise ValueError(f"request {req.rid}: max_new must be >= 1, "
+                             f"got {req.max_new}")
         self.queue.append(req)
+        if self.telemetry is not None:
+            self.telemetry.on_submit(req, self.step_count)
+
+    def _req_max_new(self, req: Request) -> int:
+        """The request's decode budget, capped by the engine's."""
+        if req.max_new is None:
+            return self.sc.max_new_tokens
+        return min(req.max_new, self.sc.max_new_tokens)
 
     def _free_slots(self) -> List[int]:
         return [s for s in range(self.sc.slots) if self.active[s] is None]
 
     def _take_waiting(self, n: int) -> List[Request]:
-        """Up to ``n`` waiting requests whose backoff has expired:
-        checkpoints first (the starvation guard), then the fresh queue,
-        FIFO within each; the others keep their order."""
-        picked: List[Request] = []
-        for pool in (self.requeue, self.queue):
-            keep = []
-            for r in pool:
-                if len(picked) < n and r.not_before <= self.step_count:
-                    picked.append(r)
-                else:
-                    keep.append(r)
-            pool.clear()
-            pool.extend(keep)
+        """Up to ``n`` waiting requests whose backoff has expired, the
+        highest ``priority_class`` first; within a class, checkpoints
+        ahead of fresh requests (the starvation guard), FIFO within
+        each.  The others keep their order."""
+        cand = [(-r.priority_class, 0, i) for i, r in enumerate(self.requeue)
+                if r.not_before <= self.step_count]
+        cand += [(-r.priority_class, 1, i) for i, r in enumerate(self.queue)
+                 if r.not_before <= self.step_count]
+        take = sorted(cand)[:max(n, 0)]
+        pools = (self.requeue, self.queue)
+        picked = [pools[pool][i] for _, pool, i in take]
+        for _, pool, i in sorted(take, key=lambda t: t[2], reverse=True):
+            del pools[pool][i]
         return picked
 
     def _requeue_front(self, reqs: List[Request]) -> None:
@@ -483,7 +539,10 @@ class Engine:
     @torch.no_grad()
     def _admit(self) -> None:
         """Admit waiting requests into free slots: one batched prefill and
-        one batched cache scatter per effective-prompt-length group."""
+        one batched cache scatter per effective-prompt-length group;
+        under "priority", evict for a waiting higher class first."""
+        if self.paged and self.sc.preempt_policy == "priority":
+            self._priority_admission_preempt()
         while self._free_slots() and (self.requeue or self.queue):
             batch = self._take_waiting(len(self._free_slots()))
             if not batch:
@@ -523,7 +582,7 @@ class Engine:
         toks = self._upload(np.array([r.tokens + r.out for r in reqs],
                                      np.int64))
         logits, cache1 = self.model.prefill(self.params, toks, sc.cache_len)
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        first = sample(logits, sc.temperature, self.generator)
         first_h = _device_get(first)                 # one copy per group
 
         page_rows = page_rows_w = None
@@ -558,7 +617,7 @@ class Engine:
             hit_eos = sc.eos_id is not None and first_h[i] == sc.eos_id
             # plen + 1 > cache_len: a checkpoint whose cache is full after
             # re-prefill; its sample is the final token of the run
-            if (hit_eos or len(req.out) >= sc.max_new_tokens
+            if (hit_eos or len(req.out) >= self._req_max_new(req)
                     or plen + 1 > sc.cache_len):
                 admit_active[i] = False
 
@@ -582,10 +641,15 @@ class Engine:
         self.cur_tok[slot_idx] = first
         self.active_mask[slot_idx] = self._upload(admit_active)
         # fresh admissions enter with n_out = 1 (the prefill sample);
-        # re-admitted checkpoints resume their real count
-        self.n_out[slot_idx] = self._upload(
-            np.array([len(r.out) for r in reqs], np.int32))
+        # re-admitted checkpoints resume their real count.  The budgets
+        # ride the same upload.
+        counts = self._upload(np.array(
+            [[len(r.out) for r in reqs],
+             [self._req_max_new(r) for r in reqs]], np.int32))
+        self.n_out[slot_idx] = counts[0]
+        self.max_new[slot_idx] = counts[1]
 
+        tel = self.telemetry
         for i, (req, slot) in enumerate(zip(reqs, slots)):
             self._seq += 1
             self._admit_seq[slot] = self._seq
@@ -594,12 +658,21 @@ class Engine:
                 # steps too often decodes one token a step from now on
                 self._spec_ok_h[slot] = not req.spec_disabled
                 self._spec_ok_dirty = True
+            if tel is not None:
+                tel.on_admit(req, slot, self.step_count)
+                # the prefill sample is the first generated token only
+                # on a fresh admission; a checkpoint resumes its history
+                if len(req.out) == 1:
+                    tel.on_first_token(req, slot, self.step_count)
+                tel.on_tokens(req, slot, self.step_count, 1)
             if admit_active[i]:
                 self.active[slot] = req
                 self._active_h[slot] = True
                 self._len_h[slot] = plen
             else:
                 req.done = True                      # finished at prefill
+                if tel is not None:
+                    tel.on_finish(req, slot, self.step_count)
                 self._release(slot)
         return k
 
@@ -629,9 +702,32 @@ class Engine:
             return None
         if self.sc.preempt_policy == "lru":
             return min(cands, key=lambda s: self._admit_seq[s])
+        if self.sc.preempt_policy == "priority":
+            # lowest class first, the lru rule within a class
+            return min(cands, key=lambda s: (self.active[s].priority_class,
+                                             self._admit_seq[s]))
         # "shortest": fewest generated tokens, oldest admission on ties
         return min(cands, key=lambda s: (len(self.active[s].out),
                                          self._admit_seq[s]))
+
+    def _priority_admission_preempt(self) -> None:
+        """Admission-time eviction ("priority"): while no slot is free
+        and the best backoff-eligible waiting class strictly exceeds the
+        lowest active slot's, checkpoint that slot.  Strict, so equal
+        classes never churn; the checkpoint re-enters ahead of fresh
+        requests of its class, so every class keeps draining."""
+        while not self._free_slots():
+            waiting = [r.priority_class
+                       for pool in (self.requeue, self.queue)
+                       for r in pool if r.not_before <= self.step_count]
+            slots = [int(s) for s in np.nonzero(self._active_h)[0]]
+            if not waiting or not slots:
+                return
+            victim = min(slots, key=lambda s: (
+                self.active[s].priority_class, self._admit_seq[s]))
+            if max(waiting) <= self.active[victim].priority_class:
+                return
+            self._preempt(victim)
 
     def _preempt(self, slot: int) -> None:
         """Checkpoint ``slot`` onto the requeue deque and reclaim its
@@ -652,6 +748,8 @@ class Engine:
         self.requeue.append(req)
         self.metrics.gauge("serve.requeue_peak_depth").set_max(
             len(self.requeue))
+        if self.telemetry is not None:
+            self.telemetry.on_preempt(req, slot, self.step_count)
         # before the next decode, not after; a fill, not a copy of a host
         # scalar, which would wait on the card
         self.active_mask[slot].fill_(False)
@@ -740,6 +838,10 @@ class Engine:
         active = [int(s) for s in np.nonzero(self._active_h)[0]]
         for kind, slot in self.fault_plan.faults_for(self.step_count,
                                                      active):
+            if self.telemetry is not None:
+                self.telemetry.on_fault_injected(
+                    self.step_count, kind,
+                    int(slot) if slot is not None else None)
             if kind == "alloc_fail":
                 self._alloc_deny = True
             elif kind == "stall":
@@ -779,6 +881,8 @@ class Engine:
         self.metrics.counter("serve.watchdog_trips").inc()
         self.last_watchdog_trip = {"step": self.step_count,
                                    "wall_time_s": time.time()}
+        if self.telemetry is not None:
+            self.telemetry.on_watchdog_trip(self.step_count)
         for slot in np.nonzero(self._active_h)[0]:
             self._fault_requeue(int(slot), "stall")
         return True
@@ -811,10 +915,14 @@ class Engine:
         req = self.active[slot]
         self.active_mask[slot].fill_(False)
         req.retries += 1
+        tel = self.telemetry
         if self.spec:
             req.spec_faults += 1
-            if req.spec_faults >= self.sc.spec_disable_after:
+            if (req.spec_faults >= self.sc.spec_disable_after
+                    and not req.spec_disabled):
                 req.spec_disabled = True
+                if tel is not None:
+                    tel.on_spec_degraded(req, slot, self.step_count)
         eff = len(req.tokens) + len(req.out)
         if req.retries > self.sc.max_retries or (self.paged and (
                 paging.pages_per_slot(min(eff + 1, self.sc.cache_len),
@@ -822,11 +930,15 @@ class Engine:
                 > self.allocator.usable)):
             req.failed = True
             self.metrics.counter("serve.failed_requests").inc()
+            if tel is not None:
+                tel.on_fail(req, slot, self.step_count, kind)
             self._release(slot)
             return
         self.metrics.counter(f"serve.recoveries.{kind}").inc()
         self.last_recovery = {"step": self.step_count, "kind": kind,
                               "wall_time_s": time.time()}
+        if tel is not None:
+            tel.on_fault_requeue(req, slot, self.step_count, kind)
         req.not_before = (self.step_count
                           + self.sc.retry_backoff * 2 ** (req.retries - 1))
         self.requeue.append(req)
@@ -890,7 +1002,7 @@ class Engine:
             logits = self._inject_nan(logits, nan_slots)
         # the NaN/Inf sentinel: a flagged slot's token is garbage
         bad = active & ~torch.isfinite(logits).all(dim=-1)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = sample(logits, sc.temperature, self.generator)
         adv = active.to(torch.int32)
         new_lengths = self.lengths + adv
         new_n_out = self.n_out + adv
@@ -898,7 +1010,7 @@ class Engine:
         # finish: budget spent, EOS sampled, or no cache row left for the
         # next token (the final row at cache_len - 1 is usable); a
         # flagged slot never finishes here
-        done = active & ~bad & ((new_n_out >= sc.max_new_tokens)
+        done = active & ~bad & ((new_n_out >= self.max_new)
                                 | (next_tok == eos)
                                 | (new_lengths + 1 > sc.cache_len))
         if stall:
@@ -911,18 +1023,36 @@ class Engine:
             return True            # discarded; the active slots requeued
         self.lengths, self.n_out, self.cur_tok = new_lengths, new_n_out, next_tok
         self.active_mask = active & ~done
+        tel = self.telemetry
+        emitted = n_bad = 0
         for slot in np.nonzero(self._active_h)[0]:
             slot = int(slot)
             if bh[slot]:
+                n_bad += 1
                 self._handle_bad_slot(slot)
                 continue
             req = self.active[slot]
             req.out.append(int(nt[slot]))
             self._len_h[slot] += 1
+            emitted += 1
+            if tel is not None:
+                tel.on_tokens(req, slot, self.step_count, 1)
             if dn[slot]:
                 req.done = True
+                if tel is not None:
+                    tel.on_finish(req, slot, self.step_count)
                 self._release(slot)
+        if tel is not None:
+            tel.on_step(self.step_count, emitted=emitted, bad_slots=n_bad,
+                        pools=self._pool_brief() if self.paged else None)
         return True
+
+    def _pool_brief(self) -> Dict[str, Dict[str, int]]:
+        """Pages in use and quarantined per pool group (host state)."""
+        groups = {"global": self.allocator.brief()}
+        if self.windowed:
+            groups["window"] = self.allocator_w.brief()
+        return groups
 
     def _propose(self, hist: torch.Tensor) -> torch.Tensor:
         """N-gram prompt lookup (``repro`` engine.py:507): draft the
@@ -999,7 +1129,7 @@ class Engine:
         t_idx = self._win_idx
         eos = -1 if sc.eos_id is None else sc.eos_id
         done_t = active[:, None] & (
-            (self.n_out[:, None] + t_idx + 1 >= sc.max_new_tokens)
+            (self.n_out[:, None] + t_idx + 1 >= self.max_new[:, None])
             | (y == eos) | (lengths[:, None] + t_idx + 2 > sc.cache_len))
         cont = ((window[:, 1:] == y[:, :-1]) & ~done_t[:, :-1]
                 & self._spec_ok_dev[:, None])
@@ -1023,17 +1153,25 @@ class Engine:
         self.cur_tok = torch.where(active, last, self.cur_tok)
         self.active_mask = active & ~done
         self.metrics.counter("serve.spec_steps").inc()
+        tel = self.telemetry
+        accepted = n_bad = 0
         for slot in np.nonzero(self._active_h)[0]:
             slot = int(slot)
             if out[slot, k1 + 2]:
+                n_bad += 1
                 self._handle_bad_slot(slot)   # release reclaims the row
                 continue
             req, m = self.active[slot], int(out[slot, k1])
             req.out.extend(int(t) for t in out[slot, :m])
             self._len_h[slot] += m
             self.metrics.counter("serve.spec_emitted").inc(m)
+            accepted += m
+            if tel is not None and m > 0:
+                tel.on_tokens(req, slot, self.step_count, m)
             if out[slot, k1 + 1]:
                 req.done = True
+                if tel is not None:
+                    tel.on_finish(req, slot, self.step_count)
                 self._release(slot)        # reclaims the whole row
                 continue
             if m < k1:
@@ -1046,6 +1184,10 @@ class Engine:
                                       self.block_tables[slot], keep,
                                       int(self._ensured[slot])):
                 self._bt_dirty = True
+        if tel is not None:
+            # the accepted counts rode the step's one copy
+            tel.on_step(self.step_count, emitted=accepted, bad_slots=n_bad,
+                        accepted=accepted, pools=self._pool_brief())
         return True
 
     def run_to_completion(self, requests: List[Request],
@@ -1065,6 +1207,7 @@ class Engine:
              "preemptions_by_policy": {
                  p: m.counter(f"serve.preemptions.{p}").value
                  for p in PREEMPT_POLICIES},
+             "requeued_waiting": len(self.requeue),
              "requeue_depth": len(self.requeue),
              "requeue_peak_depth": int(
                  m.gauge("serve.requeue_peak_depth").value),
@@ -1079,13 +1222,13 @@ class Engine:
         if self.fault_plan is not None:
             d["faults_injected"] = dict(self.fault_plan.injected)
         if self.paged:
+            # top-level pressure keys stay the global group's
             d.update(self.allocator.pressure())
             d["kv_dtype"] = (self.kv_spec.dtype if self.kv_spec is not None
                              else None)
+            d["pool_groups"] = {"global": self.allocator.pressure()}
             if self.windowed:
-                # top-level pressure keys stay the global group's
-                d["pool_groups"] = {"global": self.allocator.pressure(),
-                                    "window": self.allocator_w.pressure()}
+                d["pool_groups"]["window"] = self.allocator_w.pressure()
                 d["window_prefix_frees"] = self.window_prefix_frees
         if self.spec:
             d.update({"spec_steps": self.spec_steps,

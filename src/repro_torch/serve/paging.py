@@ -84,6 +84,10 @@ class PageAllocator:
                 "allocs": self.alloc_count,
                 "frees": self.free_count}
 
+    def brief(self) -> dict:
+        """The per-step sample telemetry records: two ``len()`` reads."""
+        return {"in_use": self.in_use, "quarantined": self.quarantined}
+
     def alloc(self) -> int:
         if not self._free:
             raise RuntimeError(

@@ -249,10 +249,14 @@ def test_submit_truncate_keeps_tail_and_matches_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="temperature"):
-        _port_engine(temperature=0.8)
-    with pytest.raises(NotImplementedError, match="priority"):
-        _port_engine(paged=True, preempt_policy="priority")
+    """Sampling at temperature > 0 and the priority policy are served
+    now; what the engine still refuses raises: sampling under
+    speculation (its verify accepts by identity with the argmax chain)
+    and an unknown policy."""
+    assert _port_engine(temperature=0.8).sc.temperature == 0.8
+    assert _port_engine(paged=True, preempt_policy="priority").paged
+    with pytest.raises(ValueError, match="temperature"):
+        _port_engine(paged=True, spec_mode="ngram", temperature=0.8)
     with pytest.raises(ValueError, match="preempt_policy"):
         _port_engine(paged=True, preempt_policy="round-robin")
 

@@ -1342,3 +1342,79 @@ def test_engine_on_card_recovers_from_faults(cuda, mode):
         outs[dev] = ([r.out for r in reqs], st["recoveries"],
                      st["quarantined"])
     assert outs["cuda"] == outs["cpu"]
+
+
+def test_sampler_follows_softmax_on_card(cuda):
+    """The engine's Gumbel-max sampler on the card: 2^18 draws from one
+    fixed 32-way row at T = 0.8 with a generator seeded 0, each class's
+    frequency within 5 standard errors of softmax(logits / T); the same
+    seed draws the same tokens."""
+    from repro_torch.serve.engine import sample
+    rng = np.random.default_rng(0)
+    row = torch.from_numpy(rng.standard_normal(32).astype(np.float32) * 2)
+    n = 1 << 18
+    logits = row.to(cuda).expand(n, 32).contiguous()
+    got = sample(logits, 0.8, torch.Generator(device=cuda).manual_seed(0))
+    again = sample(logits, 0.8, torch.Generator(device=cuda).manual_seed(0))
+    assert torch.equal(got, again)
+    freq = torch.bincount(got.long(), minlength=32).double().cpu() / n
+    p = torch.softmax(row.double() / 0.8, dim=0)
+    se = torch.sqrt(p * (1 - p) / n)
+    assert bool(((freq - p).abs() <= 5 * se).all()), \
+        float(((freq - p).abs() / se).max())
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "t0.8"])
+def test_engine_on_card_replays_trace_like_cpu(cuda, temperature):
+    """A small paged engine replaying the committed bursty trace on the
+    card, priority policy over an oversubscribed pool, telemetry on:
+    audit-clean after every step, every request done with its budget,
+    one host copy per decode step and per admitted group, and every
+    decision (kind, request, slot, step) of the same engine on the
+    CPU."""
+    import pathlib
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve import workload
+    from repro_torch.serve.telemetry import ServeTelemetry
+    path = (pathlib.Path(__file__).resolve().parents[1] / "benchmarks"
+            / "traces" / "bursty_smoke.jsonl")
+    cfg = dataclasses.replace(smoke_config("granite-8b", num_layers=2),
+                              d_model=256, num_heads=8, num_kv_heads=2,
+                              head_dim=64, d_ff=512, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    decisions = {}
+    for dev in ("cpu", "cuda"):
+        tel = ServeTelemetry()
+        sc = ServeConfig(slots=4, cache_len=64, max_new_tokens=16,
+                         page_size=8, paged=True, total_pages=1 + 15,
+                         preempt_policy="priority", temperature=temperature)
+        eng = Engine(model, _to(params, dev), sc, device=dev, telemetry=tel)
+        copies, groups = [0], [0]
+        real_get, real_admit = engine_mod._device_get, eng._admit_group
+
+        def counted_get(t, _real=real_get, _copies=copies):
+            _copies[0] += 1
+            return _real(t)
+
+        def counted_admit(reqs, plen, _real=real_admit, _groups=groups):
+            n = _real(reqs, plen)
+            _groups[0] += n > 0
+            return n
+
+        engine_mod._device_get, eng._admit_group = counted_get, counted_admit
+        try:
+            reqs = workload.replay(eng, workload.load_trace(str(path)),
+                                   audit=True)
+        finally:
+            engine_mod._device_get = real_get
+            del eng._admit_group
+        steps = sum(1 for e in tel.trace.events if e.kind == "step")
+        assert all(r.done and len(r.out) == min(r.max_new, 16)
+                   for r in reqs)
+        assert copies[0] == steps + groups[0], (copies, steps, groups)
+        assert eng.preemptions > 0
+        assert tel.trace.validate() == []
+        decisions[dev] = [(e.kind, e.rid, e.slot, e.step)
+                          for e in tel.trace.events]
+    assert decisions["cuda"] == decisions["cpu"]
