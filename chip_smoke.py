@@ -45,12 +45,20 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    reference's example with masked rows, sizes 0 and C, the decode
    shape and the largest prefill's, timed beside ``torch.bmm``) and
    the Dk 192 / Dv 128 builds of the prefill, dense and paged decode
-   kernels (MLA); then jamba-1.5-large-398b's: the selective scan of the
+   kernels (MLA), of the quantized paged kernel over int8 and fp8 pools
+   (also against bf16 B4 within DECODE_TOL, and over a pool whose every
+   16-byte key chunk differs, so that a swizzle fault cannot hide) and
+   of the speculative kernel at K1 5 over bf16 and int8 pools; then
+   jamba-1.5-large-398b's: the selective scan of the
    mamba layers (the reference's example, then B 1 and 2 x S 17, 64,
    200 and 511 at d_inner 16384 and 16 states, bf16 with f32 A and D),
    and the norm, prefill, dense and paged decode kernels (64 query heads
    on 8 KV heads of 128) and the grouped matmul (16 experts of 8192 x
-   24576) at its shapes; then xlstm-1.3b's: the mLSTM scan with its
+   24576) at its shapes; then arctic-480b's: the norm at 7,168, the
+   prefill, dense and paged decode kernels at 56 query heads over 8 (a
+   GQA group of 7 through the group-8 builds) and the grouped matmul
+   over 128 experts of 7168 x 4864 at decode and at prefills of C 24
+   and 80; then xlstm-1.3b's: the mLSTM scan with its
    final state (the reference's example, then B 1 and 2 x S 1, 17, 64,
    200 and 511 at 4 heads of Dk = Dv = 1024, bf16 with f32 gates);
    then the portable runtime against the native twins
@@ -158,7 +166,20 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    own calls (same prefill groups, same decode batches, the served
    tokens and expert choices fed back, so each MoE call drops what it
    dropped when served; a replay routing by its own top-k is reported);
+   then from int8 and fp8 pools (27 launches of the quantized kernel
+   at 192/128 a step, the pool bytes per slot under 0.53 of bf16's, the
+   gap reported) and speculating k = 4 over bf16 pools (27 launches of
+   the speculative kernel a step, the gap checked, rejections > 0) and
+   over int8 pools (the gap reported), each held to a plain replay of
+   its own calls (the verify calls too, the gap over the rows emitted);
 11. free deepseek-v2-lite-16b and serve the same 12 requests on
+   ``arctic-480b`` at full width cut to 2 layers (GQA, 56 query heads
+   over 8, each layer 128 experts top-2 of d_ff 4,864 plus a dense
+   residual MLP; 27.7 B parameters, 55.4 GB; random weights from a
+   seed), paged and dense: checked as phase 10, with 2 launches of the
+   mode's decode kernel and 6 of the grouped matmul per decode step
+   (and 6 per admitted group), peak memory reported;
+12. free arctic-480b and serve the same 12 requests on
    ``jamba-1.5-large-398b`` at full width cut to 4 layers (an attention
    layer with a dense MLP, then three mamba layers, the first and third
    with 16 experts top-2 of d_ff 24,576; 23 B parameters, 46 GB; random
@@ -166,7 +187,7 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    launch of the mode's decode kernel and 6 of the grouped matmul per
    decode step (and 6 per admitted group), and 3 of the selective scan
    per admitted group and none in a decode step;
-12. free jamba-1.5-large-398b and serve the same 12 requests on
+13. free jamba-1.5-large-398b and serve the same 12 requests on
    ``xlstm-1.3b`` at full width cut to 16 of its 48 layers (seven mLSTM,
    then one sLSTM, twice; no attention layer; random from a seed),
    paged and dense, in bf16 and in f32: checked as phase 4, with 14
@@ -175,7 +196,7 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    kernel launched; then ``Model.loss`` of one batch of 2 x 512 tokens
    through the kernels (the mLSTM scan once per mLSTM layer) and
    through their plain versions, the two within XL_LOSS_TOL;
-13. trace five paged decode steps of each model for the card's busy
+14. trace five paged decode steps of each model for the card's busy
    share (reported, not checked).
 
 Each phase prints its wall time.
@@ -262,6 +283,16 @@ JB_LAYERS, JB_HQ, JB_HKV, JB_DM = 4, 64, 8, 8192
 JB_DI, JB_N, JB_E, JB_TOPK, JB_FF = 16384, 16, 16, 2, 24576
 # the scan's check lengths: below, at and off multiples of the chunk
 JB_SCAN_LENS = (17, 64, 200, 511)
+# arctic-480b at full width, cut to 2 of its 35 layers (one layer is 13.61
+# B parameters, 27.2 GB in bf16: 2 layers and the embeddings make 55.4
+# GB, 3 would not fit the card): 56 query / 8 KV heads of 128 (a GQA
+# group of 7) over d_model 7168; on every layer 128 experts top-2 of
+# d_ff 4864 and a dense residual MLP of d_ff 4864
+AR_LAYERS, AR_HQ, AR_HKV, AR_DM = 2, 56, 8, 7168
+AR_E, AR_TOPK, AR_FF = 128, 2, 4864
+# B8's capacity at a prefill of 8 x 511 tokens (ceil(4088 x 2 / 128 x
+# 1.25) = 80): a batch the served runs' groups of 2 do not reach
+AR_C_PREFILL = 80
 # xlstm-1.3b at full width: d_model 2048, mLSTM d_inner 4096 in 4 heads
 # of 1024, so B10 runs at Dk = Dv = 1024.  Served and its loss taken at
 # 16 of its 48 layers (two of its six periods of seven mLSTM and one
@@ -1462,10 +1493,10 @@ def check_gmm(s: Smoke) -> None:
 
 
 def check_mla_builds(s: Smoke) -> None:
-    """The Dk 192 / Dv 128 builds of B2, B3 and B4 at deepseek's
-    serving shapes (16 query heads on 16 kv heads), against their plain
-    versions; their times go into each kernel's record under
-    "deepseek"."""
+    """The Dk 192 / Dv 128 builds of B2, B3, B4, B5 (int8, fp8) and B6
+    (bf16, int8) at deepseek's serving shapes (16 query heads on 16 kv
+    heads), against their plain versions; their times go into each
+    kernel's record under "deepseek"."""
     torch = s.torch
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1549,6 +1580,149 @@ def check_mla_builds(s: Smoke) -> None:
                    lambda n: ops.paged_decode_attention(
                        qd, kp, vp, bt, ln, splits=n, **kw),
                    plain_ms, nbytes + 4 * live_pages, flops)
+    bf16 = _normalized(ops.paged_decode_attention(qd, kp, vp, bt, ln, **kw))
+    check_mla_quant(s, qd, kp, vp, bt, ln, bf16)
+    del kp, vp
+    check_mla_spec(s, kc, vc, rnd)
+
+
+def _distinct_keys(s: Smoke, b, h, n, d):
+    """A (b, h, n, d) bf16 key cache whose every 16-element chunk (one
+    16-byte chunk of a 1-byte pool's row) holds its own value: 251
+    consecutive chunks of a head apart, heads shifted, so that a chunk
+    the stage's swizzle put in another token's row changes the
+    scores."""
+    torch = s.torch
+    t = torch.arange(n, device=s.dev)[:, None]
+    c = torch.arange(d // 16, device=s.dev)[None, :]
+    hh = torch.arange(h, device=s.dev)[:, None, None]
+    val = ((t * (d // 16) + c)[None] * 7 + hh * 3) % 251 - 125.0
+    return (val.repeat_interleave(16, -1) / 125.0).expand(
+        b, -1, -1, -1).bfloat16().contiguous()
+
+
+def check_mla_quant(s: Smoke, qd, kp, vp, bt, ln, bf16):
+    """B5's 192/128 build (twelve 16-byte chunks a 1-byte key row: the
+    stage swizzles 4 tokens) over deepseek's pools quantized to int8
+    and fp8, and over a pool of distinct key chunks: by
+    :func:`check_split_quant` (one split, the served count and
+    SPLIT_CHECK, against ``quant_paged_decode_attention_ref(chunk=...)``),
+    against bf16 B4 on the unquantized data (``bf16``) within
+    DECODE_TOL, timed at one split, the served count and SPLIT_CHECK
+    beside its bound; int8's times go into B5's record under
+    "deepseek"."""
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.quant import DECODE_TOL
+    scale = DS_DK ** -0.5
+    kw = dict(scale=scale, return_residuals=True)
+    live = sum(DECODE_LENGTHS)
+    live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
+    # q, one byte per live K/V element, the K and V scales and a table
+    # entry per live page, lengths, the f32 residuals
+    nbytes = (qd.numel() * 2 + live * DS_H * (DS_DK + DS_DV)
+              + live_pages * (2 * DS_H * 4 + 4) + 4 * SLOTS
+              + SLOTS * DS_H * (DS_DV + 2) * 4)
+    flops = 2 * DS_H * (DS_DK + DS_DV) * live
+    for kv in ("int8", "fp8_e4m3"):
+        kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+        args = (qd, kq, vq, ks, vs, bt, ln)
+        what = f"quant paged {kv} (B 8, 16/16 x 192/128, page 64)"
+        got = check_split_quant(s, what, args, scale=scale)
+        check_split_quant(s, f"quant paged {kv} 192/128, logical page 16 "
+                             f"of 64", args, page_size=16, scale=scale)
+        want = ref.quant_paged_decode_attention_ref(*args, **kw)
+        err = s.compare(f"quant paged {kv} 192/128 output acc / l",
+                        _normalized(got), _normalized(want))
+        gap = float((_normalized(got) - bf16).abs().max())
+        s.check(gap <= DECODE_TOL[kv],
+                f"quant paged {kv} 192/128 against bf16 paged on the "
+                f"unquantized data: max abs diff {gap:.4f} <= DECODE_TOL "
+                f"{DECODE_TOL[kv]}")
+        # the same table (``_pages`` scrambles by a fixed seed)
+        kd = _distinct_keys(s, SLOTS, DS_H, CACHE_LEN, DS_DK)
+        kdp = _pages(s, kd, kd, DECODE_LENGTHS, PAGE)[0]
+        kdq, _, kds, _ = _quantize(s, kdp, vp, kv)
+        check_split_quant(s, f"quant paged {kv} 192/128, every 16-byte key "
+                             f"chunk distinct",
+                          (qd, kdq, vq, kds, vs, bt, ln), scale=scale)
+        del kd, kdp, kdq
+        plain_ms = s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
+            *args, **kw))
+        times = (s.time_ms(lambda: ops.quant_paged_decode_attention(
+                     *args, **kw)),
+                 plain_ms, nbytes, flops, None, INT8_OPS_PER_S)
+        if kv == "int8":
+            s.record_also("quant_paged_decode_attention", "deepseek", err,
+                          *times)
+        else:
+            s.timings(f"quant_paged_decode_attention (deepseek {kv})",
+                      *times)
+        _split_timings(s, "quant_paged_decode_attention", f"deepseek {kv}",
+                       lambda n: ops.quant_paged_decode_attention(
+                           *args, splits=n, **kw),
+                       plain_ms, nbytes, flops, ops_per_s=INT8_OPS_PER_S)
+
+
+def check_mla_spec(s: Smoke, kc, vc, rnd):
+    """B6's 192/128 build at K1 = SPEC_K + 1 (a group of 1: 5 live rows
+    of its G_SPEC rows) over deepseek's caches paged to the speculation
+    horizons, bf16 and int8 (and int8 over distinct key chunks): by
+    :func:`check_split_spec`, against its plain version; bf16's times go
+    into B6's record under "deepseek"."""
+    torch = s.torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    scale = DS_DK ** -0.5
+    k1 = SPEC_K + 1
+    horizons = [n + k1 for n in SPEC_BASES]
+    qs = rnd(SLOTS, k1, DS_H, DS_DK)
+    kp, vp, bt = _pages(s, kc, vc, horizons, PAGE)
+    base = torch.tensor(SPEC_BASES, dtype=torch.int32, device=s.dev)
+    live = sum(horizons)
+    live_pages = sum(-(-n // PAGE) for n in horizons)
+    flops = 2 * DS_H * (DS_DK + DS_DV) * sum(
+        n + 1 + i for n in SPEC_BASES for i in range(k1))
+    out_bytes = SLOTS * k1 * DS_H * (DS_DV + 2) * 4
+    kd = _distinct_keys(s, SLOTS, DS_H, CACHE_LEN, DS_DK)
+    kdp = _pages(s, kd, kd, horizons, PAGE)[0]
+    del kd
+    for kv in (None, "int8", "int8 distinct"):
+        if kv is None:
+            args = (qs, kp, vp, bt, base)
+            fn, plain = (ops.spec_paged_decode_attention,
+                         ref.spec_paged_decode_attention_ref)
+            kv_bytes, scale_bytes, rate = 2, 0, BF16_FLOPS_PER_S
+        else:
+            kq, vq, ks, vs = _quantize(s, kdp if kv.endswith("distinct")
+                                       else kp, vp, "int8")
+            args = (qs, kq, vq, ks, vs, bt, base)
+            fn, plain = (ops.quant_spec_paged_decode_attention,
+                         ref.quant_spec_paged_decode_attention_ref)
+            kv_bytes, scale_bytes, rate = 1, 2 * DS_H * 4, INT8_OPS_PER_S
+        what = f"spec K1 = {k1} {kv or 'bf16'} 192/128"
+        got = check_split_spec(s, f"{what} (B 8, 16/16, page 64)", args, fn,
+                               plain, scale=scale)
+        want = plain(*args, return_residuals=True, scale=scale)
+        err = s.compare(f"{what} output acc / l", _normalized(got),
+                        _normalized(want))
+        if kv == "int8 distinct":
+            continue
+        nbytes = (qs.numel() * 2 + live * DS_H * (DS_DK + DS_DV) * kv_bytes
+                  + out_bytes + live_pages * (scale_bytes + 4)
+                  + SLOTS * k1 * 4)
+        plain_ms = s.time_ms(lambda: plain(*args, return_residuals=True,
+                                           scale=scale))
+        times = (s.time_ms(lambda: fn(*args, return_residuals=True,
+                                      scale=scale)),
+                 plain_ms, nbytes, flops, None, rate)
+        if kv is None:
+            s.record_also("spec_paged_decode_attention", "deepseek", err,
+                          *times)
+        else:
+            s.timings(f"spec_paged_decode_attention (deepseek {kv})", *times)
+        _split_timings(s, "spec_paged_decode_attention", f"deepseek {what}",
+                       lambda n: fn(*args, return_residuals=True, splits=n,
+                                    scale=scale),
+                       plain_ms, nbytes, flops, ops_per_s=rate)
 
 
 # ------------------------------------------- jamba-1.5-large kernels -----
@@ -1611,6 +1785,32 @@ def check_jamba_shapes(s: Smoke) -> None:
     (16 experts of 8192 x 24576: 6.4 GB of weights per call), against
     their plain versions; their times go into each kernel's record
     under "jamba"."""
+    check_model_shapes(s, "jamba", JB_DM, JB_HQ, JB_HKV, JB_E, JB_TOPK,
+                       JB_FF, seed=12)
+
+
+def check_arctic_shapes(s: Smoke) -> None:
+    """B1, B2, B3 and B4 at arctic's shapes (d_model 7168; 56 query
+    heads on 8 KV heads of 128, a GQA group of 7 through B3's and B4's
+    group-8 builds, every head held so that the eighth row, masked, would
+    show in the next group's first head) and B8 at its expert shapes
+    (128 experts of 7168 x 4864: 8.9 GB of weights per call, at most 16
+    of them live at decode), against their plain versions; their times
+    go into each kernel's record under "arctic".  B8 also at a prefill
+    capacity of AR_C_PREFILL rows (8 x 511 tokens)."""
+    check_model_shapes(s, "arctic", AR_DM, AR_HQ, AR_HKV, AR_E, AR_TOPK,
+                       AR_FF, seed=18, more_c=(AR_C_PREFILL,))
+
+
+def check_model_shapes(s: Smoke, key, dm, hq, hkv, e, topk, ff, seed,
+                       more_c=()):
+    """B1 at the largest prefill group's rows (2 x 511 of ``dm``), B2 at
+    its causal prefill, B3 and B4 at 8 slots of lengths 1..1024 (``hq``
+    query heads over ``hkv`` of 128), B8 at the decode capacity of 8
+    slots (gate/up and down) and the prefill group's (and each of
+    ``more_c``) over ``e`` experts of ``dm`` x ``ff``, each against its
+    plain version and timed beside its library call; the times go into
+    each record under ``key``."""
     torch = s.torch
     from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1621,51 +1821,50 @@ def check_jamba_shapes(s: Smoke) -> None:
     from repro_torch.kernels.rmsnorm import ref as rref
     from repro_torch.models.moe import _capacity
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    g = torch.Generator(device=s.dev).manual_seed(12)
+    g = torch.Generator(device=s.dev).manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, device=s.dev, generator=g,
                            dtype=torch.bfloat16)
 
-    # B1: the largest prefill group, 2 x 511 rows of 8192
+    # B1: the largest prefill group, 2 x 511 rows of dm
     b, n = 2, PROMPT_LENS[-1]
-    x, w = rnd(b * n, JB_DM), 0.1 * rnd(JB_DM)
+    x, w = rnd(b * n, dm), 0.1 * rnd(dm)
     kw = dict(eps=1e-6, weight_offset=1.0)
-    err = s.compare(f"rmsnorm ({b * n}, {JB_DM}) bf16",
+    err = s.compare(f"rmsnorm ({b * n}, {dm}) bf16",
                     rops.rmsnorm(x, w, **kw), rref.rmsnorm_ref(x, w, **kw))
-    s.record_also("rmsnorm", "jamba", err,
+    s.record_also("rmsnorm", key, err,
                   s.time_ms(lambda: rops.rmsnorm(x, w, **kw)),
                   s.time_ms(lambda: rref.rmsnorm_ref(x, w, **kw)),
-                  2 * x.numel() * 2 + 2 * JB_DM, 4 * x.numel(),
+                  2 * x.numel() * 2 + 2 * dm, 4 * x.numel(),
                   s.time_ms(lambda: torch.nn.functional.rms_norm(
-                      x, (JB_DM,), w + 1.0, 1e-6)))
-    # B2: B 2 x S 511, 64/8 heads of 128, causal
-    q, k, v = rnd(b, JB_HQ, n, 128), rnd(b, JB_HKV, n, 128), \
-        rnd(b, JB_HKV, n, 128)
-    err = s.compare(f"flash ({b}, {JB_HQ}/{JB_HKV}, {n}, 128) causal bf16",
+                      x, (dm,), w + 1.0, 1e-6)))
+    # B2: B 2 x S 511, hq/hkv heads of 128, causal
+    q, k, v = rnd(b, hq, n, 128), rnd(b, hkv, n, 128), rnd(b, hkv, n, 128)
+    err = s.compare(f"flash ({b}, {hq}/{hkv}, {n}, 128) causal bf16",
                     fops.flash_attention(q, k, v),
                     fref.flash_attention_ref(q, k, v))
-    operands_model(s, f"flash ({b}, {JB_HQ}/{JB_HKV}, {n}, 128) causal bf16",
+    operands_model(s, f"flash ({b}, {hq}/{hkv}, {n}, 128) causal bf16",
                    (q, k, v), {})
-    s.record_also("flash_attention", "jamba", err,
+    s.record_also("flash_attention", key, err,
                   s.time_ms(lambda: fops.flash_attention(q, k, v)),
                   s.time_ms(lambda: fref.flash_attention_ref(q, k, v)),
                   2 * (q.numel() + 2 * k.numel() + q.numel()),
-                  4 * b * JB_HQ * 128 * n * (n + 1) // 2,
+                  4 * b * hq * 128 * n * (n + 1) // 2,
                   s.time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                          enable_gqa=True)))
     del q, k, v
-    # B3 and B4: 8 slots, lengths 1..1024, a group of 8
-    heads = dict(hq=JB_HQ, hkv=JB_HKV, d=128)
+    # B3 and B4: 8 slots, lengths 1..1024, a group of hq / hkv
+    heads = dict(hq=hq, hkv=hkv, d=128)
+    grp = f"{hq}/{hkv} x 128"
     qd, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS, **heads)
     dkw = dict(return_residuals=True)
-    got = check_split_decode(s, "decode (B 8, 64/8 x 128, lengths "
-                                "1..1024)", qd, kc, vc, ln)
+    got = check_split_decode(s, f"decode (B 8, {grp}, lengths 1..1024)",
+                             qd, kc, vc, ln)
     want = ref.decode_attention_ref(qd, kc, vc, ln, **dkw)
-    s.compare("decode residuals, 64/8 heads of 128, lengths 1..1024", got,
-              want)
-    err = s.compare("decode group 8 output acc / l", _normalized(got),
-                    _normalized(want))
+    s.compare(f"decode residuals, {grp}, lengths 1..1024", got, want)
+    err = s.compare(f"decode group {hq // hkv} output acc / l",
+                    _normalized(got), _normalized(want))
     nbytes, flops = _decode_cost(DECODE_LENGTHS, **heads)
     mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
             < ln[:, None])[:, None, None, :]
@@ -1673,58 +1872,61 @@ def check_jamba_shapes(s: Smoke) -> None:
                                                           **dkw))
     library_ms = s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
                                         attn_mask=mask, enable_gqa=True))
-    s.record_also("decode_attention", "jamba", err,
+    s.record_also("decode_attention", key, err,
                   s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
                                                          **dkw)),
                   plain_ms, nbytes, flops, library_ms)
-    _split_timings(s, "decode_attention", "jamba",
+    _split_timings(s, "decode_attention", key,
                    lambda n: ops.decode_attention(
                        qd, kc, vc, ln, splits=n, **dkw),
                    plain_ms, nbytes, flops, library_ms)
     kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
-    got = check_split_paged(s, "paged (B 8, 64/8 x 128, page 64)", qd, kp,
-                            vp, bt, ln)
+    got = check_split_paged(s, f"paged (B 8, {grp}, page 64)", qd, kp, vp,
+                            bt, ln)
     want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **dkw)
-    s.compare("paged residuals, 64/8 heads of 128, page 64", got, want)
-    err = s.compare("paged group 8 output acc / l", _normalized(got),
-                    _normalized(want))
+    s.compare(f"paged residuals, {grp}, page 64", got, want)
+    err = s.compare(f"paged group {hq // hkv} output acc / l",
+                    _normalized(got), _normalized(want))
     live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
     plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
         qd, kp, vp, bt, ln, **dkw))
-    s.record_also("paged_decode_attention", "jamba", err,
+    s.record_also("paged_decode_attention", key, err,
                   s.time_ms(lambda: ops.paged_decode_attention(
                       qd, kp, vp, bt, ln, **dkw)),
                   plain_ms, nbytes + 4 * live_pages, flops, None)
-    _split_timings(s, "paged_decode_attention", "jamba",
+    _split_timings(s, "paged_decode_attention", key,
                    lambda n: ops.paged_decode_attention(
                        qd, kp, vp, bt, ln, splits=n, **dkw),
                    plain_ms, nbytes + 4 * live_pages, flops)
     del qd, kc, vc, kp, vp
     # B8: decode (C 8 at 8 slots) gate/up and down, and the largest
     # prefill group's gate/up (C 160 for 2 x 511 tokens)
-    c_dec = _capacity(SLOTS, JB_E, JB_TOPK, 1.25)
-    c_pre = _capacity(b * n, JB_E, JB_TOPK, 1.25)
+    c_dec = _capacity(SLOTS, e, topk, 1.25)
+    c_pre = _capacity(b * n, e, topk, 1.25)
     print(f"  capacity: {c_dec} rows per expert at decode ({SLOTS} slots), "
           f"{c_pre} at the largest prefill ({b} x {n} tokens)")
 
     def run(c, kk, nn, what):
-        lhs, rhs = rnd(JB_E, c, kk), rnd(JB_E, kk, nn)
-        gs = torch.full((JB_E,), c, dtype=torch.int32, device=s.dev)
-        err = s.compare(f"gmm {what} ({JB_E}, {c}, {kk}) @ ({JB_E}, {kk}, "
+        lhs, rhs = rnd(e, c, kk), rnd(e, kk, nn)
+        gs = torch.full((e,), c, dtype=torch.int32, device=s.dev)
+        err = s.compare(f"gmm {what} ({e}, {c}, {kk}) @ ({e}, {kk}, "
                         f"{nn}) bf16", gops.gmm(lhs, rhs, gs),
                         gref.gmm_ref(lhs, rhs, gs))
-        nbytes = 2 * (lhs.numel() + rhs.numel() + JB_E * c * nn) + 4 * JB_E
+        nbytes = 2 * (lhs.numel() + rhs.numel() + e * c * nn) + 4 * e
         return err, (s.time_ms(lambda: gops.gmm(lhs, rhs, gs)),
                      s.time_ms(lambda: gref.gmm_ref(lhs, rhs, gs)),
-                     nbytes, 2 * JB_E * c * kk * nn,
+                     nbytes, 2 * e * c * kk * nn,
                      s.time_ms(lambda: torch.bmm(lhs, rhs)))
 
-    err, times = run(c_dec, JB_DM, JB_FF, "jamba decode gate/up")
-    s.record_also("gmm", "jamba", err, *times)
-    _, times = run(c_dec, JB_FF, JB_DM, "jamba decode down")
-    s.timings("gmm (jamba decode down projection)", *times)
-    err, times = run(c_pre, JB_DM, JB_FF, "jamba prefill gate/up")
-    s.record_also("gmm", "jamba prefill", err, *times)
+    err, times = run(c_dec, dm, ff, f"{key} decode gate/up")
+    s.record_also("gmm", key, err, *times)
+    _, times = run(c_dec, ff, dm, f"{key} decode down")
+    s.timings(f"gmm ({key} decode down projection)", *times)
+    err, times = run(c_pre, dm, ff, f"{key} prefill gate/up")
+    s.record_also("gmm", f"{key} prefill", err, *times)
+    for c in more_c:
+        _, times = run(c, dm, ff, f"{key} prefill gate/up at C {c}")
+        s.timings(f"gmm ({key} prefill gate/up, C {c})", *times)
 
 
 # ------------------------------------------------- xlstm-1.3b kernels -----
@@ -2032,6 +2234,13 @@ class _Recorder:
         self.calls.append(logits.argmax(-1))
         return logits
 
+    def spec_decode_step(self, params, caches, tokens, lengths,
+                         block_tables):
+        logits = self.model.spec_decode_step(params, caches, tokens,
+                                             lengths, block_tables)
+        self.calls.append(logits.argmax(-1))          # (B, K1)
+        return logits
+
 
 class _Top2(_Recorder):
     """The served model, keeping every call's two largest logits per
@@ -2103,9 +2312,12 @@ class _Replayer(_Recorder):
             return gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), idx
         return forced if self.routes is not None else real
 
-    def _answer(self, logits, emitting):
-        forced = self.calls[self.i]
-        self.i += 1
+    def _answer(self, logits, emitting, forced):
+        """One-hot logits at the served tokens ``forced`` (B,) or (B,
+        K1), keeping the gap over the ``emitting`` rows."""
+        shape = logits.shape
+        logits, forced = logits.reshape(-1, shape[-1]), forced.reshape(-1)
+        emitting = emitting.reshape(-1)
         gap = logits.max(-1).values - logits.gather(
             1, forced[:, None].long())[:, 0]
         gap = gap.where(emitting, gap.new_zeros(()))
@@ -2114,19 +2326,46 @@ class _Replayer(_Recorder):
         gap = gap.max()
         self.worst = gap if self.worst is None else self.worst.maximum(gap)
         return logits.new_zeros(logits.shape).scatter_(
-            1, forced[:, None].long(), 1.0)
+            1, forced[:, None].long(), 1.0).view(shape)
+
+    def _next(self):
+        forced = self.calls[self.i]
+        self.i += 1
+        return forced
 
     def prefill(self, params, tokens, cache_len):
         logits, caches = self.model.prefill(params, tokens, cache_len,
                                             plain=True)
         return self._answer(logits, logits.new_ones(
-            logits.shape[:1], dtype=bool)), caches
+            logits.shape[:1], dtype=bool), self._next()), caches
 
     def decode_step(self, params, caches, tokens, lengths,
                     block_tables=None):
         logits = self.model.decode_step(params, caches, tokens, lengths,
                                         block_tables, plain=True)
-        return self._answer(logits, self.engine.active_mask)
+        return self._answer(logits, self.engine.active_mask, self._next())
+
+    def spec_decode_step(self, params, caches, tokens, lengths,
+                         block_tables):
+        """The verify call through the plain versions, answered with the
+        served argmax of every row; the gap is kept over the rows the
+        engine emits (``Engine._spec_step``'s rule: row 0 of an active
+        slot, then each row whose draft is the previous row's served
+        token, before the request's budget or the cache ends)."""
+        import torch
+        logits = self.model.spec_decode_step(params, caches, tokens,
+                                             lengths, block_tables,
+                                             plain=True)
+        forced, eng = self._next(), self.engine
+        t = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        done_t = ((eng.n_out[:, None] + t + 1 >= eng.max_new[:, None])
+                  | (lengths[:, None] + t + 2 > eng.sc.cache_len))
+        cont = ((tokens[:, 1:] == forced[:, :-1]) & ~done_t[:, :-1]
+                & eng._spec_ok_dev[:, None])
+        active = eng.active_mask[:, None]
+        emitting = torch.cat(
+            [active, active & torch.cumprod(cont.int(), 1).bool()], 1)
+        return self._answer(logits, emitting, forced)
 
 
 class _Dispatches:
@@ -2388,7 +2627,7 @@ def teacher_gap(s: Smoke, model, params, reqs):
 def check_serving(s: Smoke, model, params, name: str, mode: dict,
                   per_step, kernels_idle=(), teacher_checked=True,
                   prefill=("rmsnorm", "flash_attention"), per_group=None,
-                  replay=False, margins=False, **shape):
+                  replay=False, margins=False, free_replay=True, **shape):
     """Serve the 12 requests in ``mode`` (``shape``: the cache length and
     prompt lengths, if not granite's); check completion, the one-sync
     contract, that the prefill kernels launched, that each decode
@@ -2402,7 +2641,9 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
     were freed; and the teacher-forced gap (reported only where
     ``teacher_checked`` is false: a quantized pool is not the bf16
     model), against a plain forward over each request's tokens or, with
-    ``replay``, against the plain replay of the run's own calls."""
+    ``replay``, against the plain replay of the run's own calls (and,
+    with ``free_replay``, a second replay routing by its own top-k is
+    reported)."""
     torch = s.torch
     per_group = per_group or {}
     t0 = time.perf_counter()
@@ -2470,13 +2711,15 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
                 f"{name}: the replay on the served expert choices dropped "
                 f"the served {st['moe_dropped']} assignments ({dropped}); "
                 f"its own top-k differed in {flips} choices")
-        free, free_dropped, *_ = replay_gap(s, model, params, calls, None,
-                                            **shape, **mode)
-        st.update(replay_routing_flips=flips, free_replay_gap=free,
-                  free_replay_moe_dropped=free_dropped)
-        print(f"  {name}: a replay routing by its own top-k dropped "
-              f"{free_dropped} assignments, largest gap {free:.4f} logits "
-              f"(reported)")
+        st.update(replay_routing_flips=flips)
+        if free_replay:
+            free, free_dropped, *_ = replay_gap(s, model, params, calls,
+                                                None, **shape, **mode)
+            st.update(free_replay_gap=free,
+                      free_replay_moe_dropped=free_dropped)
+            print(f"  {name}: a replay routing by its own top-k dropped "
+                  f"{free_dropped} assignments, largest gap {free:.4f} "
+                  f"logits (reported)")
         where = None
     else:
         gap, where, tokens, flipped = teacher_gap(s, model, params, reqs)
@@ -2491,8 +2734,10 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
                 f"{name}: every emitted token within {TEACHER_GAP} logits "
                 f"of the plain forward's argmax (largest gap {gap:.4f}{at})")
     else:
-        print(f"  {name}: largest teacher-forced gap against the bf16 "
-              f"plain forward {gap:.4f} logits{at} (reported)")
+        against = ("the plain replay of its own calls" if replay
+                   else "the bf16 plain forward")
+        print(f"  {name}: largest teacher-forced gap against {against} "
+              f"{gap:.4f} logits{at} (reported)")
     if "spec_steps" in st:
         s.check(st["spec_rejections"] > 0,
                 f"{name}: {st['spec_rejections']} rejected drafts (> 0)")
@@ -3157,8 +3402,8 @@ def run_traces(s: Smoke):
     """The card's busy share over paged decode steps of each model,
     fresh weights from the same seed; last, since tracing slows every
     later step (deepseek-v2-lite-16b's is traced first, then gemma2-2b's,
-    granite-8b's, jamba-1.5-large-398b's and xlstm-1.3b's, each a lower
-    bound)."""
+    granite-8b's, jamba-1.5-large-398b's (4 layers), arctic-480b's (2
+    layers) and xlstm-1.3b's, each a lower bound)."""
     torch = s.torch
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -3168,9 +3413,11 @@ def run_traces(s: Smoke):
                                            prompt_lens=G2_PROMPT_LENS)),
                         ("granite-8b", {}),
                         ("jamba-1.5-large-398b", {}),
+                        ("arctic-480b", {}),
                         ("xlstm-1.3b", {})):
-        model = build_model(_jamba_config() if arch.startswith("jamba")
-                            else get_config(arch))
+        cut = {"jamba-1.5-large-398b": _jamba_config,
+               "arctic-480b": _arctic_config}.get(arch)
+        model = build_model(cut() if cut else get_config(arch))
         params = model.init(torch.Generator(device=s.dev).manual_seed(0),
                             device=s.dev)
         share = traced_busy_share(s, model, params, **shape)
@@ -3331,32 +3578,60 @@ def run_serving_deepseek(s: Smoke):
           f"from seed 0 ({time.perf_counter() - t0:.2f} s)")
     runs, stats = {}, {}
     n_moe = cfg.num_layers - 1
-    decode = ("decode_attention", "paged_decode_attention",
-              "window_paged_decode_attention",
-              "quant_paged_decode_attention",
-              "quant_window_paged_decode_attention",
-              "spec_paged_decode_attention")
 
-    def run(name, mode, decode_kernel):
+    def run(name, mode, decode_kernel, **kw):
         print(f"== serve deepseek-v2-lite-16b, {name}", flush=True)
         per_step = {decode_kernel: cfg.num_layers, "gmm": 3 * n_moe}
         runs[name], stats[name] = check_serving(
             s, model, params, f"deepseek {name}", mode, per_step,
-            tuple(k for k in decode if k != decode_kernel),
+            tuple(k for k in DECODE_KERNELS if k != decode_kernel),
             prefill=("rmsnorm", "flash_attention", "gmm"),
-            per_group={"gmm": 3 * n_moe}, replay=True)
+            per_group={"gmm": 3 * n_moe}, replay=True, **kw)
         for kname in ("flash_attention", decode_kernel):
-            s.kernels[kname]["deepseek"]["launches"] = \
-                stats[name]["launches"][kname]
+            # the first run that served through it
+            s.kernels[kname]["deepseek"].setdefault(
+                "launches", stats[name]["launches"][kname])
 
     run("paged", dict(paged=True), "paged_decode_attention")
     run("dense", dict(paged=False), "decode_attention")
     agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
     print(f"  deepseek dense and paged agree on {agree['dense_paged']} of "
           f"{stats['paged']['tokens']} tokens")
+    # B5 at 192/128 from int8 and fp8 pools, B6 speculating over bf16
+    # and int8 pools: one replay each (on the served expert choices)
+    for kv in ("int8", "fp8_e4m3"):
+        run(kv, dict(paged=True, kv_dtype=kv), "quant_paged_decode_attention",
+            teacher_checked=False, free_replay=False)
+        st = stats[kv]
+        s.check(st["kv_dtype"] == kv,
+                f"deepseek {kv}: the engine's pools are {st['kv_dtype']}")
+        ratio = st["pool_bytes_per_slot"] / \
+            stats["paged"]["pool_bytes_per_slot"]
+        s.check(ratio < 0.53,
+                f"deepseek {kv}: pool bytes per slot "
+                f"{st['pool_bytes_per_slot']} = {ratio:.4f} of bf16's "
+                f"{stats['paged']['pool_bytes_per_slot']}")
+        agree[f"{kv}_paged"] = _agree(runs[kv], runs["paged"])
+    spec = dict(paged=True, spec_mode="ngram", spec_k=SPEC_K)
+    run("spec", spec, "spec_paged_decode_attention", free_replay=False)
+    run("spec-int8", dict(spec, kv_dtype="int8"),
+        "spec_paged_decode_attention", teacher_checked=False,
+        free_replay=False)
+    agree["spec_paged"] = _agree(runs["spec"], runs["paged"])
+    agree["spec_int8_int8"] = _agree(runs["spec-int8"], runs["int8"])
+    print(f"  deepseek tokens agreeing: {agree} of "
+          f"{stats['paged']['tokens']}")
     del params
     torch.cuda.empty_cache()
     return dict(stats, tokens_agree=agree)
+
+
+#: the decode kernels: a run that serves through one checks the others idle
+DECODE_KERNELS = ("decode_attention", "paged_decode_attention",
+                  "window_paged_decode_attention",
+                  "quant_paged_decode_attention",
+                  "quant_window_paged_decode_attention",
+                  "spec_paged_decode_attention")
 
 
 def _jamba_config():
@@ -3408,18 +3683,13 @@ def run_serving_jamba(s: Smoke):
           f"({time.perf_counter() - t0:.2f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
     runs, stats = {}, {}
-    decode = ("decode_attention", "paged_decode_attention",
-              "window_paged_decode_attention",
-              "quant_paged_decode_attention",
-              "quant_window_paged_decode_attention",
-              "spec_paged_decode_attention")
 
     def run(name, mode, decode_kernel):
         print(f"== serve jamba-1.5-large-398b, {name}", flush=True)
         per_step = {decode_kernel: n_attn, "gmm": 3 * n_moe, "mamba_scan": 0}
         runs[name], stats[name] = check_serving(
             s, model, params, f"jamba {name}", mode, per_step,
-            tuple(k for k in decode if k != decode_kernel),
+            tuple(k for k in DECODE_KERNELS if k != decode_kernel),
             prefill=("rmsnorm", "flash_attention", "gmm", "mamba_scan"),
             per_group={"gmm": 3 * n_moe, "mamba_scan": n_mamba},
             replay=True)
@@ -3431,6 +3701,71 @@ def run_serving_jamba(s: Smoke):
     run("dense", dict(paged=False), "decode_attention")
     agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
     print(f"  jamba dense and paged agree on {agree['dense_paged']} of "
+          f"{stats['paged']['tokens']} tokens")
+    del params
+    torch.cuda.empty_cache()
+    return dict(stats, tokens_agree=agree)
+
+
+def _arctic_config():
+    """arctic-480b at full width, cut to its first AR_LAYERS layers (each
+    the same: GQA attention, 128 experts top-2 and the dense residual
+    MLP)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("arctic-480b"),
+                               num_layers=AR_LAYERS)
+
+
+def run_serving_arctic(s: Smoke):
+    """arctic-480b at full width, 2 layers (55.4 GB of weights), served
+    paged (B4) and dense (B3) at its GQA group of 7, B8 three times on
+    every layer, held to a plain replay of its own calls; peak memory
+    reported."""
+    import gc
+    torch = s.torch
+    from repro_torch.models.registry import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    s.check(held < 1.0, f"the earlier models' weights and pools are freed "
+                        f"({held:.3f} GiB still allocated)")
+    cfg = _arctic_config()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                        device=s.dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    m = cfg.moe
+    print(f"  arctic-480b: {cfg.num_layers} of its 35 layers (MoE on each: "
+          f"{m.num_experts} experts top-{m.top_k}, d_ff {m.d_ff_expert}, "
+          f"and a dense residual MLP of d_ff {cfg.d_ff}), d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, {n / 1e9:.3f} B parameters ({nbytes / 1e9:.2f} "
+          f"GB), random from seed 0 ({time.perf_counter() - t0:.2f} s, "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
+    runs, stats = {}, {}
+
+    def run(name, mode, decode_kernel):
+        print(f"== serve arctic-480b, {name}", flush=True)
+        per_step = {decode_kernel: cfg.num_layers, "gmm": 3 * cfg.num_layers}
+        runs[name], stats[name] = check_serving(
+            s, model, params, f"arctic {name}", mode, per_step,
+            tuple(k for k in DECODE_KERNELS if k != decode_kernel),
+            prefill=("rmsnorm", "flash_attention", "gmm"),
+            per_group={"gmm": 3 * cfg.num_layers}, replay=True,
+            free_replay=False)
+        for kname in ("rmsnorm", "flash_attention", "gmm", decode_kernel):
+            s.kernels[kname]["arctic"]["launches"] = \
+                stats[name]["launches"][kname]
+
+    run("paged", dict(paged=True), "paged_decode_attention")
+    run("dense", dict(paged=False), "decode_attention")
+    agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
+    print(f"  arctic dense and paged agree on {agree['dense_paged']} of "
           f"{stats['paged']['tokens']} tokens")
     del params
     torch.cuda.empty_cache()
@@ -3642,6 +3977,7 @@ def main() -> int:
                      ("192/128 builds (deepseek shapes)", check_mla_builds),
                      ("mamba_scan (jamba shapes)", check_mamba_scan),
                      ("B1-B4 and gmm (jamba shapes)", check_jamba_shapes),
+                     ("B1-B4 and gmm (arctic shapes)", check_arctic_shapes),
                      ("mlstm_scan (xlstm shapes)", check_mlstm_scan)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     s.phase("portable runtime against native twins", run_parity, s)
@@ -3659,6 +3995,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_ds = s.phase("serve deepseek-v2-lite-16b at full width",
                          run_serving_deepseek, s)
+    serving_ar = s.phase(f"serve arctic-480b at full width, {AR_LAYERS} "
+                         f"layers", run_serving_arctic, s)
     serving_jb = s.phase("serve jamba-1.5-large-398b at full width, "
                          f"{JB_LAYERS} layers", run_serving_jamba, s)
     serving_xl = s.phase(f"serve xlstm-1.3b at full width, {XL_LAYERS} "
@@ -3679,6 +4017,8 @@ def main() -> int:
         print(json.dumps({"serving_gemma2": serving_g2}))
     if serving_ds is not None:
         print(json.dumps({"serving_deepseek": serving_ds}))
+    if serving_ar is not None:
+        print(json.dumps({"serving_arctic": serving_ar}))
     if serving_jb is not None:
         print(json.dumps({"serving_jamba": serving_jb}))
     if serving_xl is not None:

@@ -35,7 +35,9 @@ the argument has only the unsplit kernel, so its "one split" is its
 plain call); only the one-split outputs are kept.  Kept untimed
 besides: B3-B6 at granite-8b's shapes with f32 queries (B3, B4 and B6
 over f32 caches and pools, B5 and B6 over int8 and fp8 pools), B5 and
-B6 over fp8 pools, B5 at head dim 64, B6 at head dim 256, and B7 and
+B6 over fp8 pools, B5 at head dim 64, B6 at head dim 256, B3 and B4
+(timed at one split) and B5 and B6 (where the package builds them) at
+deepseek-v2-lite-16b's 16 heads of 192 / 128, and B7 and
 B7q (int8, fp8) at head dims 64 and 128 and with f32 queries (B7 over
 f32 pools).  ``--compare`` prints, for
 every output the two files share, whether they are equal bit for bit,
@@ -122,6 +124,7 @@ def main() -> int:
             bt[i, -(-n // ps):] = 0
         pools = []
         for c in (kc, vc):
+            d = c.shape[-1]                 # MLA's V is narrower than K
             pool = torch.zeros(h, 1 + b * t, ps, d, device=dev,
                                dtype=c.dtype)
             pool[:, bt.long()] = c.reshape(b, h, t, ps, d).transpose(0, 1)
@@ -270,6 +273,26 @@ def main() -> int:
             for kvn, spec in (("int8", int8), ("fp8", fp8)):
                 keep(f"B7q gemma2 f32 {kvn}",
                      b7(q.float(), wk, wv, spec, **window_one))
+    # deepseek-v2-lite-16b's MLA heads (16 of 192 / 128, one a kv head):
+    # B3 and B4 at one split; B5 and B6 where the package has that build
+    lengths = (1, 64, 200, 333, 511, 700, 900, 1024)
+    q = rnd(len(lengths), 16, 192)
+    kc, vc = rnd(len(lengths), 16, 1024, 192), rnd(len(lengths), 16, 1024,
+                                                   128)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = dict(scale=192 ** -0.5, return_residuals=True)
+    out["B3 deepseek one split"] = time_ms(keep(
+        "B3 deepseek one split", lambda: ops.decode_attention(
+            q, kc, vc, ln, **scale, **one_split)))
+    kp, vp, bt = paged(kc, vc, lengths)
+    out["B4 deepseek one split"] = time_ms(keep(
+        "B4 deepseek one split", lambda: ops.paged_decode_attention(
+            q, kp, vp, bt, ln, **scale, **paged_one)))
+    try:
+        untimed("deepseek", q, kp, vp, bt, ln, 1024)
+    except NotImplementedError as e:        # a package without them
+        out["B5/B6 deepseek"] = str(e)[:80]
+    del q, kc, vc, kp, vp
     kw = dict(eps=1e-6, weight_offset=1.0)
     for name, rows, d in (("granite", 4096, 4096), ("gemma2", 18000, 2304),
                           ("jamba", 1022, 8192)):

@@ -3,8 +3,9 @@
 The port carries the dense GQA decoder (granite-8b), the local/global
 sliding-window decoder (gemma2-2b), the MLA + MoE decoder
 (deepseek-v2-lite-16b), the attention/mamba hybrid with MoE on every
-other layer (jamba-1.5-large-398b) and the recurrent xLSTM stack of
-mLSTM and sLSTM blocks (xlstm-1.3b); every other
+other layer (jamba-1.5-large-398b), the recurrent xLSTM stack of mLSTM
+and sLSTM blocks (xlstm-1.3b) and the GQA decoder with 128 experts and
+a dense residual MLP on every layer (arctic-480b); every other
 architecture of ``repro`` arrives with the slice that ports its layers
 (ROADMAP.md, queue A).
 """
@@ -17,12 +18,11 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 _MODULES = {"granite-8b": "granite_8b", "gemma2-2b": "gemma2_2b",
             "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
             "jamba-1.5-large-398b": "jamba_1_5_large_398b",
-            "xlstm-1.3b": "xlstm_1_3b"}
+            "xlstm-1.3b": "xlstm_1_3b", "arctic-480b": "arctic_480b"}
 
 #: Architectures of the reference that later slices of the port add.
 LATER_SLICES = (
-    "arctic-480b", "whisper-base", "gemma3-27b",
-    "gemma3-4b", "internvl2-26b",
+    "whisper-base", "gemma3-27b", "gemma3-4b", "internvl2-26b",
 )
 
 

@@ -164,10 +164,14 @@ template <typename T, int DK, int DV, int G>
 struct SplitSmem {
   static constexpr int STAGES = split_stages<T, DK, DV>();
   // 16-byte chunks a key row, and the tokens whose chunk columns the
-  // swizzle spreads: 8, or a row's chunks where it has fewer (a 64-wide
-  // key of 1-byte storage has 4)
+  // swizzle spreads: the largest power of two, at most 8, that divides
+  // the row's chunks, so that c ^ (t & (SWIZZLE - 1)) stays in token t's
+  // row (a 64-wide key of 1-byte storage has 4 chunks, a 192-wide one 12:
+  // 4 each; every other build 8)
   static constexpr int KCH = DK * sizeof(T) / 16;
-  static constexpr int SWIZZLE = KCH < 8 ? KCH : 8;
+  static constexpr int SWIZZLE =
+      KCH % 8 == 0 ? 8 : KCH % 4 == 0 ? 4 : KCH % 2 == 0 ? 2 : 1;
+  static_assert(KCH % SWIZZLE == 0, "the swizzle stays in the key's row");
   T* k;       // STAGES x BK_MAX x DK, chunks swizzled (k_chunk)
   T* v;       // STAGES x BK_MAX x DV
   float* q;   // G x DK, pre-scaled
@@ -672,25 +676,35 @@ cudaError_t dispatch_split_paged_g(const PagedArgs& a) {
   return launch_split_paged<T, KV, DK, DV, 8, RING>(a);
 }
 
-// Equal key and value head dims 64, 128 and 256: the group's build, or
-// with SPEC the speculative kernel's G_SPEC rows (never RING).
-template <typename T, typename KV, int D, bool SPEC, bool RING>
+// The group's build, or with SPEC the speculative kernel's G_SPEC rows
+// (never RING).
+template <typename T, typename KV, int DK, int DV, bool SPEC, bool RING>
 cudaError_t dispatch_split_paged_rows(const PagedArgs& a) {
   static_assert(!(SPEC && RING), "ring walks are one-token");
   if constexpr (SPEC)
-    return launch_split_paged<T, KV, D, D, G_SPEC, false>(a);
+    return launch_split_paged<T, KV, DK, DV, G_SPEC, false>(a);
   else
-    return dispatch_split_paged_g<T, KV, D, D, RING>(a);
+    return dispatch_split_paged_g<T, KV, DK, DV, RING>(a);
 }
 
+// The head dims of B4, B5 and B6: equal key and value dims 64, 128 and
+// 256, or MLA's 192 / 128 (`dv` set; not for RING: no window layer is
+// MLA).
 template <typename T, typename KV, bool SPEC = false, bool RING = false>
 cudaError_t dispatch_split_paged_d(const PagedArgs& a) {
-  if (a.dv != 0 && a.dv != a.d) return cudaErrorInvalidValue;
-  if (a.d == 64) return dispatch_split_paged_rows<T, KV, 64, SPEC, RING>(a);
+  if (a.dv != 0 && a.dv != a.d) {
+    if constexpr (!RING) {
+      if (a.d == 192 && a.dv == 128)
+        return dispatch_split_paged_rows<T, KV, 192, 128, SPEC, RING>(a);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (a.d == 64)
+    return dispatch_split_paged_rows<T, KV, 64, 64, SPEC, RING>(a);
   if (a.d == 128)
-    return dispatch_split_paged_rows<T, KV, 128, SPEC, RING>(a);
+    return dispatch_split_paged_rows<T, KV, 128, 128, SPEC, RING>(a);
   if (a.d == 256)
-    return dispatch_split_paged_rows<T, KV, 256, SPEC, RING>(a);
+    return dispatch_split_paged_rows<T, KV, 256, 256, SPEC, RING>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -29,17 +29,6 @@
 // split of 128 threads, each scoring over 192 columns and writing 128.
 #include "decode_common.cuh"
 
-namespace {
-
-template <typename T>
-cudaError_t dispatch(const repro::PagedArgs& a) {
-  if (a.d == 192 && a.dv == 128)
-    return repro::dispatch_split_paged_g<T, T, 192, 128>(a);
-  return repro::dispatch_split_paged_d<T, T>(a);
-}
-
-}  // namespace
-
 // chunk: logical rows a split, a whole number of pages; nsplit =
 // max(1, ceil(t_cols * page_size / chunk)) <= MAX_SPLITS.  With nsplit
 // > 1, part_acc (nsplit, B, Hq, DV), part_m and part_l (nsplit, B, Hq)
@@ -64,7 +53,9 @@ extern "C" int paged_decode_attention_fwd(
   if (!repro::paged_args_ok<G>(a) || !repro::split_paged_args_ok(a))
     return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
-  if (dtype == repro::DTYPE_F32) return dispatch<float>(a);
-  if (dtype == repro::DTYPE_BF16) return dispatch<__nv_bfloat16>(a);
+  if (dtype == repro::DTYPE_F32)
+    return repro::dispatch_split_paged_d<float, float>(a);
+  if (dtype == repro::DTYPE_BF16)
+    return repro::dispatch_split_paged_d<__nv_bfloat16, __nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }

@@ -21,7 +21,10 @@
 // elements a copy (half the copies of bf16).  split_block dequantizes
 // each element as to_f32(x) * scale before any dot or P V product
 // (decode_attention.py:69-72).  A 64-wide key of 1-byte storage is four
-// 16-byte chunks, so the stage's swizzle spreads 4 tokens, not 8.
+// 16-byte chunks, and MLA's 192-wide one twelve, so the stage's swizzle
+// spreads 4 tokens, not 8.  Key and value head dims are equal (64, 128,
+// 256), or MLA's 192 / 128 (deepseek's 16 heads, one query head a kv
+// head).
 #include "decode_common.cuh"
 
 namespace {
@@ -39,22 +42,23 @@ cudaError_t dispatch_kv(const repro::PagedArgs& a, int kv_dtype) {
 
 // chunk: logical rows a split, a whole number of pages; nsplit =
 // max(1, ceil(t_cols * page_size / chunk)) <= MAX_SPLITS.  With nsplit
-// > 1, part_acc (nsplit, B, Hq, D), part_m and part_l (nsplit, B, Hq)
+// > 1, part_acc (nsplit, B, Hq, DV), part_m and part_l (nsplit, B, Hq)
 // are scratch and counters (B, Hkv) int32 must hold 0 (the kernel
-// leaves them so).
+// leaves them so).  dv: the value head dim (d where they are equal).
 extern "C" int quant_paged_decode_attention_fwd(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* bt, const void* lengths, void* acc, void* m,
     void* l, void* part_acc, void* part_m, void* part_l, void* counters,
     int b, int hq, int hkv, int n_pages, int page_size, int t_cols, int d,
-    int bk, int chunk, float scale, int window, float softcap, int q_dtype,
-    int kv_dtype, void* stream) {
+    int dv, int bk, int chunk, float scale, int window, float softcap,
+    int q_dtype, int kv_dtype, void* stream) {
   repro::PagedArgs a{
       q, kp, vp, static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(bt), static_cast<const int*>(lengths), 0,
       static_cast<float*>(acc), static_cast<float*>(m),
       static_cast<float*>(l), b, 1, hq, hkv, n_pages, page_size, t_cols, d,
       bk, scale, window, softcap, static_cast<cudaStream_t>(stream)};
+  a.dv = dv;
   repro::set_splits(a, chunk, part_acc, part_m, part_l, counters);
   if (!repro::paged_args_ok<repro::G_DECODE>(a) ||
       !repro::split_paged_args_ok(a) || ks == nullptr || vs == nullptr)

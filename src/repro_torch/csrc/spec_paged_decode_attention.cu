@@ -23,7 +23,8 @@
 // split count comes from the table's reach alone (spec.py), and one
 // split keeps the unsplit kernel's arithmetic and bits.  KV is q's type
 // (no scale pools) or a 1-byte type, dequantized with its page scales as
-// B5 does.
+// B5 does.  Key and value head dims are equal (64, 128, 256), or MLA's
+// 192 / 128: deepseek's group of 1 at K1 5 fills 5 of the G_SPEC rows.
 #include "decode_common.cuh"
 
 namespace {
@@ -48,16 +49,16 @@ cudaError_t dispatch_kv(const repro::PagedArgs& a, int kv_dtype,
 // row_len (B, K1 * Hq / Hkv) int32: each stacked row's horizon.  chunk:
 // logical rows a split, a whole number of pages; nsplit = max(1,
 // ceil(t_cols * page_size / chunk)) <= MAX_SPLITS.  With nsplit > 1,
-// part_acc (nsplit, B, K1, Hq, D), part_m and part_l (nsplit, B, K1,
+// part_acc (nsplit, B, K1, Hq, DV), part_m and part_l (nsplit, B, K1,
 // Hq) are scratch and counters (B, Hkv) int32 must hold 0 (the kernel
-// leaves them so).
+// leaves them so).  dv: the value head dim (d where they are equal).
 extern "C" int spec_paged_decode_attention_fwd(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* bt, const void* row_len, void* acc, void* m,
     void* l, void* part_acc, void* part_m, void* part_l, void* counters,
     int b, int k1, int hq, int hkv, int n_pages, int page_size, int t_cols,
-    int d, int bk, int chunk, float scale, int window, float softcap,
-    int q_dtype, int kv_dtype, void* stream) {
+    int d, int dv, int bk, int chunk, float scale, int window,
+    float softcap, int q_dtype, int kv_dtype, void* stream) {
   const int n_rows = hkv > 0 ? k1 * (hq / hkv) : 0;
   repro::PagedArgs a{
       q, kp, vp, static_cast<const float*>(ks), static_cast<const float*>(vs),
@@ -65,6 +66,7 @@ extern "C" int spec_paged_decode_attention_fwd(
       static_cast<float*>(acc), static_cast<float*>(m),
       static_cast<float*>(l), b, k1, hq, hkv, n_pages, page_size, t_cols, d,
       bk, scale, window, softcap, static_cast<cudaStream_t>(stream)};
+  a.dv = dv;
   repro::set_splits(a, chunk, part_acc, part_m, part_l, counters);
   if (!repro::paged_args_ok<repro::G_SPEC>(a) ||
       !repro::split_paged_args_ok(a) || (ks == nullptr) != (vs == nullptr))

@@ -27,8 +27,8 @@ KERNEL = CudaKernel(
     [_p] * 11 + [_i] * 8 + [_f, _i, _f, _i, _p])
 
 HEAD_DIMS = (64, 128, 256)
-#: (Dk, Dv) builds of the one-token kernels with values narrower than
-#: keys (MLA); the quantized, speculative and window kernels have none.
+#: (Dk, Dv) builds with values narrower than keys (MLA): B2, B3, B4, B5
+#: and B6 have them; the window kernels (B7, B7q) none.
 MLA_DIMS = ((192, 128),)
 MAX_GROUP = 8        # G_DECODE in csrc/decode_common.cuh
 MAX_BLOCK_KV = 64    # BK_MAX in csrc/decode_common.cuh

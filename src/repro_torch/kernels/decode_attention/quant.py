@@ -11,8 +11,10 @@ walks each table row in ``splits`` chunks of whole pages (None:
 each staged block as ``f32(x) * scale`` before any dot; logical
 re-paging gives every logical page its physical page's scale
 (``paged.repage_scales``).  ``ref.quant_paged_decode_attention_ref(
-chunk=...)`` is its rounding model.  A pool type the kernel lacks is
-refused: there is no fall back to the plain version.
+chunk=...)`` is its rounding model.  Key and value head dims are
+equal, or MLA's pair (``decode_attention.MLA_DIMS``: the V pool
+narrower than the K pool).  A pool type or head-dim pair the kernel
+lacks is refused: there is no fall back to the plain version.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "quant_paged_decode_attention", "quant_paged_decode_attention.cu",
     "quant_paged_decode_attention_fwd",
-    [_p] * 14 + [_i] * 9 + [_f, _i, _f, _i, _i, _p])
+    [_p] * 14 + [_i] * 10 + [_f, _i, _f, _i, _i, _p])
 
 
 def quant_paged_decode_attention_fwd(q, k_pages, v_pages, k_scales, v_scales,
@@ -41,11 +43,12 @@ def quant_paged_decode_attention_fwd(q, k_pages, v_pages, k_scales, v_scales,
                                      page_size: Optional[int],
                                      block_kv: int,
                                      splits: Optional[int] = None):
-    """q: (B, Hq, D); pools (Hkv, P, ps, D) int8/fp8; scale pools (Hkv,
-    P) f32; block_tables (B, T) int32; lengths (B,) int32.  Returns
-    unnormalized f32 residuals (acc (B, Hq, D), m, l (B, Hq))."""
+    """q: (B, Hq, Dk); pools (Hkv, P, ps, Dk|Dv) int8/fp8; scale pools
+    (Hkv, P) f32; block_tables (B, T) int32; lengths (B,) int32.  Returns
+    unnormalized f32 residuals (acc (B, Hq, Dv), m, l (B, Hq))."""
     name = "quant_paged_decode_attention"
-    check_decode_operands(name, q, k_pages, v_pages, lengths, quantized=True)
+    dv = check_decode_operands(name, q, k_pages, v_pages, lengths,
+                               quantized=True, mla=True)
     b, hq, d = q.shape
     hkv = k_pages.shape[0]
     if hq % hkv or hq // hkv > MAX_GROUP:
@@ -56,13 +59,13 @@ def quant_paged_decode_attention_fwd(q, k_pages, v_pages, k_scales, v_scales,
     k_pages, v_pages, bt, ks, vs, page_size, bk = paged_operands(
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv, k_scales=k_scales, v_scales=v_scales)
-    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits)
+    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits, dv)
     check_cuda(name, q, k_pages, v_pages, ks, vs, bt, lengths)
-    acc, m, l = residual_outputs(q)
+    acc, m, l = residual_outputs(q, dv)
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages), ptr(ks), ptr(vs),
                   ptr(bt), ptr(lengths), ptr(acc), ptr(m), ptr(l),
                   *scratch_ptrs(scratch), b, hq, hkv, k_pages.shape[1],
-                  page_size, bt.shape[1], d, bk, chunk,
+                  page_size, bt.shape[1], d, dv, bk, chunk,
                   float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   dtype_code(k_pages), stream_of(q))

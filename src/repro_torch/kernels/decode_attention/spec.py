@@ -11,7 +11,9 @@ Position ``qi`` sits at token ``lengths + qi`` and sees ``lengths + 1 +
 qi`` tokens, so row ``r`` sees ``lengths + 1 + r // group``
 (``spec_row_lengths``): the window's K/V rows are written before the
 verify.  Both helpers are plain torch, so the CPU tests check the index
-math the kernel is handed.  The kernel is B4's split-KV kernel at
+math the kernel is handed.  Key and value head dims are equal, or
+MLA's pair (``decode_attention.MLA_DIMS``).  The kernel is B4's
+split-KV kernel at
 ``MAX_ROWS`` rows a CTA, each masked at its own horizon: it walks each
 table row in ``splits`` chunks of whole pages (None: the rule of
 ``paged.split_plan``, from the table's reach, never from ``lengths``)
@@ -19,13 +21,13 @@ and merges their partials in chunk order; the plain version with
 ``chunk=`` is its rounding model.
 
 Layouts
-  q            (B, K1, Hq, D)   the speculation window per slot
-  k/v pools    (Hkv, P, ps, D)  bf16/f32, or int8/fp8 with scale pools
+  q            (B, K1, Hq, Dk)  the speculation window per slot
+  k/v pools    (Hkv, P, ps, Dk|Dv)  bf16/f32, or int8/fp8 with scales
   k/v scales   (Hkv, P) f32     per (head, page); None when unquantized
   block_tables (B, T) int32
   lengths      (B,) int32       PRE-speculation prefix
 
-Returns unnormalized f32 residuals acc (B, K1, Hq, D), m and l
+Returns unnormalized f32 residuals acc (B, K1, Hq, Dv), m and l
 (B, K1, Hq), one triple per verified position.
 """
 from __future__ import annotations
@@ -46,7 +48,7 @@ _i, _f, _p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 KERNEL = CudaKernel(
     "spec_paged_decode_attention", "spec_paged_decode_attention.cu",
     "spec_paged_decode_attention_fwd",
-    [_p] * 14 + [_i] * 10 + [_f, _i, _f, _i, _i, _p])
+    [_p] * 14 + [_i] * 11 + [_f, _i, _f, _i, _i, _p])
 
 MAX_ROWS = 32        # G_SPEC in csrc/decode_common.cuh: K1 * group
 
@@ -80,8 +82,8 @@ def spec_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
     of each table row (None: the table's reach decides)."""
     name = "spec_paged_decode_attention"
     quantized = k_scales is not None
-    check_decode_operands(name, q, k_pages, v_pages, lengths,
-                          quantized=quantized)
+    dv = check_decode_operands(name, q, k_pages, v_pages, lengths,
+                               quantized=quantized, mla=True)
     b, k1, hq, d = q.shape
     hkv = k_pages.shape[0]
     group = hq // hkv
@@ -91,19 +93,19 @@ def spec_paged_decode_attention_fwd(q, k_pages, v_pages, block_tables,
     k_pages, v_pages, bt, ks, vs, page_size, bk = paged_operands(
         name, q, k_pages, v_pages, block_tables, page_size=page_size,
         block_kv=block_kv, k_scales=k_scales, v_scales=v_scales)
-    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits)
+    chunk, scratch = split_plan(name, q, hkv, bt, page_size, splits, dv)
     row_len = spec_row_lengths(lengths, k1, group)
     operands = [q, k_pages, v_pages, bt, row_len]
     if quantized:
         operands += [ks, vs]
     check_cuda(name, *operands)
-    acc, m, l = residual_outputs(q)
+    acc, m, l = residual_outputs(q, dv)
     KERNEL.launch(ptr(q), ptr(k_pages), ptr(v_pages),
                   ptr(ks) if quantized else None,
                   ptr(vs) if quantized else None, ptr(bt), ptr(row_len),
                   ptr(acc), ptr(m), ptr(l), *scratch_ptrs(scratch), b, k1,
-                  hq, hkv, k_pages.shape[1], page_size, bt.shape[1], d, bk,
-                  chunk, float(d ** -0.5 if scale is None else scale),
+                  hq, hkv, k_pages.shape[1], page_size, bt.shape[1], d, dv,
+                  bk, chunk, float(d ** -0.5 if scale is None else scale),
                   int(window or 0), float(softcap or 0.0), dtype_code(q),
                   dtype_code(k_pages), stream_of(q))
     return acc, m, l

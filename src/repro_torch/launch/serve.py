@@ -12,11 +12,26 @@ gemma2-2b (sliding-window local layers page through ring tables):
       --paged --prompts 12 --prompt-len 6000 --slots 8 --cache-len 8192
 
 deepseek-v2-lite-16b (MLA attention, 64 routed experts top-6 on 26 of
-its 27 layers), paged or dense, bf16 pools:
+its 27 layers), paged or dense, from bf16, int8 or fp8 pools, and
+speculating over them:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b --paged --prompts 12 --prompt-len 511 \
       --slots 8 --cache-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --paged --kv-dtype int8 \
+      --spec-mode ngram --spec-k 4 --prompts 12 --prompt-len 511
+
+arctic-480b (GQA, 56 query heads over 8 KV heads, 128 experts top-2 and
+a dense residual MLP on every layer), paged or dense; its 35 layers are
+954 GB in bf16, so one card serves its first 2 (55.4 GB), as
+``chip_smoke.py`` does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
+      --layers 2 --paged --prompts 12 --prompt-len 511 --slots 8 \
+      --cache-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \
+      --smoke --paged --page-size 4 --device cpu
 
 jamba-1.5-large-398b (global attention and mamba layers, 16 experts
 top-2 on every other layer; the selective-scan kernel on every mamba
@@ -81,6 +96,7 @@ request.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -106,6 +122,10 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (tiny widths)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the config's first N layers (full "
+                         "width, cut depth: a model that does not fit "
+                         "one card)")
     ap.add_argument("--prompts", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
@@ -183,6 +203,10 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.num_layers:
+            ap.error(f"--layers must be in [1, {cfg.num_layers}]")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = model.init(gen, device=dev)

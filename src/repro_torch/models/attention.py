@@ -5,9 +5,10 @@ softcap): prefill, one-token decode over dense caches, dense rings,
 paged pools and ring-table window pools (each bf16 or quantized), and
 the speculative K1-token verify over paged pools.
 
-DeepSeek MLA: prefill and one-token decode over a dense cache or paged
-pools of the *materialised* per-head K (nope | shared rope, 192 wide at
-full size) and V (128 wide), as the reference caches them.
+DeepSeek MLA: prefill, one-token decode over a dense cache or paged
+pools (bf16 or quantized), and the speculative K1-token verify over
+paged pools, all of the *materialised* per-head K (nope | shared rope,
+192 wide at full size) and V (128 wide), as the reference caches them.
 
 Weights keep the reference's shapes flattened to 2-D matrices:
 ``wq`` (d, H*hd), ``wk``/``wv`` (d, Hkv*hd), ``wo`` (H*hd, d), which is
@@ -208,13 +209,14 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
 def spec_decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, lengths: torch.Tensor,
                      cfg: ModelConfig, rope, *, block_tables,
-                     cache_scales=None) -> torch.Tensor:
+                     cache_scales=None, plain: bool = False) -> torch.Tensor:
     """Speculative K1-token decode over paged pools.  x: (B, K1, d), the
     slot's current token and K1-1 drafts; ``rope`` is ``L.rope_cache``
     of positions ``lengths + i``, shaped (B, K1, 1, hd/2); ``lengths``
     the PRE-speculation prefix.  All K1 rows' K/V are written into the
     pools IN PLACE, then row i attends to ``lengths + 1 + i`` tokens, so
-    one call verifies the window.  Returns out (B, K1, d)."""
+    one call verifies the window.  ``plain`` takes the kernel's plain
+    version on any device.  Returns out (B, K1, d)."""
     b, k1, _ = x.shape
     xd = x.dtype
     q = (x @ p["wq"].to(xd)).view(b, k1, cfg.num_heads, -1)
@@ -224,19 +226,29 @@ def spec_decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin).transpose(1, 2)          # (B, Hkv, K1, hd)
     v = v.transpose(1, 2)
+    out = _spec_update_attend(q, k, v, cache_k, cache_v, lengths,
+                              block_tables, cache_scales, plain,
+                              softcap=cfg.attn_softcap)
+    return out.reshape(b, k1, -1) @ p["wo"].to(xd)
+
+
+def _spec_update_attend(q, k, v, cache_k, cache_v, lengths, block_tables,
+                        cache_scales, plain: bool, **kw) -> torch.Tensor:
+    """The speculative window's K/V rows written at ``_spec_page_coords``
+    and its K1 positions verified: q (B, K1, Hq, Dk), k/v (B, Hkv, K1,
+    Dk|Dv), over bf16 pools or, with ``cache_scales``, quantized ones."""
     ps = cache_k.shape[2]
-    write_page, write_off = _spec_page_coords(block_tables, lengths, k1, ps)
+    write_page, write_off = _spec_page_coords(block_tables, lengths,
+                                              q.shape[1], ps)
     base = lengths.to(torch.int32)
     if cache_scales is not None:
-        out = quant_spec_paged_decode_update_attend(
+        return quant_spec_paged_decode_update_attend(
             q, k, v, cache_k, cache_v, cache_scales[0], cache_scales[1],
-            block_tables, write_page, write_off, base,
-            softcap=cfg.attn_softcap, page_size=ps)
-    else:
-        out = spec_paged_decode_update_attend(
-            q, k, v, cache_k, cache_v, block_tables, write_page, write_off,
-            base, softcap=cfg.attn_softcap, page_size=ps)
-    return out.reshape(b, k1, -1) @ p["wo"].to(xd)
+            block_tables, write_page, write_off, base, page_size=ps,
+            plain=plain, **kw)
+    return spec_paged_decode_update_attend(
+        q, k, v, cache_k, cache_v, block_tables, write_page, write_off, base,
+        page_size=ps, plain=plain, **kw)
 
 
 # ------------------------------------------------------------- MLA ------
@@ -307,11 +319,13 @@ def decode_mla(p, x: torch.Tensor, cache_k: torch.Tensor,
     token's K and V are written into the cache IN PLACE (a dense cache
     (B, H, S, qk|v) at row ``lengths``, or with ``block_tables`` paged
     pools (H, P, ps, qk|v)), then the step attends over ``lengths + 1``
-    tokens.  Returns out (B, 1, d)."""
-    if cache_scales is not None:
-        raise NotImplementedError(
-            "MLA over int8/fp8 pools is not ported yet (ROADMAP.md queue "
-            "A, item 10: B5 at 192/128)")
+    tokens.  ``cache_scales`` (ks, vs), the (H, P) scale pools, marks the
+    pools int8/fp8: the write re-quantizes the page and the quantized
+    kernel (B5 at 192/128) reads it.  ``plain`` takes the kernel's plain
+    version on any device.  Returns out (B, 1, d)."""
+    if cache_scales is not None and block_tables is None:
+        raise ValueError("quantized MLA caches are paged pools: pass "
+                         "block_tables")
     # against (B, H, 1, rope): one more axis than decode_attn's heads
     q, k, v = _mla_qkv(p, x, cfg, tuple(t[:, None] for t in rope))
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]    # (B, H, qk|v)
@@ -320,11 +334,38 @@ def decode_mla(p, x: torch.Tensor, cache_k: torch.Tensor,
     if block_tables is not None:
         ps = cache_k.shape[2]
         write_page, write_off = _page_coords(block_tables, lengths, ps)
-        out = paged_decode_update_attend(q, k, v, cache_k, cache_v,
-                                         block_tables, write_page,
-                                         write_off, eff_len, page_size=ps,
-                                         **kw)
+        if cache_scales is not None:
+            out = quant_paged_decode_update_attend(
+                q, k, v, cache_k, cache_v, cache_scales[0], cache_scales[1],
+                block_tables, write_page, write_off, eff_len, page_size=ps,
+                **kw)
+        else:
+            out = paged_decode_update_attend(q, k, v, cache_k, cache_v,
+                                             block_tables, write_page,
+                                             write_off, eff_len,
+                                             page_size=ps, **kw)
     else:
         out = decode_update_attend(q, k, v, cache_k, cache_v, lengths,
                                    eff_len, **kw)
     return (out.reshape(x.shape[0], -1) @ p["wo_mla"].to(x.dtype))[:, None]
+
+
+def spec_decode_mla(p, x: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, lengths: torch.Tensor,
+                    cfg: ModelConfig, rope, *, block_tables,
+                    cache_scales=None, plain: bool = False) -> torch.Tensor:
+    """Speculative K1-token MLA decode over paged pools (``repro``
+    attention.py:428), bf16 or quantized (``cache_scales``): x (B, K1,
+    d); ``rope`` is ``L.rope_cache`` of positions ``lengths + i`` at
+    qk_rope_head_dim, shaped (B, K1, 1, rope/2), as ``spec_decode_attn``
+    takes it; ``lengths`` the PRE-speculation prefix.  The window's K
+    (192) and V (128) rows of every head are written into the pools IN
+    PLACE, then position i attends to ``lengths + 1 + i`` tokens (B6 at
+    192/128).  Returns out (B, K1, d)."""
+    b, k1, _ = x.shape
+    # (B, 1, K1, rope/2): against _mla_qkv's (B, H, K1, rope)
+    q, k, v = _mla_qkv(p, x, cfg, tuple(t.transpose(1, 2) for t in rope))
+    out = _spec_update_attend(q.transpose(1, 2).contiguous(), k, v,
+                              cache_k, cache_v, lengths, block_tables,
+                              cache_scales, plain, scale=_mla_scale(cfg))
+    return out.reshape(b, k1, -1) @ p["wo_mla"].to(x.dtype)

@@ -56,9 +56,9 @@ class Model:
                              block_tables=block_tables, plain=plain)
 
     def spec_decode_step(self, params, caches, tokens, lengths,
-                         block_tables):
+                         block_tables, *, plain: bool = False):
         return T.spec_decode_step(params, self.cfg, caches, tokens, lengths,
-                                  block_tables)
+                                  block_tables, plain=plain)
 
     def init_decode_caches(self, batch: int, cache_len: int,
                            device: DeviceLike = None) -> List[Dict]:

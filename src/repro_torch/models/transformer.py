@@ -49,7 +49,7 @@ _DEFAULTS = {
     "encoder_layers": 0, "frontend": None,
 }
 _FAMILIES = ("dense", "moe", "hybrid", "ssm")
-_MOE_LAYERS = ("none", "all_but_first", "every_2")
+_MOE_LAYERS = ("none", "all", "all_but_first", "every_2")
 _KINDS = ("global", "local", "mamba", "mlstm", "slstm")
 _XLSTM_KINDS = ("mlstm", "slstm")
 #: Layer kinds whose cache is a recurrent state, dense and slot-major in
@@ -85,11 +85,12 @@ def check_supported(cfg: ModelConfig) -> None:
             f"decoders of global and sliding-window (local) attention "
             f"layers with softcaps, sandwich norms and a gated SiLU or "
             f"tanh-GELU MLP, of global MLA layers with MoE on all but the "
-            f"first layer, of global attention and mamba layers with "
-            f"MoE on every other layer, and of mLSTM and sLSTM layers; "
-            f"still to port: qk-norm and rope_theta_local (gemma3), MoE "
-            f"on every layer, encoders and multimodal frontends "
-            f"(ROADMAP.md queue A)")
+            f"first layer, of global attention layers with MoE and a "
+            f"dense residual MLP on every layer, of global attention and "
+            f"mamba layers with MoE on every other layer, and of mLSTM "
+            f"and sLSTM layers; still to port: qk-norm and "
+            f"rope_theta_local (gemma3), encoders and multimodal "
+            f"frontends (ROADMAP.md queue A)")
     dtype_of(cfg.dtype)
 
 
@@ -320,26 +321,25 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
 def apply_layer_spec_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                             cfg: ModelConfig, kind: str,
                             lengths: torch.Tensor, rope,
-                            block_tables) -> torch.Tensor:
+                            block_tables, *,
+                            plain: bool = False) -> torch.Tensor:
     """Speculative K1-token layer step, x: (B, K1, d), over a paged
-    (possibly quantized) cache of a global layer; the window's K/V rows
-    are written into it in place.  The norms and the MLP are
-    shape-generic over K1."""
+    (possibly quantized) cache of a global layer, GQA or MLA (``repro``
+    transformer.py:371); the window's K/V rows are written into it in
+    place.  The norms, the MLP and the MoE are shape-generic over K1.
+    ``plain`` takes the plain version of every kernel, on any device."""
     if kind != "global":
         raise ValueError(f"spec decode supports global-attention layers "
                          f"only, got {kind!r}")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "speculative decode over MLA layers is not ported yet "
-            "(ROADMAP.md queue A, item 10: B6 at 192/128)")
     if "kp" not in cache:
         raise ValueError("spec decode requires paged caches")
-    h = L.apply_norm(p["ln1"], x)
+    h = L.apply_norm(p["ln1"], x, plain=plain)
     scales = (cache["ks"], cache["vs"]) if "ks" in cache else None
-    y = A.spec_decode_attn(p["attn"], h, cache["kp"], cache["vp"], lengths,
-                           cfg, rope, block_tables=block_tables,
-                           cache_scales=scales)
-    return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg), cfg)
+    fn = A.spec_decode_mla if cfg.mla is not None else A.spec_decode_attn
+    y = fn(p["attn"], h, cache["kp"], cache["vp"], lengths, cfg, rope,
+           block_tables=block_tables, cache_scales=scales, plain=plain)
+    return _mlp_block(p, _residual(p, x, y, "post_ln1", cfg, plain), cfg,
+                      plain=plain)
 
 
 # --------------------------------------------------------------- model ----
@@ -456,22 +456,24 @@ def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
 
 
 def spec_decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
-                     lengths, block_tables) -> torch.Tensor:
+                     lengths, block_tables, *,
+                     plain: bool = False) -> torch.Tensor:
     """Speculative verify step.  tokens (B, K1) int, the current token
     and K1-1 drafts; lengths (B,) int32, tokens already cached.  Writes
     all K1 rows' K/V into the paged ``caches`` in place and returns
-    logits (B, K1, Vp): row i conditions on ``tokens[:, :i+1]``."""
+    logits (B, K1, Vp): row i conditions on ``tokens[:, :i+1]``.
+    ``plain`` takes the plain version of every kernel, on any device."""
     k1 = tokens.shape[1]
     x = L.embed_tokens(params["embed"], tokens, cfg)
     # positions lengths + i, the same in every layer: one cos/sin
     pos = lengths[:, None] + torch.arange(k1, dtype=lengths.dtype,
                                           device=lengths.device)[None, :]
-    cos, sin = L.rope_cache(pos, cfg.head_dim, cfg.rope_theta)
+    cos, sin = L.rope_cache(pos, _rope_dim(cfg), cfg.rope_theta)
     rope = (cos[:, :, None, :], sin[:, :, None, :])
     for p, c, kind in zip(params["layers"], caches, cfg.layer_kinds()):
         x = apply_layer_spec_decode(p, x, c, cfg, kind, lengths, rope,
-                                    block_tables)
-    return _logits(params, x, cfg)
+                                    block_tables, plain=plain)
+    return _logits(params, x, cfg, plain=plain)
 
 
 def kv_dims(cfg: ModelConfig) -> Tuple[int, int, int]:

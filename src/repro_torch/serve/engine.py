@@ -258,13 +258,6 @@ class Engine:
                 f"kv_dtype={sc.kv_dtype!r} arrives with the quantized pools "
                 f"and scatter for recurrent models (ROADMAP.md queue A, "
                 f"item 11)")
-        if model.cfg.mla is not None and (self.spec
-                                          or sc.kv_dtype not in (None, "bf16")):
-            raise NotImplementedError(
-                f"{model.cfg.name}: MLA layers are served from bf16 pools "
-                f"without speculation so far; kv_dtype={sc.kv_dtype!r} and "
-                f"spec_mode={sc.spec_mode!r} arrive with B5 and B6 at head "
-                f"dims 192/128 (ROADMAP.md queue A, item 10)")
         if self.spec:
             if not sc.paged:
                 raise ValueError("spec_mode requires paged=True (rollback "

@@ -11,9 +11,10 @@ and returns only the attention output.  The re-quantizing page write is
 plain PyTorch, as it is plain ``jnp`` outside any kernel in the
 reference; fusing it into a kernel is later work (ROADMAP.md).
 
-``plain`` on the dense and the paged bf16 paths and on the scan takes
-the kernel's plain version on any device: the replay that
-``chip_smoke.py`` holds the served path against.
+``plain`` on the dense, the paged (bf16 and quantized) and the
+speculative paths and on the scans takes the kernel's plain version on
+any device: the replay that ``chip_smoke.py`` holds the served path
+against.
 """
 from __future__ import annotations
 
@@ -131,13 +132,18 @@ def quant_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
                                      window: Optional[int] = None,
                                      softcap: Optional[float] = None,
                                      scale: Optional[float] = None,
-                                     page_size: Optional[int] = None
-                                     ) -> torch.Tensor:
+                                     page_size: Optional[int] = None,
+                                     plain: bool = False) -> torch.Tensor:
     """Re-quantizing page write of each slot's new K/V row, then
-    quantized paged decode.  Pools (Hkv, P, ps, D) int8/fp8, scale pools
-    (Hkv, P) f32, all updated in place; returns (B, Hq, D)."""
+    quantized paged decode.  Pools (Hkv, P, ps, Dk|Dv) int8/fp8 (MLA's V
+    pool narrower), scale pools (Hkv, P) f32, all updated in place;
+    returns (B, Hq, Dv)."""
     requant_page_write(k_pages, k_scales, k_new, write_page, write_off)
     requant_page_write(v_pages, v_scales, v_new, write_page, write_off)
+    if plain:
+        return dec_ref.quant_paged_decode_attention_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, eff_len,
+            window=window, softcap=softcap, scale=scale)
     return quant_paged_decode_attention(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, eff_len,
         window=window, softcap=softcap, scale=scale, page_size=page_size)
@@ -169,17 +175,22 @@ def spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
                                     window: Optional[int] = None,
                                     softcap: Optional[float] = None,
                                     scale: Optional[float] = None,
-                                    page_size: Optional[int] = None
-                                    ) -> torch.Tensor:
+                                    page_size: Optional[int] = None,
+                                    plain: bool = False) -> torch.Tensor:
     """Write the whole speculation window's K/V rows in one indexed
     write, then verify every position in one speculative launch.
 
-    q (B, K1, Hq, D); k_new/v_new (B, Hkv, K1, D); write_pages/offs
+    q (B, K1, Hq, Dk); k_new/v_new (B, Hkv, K1, Dk|Dv); write_pages/offs
     (B, K1), redirected to the null page past the table's reach;
-    base_len (B,) the PRE-speculation prefix.  Returns (B, K1, Hq, D)."""
+    base_len (B,) the PRE-speculation prefix.  Returns (B, K1, Hq,
+    Dv)."""
     pages, offs = write_pages.long(), write_offs.long()
     k_pages[:, pages, offs] = k_new.transpose(0, 1).to(k_pages.dtype)
     v_pages[:, pages, offs] = v_new.transpose(0, 1).to(v_pages.dtype)
+    if plain:
+        return dec_ref.spec_paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, base_len, window=window,
+            softcap=softcap, scale=scale)
     return spec_paged_decode_attention(
         q, k_pages, v_pages, block_tables, base_len, window=window,
         softcap=softcap, scale=scale, page_size=page_size)
@@ -191,7 +202,8 @@ def quant_spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
                                           *, window: Optional[int] = None,
                                           softcap: Optional[float] = None,
                                           scale: Optional[float] = None,
-                                          page_size: Optional[int] = None
+                                          page_size: Optional[int] = None,
+                                          plain: bool = False
                                           ) -> torch.Tensor:
     """The window's rows written one after another in token order by the
     re-quantizing write, so each row sees the earlier ones already
@@ -201,6 +213,10 @@ def quant_spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
                            write_pages[:, i], write_offs[:, i])
         requant_page_write(v_pages, v_scales, v_new[:, :, i],
                            write_pages[:, i], write_offs[:, i])
+    if plain:
+        return dec_ref.quant_spec_paged_decode_attention_ref(
+            q, k_pages, v_pages, k_scales, v_scales, block_tables, base_len,
+            window=window, softcap=softcap, scale=scale)
     return quant_spec_paged_decode_attention(
         q, k_pages, v_pages, k_scales, v_scales, block_tables, base_len,
         window=window, softcap=softcap, scale=scale, page_size=page_size)

@@ -1418,3 +1418,246 @@ def test_engine_on_card_replays_trace_like_cpu(cuda, temperature):
         decisions[dev] = [(e.kind, e.rid, e.slot, e.step)
                           for e in tel.trace.events]
     assert decisions["cuda"] == decisions["cpu"]
+
+
+# ------------------- MLA over int8/fp8 pools and speculation (192/128) --
+
+def _mla_pools(cuda, dtype=torch.bfloat16, b=4, s=320, ps=64, seed=11,
+               distinct=False):
+    """deepseek's decode heads (16 of 192 / 128, one per kv head) over
+    scrambled pages of 64 (slot 0 freed, slot 1 one page); with
+    ``distinct`` every 16-element chunk of a K row holds its own value
+    (token, chunk and head apart), so that a chunk the stage misplaced
+    changes the scores."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    h, dk, dv = 16, 192, 128
+    kc = torch.randn(b, h, s, dk, device=cuda, generator=g)
+    vc = torch.randn(b, h, s, dv, device=cuda, generator=g)
+    if distinct:
+        t = torch.arange(s, device=cuda)[:, None]
+        c = torch.arange(dk // 16, device=cuda)[None, :]
+        hh = torch.arange(h, device=cuda)[:, None, None]
+        val = ((t * (dk // 16) + c)[None] * 7 + hh * 3) % 251 - 125.0
+        kc = (val[None].repeat_interleave(16, -1) / 125.0).expand(
+            b, -1, -1, -1).contiguous()
+    (kp, _), bt = _pools_from_caches(kc.to(dtype), kc.to(dtype), ps,
+                                     torch.Generator().manual_seed(0))
+    (vp, _), _ = _pools_from_caches(vc.to(dtype), vc.to(dtype), ps,
+                                    torch.Generator().manual_seed(0))
+    return kp, vp, bt
+
+
+@pytest.mark.parametrize("distinct", [False, True], ids=["random",
+                                                         "distinct"])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+def test_mla_quant_paged_decode_kernel(cuda, kv_dtype, qdtype, distinct):
+    """B5 at Dk 192 / Dv 128 (twelve 16-byte chunks a 1-byte key row:
+    the stage's swizzle spreads 4 tokens) at one split, 8 and its served
+    count against its split plain version and the unsplit one (f32
+    residuals, 1e-4), at the pool's page and a logical page of 16; and
+    against bf16 B4 on the unquantized data within DECODE_TOL."""
+    kp, vp, bt = _mla_pools(cuda, distinct=distinct)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(4, 16, 192, device=cuda, generator=g).to(qdtype)
+    ln = torch.tensor([0, 1, 299, 320], dtype=torch.int32, device=cuda)
+    (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp, kv_dtype)
+    args = (q, kq, vq, ks, vs, bt, ln)
+    kw = dict(scale=192 ** -0.5)
+    for page_size in (None, 16):
+        one = _check_split_counts(
+            quant_kern.KERNEL, lambda n: dec_ops.quant_paged_decode_attention(
+                *args, page_size=page_size, splits=n, return_residuals=True,
+                **kw),
+            lambda chunk: dec_ref.quant_paged_decode_attention_ref(
+                *args, chunk=chunk, return_residuals=True, **kw),
+            bt.shape[1] * 64, page_size or 64)
+        assert one[0].shape == (4, 16, 128)
+    out = dec_ops.quant_paged_decode_attention(*args, **kw)
+    bf16 = dec_ops.paged_decode_attention(q.bfloat16(), kp, vp, bt, ln, **kw)
+    assert float((out.float() - bf16.float()).abs().max()) <= \
+        DECODE_TOL[kv_dtype]
+
+
+@pytest.mark.parametrize("distinct", [False, True], ids=["random",
+                                                         "distinct"])
+@pytest.mark.parametrize("kv_dtype", [None, "float32", "int8", "fp8_e4m3"])
+def test_mla_spec_paged_decode_kernel(cuda, kv_dtype, distinct):
+    """B6 at Dk 192 / Dv 128 with K1 5 (a group of 1: 5 live rows of its
+    G_SPEC build), bf16 and f32 pools and its int8/fp8 mode, at one
+    split, 8 and its served count against its plain versions; slot 0
+    reads one page, slot 3's window runs past the table's last page."""
+    dt = torch.float32 if kv_dtype == "float32" else torch.bfloat16
+    kp, vp, bt = _mla_pools(cuda, dtype=dt, seed=13, distinct=distinct)
+    bt[0, 0] = bt[3, 0]
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn(4, 5, 16, 192, device=cuda, generator=g).to(dt)
+    base = torch.tensor([0, 1, 126, 316], dtype=torch.int32, device=cuda)
+    kw = dict(scale=192 ** -0.5)
+    if kv_dtype in (None, "float32"):
+        args = (q, kp, vp, bt, base)
+        fn = dec_ops.spec_paged_decode_attention
+        plain = dec_ref.spec_paged_decode_attention_ref
+    else:
+        (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
+                                                                  kv_dtype)
+        args = (q, kq, vq, ks, vs, bt, base)
+        fn = dec_ops.quant_spec_paged_decode_attention
+        plain = dec_ref.quant_spec_paged_decode_attention_ref
+    one = _check_split_counts(
+        spec_kern.KERNEL, lambda n: fn(*args, splits=n,
+                                       return_residuals=True, **kw),
+        lambda chunk: plain(*args, chunk=chunk, return_residuals=True,
+                            **kw),
+        bt.shape[1] * 64, 64)
+    assert one[0].shape == (4, 5, 16, 128)
+
+
+@pytest.mark.parametrize("side", ["k", "v"])
+@pytest.mark.parametrize("kind", ["int8", "fp8_e4m3", "spec", "spec-int8"])
+def test_mla_decode_kernels_nan_law(cuda, kind, side):
+    """B5 (int8, fp8) and B6 (bf16, int8 pools; K1 5) at 192 / 128: NaN
+    in slot 2's third page (its K or V pool, or a quantized pool's
+    scale) leaves that slot exactly 0 (K) or NaN (V), the others
+    finite, as the plain versions."""
+    kp, vp, bt = _mla_pools(cuda, seed=15)
+    bt = (torch.randperm(4 * 5, generator=torch.Generator().manual_seed(2))
+          .reshape(4, 5) + 1).to(torch.int32).to(cuda)
+    page = int(bt[2, 2])
+    g = torch.Generator(device=cuda).manual_seed(16)
+    spec = kind.startswith("spec")
+    q = torch.randn(*((4, 5, 16, 192) if spec else (4, 16, 192)),
+                    device=cuda, generator=g).bfloat16()
+    kv_dtype = {"spec": None, "spec-int8": "int8"}.get(kind, kind)
+    if kv_dtype is None:
+        (kp if side == "k" else vp)[:, page] = float("nan")
+        args = (q, kp, vp, bt)
+    else:
+        (kq, ks), (vq, vs) = _quantized(kp, kv_dtype), _quantized(vp,
+                                                                  kv_dtype)
+        (ks if side == "k" else vs)[:, page] = float("nan")
+        args = (q, kq, vq, ks, vs, bt)
+    if spec:
+        ln = torch.tensor([40, 150, 250, 300], dtype=torch.int32,
+                          device=cuda)
+        kern = spec_kern.KERNEL
+        fn, plain = ((dec_ops.spec_paged_decode_attention,
+                      dec_ref.spec_paged_decode_attention_ref)
+                     if kv_dtype is None else
+                     (dec_ops.quant_spec_paged_decode_attention,
+                      dec_ref.quant_spec_paged_decode_attention_ref))
+    else:
+        ln = torch.tensor([64, 200, 299, 300], dtype=torch.int32,
+                          device=cuda)
+        kern = quant_kern.KERNEL
+        fn, plain = (dec_ops.quant_paged_decode_attention,
+                     dec_ref.quant_paged_decode_attention_ref)
+    reach = bt.shape[1] * 64
+    _nan_splits(
+        kern, lambda n: fn(*args, ln, splits=n, return_residuals=True),
+        lambda chunk: plain(*args, ln, chunk=chunk, return_residuals=True),
+        max(2, dec_kern.paged_splits(reach, 64)),
+        lambda n: dec_kern.split_chunk(reach, n, 64), 2, side == "k")
+
+
+# ------------------------------------------- arctic: GQA group 7 ------
+
+@pytest.mark.parametrize("splits", [1, 8, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_7_attention_kernels(cuda, dtype, splits):
+    """B2, B3 and B4 at arctic's 56 query heads over 8 KV heads of 128
+    (a group of 7 through the group-8 builds of B3 and B4, their eighth
+    row masked): every head against the plain versions, so a write of
+    the eighth row into the next group's first head would show; B3 and
+    B4 at one split, 8 and the served count, each in one launch."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    hq, hkv, d = 56, 8, 128
+    q = torch.randn(2, hq, 130, d, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(2, hkv, 130, d, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    b, s = 4, 320
+    qd = torch.randn(b, hq, d, device=cuda, generator=g).to(dtype)
+    kc, vc = (torch.randn(b, hkv, s, d, device=cuda, generator=g).to(dtype)
+              for _ in range(2))
+    ln = torch.tensor([0, 1, 299, 320], dtype=torch.int32, device=cuda)
+    want = dec_ref.decode_attention_ref(qd, kc, vc, ln,
+                                        return_residuals=True)
+    before = dec_kern.KERNEL.launches
+    got = dec_ops.decode_attention(qd, kc, vc, ln, splits=splits,
+                                   return_residuals=True)
+    assert dec_kern.KERNEL.launches == before + 1
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
+    (kp, vp), bt = _pools_from_caches(kc, vc, 64,
+                                      torch.Generator().manual_seed(3))
+    want = dec_ref.paged_decode_attention_ref(qd, kp, vp, bt, ln,
+                                              return_residuals=True)
+    before = paged_kern.KERNEL.launches
+    got = dec_ops.paged_decode_attention(qd, kp, vp, bt, ln, splits=splits,
+                                         return_residuals=True)
+    assert paged_kern.KERNEL.launches == before + 1
+    assert got[0].shape == (b, hq, d)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **_tol(dtype, a.dtype))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_arctic_engine_on_card_matches_cpu(cuda, paged):
+    """The arctic smoke pattern (every layer MoE of 8 experts top 2 plus
+    the dense residual MLP) at 14 query heads over 2 (group 7), float32:
+    the same greedy tokens on the card (B2, B3/B4, B8) and on the CPU
+    (plain versions)."""
+    cfg = dataclasses.replace(smoke_config("arctic-480b"), num_heads=14,
+                              num_kv_heads=2, head_dim=64, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=paged)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        before = gmm_kern.KERNEL.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (gmm_kern.KERNEL.launches > before) == (dev == "cuda")
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("mode", [dict(kv_dtype="int8"),
+                                  dict(spec_mode="ngram", spec_k=4)],
+                         ids=["int8", "spec"])
+def test_deepseek_quant_and_spec_engines_on_card(cuda, mode):
+    """The deepseek smoke pattern at MLA's 192/128 from int8 pools (B5)
+    and speculating k 4 (B6), float32: every request done; speculation
+    gives the plain paged engine's tokens on the card; int8 matches
+    itself on the CPU."""
+    base = smoke_config("deepseek-v2-lite-16b")
+    cfg = dataclasses.replace(
+        base, d_model=256, num_heads=2, num_kv_heads=2, head_dim=128,
+        d_ff=512, dtype="float32",
+        mla=MLAConfig(kv_lora_rank=64, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev, m in (("cpu", mode), ("cuda", mode), ("cuda", {})):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=True, **m)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        kern = quant_kern.KERNEL if "kv_dtype" in mode else spec_kern.KERNEL
+        before = kern.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (kern.launches > before) == (dev == "cuda" and bool(m))
+        outs[(dev, bool(m))] = [r.out for r in reqs]
+    assert outs[("cuda", True)] == outs[("cpu", True)]
+    if "spec_mode" in mode:
+        assert outs[("cuda", True)] == outs[("cuda", False)]

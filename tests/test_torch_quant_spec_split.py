@@ -314,10 +314,11 @@ def test_quant_launcher_picks_its_split_without_reading_lengths(monkeypatch,
                 scale=None, page_size=None, block_kv=64, splits=splits)
     assert len(launches) == 6
     # (q, kp, vp, ks, vs, bt, lengths, acc, m, l, scratch x 4, b, hq, hkv,
-    #  n_pages, page_size, t_cols, d, bk, chunk, ...)
+    #  n_pages, page_size, t_cols, d, dv, bk, chunk, ...)
     served = dk.split_chunk(1024, dk.paged_splits(1024, 64), 64)
     assert served == dk.PAGED_SPLIT_ROWS
-    assert [a[22] for a in launches] == [served, 1024, 128] * 2
+    assert [a[21] for a in launches] == [128] * 6          # dv = d
+    assert [a[23] for a in launches] == [served, 1024, 128] * 2
     assert all(p is not None for p in launches[0][10:14])
     assert all(p is None for p in launches[1][10:14])
     assert dk._COUNTERS[q.device].numel() >= 8 * 8
@@ -342,8 +343,9 @@ def test_spec_launcher_picks_its_split_without_reading_lengths(monkeypatch,
                 scale=None, page_size=None, block_kv=64, k_scales=sc,
                 v_scales=sc, splits=splits)
     # (q, kp, vp, ks, vs, bt, row_len, acc, m, l, scratch x 4, b, k1, hq,
-    #  hkv, n_pages, page_size, t_cols, d, bk, chunk, ...)
-    assert [a[23] for a in launches] == [dk.PAGED_SPLIT_ROWS, 1024] * 2
+    #  hkv, n_pages, page_size, t_cols, d, dv, bk, chunk, ...)
+    assert [a[22] for a in launches] == [128] * 4          # dv = d
+    assert [a[24] for a in launches] == [dk.PAGED_SPLIT_ROWS, 1024] * 2
     assert all(p is not None for p in launches[0][10:14])
     assert all(p is None for p in launches[1][10:14])
     chunk, scratch = pg.split_plan("spec", q, 8, table, 64, None)
