@@ -41,7 +41,14 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    sliding-window kernels over ring tables (bf16, int8, fp8) and the
    head-dim-256 builds of the prefill, dense, paged and quantized
    decode kernels, at lengths 1 to 8,192, rings wrapped and not; then
-   deepseek-v2-lite-16b's: the grouped matmul of the MoE experts (the
+   gemma3-4b's (8/4 heads of 256) and gemma3-27b's (32/16 heads of 128):
+   the norm over rows of d_model and, for qk-norm, of the head (a
+   prefill group's and a decode step's, bit for bit with its twin and
+   its generic build, timed beside ``F.rms_norm``), the prefill kernel
+   at S 4,000 over the 1,024-token window and over none, and the dense
+   (caches of 4,608 and rings of 1,024), paged and window kernels at a
+   GQA group of 2, and for gemma3-4b the quantized paged and window
+   kernels over int8 and fp8 pools; then deepseek-v2-lite-16b's: the grouped matmul of the MoE experts (the
    reference's example with masked rows, sizes 0 and C, the decode
    shape and the largest prefill's, timed beside ``torch.bmm``) and
    the Dk 192 / Dv 128 builds of the prefill, dense and paged decode
@@ -52,8 +59,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    jamba-1.5-large-398b's: the selective scan of the
    mamba layers (the reference's example, then B 1 and 2 x S 17, 64,
    200 and 511 at d_inner 16384 and 16 states, bf16 with f32 A and D),
-   and the norm, prefill, dense and paged decode kernels (64 query heads
-   on 8 KV heads of 128) and the grouped matmul (16 experts of 8192 x
+   and the norm, prefill, dense, paged and quantized paged (int8, fp8)
+   decode kernels (64 query heads on 8 KV heads of 128) and the grouped
+   matmul (16 experts of 8192 x
    24576) at its shapes; then arctic-480b's: the norm at 7,168, the
    prefill, dense and paged decode kernels at 56 query heads over 8 (a
    GQA group of 7 through the group-8 builds) and the grouped matmul
@@ -155,7 +163,22 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    reported, and for each request whose dense and paged tokens differ,
    at the first token where they do, the top-2 logit margins each run
    served there and a plain forward's over the common prefix;
-10. free gemma2-2b and serve the same 12 requests as granite on
+10. free gemma2-2b and serve the 12 requests with prompts of 17 to
+   4,000 tokens on ``gemma3-4b`` at full width and depth (34 layers,
+   five local layers of a 1,024-token window to each global one,
+   qk-norm, RoPE bases 1e4 local and 1e6 global; random from a seed),
+   cache 4,608: paged (5 launches of the paged kernel and 29 of the
+   window kernel per step), dense (34 of the dense kernel, rings on
+   local layers), int8 and fp8 (5 of the quantized paged kernel and 29
+   of the quantized window kernel, pool bytes per slot under 0.53 of
+   bf16's); then on ``gemma3-27b`` at full width cut to 8 layers (7
+   local, 1 global, mid-cycle), paged (1 and 7) and dense (8); each
+   checked as phase 9, with the norm kernel launched 6 times a layer
+   plus once per decode step and per admitted group (the q and k norms
+   among them) and the prefill kernel once a layer per group; the
+   teacher-forced gap checked for bf16 and reported for int8/fp8, the
+   modes' token agreement reported;
+11. free gemma3-27b and serve the same 12 requests as granite on
    ``deepseek-v2-lite-16b`` at full width and depth (27 MLA layers,
    the first dense, then 64 routed experts top-6 and 2 shared experts
    on each of the other 26; random weights from a seed), paged and
@@ -172,31 +195,36 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    the speculative kernel a step, the gap checked, rejections > 0) and
    over int8 pools (the gap reported), each held to a plain replay of
    its own calls (the verify calls too, the gap over the rows emitted);
-11. free deepseek-v2-lite-16b and serve the same 12 requests on
+12. free deepseek-v2-lite-16b and serve the same 12 requests on
    ``arctic-480b`` at full width cut to 2 layers (GQA, 56 query heads
    over 8, each layer 128 experts top-2 of d_ff 4,864 plus a dense
    residual MLP; 27.7 B parameters, 55.4 GB; random weights from a
-   seed), paged and dense: checked as phase 10, with 2 launches of the
+   seed), paged and dense: checked as phase 11, with 2 launches of the
    mode's decode kernel and 6 of the grouped matmul per decode step
    (and 6 per admitted group), peak memory reported;
-12. free arctic-480b and serve the same 12 requests on
+13. free arctic-480b and serve the same 12 requests on
    ``jamba-1.5-large-398b`` at full width cut to 4 layers (an attention
    layer with a dense MLP, then three mamba layers, the first and third
    with 16 experts top-2 of d_ff 24,576; 23 B parameters, 46 GB; random
-   weights from a seed), paged and dense: checked as phase 10, with 1
-   launch of the mode's decode kernel and 6 of the grouped matmul per
-   decode step (and 6 per admitted group), and 3 of the selective scan
-   per admitted group and none in a decode step;
-13. free jamba-1.5-large-398b and serve the same 12 requests on
-   ``xlstm-1.3b`` at full width cut to 16 of its 48 layers (seven mLSTM,
-   then one sLSTM, twice; no attention layer; random from a seed),
-   paged and dense, in bf16 and in f32: checked as phase 4, with 14
+   weights from a seed), paged, dense and from int8 and fp8 pools (the
+   attention layer's pools quantized, the mamba state dense): checked
+   as phase 11, with 1 launch of the mode's decode kernel (the quantized
+   one from int8/fp8) and 6 of the grouped matmul per decode step (and
+   6 per admitted group), and 3 of the selective scan per admitted
+   group and none in a decode step; the quantized runs' gap against
+   their own replays and pool bytes per slot reported;
+14. free jamba-1.5-large-398b and serve the same 12 requests on
+   ``xlstm-1.3b`` at full width cut to 8 of its 48 layers (seven mLSTM,
+   then one sLSTM; no attention layer; random from a seed),
+   paged and dense, in bf16 and in f32, and paged with ``kv_dtype``
+   int8 in bf16 (no pool to quantize: the paged run's tokens, token for
+   token): checked as phase 4, with 7
    launches of the mLSTM scan per admitted group (every mLSTM layer's prefill,
    with its state output) and none in a decode step, and no attention
    kernel launched; then ``Model.loss`` of one batch of 2 x 512 tokens
    through the kernels (the mLSTM scan once per mLSTM layer) and
    through their plain versions, the two within XL_LOSS_TOL;
-14. trace five paged decode steps of each model for the card's busy
+15. trace five paged decode steps of each model for the card's busy
    share (reported, not checked).
 
 Each phase prints its wall time.
@@ -271,6 +299,25 @@ G2_CACHE_LEN, G2_WINDOW, G2_HQ, G2_HKV, G2_D = 8192, 4096, 8, 4, 256
 G2_LENGTHS = (1, 17, 1001, 4096, 4151, 6001, 6032, 8192)
 G2_FLASH_S = 6000             # the longest prompt
 G2_SOFTCAP = 50.0
+G2 = dict(hq=G2_HQ, hkv=G2_HKV, d=G2_D)
+# gemma3: five local layers of a 1,024-token window to each global one,
+# qk-norm (B1 over rows of the head) and a RoPE base of 10,000 on local
+# layers, 1e6 on global ones; no softcap.  gemma3-4b: 8 query / 4 KV
+# heads of 256 over d_model 2560, served at its full 34 layers (4.3 B
+# parameters, under 10 GB in bf16); gemma3-27b: 32 / 16 heads of 128 over
+# d_model 5376, cut to 8 of its 62 layers (one period and two local
+# layers, so that it ends mid-cycle as 62 = 10 x 6 + 2 does).  Prompts of
+# 1,000 tokens decode past the window; 2,100 and 4,000 start with rings
+# wrapped two and three times.
+G3_PROMPT_LENS = (17, 1000, 2100, 4000)
+G3_CACHE_LEN, G3_WINDOW, G3_27B_LAYERS = 4608, 1024, 8
+# (query heads, KV heads, head dim, d_model) of each
+G3_SHAPES = {"gemma3-4b": (8, 4, 256, 2560),
+             "gemma3-27b": (32, 16, 128, 5376)}
+# decode lengths of the gemma3 kernel checks: inside the window, at its
+# edge and one past it, rings wrapped, and the last row of the cache
+G3_LENGTHS = (1, 17, 1000, 1024, 1025, 2101, 4001, 4608)
+G3_FLASH_S = 4000             # the longest prompt
 # deepseek-v2-lite-16b: 16 MLA heads (query/key 192 = 128 + 64 rope,
 # value 128) over d_model 2048; 64 routed experts, top 6, of d_ff 1408
 DS_H, DS_DK, DS_DV = 16, 192, 128
@@ -295,10 +342,11 @@ AR_E, AR_TOPK, AR_FF = 128, 2, 4864
 AR_C_PREFILL = 80
 # xlstm-1.3b at full width: d_model 2048, mLSTM d_inner 4096 in 4 heads
 # of 1024, so B10 runs at Dk = Dv = 1024.  Served and its loss taken at
-# 16 of its 48 layers (two of its six periods of seven mLSTM and one
-# sLSTM): the whole depth took 281 s of the run's 1,200, and the fault
-# phase needed the time
-XL_H, XL_D, XL_LAYERS = 4, 1024, 16
+# 8 of its 48 layers (one of its six periods of seven mLSTM and one
+# sLSTM): the whole depth took 281 s of the run's 1,200, 16 layers 122 s
+# on a slow host once gemma3's phases came, and the run's time is
+# held under 1,000 s
+XL_H, XL_D, XL_LAYERS = 4, 1024, 8
 # the mLSTM scan's check lengths: one step, off and at multiples of its
 # chunk of 8, and the longest prompt
 XL_SCAN_LENS = (1, 17, 64, 200, 511)
@@ -775,6 +823,87 @@ def _split_timings(s: Smoke, kernel, what, fn, plain, nbytes, flops,
                   ops_per_s)
 
 
+def _decode_shapes(s: Smoke, key, lengths, s_len, hq, hkv, d, quant):
+    """B3 over dense caches of ``s_len`` rows and B4 over the same rows
+    in scrambled pages (and, with ``quant``, B5 over them in int8 and
+    fp8) at 8 slots of ``lengths``, ``hq`` query heads over ``hkv`` of
+    ``d``: each by its split rule against its plain version, timed at
+    its served split count and at 1 and SPLIT_CHECK beside its bound and
+    SDPA (B3), into each record under ``key``.  Returns the query and
+    the dense caches for the caller's own checks."""
+    torch = s.torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    heads = dict(hq=hq, hkv=hkv, d=d)
+    grp = f"{key}: B 8, {hq}/{hkv} x {d}"
+    rkw = dict(return_residuals=True)
+    q, kc, vc, ln = _decode_operands(s, lengths, s_len=s_len, **heads)
+    got = check_split_decode(s, f"decode ({grp}, cache {s_len})", q, kc, vc,
+                             ln)
+    want = ref.decode_attention_ref(q, kc, vc, ln, **rkw)
+    s.compare(f"decode residuals ({grp})", got, want)
+    err = s.compare(f"decode group {hq // hkv} output acc / l ({grp})",
+                    _normalized(got), _normalized(want))
+    nbytes, flops = _decode_cost(lengths, **heads)
+    mask = (torch.arange(s_len, device=s.dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+    plain_ms = s.time_ms(lambda: ref.decode_attention_ref(q, kc, vc, ln,
+                                                          **rkw))
+    library_ms = s.time_ms(lambda: sdpa(q[:, :, None], kc, vc,
+                                        attn_mask=mask, enable_gqa=True))
+    s.record_also("decode_attention", key, err,
+                  s.time_ms(lambda: ops.decode_attention(q, kc, vc, ln,
+                                                         **rkw)),
+                  plain_ms, nbytes, flops, library_ms)
+    _split_timings(s, "decode_attention", key,
+                   lambda n: ops.decode_attention(q, kc, vc, ln, splits=n,
+                                                  **rkw),
+                   plain_ms, nbytes, flops, library_ms)
+    kp, vp, bt = _pages(s, kc, vc, lengths, PAGE)
+    got = check_split_paged(s, f"paged ({grp}, table {tuple(bt.shape)})",
+                            q, kp, vp, bt, ln)
+    want = ref.paged_decode_attention_ref(q, kp, vp, bt, ln, **rkw)
+    s.compare(f"paged residuals ({grp})", got, want)
+    err = s.compare(f"paged group {hq // hkv} output acc / l ({grp})",
+                    _normalized(got), _normalized(want))
+    live_pages = sum(-(-n // PAGE) for n in lengths)
+    plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
+        q, kp, vp, bt, ln, **rkw))
+    s.record_also("paged_decode_attention", key, err,
+                  s.time_ms(lambda: ops.paged_decode_attention(
+                      q, kp, vp, bt, ln, **rkw)),
+                  plain_ms, nbytes + 4 * live_pages, flops, None)
+    _split_timings(s, "paged_decode_attention", key,
+                   lambda n: ops.paged_decode_attention(
+                       q, kp, vp, bt, ln, splits=n, **rkw),
+                   plain_ms, nbytes + 4 * live_pages, flops)
+    if quant:
+        nbytes, flops = _decode_cost(lengths, 1, **heads)
+        nbytes += live_pages * (2 * hkv * 4 + 4)
+        for kv in ("int8", "fp8_e4m3"):
+            kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+            args = (q, kq, vq, ks, vs, bt, ln)
+            got = check_split_quant(s, f"quant paged {kv} ({grp})", args)
+            want = ref.quant_paged_decode_attention_ref(*args, **rkw)
+            s.compare(f"quant paged {kv} residuals ({grp})", got, want)
+            err = s.compare(f"quant paged {kv} output acc / l ({grp})",
+                            _normalized(got), _normalized(want))
+            plain_ms = s.time_ms(lambda: ref.quant_paged_decode_attention_ref(
+                *args, **rkw))
+            times = (s.time_ms(lambda: ops.quant_paged_decode_attention(
+                         *args, **rkw)),
+                     plain_ms, nbytes, flops, None, INT8_OPS_PER_S)
+            if kv == "int8":
+                s.record_also("quant_paged_decode_attention", key, err,
+                              *times)
+            else:
+                s.timings(f"quant_paged_decode_attention ({kv}, {key})",
+                          *times)
+            del kq, vq
+    del kp, vp, bt
+    return q, kc, vc, ln
+
+
 def check_decode(s: Smoke) -> None:
     torch = s.torch
     from repro_torch.kernels.decode_attention import ops, ref
@@ -1002,40 +1131,39 @@ def check_spec(s: Smoke) -> None:
 
 # ------------------------------------------------ gemma2-2b kernels -----
 
-G2 = dict(hq=G2_HQ, hkv=G2_HKV, d=G2_D)
-
-
-def _ring_pools(s: Smoke, lengths):
-    """gemma2's window pools at its decode shapes: (4, 1 + 8 T_w, 64,
-    256) bf16 pools and (8, T_w) ring tables, T_w = 65, mapping each
-    slot's live window pages to scrambled pages (global page g at
-    column g % T_w; null elsewhere)."""
+def _ring_pools(s: Smoke, lengths, window=G2_WINDOW, hq=G2_HQ, hkv=G2_HKV,
+                d=G2_D, seed=7):
+    """Window pools at a model's decode shapes (by default gemma2's:
+    (4, 1 + 8 T_w, 64, 256) bf16 pools and (8, T_w) ring tables, T_w =
+    65), mapping each slot's live window pages to scrambled pages
+    (global page g at column g % T_w; null elsewhere)."""
     torch = s.torch
     from repro_torch.serve.paging import live_window_pages, window_table_width
-    tw = window_table_width(G2_WINDOW, PAGE)
+    tw = window_table_width(window, PAGE)
     b = len(lengths)
     perm = (torch.randperm(b * tw, generator=torch.Generator().manual_seed(6))
             + 1).tolist()
     bt = torch.zeros(b, tw, dtype=torch.int32)
     for i, n in enumerate(lengths):
-        for gp in live_window_pages(n, G2_WINDOW, PAGE):
+        for gp in live_window_pages(n, window, PAGE):
             bt[i, gp % tw] = perm.pop()
-    g = torch.Generator(device=s.dev).manual_seed(7)
-    kp, vp = (torch.randn(G2_HKV, 1 + b * tw, PAGE, G2_D, device=s.dev,
+    g = torch.Generator(device=s.dev).manual_seed(seed)
+    kp, vp = (torch.randn(hkv, 1 + b * tw, PAGE, d, device=s.dev,
                           generator=g).bfloat16() for _ in range(2))
-    q = torch.randn(b, G2_HQ, G2_D, device=s.dev, generator=g).bfloat16()
+    q = torch.randn(b, hq, d, device=s.dev, generator=g).bfloat16()
     ln = torch.tensor(lengths, dtype=torch.int32, device=s.dev)
     return q, kp, vp, bt.to(s.dev), ln
 
 
-def _window_cost(lengths, kv_bytes: int = 2, scale_bytes: int = 0):
+def _window_cost(lengths, kv_bytes: int = 2, scale_bytes: int = 0,
+                 window=G2_WINDOW, heads=G2):
     """What the window kernels must read and write: the window's live
     tokens, min(L, window) per slot, a table entry (and the scales) per
     live page, q and the f32 residuals; the flops of those tokens."""
     from repro_torch.serve.paging import live_window_pages
-    live = [min(n, G2_WINDOW) for n in lengths]
-    nbytes, flops = _decode_cost(live, kv_bytes, **G2)
-    pages = sum(len(live_window_pages(n, G2_WINDOW, PAGE)) for n in lengths)
+    live = [min(n, window) for n in lengths]
+    nbytes, flops = _decode_cost(live, kv_bytes, **heads)
+    pages = sum(len(live_window_pages(n, window, PAGE)) for n in lengths)
     return nbytes + pages * (4 + scale_bytes), flops
 
 
@@ -1434,6 +1562,186 @@ def check_head_dim_256(s: Smoke) -> None:
                        plain_ms, nbytes, flops, ops_per_s=INT8_OPS_PER_S)
 
 
+# ------------------------------------------------- gemma3 kernels -----
+
+def check_gemma3_shapes(s: Smoke) -> None:
+    """The kernels of gemma3's path at its shapes, each against its
+    plain version, timed beside its bound and library call, into each
+    record under "gemma3-4b" or "gemma3-27b": B1 over the largest
+    prefill group's rows of d_model and of the head (qk-norm: 2 x 4,000
+    tokens times the query heads, rows of 256 or 128; bit for bit with
+    its twin B11a and its generic build) and over one decode step's
+    heads; B2 causal at S 4,000 over the window of 1,024 (local layers)
+    and over none (global); B3 over caches of 4,608 (global layers) and
+    rings of 1,024 (local ones), B4 over page tables of 72 pages, B7
+    over ring tables of the window at lengths up to 4,608, each by its
+    split rule; for gemma3-4b, also B5 and B7q over int8 and fp8 pools.
+    Both at a GQA group of 2."""
+    for key, (hq, hkv, d, dm) in G3_SHAPES.items():
+        _gemma3_norm_and_flash(s, key, hq, hkv, d, dm)
+        _gemma3_decode(s, key, hq, hkv, d, quant=key == "gemma3-4b")
+
+
+def _gemma3_norm_and_flash(s: Smoke, key, hq, hkv, d, dm):
+    torch = s.torch
+    from repro_torch.core.context import target
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import native
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rms = torch.nn.functional.rms_norm
+    g = torch.Generator(device=s.dev).manual_seed(19)
+    kw = dict(eps=1e-6, weight_offset=1.0)
+    b, n = 2, G3_FLASH_S
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=s.dev, generator=g,
+                           dtype=torch.bfloat16)
+
+    # B1 at d_model, then at the head over q's rows (qk-norm), then over
+    # one decode step's q heads
+    for what, x in (("", rnd(b * n, dm)), (" q-norm", rnd(b, hq, n, d)),
+                    (" q-norm decode", rnd(SLOTS, hq, d))):
+        w = 0.5 * rnd(x.shape[-1])
+        rows, width = x.numel() // x.shape[-1], x.shape[-1]
+        label = f"rmsnorm {key}{what} ({rows}, {width}) bf16"
+        got = rops.rmsnorm(x, w, **kw)
+        err = s.compare(label, got, rref.rmsnorm_ref(x, w, **kw))
+        with target("generic"):
+            generic = rops.rmsnorm(x, w, **kw)
+        s.check(bool(torch.equal(got, native.rmsnorm_native(x, w, **kw))
+                     and torch.equal(got, generic)),
+                f"{label}: B1, B11a and B1's generic build bit for bit")
+        times = (s.time_ms(lambda: rops.rmsnorm(x, w, **kw)),
+                 s.time_ms(lambda: rref.rmsnorm_ref(x, w, **kw)),
+                 2 * x.numel() * 2 + 2 * width, 4 * x.numel(),
+                 s.time_ms(lambda: rms(x, (width,), w + 1.0, 1e-6)))
+        if what == " q-norm decode":
+            s.timings(f"rmsnorm ({key}{what})", *times)
+        else:
+            s.record_also("rmsnorm", key + what, err, *times)
+        del x, got, generic
+    # B2: checked at B 1 (the plain version holds S x S scores), timed
+    # at B 2 x S 4,000, the largest group; local layers' window first
+    one = (rnd(1, hq, n, d), rnd(1, hkv, n, d), rnd(1, hkv, n, d))
+    err = 0.0
+    for what, window in (("local", G3_WINDOW), ("global", None)):
+        fkw = dict(window=window)
+        label = f"flash {key} (1, {hq}/{hkv}, {n}, {d}) causal, {what}"
+        err = max(err, s.compare(label, fops.flash_attention(*one, **fkw),
+                                 fref.flash_attention_ref(*one, **fkw)))
+        operands_model(s, label, one, fkw)
+    del one
+    two = (rnd(b, hq, n, d), rnd(b, hkv, n, d), rnd(b, hkv, n, d))
+    pos = torch.arange(n, device=s.dev)
+    band = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - G3_WINDOW))
+    pairs = sum(min(i + 1, G3_WINDOW) for i in range(n))
+    nbytes = 2 * b * hq * n * d * 2 + 2 * b * hkv * n * d * 2
+    s.record_also("flash_attention", key, err,
+                  s.time_ms(lambda: fops.flash_attention(
+                      *two, window=G3_WINDOW)),
+                  s.time_ms(lambda: fref.flash_attention_ref(
+                      *two, window=G3_WINDOW)),
+                  nbytes, 4 * b * hq * d * pairs,
+                  s.time_ms(lambda: sdpa(*two, attn_mask=band,
+                                         enable_gqa=True)))
+    s.timings(f"flash_attention ({key} global)",
+              s.time_ms(lambda: fops.flash_attention(*two)),
+              s.time_ms(lambda: fref.flash_attention_ref(*two)),
+              nbytes, 4 * b * hq * d * n * (n + 1) // 2,
+              s.time_ms(lambda: sdpa(*two, is_causal=True, enable_gqa=True)))
+    del two, band
+
+
+def _gemma3_decode(s: Smoke, key, hq, hkv, d, quant):
+    from repro_torch.kernels.decode_attention import ops, paged, ref
+    from repro_torch.quant import DECODE_TOL
+    heads = dict(hq=hq, hkv=hkv, d=d)
+    grp = f"{key}: B 8, {hq}/{hkv} x {d}"
+    rkw = dict(return_residuals=True)
+    # B3 over the global layers' caches of 4,608 (and the local layers'
+    # rings of the window), B4 over the global layers' pages, B5 over
+    # them quantized
+    q, kc, vc, ln = _decode_shapes(s, key, G3_LENGTHS, G3_CACHE_LEN, hq, hkv,
+                                   d, quant)
+    ring_ln = ln.clamp(max=G3_WINDOW)
+    ring = (kc[:, :, :G3_WINDOW].contiguous(),
+            vc[:, :, :G3_WINDOW].contiguous())
+    del kc, vc
+    check_split_decode(s, f"decode over a ring of {G3_WINDOW} ({grp})", q,
+                       *ring, ring_ln)
+    rnb, rfl = _decode_cost(ring_ln.tolist(), **heads)
+    s.timings(f"decode_attention ({key} ring of {G3_WINDOW})",
+              s.time_ms(lambda: ops.decode_attention(q, *ring, ring_ln,
+                                                     **rkw)),
+              s.time_ms(lambda: ref.decode_attention_ref(q, *ring, ring_ln,
+                                                         **rkw)),
+              rnb, rfl, None)
+    del q, ring
+    # B7 (and B7q) over the local layers' ring tables
+    q, kp, vp, bt, ln = _ring_pools(s, G3_LENGTHS, window=G3_WINDOW, seed=20,
+                                    **heads)
+    wkw = dict(window=G3_WINDOW)
+    got = check_split_window(
+        s, f"window ({grp}, window {G3_WINDOW}, lengths 1..{G3_CACHE_LEN})",
+        (q, kp, vp, bt, ln), ops.window_paged_decode_attention,
+        ref.window_paged_decode_attention_ref, paged.WINDOW_KERNEL, **wkw)
+    want = ref.window_paged_decode_attention_ref(q, kp, vp, bt, ln, **rkw,
+                                                 **wkw)
+    s.compare(f"window residuals ({grp})", got, want)
+    err = s.compare(f"window output acc / l ({grp})", _normalized(got),
+                    _normalized(want))
+    bf16 = _normalized(got)
+    nbytes, flops = _window_cost(G3_LENGTHS, window=G3_WINDOW, heads=heads)
+    plain_ms = s.time_ms(lambda: ref.window_paged_decode_attention_ref(
+        q, kp, vp, bt, ln, **rkw, **wkw))
+    s.record_also("window_paged_decode_attention", key, err,
+                  s.time_ms(lambda: ops.window_paged_decode_attention(
+                      q, kp, vp, bt, ln, **rkw, **wkw)),
+                  plain_ms, nbytes, flops, None)
+    _split_timings(s, "window_paged_decode_attention", key,
+                   lambda n: ops.window_paged_decode_attention(
+                       q, kp, vp, bt, ln, splits=n, **rkw, **wkw),
+                   plain_ms, nbytes, flops)
+    if not quant:
+        return
+    nbytes, flops = _window_cost(G3_LENGTHS, 1, 2 * hkv * 4,
+                                 window=G3_WINDOW, heads=heads)
+    for kv in ("int8", "fp8_e4m3"):
+        kq, vq, ks, vs = _quantize(s, kp, vp, kv)
+        args = (q, kq, vq, ks, vs, bt, ln)
+        got = check_split_window(
+            s, f"quant window {kv} ({grp})", args,
+            ops.quant_window_paged_decode_attention,
+            ref.quant_window_paged_decode_attention_ref,
+            paged.QUANT_WINDOW_KERNEL, **wkw)
+        want = ref.quant_window_paged_decode_attention_ref(*args, **rkw,
+                                                           **wkw)
+        s.compare(f"quant window {kv} residuals ({grp})", got, want)
+        err = s.compare(f"quant window {kv} output acc / l ({grp})",
+                        _normalized(got), _normalized(want))
+        gap = float((_normalized(got) - bf16).abs().max())
+        s.check(gap <= DECODE_TOL[kv],
+                f"quant window {kv} ({key}) against bf16 window on the "
+                f"unquantized data: max abs diff {gap:.4f} <= DECODE_TOL "
+                f"{DECODE_TOL[kv]}")
+        plain_ms = s.time_ms(
+            lambda: ref.quant_window_paged_decode_attention_ref(
+                *args, **rkw, **wkw))
+        times = (s.time_ms(lambda: ops.quant_window_paged_decode_attention(
+                     *args, **rkw, **wkw)),
+                 plain_ms, nbytes, flops, None, INT8_OPS_PER_S)
+        if kv == "int8":
+            s.record_also("quant_window_paged_decode_attention", key, err,
+                          *times)
+        else:
+            s.timings(f"quant_window_paged_decode_attention ({kv}, {key})",
+                      *times)
+
+
 # ------------------------------------------- deepseek-v2-lite kernels -----
 
 def check_gmm(s: Smoke) -> None:
@@ -1780,13 +2088,13 @@ def check_mamba_scan(s: Smoke) -> None:
 
 
 def check_jamba_shapes(s: Smoke) -> None:
-    """B1, B2, B3 and B4 at jamba's shapes (d_model 8192; 64 query heads
-    on 8 KV heads of 128, a GQA group of 8) and B8 at its expert shapes
-    (16 experts of 8192 x 24576: 6.4 GB of weights per call), against
-    their plain versions; their times go into each kernel's record
-    under "jamba"."""
+    """B1, B2, B3, B4 and B5 (int8 and fp8 pools) at jamba's shapes
+    (d_model 8192; 64 query heads on 8 KV heads of 128, a GQA group of
+    8) and B8 at its expert shapes (16 experts of 8192 x 24576: 6.4 GB
+    of weights per call), against their plain versions; their times go
+    into each kernel's record under "jamba"."""
     check_model_shapes(s, "jamba", JB_DM, JB_HQ, JB_HKV, JB_E, JB_TOPK,
-                       JB_FF, seed=12)
+                       JB_FF, seed=12, quant=True)
 
 
 def check_arctic_shapes(s: Smoke) -> None:
@@ -1803,16 +2111,16 @@ def check_arctic_shapes(s: Smoke) -> None:
 
 
 def check_model_shapes(s: Smoke, key, dm, hq, hkv, e, topk, ff, seed,
-                       more_c=()):
+                       more_c=(), quant=False):
     """B1 at the largest prefill group's rows (2 x 511 of ``dm``), B2 at
     its causal prefill, B3 and B4 at 8 slots of lengths 1..1024 (``hq``
-    query heads over ``hkv`` of 128), B8 at the decode capacity of 8
+    query heads over ``hkv`` of 128) and, with ``quant``, B5 over the
+    same pages in int8 and fp8, B8 at the decode capacity of 8
     slots (gate/up and down) and the prefill group's (and each of
     ``more_c``) over ``e`` experts of ``dm`` x ``ff``, each against its
     plain version and timed beside its library call; the times go into
     each record under ``key``."""
     torch = s.torch
-    from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.gmm import ops as gops
@@ -1854,51 +2162,8 @@ def check_model_shapes(s: Smoke, key, dm, hq, hkv, e, topk, ff, seed,
                   s.time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                          enable_gqa=True)))
     del q, k, v
-    # B3 and B4: 8 slots, lengths 1..1024, a group of hq / hkv
-    heads = dict(hq=hq, hkv=hkv, d=128)
-    grp = f"{hq}/{hkv} x 128"
-    qd, kc, vc, ln = _decode_operands(s, DECODE_LENGTHS, **heads)
-    dkw = dict(return_residuals=True)
-    got = check_split_decode(s, f"decode (B 8, {grp}, lengths 1..1024)",
-                             qd, kc, vc, ln)
-    want = ref.decode_attention_ref(qd, kc, vc, ln, **dkw)
-    s.compare(f"decode residuals, {grp}, lengths 1..1024", got, want)
-    err = s.compare(f"decode group {hq // hkv} output acc / l",
-                    _normalized(got), _normalized(want))
-    nbytes, flops = _decode_cost(DECODE_LENGTHS, **heads)
-    mask = (torch.arange(CACHE_LEN, device=s.dev)[None, :]
-            < ln[:, None])[:, None, None, :]
-    plain_ms = s.time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, ln,
-                                                          **dkw))
-    library_ms = s.time_ms(lambda: sdpa(qd[:, :, None], kc, vc,
-                                        attn_mask=mask, enable_gqa=True))
-    s.record_also("decode_attention", key, err,
-                  s.time_ms(lambda: ops.decode_attention(qd, kc, vc, ln,
-                                                         **dkw)),
-                  plain_ms, nbytes, flops, library_ms)
-    _split_timings(s, "decode_attention", key,
-                   lambda n: ops.decode_attention(
-                       qd, kc, vc, ln, splits=n, **dkw),
-                   plain_ms, nbytes, flops, library_ms)
-    kp, vp, bt = _pages(s, kc, vc, DECODE_LENGTHS, PAGE)
-    got = check_split_paged(s, f"paged (B 8, {grp}, page 64)", qd, kp, vp,
-                            bt, ln)
-    want = ref.paged_decode_attention_ref(qd, kp, vp, bt, ln, **dkw)
-    s.compare(f"paged residuals, {grp}, page 64", got, want)
-    err = s.compare(f"paged group {hq // hkv} output acc / l",
-                    _normalized(got), _normalized(want))
-    live_pages = sum(-(-n // PAGE) for n in DECODE_LENGTHS)
-    plain_ms = s.time_ms(lambda: ref.paged_decode_attention_ref(
-        qd, kp, vp, bt, ln, **dkw))
-    s.record_also("paged_decode_attention", key, err,
-                  s.time_ms(lambda: ops.paged_decode_attention(
-                      qd, kp, vp, bt, ln, **dkw)),
-                  plain_ms, nbytes + 4 * live_pages, flops, None)
-    _split_timings(s, "paged_decode_attention", key,
-                   lambda n: ops.paged_decode_attention(
-                       qd, kp, vp, bt, ln, splits=n, **dkw),
-                   plain_ms, nbytes + 4 * live_pages, flops)
-    del qd, kc, vc, kp, vp
+    # B3 and B4 (and B5): 8 slots, lengths 1..1024, a group of hq / hkv
+    _decode_shapes(s, key, DECODE_LENGTHS, CACHE_LEN, hq, hkv, 128, quant)
     # B8: decode (C 8 at 8 slots) gate/up and down, and the largest
     # prefill group's gate/up (C 160 for 2 x 511 tokens)
     c_dec = _capacity(SLOTS, e, topk, 1.25)
@@ -3402,7 +3667,7 @@ def run_traces(s: Smoke):
     """The card's busy share over paged decode steps of each model,
     fresh weights from the same seed; last, since tracing slows every
     later step (deepseek-v2-lite-16b's is traced first, then gemma2-2b's,
-    granite-8b's, jamba-1.5-large-398b's (4 layers), arctic-480b's (2
+    gemma3-4b's, granite-8b's, jamba-1.5-large-398b's (4 layers), arctic-480b's (2
     layers) and xlstm-1.3b's, each a lower bound)."""
     torch = s.torch
     from repro_torch.configs import get_config
@@ -3411,6 +3676,8 @@ def run_traces(s: Smoke):
     for arch, shape in (("deepseek-v2-lite-16b", {}),
                         ("gemma2-2b", dict(cache_len=G2_CACHE_LEN,
                                            prompt_lens=G2_PROMPT_LENS)),
+                        ("gemma3-4b", dict(cache_len=G3_CACHE_LEN,
+                                           prompt_lens=G3_PROMPT_LENS)),
                         ("granite-8b", {}),
                         ("jamba-1.5-large-398b", {}),
                         ("arctic-480b", {}),
@@ -3547,6 +3814,109 @@ def first_divergences(s: Smoke, model, params, paged, dense, top_p, top_d):
     return rows
 
 
+def _gemma3_27b_config():
+    """gemma3-27b at full width, cut to G3_27B_LAYERS of its 62 layers:
+    one period of five local layers and a global one, then two local
+    layers, so that the stack ends mid-cycle as 62 = 10 x 6 + 2 does."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gemma3-27b"),
+                               num_layers=G3_27B_LAYERS)
+
+
+def run_serving_gemma3(s: Smoke):
+    """gemma3-4b at full width and depth (34 layers: 29 local of a
+    1,024-token window, 5 global), served four ways: paged (B4 on the
+    global layers, B7 over ring tables on the local ones), dense (B3 on
+    all, local layers over rings of the window), and from int8 and fp8
+    pools (B5 and B7q); then gemma3-27b at full width cut to 8 layers (7
+    local, 1 global), paged and dense.  B1 launches 6 times a layer
+    (ln1, q-norm, k-norm, post_ln1, ln2, post_ln2) and once for the final
+    norm, per decode step and per admitted group; B2 once a layer per
+    group."""
+    import gc
+    torch = s.torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.quant import resolve_kv_spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    s.check(held < 1.0, f"the earlier models' weights and pools are freed "
+                        f"({held:.3f} GiB still allocated)")
+    shape = dict(cache_len=G3_CACHE_LEN, prompt_lens=G3_PROMPT_LENS)
+    out = {}
+    for arch, cfg, modes in (
+            ("gemma3-4b", get_config("gemma3-4b"),
+             ("paged", "dense", "int8", "fp8_e4m3")),
+            ("gemma3-27b", _gemma3_27b_config(), ("paged", "dense"))):
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=s.dev).manual_seed(0),
+                            device=s.dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in _leaves(params))
+        nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        kinds = cfg.layer_kinds()
+        n_local = kinds.count("local")
+        n_global = cfg.num_layers - n_local
+        print(f"  {arch}: {cfg.num_layers} layers ({n_local} local, window "
+              f"{cfg.window}, RoPE base {cfg.rope_theta_local:g}; "
+              f"{n_global} global, base {cfg.rope_theta:g}; qk-norm), "
+              f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+              f"heads of {cfg.head_dim}, {n / 1e9:.3f} B parameters "
+              f"({nbytes / 1e9:.2f} GB) in {cfg.dtype}, random from seed 0 "
+              f"({time.perf_counter() - t0:.2f} s); cache {G3_CACHE_LEN}, "
+              f"prompts {G3_PROMPT_LENS}")
+        norms = 6 * cfg.num_layers + 1
+        runs, stats = {}, {}
+
+        def run(name, mode, per_step, **kw):
+            print(f"== serve {arch}, {name}", flush=True)
+            idle = tuple(k for k in DECODE_KERNELS if k not in per_step)
+            runs[name], stats[name] = check_serving(
+                s, model, params, f"{arch} {name}", mode,
+                dict(per_step, rmsnorm=norms, flash_attention=0), idle,
+                per_group={"rmsnorm": norms,
+                           "flash_attention": cfg.num_layers},
+                **shape, **kw)
+            for kname in ("rmsnorm", "flash_attention", *per_step):
+                s.kernels[kname][arch]["launches"] = \
+                    stats[name]["launches"][kname]
+
+        for name in modes:
+            if name == "paged":
+                run(name, dict(paged=True),
+                    {"paged_decode_attention": n_global,
+                     "window_paged_decode_attention": n_local})
+            elif name == "dense":
+                run(name, dict(paged=False),
+                    {"decode_attention": cfg.num_layers})
+            else:
+                resolve_kv_spec(name, s.dev, strict=True)
+                run(name, dict(paged=True, kv_dtype=name),
+                    {"quant_paged_decode_attention": n_global,
+                     "quant_window_paged_decode_attention": n_local},
+                    teacher_checked=False)
+                ratio = stats[name]["pool_bytes_per_slot"] / \
+                    stats["paged"]["pool_bytes_per_slot"]
+                s.check(ratio < 0.53,
+                        f"{arch} {name}: pool bytes per slot (global group) "
+                        f"{stats[name]['pool_bytes_per_slot']} = "
+                        f"{ratio:.4f} of bf16's")
+        agree = {f"{m}_paged": _agree(runs[m], runs["paged"])
+                 for m in modes if m != "paged"}
+        for key, n_agree in agree.items():
+            print(f"  {arch} {key[:-6]} and paged agree on {n_agree} of "
+                  f"{stats['paged']['tokens']} tokens")
+        out[arch] = dict(stats, tokens_agree=agree, parameters=n)
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_serving_deepseek(s: Smoke):
     """deepseek-v2-lite-16b at full width and depth (27 MLA layers, the
     first dense, 26 of 64 routed experts top-6 with 2 shared experts),
@@ -3649,12 +4019,14 @@ def _jamba_config():
 def run_serving_jamba(s: Smoke):
     """jamba-1.5-large-398b at full width, 4 layers (attention, then
     three mamba layers, MoE of 16 experts top-2 on layers 1 and 3),
-    served paged (B4) and dense (B3), B8 on every MoE layer and B9 on
-    every mamba layer's prefill, held to a plain replay of its own
+    served paged (B4), dense (B3) and from int8 and fp8 pools (B5 at
+    64/8 heads of 128, the mamba state dense), B8 on every MoE layer and
+    B9 on every mamba layer's prefill, held to a plain replay of its own
     calls."""
     import gc
     torch = s.torch
     from repro_torch.models.registry import build_model
+    from repro_torch.quant import resolve_kv_spec
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2 ** 30
@@ -3684,7 +4056,7 @@ def run_serving_jamba(s: Smoke):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB)")
     runs, stats = {}, {}
 
-    def run(name, mode, decode_kernel):
+    def run(name, mode, decode_kernel, **kw):
         print(f"== serve jamba-1.5-large-398b, {name}", flush=True)
         per_step = {decode_kernel: n_attn, "gmm": 3 * n_moe, "mamba_scan": 0}
         runs[name], stats[name] = check_serving(
@@ -3692,7 +4064,7 @@ def run_serving_jamba(s: Smoke):
             tuple(k for k in DECODE_KERNELS if k != decode_kernel),
             prefill=("rmsnorm", "flash_attention", "gmm", "mamba_scan"),
             per_group={"gmm": 3 * n_moe, "mamba_scan": n_mamba},
-            replay=True)
+            replay=True, **kw)
         for kname in ("rmsnorm", "flash_attention", "gmm", decode_kernel):
             s.kernels[kname]["jamba"]["launches"] = \
                 stats[name]["launches"][kname]
@@ -3702,6 +4074,23 @@ def run_serving_jamba(s: Smoke):
     agree = {"dense_paged": _agree(runs["paged"], runs["dense"])}
     print(f"  jamba dense and paged agree on {agree['dense_paged']} of "
           f"{stats['paged']['tokens']} tokens")
+    # the attention layer's pools in int8 and fp8, the mamba state dense;
+    # the gap against the plain replay of each run's own calls (its
+    # prefills scattered into the same quantized pools) is reported
+    for kv in ("int8", "fp8_e4m3"):
+        resolve_kv_spec(kv, s.dev, strict=True)
+        run(kv, dict(paged=True, kv_dtype=kv), "quant_paged_decode_attention",
+            teacher_checked=False, free_replay=False)
+        st = stats[kv]
+        ratio = st["pool_bytes_per_slot"] / \
+            stats["paged"]["pool_bytes_per_slot"]
+        s.check(st["kv_dtype"] == kv and ratio < 0.53,
+                f"jamba {kv}: the engine's pools are {st['kv_dtype']}, pool "
+                f"bytes per slot {st['pool_bytes_per_slot']} = {ratio:.4f} "
+                f"of bf16's {stats['paged']['pool_bytes_per_slot']}")
+        agree[f"{kv}_paged"] = _agree(runs[kv], runs["paged"])
+        print(f"  jamba {kv} and bf16 paged agree on {agree[f'{kv}_paged']} "
+              f"of {st['tokens']} tokens")
     del params
     torch.cuda.empty_cache()
     return dict(stats, tokens_agree=agree)
@@ -3773,11 +4162,13 @@ def run_serving_arctic(s: Smoke):
 
 
 def run_serving_xlstm(s: Smoke):
-    """xlstm-1.3b at full width cut to XL_LAYERS = 16 of its 48 layers
-    (two periods of seven mLSTM and one sLSTM; no attention layer),
-    served paged and dense in bf16 and again, on the same weights, in
-    f32 (XL_DTYPES): B10 with its state output on every mLSTM layer of
-    every prefill (14 launches per admitted group), none in a decode step
+    """xlstm-1.3b at full width cut to XL_LAYERS = 8 of its 48 layers
+    (one period of seven mLSTM and one sLSTM; no attention layer),
+    served paged and dense in bf16 (and paged with ``kv_dtype`` int8,
+    which has no pool to quantize: the paged run's tokens) and again, on
+    the same weights, in f32 (XL_DTYPES): B10 with its state output on
+    every mLSTM layer of every prefill (7 launches per admitted group),
+    none in a decode step
     (the one-token recurrences are plain PyTorch); then ``Model.loss`` of
     one batch through the kernels and through their plain versions.  The
     teacher-forced gap and the loss are checked in f32 and reported in
@@ -3828,6 +4219,27 @@ def run_serving_xlstm(s: Smoke):
         agree = _agree(runs["paged"], runs["dense"])
         print(f"  xlstm {dt}: dense and paged agree on {agree} of "
               f"{stats['paged']['tokens']} tokens")
+        if dt == XL_DTYPES[0]:
+            # kv_dtype int8 once: no attention layer, so no pool to
+            # quantize; the same kernels on the same inputs as paged bf16
+            name = f"paged int8 {dt}"
+            print(f"== serve xlstm-1.3b, {name}", flush=True)
+            runs["int8"], stats["int8"] = check_serving(
+                s, model, params, f"xlstm {name}",
+                dict(paged=True, kv_dtype="int8"), {"mlstm_scan": 0}, idle,
+                teacher_checked=checked, prefill=("rmsnorm", "mlstm_scan"),
+                per_group={"mlstm_scan": n_mlstm})
+            st = stats["int8"]
+            s.check(st["kv_dtype"] == "int8"
+                    and st["pool_bytes_per_slot"]
+                    == stats["paged"]["pool_bytes_per_slot"] == 0,
+                    f"xlstm int8: the engine reports {st['kv_dtype']}, pool "
+                    f"bytes per slot {st['pool_bytes_per_slot']} (bf16 "
+                    f"{stats['paged']['pool_bytes_per_slot']}): no pool")
+            same = _agree(runs["int8"], runs["paged"])
+            s.check(same == st["tokens"],
+                    f"xlstm int8 emits the paged bf16 run's tokens ({same} "
+                    f"of {st['tokens']})")
         print(f"== xlstm-1.3b Model.loss, {dt}", flush=True)
         loss = xlstm_loss(s, model, params, XL_LOSS_TOL if checked else None)
         out[dt] = dict(stats, tokens_agree={"dense_paged": agree}, loss=loss)
@@ -3973,6 +4385,7 @@ def main() -> int:
                      ("decode NaN law (B3-B7q)", check_nan_law),
                      ("head-dim-256 builds (gemma2 shapes)",
                       check_head_dim_256),
+                     ("B1-B7q (gemma3 shapes)", check_gemma3_shapes),
                      ("gmm (deepseek shapes)", check_gmm),
                      ("192/128 builds (deepseek shapes)", check_mla_builds),
                      ("mamba_scan (jamba shapes)", check_mamba_scan),
@@ -3992,6 +4405,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_g2 = s.phase("serve gemma2-2b at full width", run_serving_gemma2,
                          s)
+    torch.cuda.empty_cache()
+    serving_g3 = s.phase("serve gemma3-4b at full width and depth, and "
+                         f"gemma3-27b at full width, {G3_27B_LAYERS} layers",
+                         run_serving_gemma3, s)
     torch.cuda.empty_cache()
     serving_ds = s.phase("serve deepseek-v2-lite-16b at full width",
                          run_serving_deepseek, s)
@@ -4015,6 +4432,8 @@ def main() -> int:
         print(json.dumps({"serving_slo": s.serving_slo}))
     if serving_g2 is not None:
         print(json.dumps({"serving_gemma2": serving_g2}))
+    if serving_g3 is not None:
+        print(json.dumps({"serving_gemma3": serving_g3}))
     if serving_ds is not None:
         print(json.dumps({"serving_deepseek": serving_ds}))
     if serving_ar is not None:

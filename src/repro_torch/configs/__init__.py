@@ -5,8 +5,10 @@ sliding-window decoder (gemma2-2b), the MLA + MoE decoder
 (deepseek-v2-lite-16b), the attention/mamba hybrid with MoE on every
 other layer (jamba-1.5-large-398b), the recurrent xLSTM stack of mLSTM
 and sLSTM blocks (xlstm-1.3b) and the GQA decoder with 128 experts and
-a dense residual MLP on every layer (arctic-480b); every other
-architecture of ``repro`` arrives with the slice that ports its layers
+a dense residual MLP on every layer (arctic-480b) and the 5:1
+local/global decoder with qk-norm and a local RoPE base (gemma3-4b,
+gemma3-27b); the encoder-decoder (whisper-base) and the vision model
+(internvl2-26b) arrive with the slice that ports their layers
 (ROADMAP.md, queue A).
 """
 from __future__ import annotations
@@ -18,12 +20,11 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 _MODULES = {"granite-8b": "granite_8b", "gemma2-2b": "gemma2_2b",
             "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
             "jamba-1.5-large-398b": "jamba_1_5_large_398b",
-            "xlstm-1.3b": "xlstm_1_3b", "arctic-480b": "arctic_480b"}
+            "xlstm-1.3b": "xlstm_1_3b", "arctic-480b": "arctic_480b",
+            "gemma3-4b": "gemma3_4b", "gemma3-27b": "gemma3_27b"}
 
 #: Architectures of the reference that later slices of the port add.
-LATER_SLICES = (
-    "whisper-base", "gemma3-27b", "gemma3-4b", "internvl2-26b",
-)
+LATER_SLICES = ("whisper-base", "internvl2-26b")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -8,7 +8,10 @@ dict per position of its block, each leaf with a leading ``reps`` axis,
 so layer ``r * len(block) + j`` of the segment is position ``j`` at
 index ``r`` (granite: one segment of one global layer repeated 36
 times; gemma2: a (local, global) block repeated 13 times, with the
-sandwich norms ``post_ln1``/``post_ln2``; deepseek: a dense first MLA
+sandwich norms ``post_ln1``/``post_ln2``; gemma3: a block of five local
+layers and one global repeated, then the tail (34 = 5 x 6 + 4, 62 = 10
+x 6 + 2), each ``attn`` leaf with its qk-norm weights ``q_norm`` and
+``k_norm`` (head_dim,); deepseek: a dense first MLA
 layer, then one MLA + MoE layer repeated 26 times, its ``moe`` leaf
 holding the router, the stacked expert weights and the shared
 experts' MLP; jamba: the 8-layer block of one attention and seven mamba
@@ -62,10 +65,14 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
 
     def attn(a, r):
         if cfg.mla is None:
-            return {"wq": t(a["wq"][r], (d, cfg.num_heads * hd)),
-                    "wk": t(a["wk"][r], (d, cfg.num_kv_heads * hd)),
-                    "wv": t(a["wv"][r], (d, cfg.num_kv_heads * hd)),
-                    "wo": t(a["wo"][r], (cfg.num_heads * hd, d))}
+            p = {"wq": t(a["wq"][r], (d, cfg.num_heads * hd)),
+                 "wk": t(a["wk"][r], (d, cfg.num_kv_heads * hd)),
+                 "wv": t(a["wv"][r], (d, cfg.num_kv_heads * hd)),
+                 "wo": t(a["wo"][r], (cfg.num_heads * hd, d))}
+            for name in ("q_norm", "k_norm"):
+                if name in a:
+                    p[name] = t(a[name][r])
+            return p
         lora = cfg.mla.kv_lora_rank
         return {"wq_mla": t(a["wq_mla"][r], (d, -1)),
                 "wkv_a": t(a["wkv_a"][r]),

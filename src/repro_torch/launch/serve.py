@@ -11,6 +11,21 @@ gemma2-2b (sliding-window local layers page through ring tables):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
       --paged --prompts 12 --prompt-len 6000 --slots 8 --cache-len 8192
 
+gemma3-4b and gemma3-27b (five local layers of a 1,024-token window to
+each global one, qk-norm, a RoPE base of their own on local layers),
+paged or dense, from bf16, int8 or fp8 pools; gemma3-4b at full depth,
+gemma3-27b's 62 layers cut to 8 (one period and two local layers, so
+that it ends mid-cycle as the full stack does), as ``chip_smoke.py``
+serves them:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --paged --prompts 12 --prompt-len 2100 --slots 8 --cache-len 4608
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
+      --layers 8 --paged --kv-dtype int8 --prompts 12 --prompt-len 2100 \
+      --slots 8 --cache-len 4608
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+      --smoke --paged --page-size 4 --prompt-len 20 --device cpu
+
 deepseek-v2-lite-16b (MLA attention, 64 routed experts top-6 on 26 of
 its 27 layers), paged or dense, from bf16, int8 or fp8 pools, and
 speculating over them:
@@ -35,9 +50,14 @@ a dense residual MLP on every layer), paged or dense; its 35 layers are
 
 jamba-1.5-large-398b (global attention and mamba layers, 16 experts
 top-2 on every other layer; the selective-scan kernel on every mamba
-prefill), paged or dense, bf16 pools; the full 72 layers do not fit one
-card (``chip_smoke.py`` serves a 4-layer cut of it):
+prefill), paged or dense, from bf16, int8 or fp8 pools (the attention
+layers' pools quantize, the mamba state stays dense); the full 72
+layers do not fit one card (``chip_smoke.py`` serves a 4-layer cut of
+it):
 
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --layers 4 --paged --kv-dtype int8 \
+      --prompts 12 --prompt-len 511 --slots 8 --cache-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch jamba-1.5-large-398b --smoke --paged --page-size 4 \
       --device cpu

@@ -1,9 +1,10 @@
 """Attention blocks (``repro.models.attention``).
 
 GQA (global and sliding-window local layers, with the attention
-softcap): prefill, one-token decode over dense caches, dense rings,
-paged pools and ring-table window pools (each bf16 or quantized), and
-the speculative K1-token verify over paged pools.
+softcap and, where the config sets ``use_qk_norm``, q and k normed per
+head before RoPE): prefill, one-token decode over dense caches, dense
+rings, paged pools and ring-table window pools (each bf16 or
+quantized), and the speculative K1-token verify over paged pools.
 
 DeepSeek MLA: prefill, one-token decode over a dense cache or paged
 pools (bf16 or quantized), and the speculative K1-token verify over
@@ -12,7 +13,8 @@ paged pools, all of the *materialised* per-head K (nope | shared rope,
 
 Weights keep the reference's shapes flattened to 2-D matrices:
 ``wq`` (d, H*hd), ``wk``/``wv`` (d, Hkv*hd), ``wo`` (H*hd, d), which is
-``(d, H, hd)`` / ``(H, hd, d)`` row-major, so conversion is a reshape;
+``(d, H, hd)`` / ``(H, hd, d)`` row-major, so conversion is a reshape
+(and, with qk-norm, ``q_norm``/``k_norm`` (hd,), stored around 0);
 MLA's ``wq_mla`` (d, H*qk), ``wkv_a`` (d, lora + rope), ``wkv_b``
 (lora, H*(nope + v)) and ``wo_mla`` (H*v, d) likewise.
 """
@@ -86,13 +88,28 @@ def _spec_page_coords(block_tables: torch.Tensor, lengths: torch.Tensor,
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig, *, dtype):
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": L.dense_init(gen, (d, h * hd), dtype=dtype, in_axis_size=d),
         "wk": L.dense_init(gen, (d, hkv * hd), dtype=dtype, in_axis_size=d),
         "wv": L.dense_init(gen, (d, hkv * hd), dtype=dtype, in_axis_size=d),
         "wo": L.dense_init(gen, (h * hd, d), dtype=dtype,
                            in_axis_size=h * hd),
     }
+    if cfg.use_qk_norm:
+        p["q_norm"] = L.norm_param(hd, device=gen.device, dtype=dtype)
+        p["k_norm"] = L.norm_param(hd, device=gen.device, dtype=dtype)
+    return p
+
+
+def _qk_norm(p, q: torch.Tensor, k: torch.Tensor, cfg: ModelConfig,
+             plain: bool):
+    """q and k normed over each head's columns (B1 at rows of head_dim)
+    where the config sets qk-norm, before RoPE (``repro``
+    attention.py:107); unchanged otherwise."""
+    if not cfg.use_qk_norm:
+        return q, k
+    return (L.apply_norm(p["q_norm"], q, plain=plain),
+            L.apply_norm(p["k_norm"], k, plain=plain))
 
 
 def _heads(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -101,11 +118,12 @@ def _heads(y: torch.Tensor, n: int) -> torch.Tensor:
     return y.view(b, s, n, -1).transpose(1, 2).contiguous()
 
 
-def _qkv(p, x: torch.Tensor, cfg: ModelConfig, rope):
+def _qkv(p, x: torch.Tensor, cfg: ModelConfig, rope, plain: bool):
     xd = x.dtype
     q = _heads(x @ p["wq"].to(xd), cfg.num_heads)
     k = _heads(x @ p["wk"].to(xd), cfg.num_kv_heads)
     v = _heads(x @ p["wv"].to(xd), cfg.num_kv_heads)
+    q, k = _qk_norm(p, q, k, cfg, plain)
     cos, sin = rope
     return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
 
@@ -117,7 +135,7 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, rope, *,
     config's window.  Returns (y, k, v) with the rope'd K/V (B, Hkv, S,
     hd) for the prefill cache."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, rope)
+    q, k, v = _qkv(p, x, cfg, rope, plain)
     fn = flash_ref.flash_attention_ref if plain else flash_attention
     out = fn(q, k, v, causal=True, window=_window(cfg, kind),
              softcap=cfg.attn_softcap)
@@ -150,15 +168,16 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     ``cache_scales`` (ks, vs), the (Hkv, P) scale pools, marks the pools
     quantized: the write re-quantizes the page and the quantized kernel
     reads it.  ``plain`` takes the kernel's plain version on any device,
-    over a dense cache or ring or a bf16 pool of the global group.
-    Returns out (B, 1, d)."""
-    if plain and (windowed or cache_scales is not None):
-        raise ValueError("plain decode is built for dense caches and bf16 "
-                         "pools of the global group")
+    over a dense cache or ring or a pool of the global group (bf16 or
+    quantized).  Returns out (B, 1, d)."""
+    if plain and windowed:
+        raise ValueError("plain decode is built for dense caches and pools "
+                         "of the global group")
     xd = x.dtype
     q = (x[:, 0] @ p["wq"].to(xd)).view(x.shape[0], cfg.num_heads, -1)
     k = (x[:, 0] @ p["wk"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
     v = (x[:, 0] @ p["wv"].to(xd)).view(x.shape[0], cfg.num_kv_heads, -1)
+    q, k = _qk_norm(p, q, k, cfg, plain)
     cos, sin = rope
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin)
@@ -186,13 +205,13 @@ def decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
             fn = paged_decode_update_attend
             qfn = quant_paged_decode_update_attend
             kw["window"] = _window(cfg, kind)
+        if plain:
+            kw["plain"] = True
         if cache_scales is not None:
             out = qfn(q, k, v, cache_k, cache_v, cache_scales[0],
                       cache_scales[1], block_tables, write_page, write_off,
                       eff_len, page_size=ps, **kw)
         else:
-            if plain:
-                kw["plain"] = True
             out = fn(q, k, v, cache_k, cache_v, block_tables, write_page,
                      write_off, eff_len, page_size=ps, **kw)
     elif ring:
@@ -222,6 +241,7 @@ def spec_decode_attn(p, x: torch.Tensor, cache_k: torch.Tensor,
     q = (x @ p["wq"].to(xd)).view(b, k1, cfg.num_heads, -1)
     k = (x @ p["wk"].to(xd)).view(b, k1, cfg.num_kv_heads, -1)
     v = (x @ p["wv"].to(xd)).view(b, k1, cfg.num_kv_heads, -1)
+    q, k = _qk_norm(p, q, k, cfg, plain)
     cos, sin = rope
     q = L.apply_rope(q, cos, sin)
     k = L.apply_rope(k, cos, sin).transpose(1, 2)          # (B, Hkv, K1, hd)

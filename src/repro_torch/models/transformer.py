@@ -1,7 +1,9 @@
 """Decoder stack (``repro.models.transformer``, the branches serving
 takes for decoders of global and sliding-window attention layers:
 granite-8b; gemma2-2b's alternating local/global pattern with softcaps,
-sandwich norms, a tanh-GELU MLP and a scaled embedding;
+sandwich norms, a tanh-GELU MLP and a scaled embedding; gemma3's 5:1
+local/global pattern with qk-norm and a RoPE base of its own on the
+local layers;
 deepseek-v2-lite-16b's MLA attention with a dense first layer and MoE
 layers after it; jamba-1.5's hybrid of global attention and mamba
 layers with MoE on every other layer; and xlstm-1.3b's recurrent stack
@@ -44,10 +46,7 @@ from repro_torch.models import xlstm as X
 Z_LOSS_WEIGHT = 1e-4
 ROUTER_Z_WEIGHT = 1e-3
 
-_DEFAULTS = {
-    "use_qk_norm": False, "rope_theta_local": None,
-    "encoder_layers": 0, "frontend": None,
-}
+_DEFAULTS = {"encoder_layers": 0, "frontend": None}
 _FAMILIES = ("dense", "moe", "hybrid", "ssm")
 _MOE_LAYERS = ("none", "all", "all_but_first", "every_2")
 _KINDS = ("global", "local", "mamba", "mlstm", "slstm")
@@ -83,14 +82,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {odd} are not ported yet — the port serves "
             f"decoders of global and sliding-window (local) attention "
-            f"layers with softcaps, sandwich norms and a gated SiLU or "
-            f"tanh-GELU MLP, of global MLA layers with MoE on all but the "
-            f"first layer, of global attention layers with MoE and a "
-            f"dense residual MLP on every layer, of global attention and "
-            f"mamba layers with MoE on every other layer, and of mLSTM "
-            f"and sLSTM layers; still to port: qk-norm and "
-            f"rope_theta_local (gemma3), encoders and multimodal "
-            f"frontends (ROADMAP.md queue A)")
+            f"layers with softcaps, sandwich norms, qk-norm, a local RoPE "
+            f"base and a gated SiLU or tanh-GELU MLP, of global MLA layers "
+            f"with MoE on all but the first layer, of global attention "
+            f"layers with MoE and a dense residual MLP on every layer, of "
+            f"global attention and mamba layers with MoE on every other "
+            f"layer, and of mLSTM and sLSTM layers; still to port: "
+            f"encoders and multimodal frontends (ROADMAP.md queue A)")
     dtype_of(cfg.dtype)
 
 
@@ -277,8 +275,8 @@ def apply_layer_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     (B, T) table, or for a model with a window group the dict {"global",
     "window"}.  The new token's K/V (or state) is written into the cache
     in place.  ``plain`` takes the plain version of every kernel, on any
-    device, for global layers over bf16 pools or dense caches and for
-    recurrent layers (the replay that ``chip_smoke.py`` holds the served
+    device, for global layers over pools (bf16 or quantized) or dense
+    caches and for recurrent layers (the replay that ``chip_smoke.py`` holds the served
     path against)."""
     h = L.apply_norm(p["ln1"], x, plain=plain)
     if kind in RECURRENT_KINDS:
@@ -364,16 +362,36 @@ def _rope_dim(cfg: ModelConfig) -> int:
     return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
 
 
+def _theta(cfg: ModelConfig, kind: str) -> float:
+    """A layer's RoPE base: ``rope_theta_local`` on local layers where
+    the config sets one (gemma3), else ``rope_theta``."""
+    if kind == "local" and cfg.rope_theta_local is not None:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor, shape):
+    """Every layer rotates the same positions, so each call computes one
+    cos/sin pair per RoPE base of the stack (two with
+    ``rope_theta_local``), not one per layer: {base: (cos, sin)}, each
+    reshaped by ``shape`` to broadcast against the layers' q/k."""
+    tables = {}
+    for theta in {_theta(cfg, k) for k in cfg.layer_kinds()}:
+        cos, sin = L.rope_cache(positions, _rope_dim(cfg), theta)
+        tables[theta] = (shape(cos), shape(sin))
+    return tables
+
+
 def _forward(params, cfg: ModelConfig, tokens: torch.Tensor,
              cache_len: Optional[int], *, plain: bool, aux=None):
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    # every layer rotates the same positions: one cos/sin for the stack
-    rope = L.rope_cache(torch.arange(tokens.shape[1], device=x.device),
-                        _rope_dim(cfg), cfg.rope_theta)
+    ropes = _rope_tables(cfg, torch.arange(tokens.shape[1], device=x.device),
+                         lambda t: t)
     caches = []
     for p, kind in zip(params["layers"], cfg.layer_kinds()):
-        x, c = apply_layer_prefill(p, x, cfg, kind, cache_len, rope,
-                                   plain=plain, aux=aux)
+        x, c = apply_layer_prefill(p, x, cfg, kind, cache_len,
+                                   ropes[_theta(cfg, kind)], plain=plain,
+                                   aux=aux)
         caches.append(c)
     return x, caches
 
@@ -447,11 +465,11 @@ def decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
     (MLA models)."""
     x = L.embed_tokens(params["embed"], tokens[:, None], cfg)
     # each slot's position is its length, the same in every layer
-    cos, sin = L.rope_cache(lengths, _rope_dim(cfg), cfg.rope_theta)
-    rope = (cos[:, None, :], sin[:, None, :])
+    ropes = _rope_tables(cfg, lengths, lambda t: t[:, None, :])
     for p, c, kind in zip(params["layers"], caches, cfg.layer_kinds()):
-        x = apply_layer_decode(p, x, c, cfg, kind, lengths, rope,
-                               block_tables, plain=plain)
+        x = apply_layer_decode(p, x, c, cfg, kind, lengths,
+                               ropes[_theta(cfg, kind)], block_tables,
+                               plain=plain)
     return _logits(params, x, cfg, plain=plain)[:, 0]
 
 
@@ -465,14 +483,14 @@ def spec_decode_step(params, cfg: ModelConfig, caches: List[Dict], tokens,
     ``plain`` takes the plain version of every kernel, on any device."""
     k1 = tokens.shape[1]
     x = L.embed_tokens(params["embed"], tokens, cfg)
-    # positions lengths + i, the same in every layer: one cos/sin
+    # positions lengths + i, the same in every layer
     pos = lengths[:, None] + torch.arange(k1, dtype=lengths.dtype,
                                           device=lengths.device)[None, :]
-    cos, sin = L.rope_cache(pos, _rope_dim(cfg), cfg.rope_theta)
-    rope = (cos[:, :, None, :], sin[:, :, None, :])
+    ropes = _rope_tables(cfg, pos, lambda t: t[:, :, None, :])
     for p, c, kind in zip(params["layers"], caches, cfg.layer_kinds()):
-        x = apply_layer_spec_decode(p, x, c, cfg, kind, lengths, rope,
-                                    block_tables, plain=plain)
+        x = apply_layer_spec_decode(p, x, c, cfg, kind, lengths,
+                                    ropes[_theta(cfg, kind)], block_tables,
+                                    plain=plain)
     return _logits(params, x, cfg, plain=plain)
 
 

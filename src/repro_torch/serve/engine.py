@@ -56,9 +56,9 @@ then ensures the write page.  The dense engine keeps such layers in
 rings of the window.
 
 MLA models (deepseek-v2-lite-16b) cache the materialised per-head K
-and V, of their own widths, in the pools and the dense caches alike;
-their int8/fp8 pools and their speculative decoding are refused until
-the kernels for them are ported.
+and V, of their own widths, in the pools and the dense caches alike,
+and are served from int8/fp8 pools and speculatively as GQA models
+are.
 
 Models with recurrent layers (jamba-1.5's mamba layers; xlstm-1.3b's
 mLSTM and sLSTM layers) keep each such layer's state (mamba ``h``;
@@ -69,9 +69,13 @@ whole state of the slots it fills, so a re-admitted slot (after
 preemption, or a new request) starts from its own prefill alone.  A
 model with no attention layer (xlstm-1.3b) has no page pool that any
 kernel reads, yet the paged engine keeps its block tables, allocator
-and preemption as for any other model, as the reference's does.  Their
-int8/fp8 pools are refused until the quantized scatter for recurrent
-models is ported, and speculation is refused as for every recurrent
+and preemption as for any other model, as the reference's does.  With
+``kv_dtype`` int8/fp8 their attention layers' pools quantize as any
+model's do, while the recurrent state keeps its dense slot-major leaves
+in the model's dtype (``repro`` paging.py:454); a model of recurrent
+layers alone then has no pool to quantize, and its engine differs from
+the bf16 one only in the spec it reports and the page size it resolves,
+as the reference's does.  Speculation is refused as for every recurrent
 layer: a batched verify cannot roll the state back.
 
 Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
@@ -251,13 +255,6 @@ class Engine:
         self.spec = sc.spec_mode != "off"
         kinds = model.cfg.layer_kinds()
         recurrent = [i for i, k in enumerate(kinds) if k in RECURRENT_KINDS]
-        if recurrent and sc.kv_dtype not in (None, "bf16"):
-            raise NotImplementedError(
-                f"{model.cfg.name}: models with recurrent (mamba, mLSTM, "
-                f"sLSTM) layers are served from bf16 pools so far; "
-                f"kv_dtype={sc.kv_dtype!r} arrives with the quantized pools "
-                f"and scatter for recurrent models (ROADMAP.md queue A, "
-                f"item 11)")
         if self.spec:
             if not sc.paged:
                 raise ValueError("spec_mode requires paged=True (rollback "

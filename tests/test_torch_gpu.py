@@ -574,6 +574,108 @@ def test_gemma2_engine_on_card_matches_cpu(cuda, mode):
     assert outs["cuda"] == outs["cpu"]
 
 
+# ------------------------------------------ gemma3: qk-norm, 5:1, RoPE bases --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 4, 300, 256), (2, 16, 300, 128),
+                                   (8, 8, 1, 256), (8, 32, 1, 128)],
+                         ids=["4b-prefill", "27b-prefill", "4b-decode",
+                              "27b-decode"])
+def test_rmsnorm_kernel_at_qk_norm_rows(cuda, dtype, shape):
+    """B1 over (B, H, S, head_dim) heads, as qk-norm runs it: rows of 256
+    (gemma3-4b) and 128 (gemma3-27b), in one launch, against its plain
+    version; the staged schedule and the streaming one bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    w = (0.5 * torch.randn(shape[-1], device=cuda, generator=g)).to(dtype)
+    before = rms_kern.KERNEL.launches
+    got = rms_ops.rmsnorm(x, w, eps=1e-6, weight_offset=1.0)
+    assert rms_kern.KERNEL.launches == before + 1
+    want = rms_ref.rmsnorm_ref(x, w, eps=1e-6, weight_offset=1.0)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    twin = rms_native.rmsnorm_native(x, w, eps=1e-6, weight_offset=1.0)
+    assert torch.equal(got, twin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_kernel_at_gemma3_windows(cuda, dtype, d):
+    """B2 at gemma3's heads (no softcap) over a window shorter than the
+    prompt (its local layers) and over none (its global ones)."""
+    q, k, v = _flash_operands(cuda, dtype, 300, 300, d, d, seed=5)
+    for window in (64, None):
+        kw = dict(causal=True, window=window, scale=d ** -0.5)
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = fa_ref.flash_attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        if dtype == torch.bfloat16:
+            model = fa_ref.flash_attention_bf16_operands(q, k, v, **kw)
+            assert fa_ref.model_mismatch(got, model) <= fa_ref.MODEL_MISMATCH
+
+
+def _gemma3_card_model(head_dim, pattern=None):
+    """The gemma3 smoke pattern cut to 7 layers (five local of window
+    16, one global, one local) at a head dim the kernels take, float32,
+    its qk-norm weights drawn from a seed so that they matter."""
+    cfg = dataclasses.replace(smoke_config("gemma3-4b", num_layers=7),
+                              d_model=256, num_heads=4, num_kv_heads=2,
+                              head_dim=head_dim, d_ff=512, dtype="float32")
+    if pattern is not None:
+        cfg = dataclasses.replace(cfg, layer_pattern=pattern)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        for name in ("q_norm", "k_norm"):
+            layer["attn"][name] = 0.5 * torch.randn(head_dim, generator=g)
+    return model, params
+
+
+@pytest.mark.parametrize("head_dim", [128, 256])
+@pytest.mark.parametrize("mode", [
+    dict(paged=False), dict(paged=True), dict(paged=True, kv_dtype="int8")],
+    ids=["dense-ring", "paged-window", "int8-window"])
+def test_gemma3_engine_on_card_matches_cpu(cuda, mode, head_dim):
+    """qk-norm (B1 at rows of the head), two RoPE bases and the 5:1
+    pattern at window 16, mid-cycle: the same greedy tokens on the card
+    (B1, B2, B3 over rings, B4 and B7, or B5 and B7q) and on the CPU,
+    past the window, with prefix frees."""
+    model, params = _gemma3_card_model(head_dim)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, **mode)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        before = rms_kern.KERNEL.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (rms_kern.KERNEL.launches > before) == (dev == "cuda")
+        if eng.paged:
+            assert eng.stats()["window_prefix_frees"] > 0
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_gemma3_global_spec_engine_on_card_matches_cpu(cuda, kv_dtype):
+    """qk-norm under speculation (a global-only pattern: the engine
+    refuses speculation over local layers), k = 3: B6 on the card."""
+    model, params = _gemma3_card_model(128, pattern=("global",))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=True, spec_mode="ngram",
+                         spec_k=3, kv_dtype=kv_dtype)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        eng.run_to_completion(reqs)
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
 # ------------------------------------------ deepseek: B8 and MLA builds --
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -732,6 +834,32 @@ def test_jamba_engine_on_card_matches_cpu(cuda, paged):
     assert outs["cuda"] == outs["cpu"]
 
 
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8_e4m3"])
+def test_jamba_quantized_engine_on_card_matches_cpu(cuda, kv_dtype):
+    """jamba's 4-layer cut from int8 and fp8 pools (B5 at the attention
+    layer, the mamba state dense): the same greedy tokens on the card
+    and on the CPU."""
+    cfg = dataclasses.replace(
+        smoke_config("jamba-1.5-large-398b"), num_layers=4, d_model=256,
+        num_heads=2, num_kv_heads=2, head_dim=128, d_ff=512,
+        dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
+                         page_size=8, paged=True, kv_dtype=kv_dtype)
+        eng = Engine(model, _to(params, dev), sc, device=dev)
+        reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
+                for i in range(3)]
+        before = quant_kern.KERNEL.launches
+        eng.run_to_completion(reqs)
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert (quant_kern.KERNEL.launches > before) == (dev == "cuda")
+        outs[dev] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["cpu"]
+
+
 # ------------------------------------------------ xlstm: B10 (mLSTM scan) --
 
 @pytest.mark.parametrize("b,h,s,dk,dtype", [
@@ -792,16 +920,19 @@ def _xlstm_card_config():
                                d_model=32, dtype="float32")
 
 
-@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
-def test_xlstm_engine_on_card_matches_cpu(cuda, paged):
+@pytest.mark.parametrize("mode", [
+    dict(paged=False), dict(paged=True), dict(paged=True, kv_dtype="int8")],
+    ids=["dense", "paged", "int8"])
+def test_xlstm_engine_on_card_matches_cpu(cuda, mode):
     """The same greedy tokens on the card (B1, and B10 at every prefill
-    with its state output) and on the CPU (plain versions)."""
+    with its state output) and on the CPU (plain versions); with an int8
+    ``kv_dtype`` there is no pool to quantize."""
     model = build_model(_xlstm_card_config())
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     outs = {}
     for dev in ("cpu", "cuda"):
         sc = ServeConfig(slots=2, cache_len=48, max_new_tokens=12,
-                         page_size=8, paged=paged)
+                         page_size=8, **mode)
         eng = Engine(model, _to(params, dev), sc, device=dev)
         reqs = [Request(rid=i, tokens=[1 + i] * (3 + 9 * i))
                 for i in range(3)]

@@ -416,11 +416,24 @@ def test_reused_slot_is_a_fresh_engine(paged):
 
 @pytest.mark.parametrize("mode", [dict(kv_dtype="int8"),
                                   dict(kv_dtype="fp8_e4m3")])
-def test_engine_refuses_quantized_pools_for_mamba(mode):
+def test_engine_quantizes_attention_pools_beside_dense_mamba_state(mode):
+    """int8/fp8 pools for jamba: the attention layers' pools take the
+    spec's storage with scale pools, every mamba layer keeps its dense
+    slot-major state in the model's dtype (the engines against
+    ``repro.serve.Engine``: tests/test_torch_hybrid_quant.py)."""
     _, _, pmodel, pparams = _models()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PortEngine(pmodel, pparams, PortServeConfig(paged=True, **mode),
-                   device="cpu")
+    eng = PortEngine(pmodel, pparams, PortServeConfig(paged=True, **mode),
+                     device="cpu")
+    storage = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}
+    for c, kind in zip(eng.caches, pmodel.cfg.layer_kinds()):
+        if kind == "mamba":
+            assert set(c) == {"h", "conv"}
+            assert c["h"].dtype == torch.float32
+            assert c["h"].shape[0] == eng.sc.slots
+        else:
+            assert c["kp"].dtype == storage[mode["kv_dtype"]]
+            assert c["ks"].shape == c["kp"].shape[:2]
+    assert eng.stats()["kv_dtype"] == mode["kv_dtype"]
 
 
 def test_engine_refuses_speculation_over_mamba_layers():

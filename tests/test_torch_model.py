@@ -90,14 +90,14 @@ def test_config_matches_reference():
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_configs.get_config("gemma3-4b")
+        port_configs.get_config("whisper-base")
     with pytest.raises(KeyError):
         port_configs.get_config("no-such-arch")
 
 
 def test_unported_layer_kinds_raise():
     cfg = port_smoke_config("granite-8b", num_layers=2)
-    for change in (dict(rope_theta_local=10_000.0), dict(use_qk_norm=True),
+    for change in (dict(encoder_layers=2), dict(frontend="vision"),
                    dict(layer_pattern=("mlstm", "global")),
                    dict(mlp_activation="gelu_ungated"),
                    dict(dtype="float16")):

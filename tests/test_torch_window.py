@@ -425,10 +425,14 @@ def test_convert_reads_the_gemma2_tree(num_layers):
 
 
 def test_check_supported_admits_gemma2_and_names_what_is_left():
+    """gemma2 with gemma3's qk-norm and local RoPE base is admitted;
+    what is left to port (encoders, frontends) is refused by name."""
     cfg = port_smoke_config("gemma2-2b")
     PT.check_supported(cfg)
-    for change in (dict(use_qk_norm=True), dict(rope_theta_local=1e4)):
-        with pytest.raises(NotImplementedError, match="gemma3"):
+    PT.check_supported(dataclasses.replace(cfg, use_qk_norm=True,
+                                           rope_theta_local=1e4))
+    for change in (dict(encoder_layers=2), dict(frontend="vision")):
+        with pytest.raises(NotImplementedError, match="encoders"):
             PT.check_supported(dataclasses.replace(cfg, **change))
 
 

@@ -479,11 +479,18 @@ def test_reused_slot_is_a_fresh_engine(paged):
 
 @pytest.mark.parametrize("mode", [dict(kv_dtype="int8"),
                                   dict(kv_dtype="fp8_e4m3")])
-def test_engine_refuses_quantized_pools_for_xlstm(mode):
+def test_engine_with_a_quantized_kv_dtype_keeps_the_dense_state(mode):
+    """xlstm has no attention layer, so an int8/fp8 ``kv_dtype`` has no
+    pool to quantize: every layer keeps its dense slot-major state in
+    the model's dtype, and the engine reports the spec (the engines
+    against ``repro.serve.Engine``: tests/test_torch_hybrid_quant.py)."""
     _, _, pmodel, pparams = _models()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PortEngine(pmodel, pparams, PortServeConfig(paged=True, **mode),
-                   device="cpu")
+    eng = PortEngine(pmodel, pparams, PortServeConfig(paged=True, **mode),
+                     device="cpu")
+    for c in eng.caches:
+        assert set(c) in (set(MLSTM_LEAVES), set(SLSTM_LEAVES))
+        assert all(v.dtype == torch.float32 for v in c.values())
+    assert eng.stats()["kv_dtype"] == mode["kv_dtype"]
 
 
 def test_engine_refuses_speculation_over_xlstm_layers():
