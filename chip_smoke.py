@@ -66,7 +66,13 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    prefill, dense and paged decode kernels at 56 query heads over 8 (a
    GQA group of 7 through the group-8 builds) and the grouped matmul
    over 128 experts of 7168 x 4864 at decode and at prefills of C 24
-   and 80; then xlstm-1.3b's: the mLSTM scan with its
+   and 80; then whisper-base's and internvl2-26b's: the norm at rows of
+   512 and 6,144 (bit for bit with its twin), the prefill kernel
+   non-causal at head dim 64 over 1,500 encoder frames (the encoder's
+   self-attention, cross-attention from 416 queries and from one) and
+   causal at 48/8 heads of 128, the dense decode kernel at whisper's 8/8
+   heads of 64 over caches of 448, and the dense and paged decode
+   kernels at internvl2's group of 6; then xlstm-1.3b's: the mLSTM scan with its
    final state (the reference's example, then B 1 and 2 x S 1, 17, 64,
    200 and 511 at 4 heads of Dk = Dv = 1024, bf16 with f32 gates);
    then the portable runtime against the native twins
@@ -192,7 +198,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    then from int8 and fp8 pools (27 launches of the quantized kernel
    at 192/128 a step, the pool bytes per slot under 0.53 of bf16's, the
    gap reported) and speculating k = 4 over bf16 pools (27 launches of
-   the speculative kernel a step, the gap checked, rejections > 0) and
+   the speculative kernel a step, the gap checked, rejections > 0, and
+   served a second time: the same tokens, since the dead slots' rows
+   that land in one null-page row are kept in index order) and
    over int8 pools (the gap reported), each held to a plain replay of
    its own calls (the verify calls too, the gap over the rows emitted);
 12. free deepseek-v2-lite-16b and serve the same 12 requests on
@@ -224,8 +232,37 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
    kernel launched; then ``Model.loss`` of one batch of 2 x 512 tokens
    through the kernels (the mLSTM scan once per mLSTM layer) and
    through their plain versions, the two within XL_LOSS_TOL;
-15. trace five paged decode steps of each model for the card's busy
-   share (reported, not checked).
+15. free xlstm-1.3b and drive ``whisper-base`` in full (6 encoder and 6
+   decoder layers, d_model 512, 8/8 heads of 64; random from a seed)
+   through its own entry points, since neither the engine nor the
+   reference's takes an encoder input: 8 requests, each with 1,500
+   encoder frames from the seed and a prompt of 17 to 416 tokens,
+   prefilled by prompt-length group with ``encoder_embeds`` into dense
+   caches, then 31 decode steps: every request's 32 tokens, one host copy
+   per step and per group and no other sync in a decode step, per step 6
+   launches of the dense decode kernel, 6 of the prefill kernel (the
+   cross-attention's one-token query over the 1,500 encoder keys) and 19
+   of the norm, per group 18 of the prefill kernel (encoder, causal,
+   cross) and 32 of the norm, and the teacher-forced gap against a plain
+   replay of the same calls (the reference's decode rotates the cross
+   query at position 0, so a plain forward is not the same computation);
+   ``Model.loss`` of 2 x 448 tokens with their frames through the
+   kernels and their plain versions, within WH_LOSS_TOL;
+16. free whisper-base and serve the 12 requests on ``internvl2-26b`` at
+   full width and depth (48 layers, 48/8 heads of 128, d_ff 16,384; 19.9
+   B parameters; random from a seed) paged and dense as phase 4 (48
+   launches of the mode's decode kernel and 97 of the norm per step, 48
+   of the prefill kernel and 97 of the norm per group), the gap checked
+   against an f32 plain forward of the same weights and reported
+   against the bf16 plain forward and the bf16 plain replay of the
+   run's own calls; then its vision
+   splice through the model's entry points: 2 prompts of 512 tokens whose
+   first 256 positions carry patch embeddings from the seed, checked as
+   phase 15 against its plain replay; ``Model.loss`` of that batch with
+   the patch positions' labels masked, within IV_LOSS_TOL;
+17. trace five paged decode steps of each model for the card's busy
+   share (reported, not checked); a profiler that cannot start fails the
+   phase.
 
 Each phase prints its wall time.
 
@@ -375,6 +412,33 @@ XL_TOL = 2e-4
 # to bf16 high and low halves on the tensor cores (about 2^-17 of each
 # term)
 XL_CHUNK_TOL = 1e-4
+# whisper-base in full: 6 encoder and 6 decoder layers, d_model 512, 8
+# query heads over 8 of 64 (a GQA group of 1), vocabulary 51,865.  Eight
+# requests, each with 1,500 encoder frames from the seed (1,500 is
+# openai/whisper-base's max_source_positions: 30 s of audio) and a
+# decoder prompt of 17 to 416 tokens, then 32 greedy tokens, inside the
+# model's 448 target positions.  The engine takes no encoder input (nor
+# does the reference's), so the model's own prefill and decode_step
+# drive it, prompt-length groups into slot rows as the dense engine does.
+WH_FRAMES, WH_CACHE_LEN, WH_REQUESTS = 1500, 448, 8
+WH_PROMPT_LENS = (17, 64, 200, 416)
+# the dense decode kernel's check lengths: a short prompt's first
+# step, served lengths, and the last row of the cache
+WH_LENGTHS = (1, 17, 64, 100, 200, 300, 416, 448)
+# internvl2-26b at full width and depth (48 layers, 48 query heads over 8
+# of 128, a GQA group of 6; d_ff 16,384; 19.9 B parameters, 39.7 GB in
+# bf16): served paged and dense on the 12 text requests, then the
+# vision splice: 2 prompts of 512 tokens whose first 256 positions carry
+# patch embeddings from the seed, through prefill and 32 decode steps
+IV_SPLICE_B, IV_SPLICE_S = 2, 512
+# Model.loss of whisper and internvl2 in bf16, through the kernels and
+# through their plain versions: each limit about ten times the
+# difference its sound run read (2.384e-5 and 7.048e-4 on an H100, PERF.md
+# §2): with random labels the mean cross-entropy follows the logits'
+# spread more than which token they favour, so a limit near the
+# teacher-forced gap's would let a kernel that keeps the scale pass
+WH_LOSS_TOL = 3e-4
+IV_LOSS_TOL = 7e-3
 # decode steps traced for the card's busy share: all 8 slots decoding,
 # none admitting (8 requests admitted at step 1 finish at step 32)
 PROFILED_STEPS = (10, 15)
@@ -2194,6 +2258,81 @@ def check_model_shapes(s: Smoke, key, dm, hq, hkv, e, topk, ff, seed,
         s.timings(f"gmm ({key} prefill gate/up, C {c})", *times)
 
 
+# ------------------------------------- whisper and internvl2 kernels -----
+
+def check_whisper_internvl2_shapes(s: Smoke) -> None:
+    """The kernels at the shapes whisper-base and internvl2-26b give
+    them, each against its plain version (B2's bf16 body also against its
+    rounding model), timed beside its bound and SDPA, into each record
+    under "whisper ..." or "internvl2": B1 over a prefill group's
+    encoder rows of 512 (2 x 1,500) and internvl2's rows of 6,144 (2 x
+    511), bit for bit with B11a; B2 non-causal at head dim 64 and a
+    group of 1 (the encoder's self-attention over 1,500 frames, timed at
+    8 requests; cross-attention at prefill, 2 x 416 queries over 1,500
+    keys; at decode, 8 one-token queries over 1,500 keys), causal at
+    internvl2's 48/8 heads of 128 (a group of 6); B3 at whisper's dense
+    caches of 448 rows (8/8 heads of 64) and B3 and B4 at internvl2's
+    (48/8 x 128), each by its split rule (``_decode_shapes``, which
+    also holds B4 at whisper's heads)."""
+    torch = s.torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import native
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=s.dev).manual_seed(21)
+    kw = dict(eps=1e-6, weight_offset=1.0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=s.dev, generator=g,
+                           dtype=torch.bfloat16)
+
+    for key, rows, dm in (("whisper", 2 * WH_FRAMES, 512),
+                          ("internvl2", 2 * PROMPT_LENS[-1], 6144)):
+        x, w = rnd(rows, dm), 0.1 * rnd(dm)
+        label = f"rmsnorm {key} ({rows}, {dm}) bf16"
+        got = rops.rmsnorm(x, w, **kw)
+        err = s.compare(label, got, rref.rmsnorm_ref(x, w, **kw))
+        s.check(bool(torch.equal(got, native.rmsnorm_native(x, w, **kw))),
+                f"{label}: B1 and B11a bit for bit")
+        s.record_also("rmsnorm", key, err,
+                      s.time_ms(lambda: rops.rmsnorm(x, w, **kw)),
+                      s.time_ms(lambda: rref.rmsnorm_ref(x, w, **kw)),
+                      2 * x.numel() * 2 + 2 * dm, 4 * x.numel(),
+                      s.time_ms(lambda: torch.nn.functional.rms_norm(
+                          x, (dm,), w + 1.0, 1e-6)))
+        del x, got
+
+    def flash(key, b, hq, hkv, sq, skv, d, causal):
+        q, k, v = rnd(b, hq, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)
+        fkw = dict(causal=causal)
+        label = (f"flash {key} ({b}, {hq}/{hkv}, {sq} x {skv}, {d}) "
+                 f"{'causal' if causal else 'non-causal'} bf16")
+        err = s.compare(label, fops.flash_attention(q, k, v, **fkw),
+                        fref.flash_attention_ref(q, k, v, **fkw))
+        operands_model(s, label, (q, k, v), fkw)
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        s.record_also(
+            "flash_attention", key, err,
+            s.time_ms(lambda: fops.flash_attention(q, k, v, **fkw)),
+            s.time_ms(lambda: fref.flash_attention_ref(q, k, v, **fkw)),
+            2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * b * hq * d * pairs,
+            s.time_ms(lambda: sdpa(q, k, v, is_causal=causal,
+                                   enable_gqa=True)))
+
+    flash("whisper encoder", WH_REQUESTS, 8, 8, WH_FRAMES, WH_FRAMES, 64,
+          False)
+    flash("whisper cross prefill", 2, 8, 8, WH_PROMPT_LENS[-1], WH_FRAMES,
+          64, False)
+    flash("whisper cross decode", WH_REQUESTS, 8, 8, 1, WH_FRAMES, 64, False)
+    flash("internvl2", 2, 48, 8, PROMPT_LENS[-1], PROMPT_LENS[-1], 128, True)
+    _decode_shapes(s, "whisper", WH_LENGTHS, WH_CACHE_LEN, 8, 8, 64, False)
+    _decode_shapes(s, "internvl2", DECODE_LENGTHS, CACHE_LEN, 48, 8, 128,
+                   False)
+
+
 # ------------------------------------------------- xlstm-1.3b kernels -----
 
 def _with_state(res):
@@ -2825,8 +2964,6 @@ def traced_busy_share(s: Smoke, model, params, cache_len=CACHE_LEN,
     for _ in range(PROFILED_STEPS[0]):
         engine.step()
     prof = _profiler(torch)
-    if prof is None:
-        return None
     t0 = time.perf_counter()
     for _ in range(PROFILED_STEPS[1] - PROFILED_STEPS[0]):
         engine.step()                     # each step ends in a sync
@@ -2837,14 +2974,11 @@ def traced_busy_share(s: Smoke, model, params, cache_len=CACHE_LEN,
 
 def _profiler(torch):
     """Trace the card's kernels (no host ops: less overhead on the host,
-    which is what the window measures against); None if it cannot."""
-    try:
-        prof = torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA])
-        prof.start()
-    except RuntimeError:
-        traceback.print_exc()
-        return None
+    which is what the window measures against).  A profiler that cannot
+    start raises, and the trace phase fails like any other."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
     return prof
 
 
@@ -2862,12 +2996,13 @@ def _device_busy_ms(prof, steps: int):
     return total_us / 1e3 if total_us > 0 else None
 
 
-def teacher_gap(s: Smoke, model, params, reqs):
+def teacher_gap(s: Smoke, model, params, reqs, forward=None):
     """Largest (argmax logit - emitted token's logit) over every emitted
-    token, from a plain-path forward over prompt + outputs; returns it
-    and where it was (request, index of the emitted token: 0 is the
-    prefill's sample), the emitted tokens and how many of them were not
-    the plain forward's argmax (gap > 0)."""
+    token, from a plain-path forward over prompt + outputs (``forward(seq,
+    start)``'s logits, if given); returns it and where it was (request,
+    index of the emitted token: 0 is the prefill's sample), the emitted
+    tokens and how many of them were not the plain forward's argmax (gap
+    > 0)."""
     torch = s.torch
     worst, where, tokens, flipped = 0.0, None, 0, 0
     with torch.no_grad():
@@ -2876,8 +3011,8 @@ def teacher_gap(s: Smoke, model, params, reqs):
             p0 = len(r.tokens) - 1
             # logits only where tokens were emitted: at gemma2's vocab of
             # 256,000 every position of a 6,000-token prompt is 6 GB
-            rows = model.forward_logits(params, seq, plain=True,
-                                        start=p0)[0]
+            rows = (model.forward_logits(params, seq, plain=True, start=p0)
+                    if forward is None else forward(seq, p0))[0]
             got = rows[torch.arange(len(r.out), device=s.dev),
                        torch.tensor(r.out, device=s.dev)]
             gaps = rows.max(-1).values - got
@@ -2970,13 +3105,17 @@ def check_serving(s: Smoke, model, params, name: str, mode: dict,
         # the served expert choices too: at a near tie the plain path's
         # rounding can pick another expert, and past capacity that
         # reorders which assignments drop (reported below, unchecked)
+        moe = model.cfg.moe is not None
         gap, dropped, flips, tokens, flipped = replay_gap(
-            s, model, params, calls, routes, **shape, **mode)
-        s.check(dropped == st["moe_dropped"],
-                f"{name}: the replay on the served expert choices dropped "
-                f"the served {st['moe_dropped']} assignments ({dropped}); "
-                f"its own top-k differed in {flips} choices")
-        st.update(replay_routing_flips=flips)
+            s, model, params, calls, routes if moe else None, **shape,
+            **mode)
+        if moe:
+            s.check(dropped == st["moe_dropped"],
+                    f"{name}: the replay on the served expert choices "
+                    f"dropped the served {st['moe_dropped']} assignments "
+                    f"({dropped}); its own top-k differed in {flips} "
+                    f"choices")
+            st.update(replay_routing_flips=flips)
         if free_replay:
             free, free_dropped, *_ = replay_gap(s, model, params, calls,
                                                 None, **shape, **mode)
@@ -3473,24 +3612,50 @@ def ttft_by_class(tel):
     return out
 
 
+def _upcast(tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_upcast(v) for v in tree)
+    return tree.float() if tree.is_floating_point() else tree
+
+
 def _f32_model(model, params):
     """The same weights upcast to f32, and a model that computes in f32:
     the exact function the bf16 served path approximates.  The SLO
     phase's gap is taken against it: over its 1,075 tokens the bf16 plain
     forward's own rounding reaches past TEACHER_GAP where the served
-    token is the f32 argmax (PERF.md §6, PR 28)."""
+    token is the f32 argmax (PERF.md §6)."""
     import dataclasses
     from repro_torch.models.registry import build_model
-
-    def up(tree):
-        if isinstance(tree, dict):
-            return {k: up(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(up(v) for v in tree)
-        return tree.float() if tree.is_floating_point() else tree
-
     return (build_model(dataclasses.replace(model.cfg, dtype="float32")),
-            up(params))
+            _upcast(params))
+
+
+def _f32_layerwise_logits(model, params):
+    """``forward(seq, start)`` for ``teacher_gap``: ``forward_logits``'s
+    plain text path (embed, the layers, the final norm and unembed)
+    computed in f32, each layer's weights upcast as the loop reaches it,
+    so that one layer's f32 copy is held at a time: internvl2-26b's
+    weights take 79.5 GB in f32."""
+    import dataclasses
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    top = {k: _upcast(v) for k, v in params.items() if k != "layers"}
+
+    def forward(seq, start):
+        x = L.embed_tokens(top["embed"], seq, cfg)
+        ropes = T._rope_tables(cfg, torch.arange(seq.shape[1],
+                                                 device=seq.device),
+                               lambda t: t)
+        for p, kind in zip(params["layers"], cfg.layer_kinds()):
+            x, _ = T.apply_layer_prefill(_upcast(p), x, cfg, kind, None,
+                                         ropes[T._theta(cfg, kind)],
+                                         plain=True)
+        return T._logits(top, x[:, start:].contiguous(), cfg, plain=True)
+    return forward
 
 
 def check_sampler(s: Smoke):
@@ -3984,6 +4149,16 @@ def run_serving_deepseek(s: Smoke):
         agree[f"{kv}_paged"] = _agree(runs[kv], runs["paged"])
     spec = dict(paged=True, spec_mode="ngram", spec_k=SPEC_K)
     run("spec", spec, "spec_paged_decode_attention", free_replay=False)
+    # dead slots' rows land in the null page, which their own attention
+    # reads and their hidden states route through MoE capacity beside
+    # the live slots': the pools keep those rows in index order, so a
+    # second run emits the same tokens
+    again, _ = serve(s, model, params, **spec)
+    s.check([r.out for r in again] == [r.out for r in runs["spec"]],
+            f"deepseek spec: a second run emits the same tokens "
+            f"({_agree(again, runs['spec'])} of {stats['spec']['tokens']} "
+            f"agree)")
+    del again
     run("spec-int8", dict(spec, kv_dtype="int8"),
         "spec_paged_decode_attention", teacher_checked=False,
         free_replay=False)
@@ -4256,17 +4431,181 @@ def run_serving_xlstm(s: Smoke):
 
 def xlstm_loss(s: Smoke, model, params, tol):
     """``Model.loss`` of one batch of XL_LOSS_B x XL_LOSS_S random tokens
-    and labels: through the kernels (the counts set to 0 just before and
-    read just after: B10 once per mLSTM layer, without its state output,
-    and B1), then through their plain versions (no launch); the two
-    losses within ``tol``, or reported where it is None."""
+    and labels (``check_loss``: B10 once per mLSTM layer, without its
+    state output, and B1), the two losses within ``tol``, or reported
+    where it is None."""
     torch = s.torch
-    from repro_torch.core.build import KERNELS
     g = torch.Generator(device=s.dev).manual_seed(5)
     batch = {name: torch.randint(0, model.cfg.vocab_size,
                                  (XL_LOSS_B, XL_LOSS_S), device=s.dev,
                                  generator=g)
              for name in ("tokens", "labels")}
+    dt = model.cfg.dtype
+    out = check_loss(s, model, params, f"xlstm {dt}", batch,
+                     ("mlstm_scan", "rmsnorm"), tol)
+    n_mlstm = model.cfg.layer_kinds().count("mlstm")
+    s.check(out["launches"]["mlstm_scan"] == n_mlstm,
+            f"xlstm loss ({dt}): mlstm_scan launched once per mLSTM layer "
+            f"({out['launches']['mlstm_scan']} = {n_mlstm})")
+    return out
+
+
+# ------------------------------------------- whisper-base, internvl2-26b ----
+
+def drive_model(s: Smoke, model, params, prompts, extras, cache_len,
+                max_new=MAX_NEW, plain=False, forced=None):
+    """Serve ``prompts`` through the model's own entry points with each
+    row's stub inputs (``extras``: name -> (rows, ...) on the card), as
+    the dense engine admits: each group of equal prompt length in one
+    ``Model.prefill`` with its rows' extras, its caches copied into the
+    rows of one dense cache per layer (``enc_len`` encoder rows beside
+    K/V for an encoder-decoder), its first token sampled from the
+    prefill's logits; then ``max_new - 1`` decode steps over every row.
+    Greedy, one host copy per group and per step (``copies``); sync
+    debugging counts any other sync in the decode steps (``hidden``).
+    With ``forced`` (the served run's ``calls``) every call's tokens are
+    the served ones instead of its argmax, and ``worst`` keeps the
+    largest (argmax logit - served token's logit), ``flipped`` the
+    served tokens that are not the argmax: the plain replay of the same
+    calls, with ``plain``."""
+    torch = s.torch
+    n = len(prompts)
+    enc = extras.get("encoder_embeds")
+    caches = model.init_decode_caches(n, cache_len, s.dev, enc_len=(
+        0 if enc is None else enc.shape[1]))
+    groups = {}
+    for i, p in enumerate(prompts):
+        groups.setdefault(len(p), []).append(i)
+    tok = torch.zeros(n, dtype=torch.long, device=s.dev)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=s.dev)
+    calls, outs, st = [], [[] for _ in prompts], {
+        "copies": 0, "hidden": 0, "worst": None, "flipped": 0,
+        "emitted": 0, "groups": len(groups), "steps": max_new - 1}
+
+    def sample(logits):
+        if forced is None:
+            nxt = logits.argmax(-1)
+        else:
+            nxt = forced[len(calls)]
+            gap = logits.max(-1).values - logits.gather(
+                1, nxt[:, None])[:, 0]
+            st["flipped"] = st["flipped"] + (gap > 0).sum()
+            gap = gap.max()
+            st["worst"] = gap if st["worst"] is None else \
+                st["worst"].maximum(gap)
+        calls.append(nxt)
+        st["emitted"] += nxt.numel()
+        st["copies"] += 1
+        return nxt, nxt.tolist()
+
+    with torch.no_grad():
+        for rows in groups.values():
+            idx = torch.tensor(rows, device=s.dev)
+            logits, group = model.prefill(
+                params, torch.tensor([prompts[i] for i in rows],
+                                     device=s.dev), cache_len,
+                {k: v.index_select(0, idx) for k, v in extras.items()},
+                plain=plain)
+            for c, c1 in zip(caches, group):
+                for name in c:
+                    c[name].index_copy_(0, idx, c1[name])
+            nxt, host = sample(logits)
+            tok.index_copy_(0, idx, nxt)
+            for i, t in zip(rows, host):
+                outs[i].append(t)
+            del group
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(max_new - 1):
+                torch.cuda.set_sync_debug_mode(1)
+                try:
+                    logits = model.decode_step(params, caches, tok, lengths,
+                                               plain=plain)
+                    lengths += 1
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                tok, host = sample(logits)
+                for out, t in zip(outs, host):
+                    out.append(t)
+            st["hidden"] = sum("synchroniz" in str(w.message)
+                               for w in caught)
+    if forced is not None:
+        st["worst"], st["flipped"] = float(st["worst"]), int(st["flipped"])
+    del caches
+    return outs, calls, st
+
+
+def check_driven(s: Smoke, model, params, name, prompts, extras, cache_len,
+                 per_step, per_group):
+    """``drive_model`` through the kernels (every count set to 0 just
+    before, read just after), then its plain replay: every row's
+    ``MAX_NEW`` tokens, one host copy per step and group and no other
+    sync in a decode step, each kernel in ``per_step`` launched exactly
+    that many times per decode step plus ``per_group[k]`` per prefill
+    group and none of the others, the replay launching none, and the
+    gap against the replay within TEACHER_GAP.  Returns the run's
+    stats."""
+    torch = s.torch
+    from repro_torch.core.build import KERNELS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs, calls, st = drive_model(s, model, params, prompts, extras,
+                                  cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = sum(map(len, outs))
+    print(f"  {name}: {len(prompts)} requests, {tokens} tokens in "
+          f"{wall:.3f} s ({st['groups']} prefill groups, {st['steps']} "
+          f"decode steps), peak memory {peak:.2f} GiB, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    s.check(all(len(o) == MAX_NEW for o in outs),
+            f"{name}: every request emitted {MAX_NEW} tokens")
+    s.check(st["copies"] == st["steps"] + st["groups"] and st["hidden"] == 0,
+            f"{name}: {st['copies']} host copies = {st['steps']} decode "
+            f"steps + {st['groups']} groups; {st['hidden']} other syncs in "
+            f"decode steps")
+    expected = {**per_step, **per_group}
+    for kname in expected:
+        n, g = per_step.get(kname, 0), per_group.get(kname, 0)
+        want = n * st["steps"] + g * st["groups"]
+        s.check(launches[kname] == want,
+                f"{name}: {kname} launched {n} times per decode step and "
+                f"{g} per group ({launches[kname]} = {want})")
+        s.kernels[kname]["launches_by_path"][name] = launches[kname]
+    others = {k: v for k, v in launches.items() if v and k not in expected}
+    s.check(not others, f"{name}: no other kernel launched ({others})")
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    _, _, rep = drive_model(s, model, params, prompts, extras, cache_len,
+                            plain=True, forced=calls)
+    torch.cuda.synchronize()
+    s.check(all(k.launches == 0 for k in KERNELS),
+            f"{name}: the replay launched no kernel (plain versions only)")
+    print(f"  {name}: {rep['flipped']} of {rep['emitted']} emitted tokens "
+          f"are not the replay's argmax ({time.perf_counter() - t0:.3f} s)")
+    s.check(rep["worst"] <= TEACHER_GAP,
+            f"{name}: every emitted token within {TEACHER_GAP} logits of "
+            f"the plain replay's argmax (largest gap {rep['worst']:.4f})")
+    return {"wall_s": wall, "tokens": tokens, "groups": st["groups"],
+            "decode_steps": st["steps"], "peak_gib": peak,
+            "launches": launches, "replay_gap": rep["worst"],
+            "replay_flipped": rep["flipped"], "emitted": rep["emitted"]}
+
+
+def check_loss(s: Smoke, model, params, name, batch, kernels, tol):
+    """``Model.loss`` of ``batch`` through the kernels (the counts set to
+    0 just before and read just after: each of ``kernels`` launched, no
+    other) and through their plain versions (no launch): every metric
+    finite, the losses within ``tol``, or reported where it is None."""
+    torch = s.torch
+    from repro_torch.core.build import KERNELS
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in KERNELS:
@@ -4274,47 +4613,194 @@ def xlstm_loss(s: Smoke, model, params, tol):
     t0 = time.perf_counter()
     _, got = model.loss(params, batch)
     torch.cuda.synchronize()
-    t_kern = time.perf_counter() - t0
+    ms = 1e3 * (time.perf_counter() - t0)
     launches = {k.name: k.launches for k in KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     _, want = model.loss(params, batch, plain=True)
     torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    dt = model.cfg.dtype
-    n_mlstm = model.cfg.layer_kinds().count("mlstm")
-    s.check(launches["mlstm_scan"] == n_mlstm,
-            f"xlstm loss ({dt}): mlstm_scan launched once per mLSTM layer "
-            f"({launches['mlstm_scan']} = {n_mlstm})")
-    s.check(launches["rmsnorm"] > 0, f"xlstm loss ({dt}): rmsnorm launched "
-                                     f"{launches['rmsnorm']} times")
-    others = {k: n for k, n in launches.items()
-              if k not in ("mlstm_scan", "rmsnorm") and n}
-    s.check(not others, f"xlstm loss ({dt}): no other kernel launched "
-                        f"({others})")
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    s.check(all(launches[k] > 0 for k in kernels)
+            and not {k for k, v in launches.items()
+                     if v and k not in kernels},
+            f"{name} loss: launches "
+            f"{ {k: v for k, v in launches.items() if v} }, of {kernels} "
+            f"alone")
     s.check(all(k.launches == launches[k.name] for k in KERNELS),
-            f"xlstm loss ({dt}): the plain loss launched no kernel")
-    for kname in ("mlstm_scan", "rmsnorm"):
-        s.kernels[kname]["launches_by_path"][f"xlstm loss {dt}"] = \
+            f"{name} loss: the plain loss launched no kernel")
+    for kname in kernels:
+        s.kernels[kname]["launches_by_path"][f"{name} loss"] = \
             launches[kname]
     got = {k: float(v) for k, v in got.items()}
     want = {k: float(v) for k, v in want.items()}
     diff = {k: abs(got[k] - want[k]) for k in got}
     s.check(all(map(math.isfinite, list(got.values()) + list(
-        want.values()))), f"xlstm loss ({dt}): every metric finite")
-    what = (f"xlstm loss ({dt}) of a {XL_LOSS_B} x {XL_LOSS_S} batch: "
+        want.values()))), f"{name} loss: every metric finite")
+    what = (f"{name} loss of a {tuple(batch['tokens'].shape)} batch: "
             f"{got['loss']:.6f} through the kernels, {want['loss']:.6f} "
             f"through their plain versions, |diff| {diff['loss']:.3e}")
     if tol is None:
         print(f"  {what} (reported)")
     else:
         s.check(diff["loss"] <= tol, f"{what} <= {tol}")
-    print(f"  xlstm loss ({dt}): {1e3 * t_kern:.1f} ms through the kernels, "
-          f"{1e3 * t_plain:.1f} ms through the plain versions (wall, "
-          f"synchronised); peak memory {peak:.2f} GiB")
+    print(f"  {name} loss: {ms:.1f} ms through the kernels, {plain_ms:.1f} "
+          f"ms through the plain versions (wall, synchronised); peak "
+          f"memory {peak:.2f} GiB")
     return {"metrics": got, "plain_metrics": want, "abs_diff": diff,
-            "ms": 1e3 * t_kern, "plain_ms": 1e3 * t_plain,
-            "peak_gib": peak, "launches": launches}
+            "ms": ms, "plain_ms": plain_ms, "peak_gib": peak,
+            "launches": launches}
+
+
+def _freed(s: Smoke) -> None:
+    import gc
+    gc.collect()
+    s.torch.cuda.empty_cache()
+    held = s.torch.cuda.memory_allocated() / 2 ** 30
+    s.check(held < 1.0, f"the earlier models' weights and pools are freed "
+                        f"({held:.3f} GiB still allocated)")
+
+
+def _model_at_seed(s: Smoke, cfg, what):
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(s.torch.Generator(device=s.dev).manual_seed(0),
+                        device=s.dev)
+    s.torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  {cfg.name}: {what}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n / 1e9:.4f} B "
+          f"parameters ({nbytes / 1e9:.2f} GB) in {cfg.dtype}, random from "
+          f"seed 0 ({time.perf_counter() - t0:.2f} s)")
+    return model, params, n
+
+
+def run_whisper(s: Smoke):
+    """whisper-base in full (6 + 6 layers): 8 requests of 1,500 encoder
+    frames and prompts of 17 to 416 tokens, 32 greedy tokens each,
+    through ``Model.prefill`` with ``encoder_embeds`` and ``decode_step``
+    over dense caches (``check_driven``): per prefill group B2 18 times
+    (6 encoder layers non-causal, 6 causal, 6 cross over the frames) and
+    B1 32 times (2 a layer and a final norm in the encoder, 3 a layer in
+    the decoder, the final norm); per decode step B3 6 times, B2 6 times
+    (the cross-attention's one-token query over the encoder's 1,500
+    keys) and B1 19 times; held to a plain replay of the same calls,
+    since the reference's decode rotates the cross query at position 0
+    and so is no teacher-forced forward.  Then ``Model.loss`` of 2 x 448
+    tokens with 1,500 frames each."""
+    import numpy as np
+    torch = s.torch
+    from repro_torch.configs import get_config
+    _freed(s)
+    cfg = get_config("whisper-base")
+    model, params, n = _model_at_seed(
+        s, cfg, f"{cfg.encoder_layers} encoder and {cfg.num_layers} decoder "
+                f"layers, ungated GELU")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=WH_PROMPT_LENS[
+        i % len(WH_PROMPT_LENS)]).tolist() for i in range(WH_REQUESTS)]
+    g = torch.Generator(device=s.dev).manual_seed(7)
+    frames = torch.randn(WH_REQUESTS, WH_FRAMES, cfg.d_model, device=s.dev,
+                         generator=g).bfloat16()
+    L = cfg.num_layers
+    run = check_driven(
+        s, model, params, "whisper", prompts, {"encoder_embeds": frames},
+        WH_CACHE_LEN,
+        {"decode_attention": L, "flash_attention": L,
+         "rmsnorm": 3 * L + 1},
+        {"flash_attention": cfg.encoder_layers + 2 * L,
+         "rmsnorm": 2 * cfg.encoder_layers + 1 + 3 * L + 1})
+    g = torch.Generator(device=s.dev).manual_seed(8)
+    batch = {name: torch.randint(0, cfg.vocab_size, (2, WH_CACHE_LEN),
+                                 device=s.dev, generator=g)
+             for name in ("tokens", "labels")}
+    batch["encoder_embeds"] = frames[:2]
+    loss = check_loss(s, model, params, "whisper", batch,
+                      ("flash_attention", "rmsnorm"), WH_LOSS_TOL)
+    del params
+    return dict(run, parameters=n, loss=loss)
+
+
+def run_serving_internvl2(s: Smoke):
+    """internvl2-26b at full width and depth (48 layers, 48/8 heads of
+    128, 19.9 B parameters): the 12 text requests served paged (B4 48
+    times a step) and dense (B3), as the reference's engine serves the
+    model, each held to an f32 plain forward of the same weights (a
+    layer upcast at a time), the exact function the served path
+    approximates: over 48 layers a bf16 forward, or a bf16 replay of the
+    same calls, adds its own rounding to the served path's and misses by
+    more (PERF.md §2); the gaps against both are reported; B1 97 times a
+    step and a group, B2 48 times a group.  Then the vision splice
+    through the model's entry points (``check_driven``): 2 prompts of 512
+    tokens whose first 256 positions carry patch embeddings from the
+    seed, 32 greedy tokens, held to a plain replay; then ``Model.loss``
+    of the same batch with ``vision_embeds`` (the patch positions'
+    labels masked)."""
+    torch = s.torch
+    from repro_torch.configs import get_config
+    _freed(s)
+    cfg = get_config("internvl2-26b")
+    torch.cuda.reset_peak_memory_stats()
+    model, params, n = _model_at_seed(s, cfg, f"{cfg.num_layers} layers, "
+                                              f"frontend {cfg.frontend}")
+    norms = 2 * cfg.num_layers + 1
+    runs, stats = {}, {}
+    f32 = _f32_layerwise_logits(model, params)
+    for name, mode, kname in (("paged", dict(paged=True),
+                               "paged_decode_attention"),
+                              ("dense", dict(paged=False),
+                               "decode_attention")):
+        print(f"== serve internvl2-26b, {name}", flush=True)
+        runs[name], stats[name] = check_serving(
+            s, model, params, f"internvl2 {name}", mode,
+            {kname: cfg.num_layers, "rmsnorm": norms, "flash_attention": 0},
+            tuple(k for k in DECODE_KERNELS if k != kname),
+            teacher_checked=False, replay=True, free_replay=False,
+            per_group={"rmsnorm": norms, "flash_attention": cfg.num_layers})
+        bgap, bwhere, _, bflipped = teacher_gap(s, model, params, runs[name])
+        print(f"  internvl2 {name}: largest teacher-forced gap against the "
+              f"bf16 plain forward {bgap:.4f} logits at {bwhere}, "
+              f"{bflipped} not its argmax (reported)")
+        gap, where, tokens, flipped = teacher_gap(s, model, params,
+                                                  runs[name], forward=f32)
+        s.check(gap <= TEACHER_GAP,
+                f"internvl2 {name}: every emitted token within "
+                f"{TEACHER_GAP} logits of the f32 plain forward's argmax "
+                f"(largest gap {gap:.4f} at {where}; {flipped} of {tokens} "
+                f"not its argmax)")
+        stats[name].update(f32_gap=gap, f32_gap_at=where, f32_flipped=flipped,
+                           bf16_forward_gap=bgap)
+        for k in ("rmsnorm", "flash_attention", kname):
+            s.kernels[k]["internvl2"]["launches"] = \
+                stats[name]["launches"][k]
+    del f32
+    agree = _agree(runs["paged"], runs["dense"])
+    print(f"  internvl2 dense and paged agree on {agree} of "
+          f"{stats['paged']['tokens']} tokens")
+    print("== internvl2-26b, the vision splice", flush=True)
+    g = torch.Generator(device=s.dev).manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (IV_SPLICE_B, IV_SPLICE_S),
+                           device=s.dev, generator=g)
+    patches = torch.randn(IV_SPLICE_B, cfg.frontend_tokens, cfg.d_model,
+                          device=s.dev, generator=g).bfloat16()
+    splice = check_driven(
+        s, model, params, "internvl2 splice", tokens.tolist(),
+        {"vision_embeds": patches}, CACHE_LEN,
+        {"decode_attention": cfg.num_layers, "rmsnorm": norms},
+        {"flash_attention": cfg.num_layers, "rmsnorm": norms})
+    batch = {"tokens": tokens, "labels": torch.randint(
+        0, cfg.vocab_size, tokens.shape, device=s.dev, generator=g),
+        "vision_embeds": patches}
+    loss = check_loss(s, model, params, "internvl2", batch,
+                      ("flash_attention", "rmsnorm"), IV_LOSS_TOL)
+    peak = max(stats["paged"]["peak_gib"], stats["dense"]["peak_gib"],
+               splice["peak_gib"], loss["peak_gib"])
+    print(f"  internvl2-26b: peak memory {peak:.2f} GiB")
+    del params, runs
+    return dict(stats, tokens_agree={"dense_paged": agree}, splice=splice,
+                loss=loss, parameters=n, peak_gib=peak)
 
 
 def _leaves(tree):
@@ -4391,6 +4877,8 @@ def main() -> int:
                      ("mamba_scan (jamba shapes)", check_mamba_scan),
                      ("B1-B4 and gmm (jamba shapes)", check_jamba_shapes),
                      ("B1-B4 and gmm (arctic shapes)", check_arctic_shapes),
+                     ("B1-B4 (whisper and internvl2 shapes)",
+                      check_whisper_internvl2_shapes),
                      ("mlstm_scan (xlstm shapes)", check_mlstm_scan)):
         s.phase(f"kernel {name} against its plain version", fn, s)
     s.phase("portable runtime against native twins", run_parity, s)
@@ -4418,6 +4906,11 @@ def main() -> int:
                          f"{JB_LAYERS} layers", run_serving_jamba, s)
     serving_xl = s.phase(f"serve xlstm-1.3b at full width, {XL_LAYERS} "
                          f"layers, and its loss", run_serving_xlstm, s)
+    serving_wh = s.phase("serve whisper-base in full through its entry "
+                         "points, and its loss", run_whisper, s)
+    serving_iv = s.phase("serve internvl2-26b at full width and depth, its "
+                         "vision splice and its loss", run_serving_internvl2,
+                         s)
     traces = s.phase("trace the card over paged decode steps", run_traces, s)
 
     for k in s.kernels.values():
@@ -4442,6 +4935,10 @@ def main() -> int:
         print(json.dumps({"serving_jamba": serving_jb}))
     if serving_xl is not None:
         print(json.dumps({"serving_xlstm": serving_xl}))
+    if serving_wh is not None:
+        print(json.dumps({"serving_whisper": serving_wh}))
+    if serving_iv is not None:
+        print(json.dumps({"serving_internvl2": serving_iv}))
     if traces is not None:
         print(json.dumps({"device_busy_share": traces}))
     print(f"== total {time.perf_counter() - t_start:.1f} s, builds included")

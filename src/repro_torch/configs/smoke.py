@@ -1,8 +1,10 @@
 """Reduced same-family configs for CPU tests (``repro.configs.smoke``).
 
 Same layer pattern, tiny widths, the reference's window of 16 for
-sliding-window configs, and its MLA, MoE, SSM and xLSTM shrink rules
-(with the leading dense layer of ``moe_layers="all_but_first"`` kept).
+sliding-window configs, 8 patch positions for a vision frontend, 2
+encoder layers for an encoder-decoder, and its MLA, MoE, SSM and xLSTM
+shrink rules (with the leading dense layer of ``moe_layers=
+"all_but_first"`` kept).
 """
 from __future__ import annotations
 
@@ -20,7 +22,11 @@ def smoke_config(arch_id: str, *, num_layers: int = 0) -> ModelConfig:
                        + (1 if cfg.moe_layers == "all_but_first" else 0))
     n = min(n, cfg.num_layers)
     kw = dict(num_layers=n, d_model=64, num_heads=4, num_kv_heads=2,
-              head_dim=16, d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=256)
+              head_dim=16, d_ff=0 if cfg.d_ff == 0 else 128, vocab_size=256,
+              frontend_tokens=(8 if cfg.frontend == "vision"
+                               else cfg.frontend_tokens))
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = 2
     if cfg.mla is not None:
         kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
                               qk_rope_head_dim=8, v_head_dim=16)

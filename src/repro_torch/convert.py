@@ -20,7 +20,11 @@ tail, each mamba layer's ``mamba`` leaf holding its projections, conv
 and SSM parameters; xlstm: the 8-layer block of seven mLSTM layers and
 one sLSTM layer, repeated, each with ``ln1`` and its ``mlstm`` or
 ``slstm`` leaf and no FFN sublayer, the sLSTM's gated FFN under
-``ffn``).  The router, mamba's ``ssm.F32_PARAMS`` and the xLSTM gates'
+``ffn``; whisper: one decoder layer repeated, each with ``ln_cross`` and
+its ``cross_attn`` leaf and an MLP without ``w_gate``, and
+``encoder.segments`` (one global layer repeated, in the encoder's
+``plan_segments``) with ``encoder.final_norm``; internvl2: granite's
+layout).  The router, mamba's ``ssm.F32_PARAMS`` and the xLSTM gates'
 ``xlstm.F32_PARAMS`` stay in f32, as the reference computes with them.
 """
 from __future__ import annotations
@@ -48,20 +52,13 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
             a = a.reshape(shape)
         return torch.from_numpy(a).to(dev, dtype or dt)
 
-    segments = tree["segments"]
-    plans = plan_segments(cfg)
-    if (len(segments) != len(plans)
-            or [len(s) for s in segments] != [len(p.block) for p in plans]):
-        raise ValueError(
-            f"expected segments of {[len(p.block) for p in plans]} block "
-            f"positions for {cfg.name}, got {[len(s) for s in segments]}")
     d, hd = cfg.d_model, cfg.head_dim
-    norms = ("ln1", "ln2") + (("post_ln1", "post_ln2")
-                              if cfg.use_post_norms else ())
+    norms = ("ln1", "ln_cross", "ln2") + (("post_ln1", "post_ln2")
+                                          if cfg.use_post_norms else ())
 
     def mlp(m, r):
-        return {"w_gate": t(m["w_gate"][r]), "w_up": t(m["w_up"][r]),
-                "w_down": t(m["w_down"][r])}
+        return {w: t(m[w][r]) for w in ("w_gate", "w_up", "w_down")
+                if w in m}
 
     def attn(a, r):
         if cfg.mla is None:
@@ -93,29 +90,52 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
                 t(leaf[r], dtype=torch.float32 if name in f32_params
                   else None) for name, leaf in m.items()}
 
-    layers = []
-    for seg, plan in zip(segments, plans):
-        n = np.asarray(seg[0]["ln1"]).shape[0]
-        if n != plan.reps:
-            raise ValueError(f"tree holds {n} repeats of a segment, config "
-                             f"{cfg.num_layers} layers ({plan.reps})")
-        for r in range(n):
-            for blk in seg:
-                layer = {name: t(blk[name][r]) for name in norms
-                         if name in blk}
-                if "mamba" in blk:
-                    layer["mamba"] = mixer(blk["mamba"], r, ssm.F32_PARAMS)
-                elif "mlstm" in blk or "slstm" in blk:
-                    kind = "mlstm" if "mlstm" in blk else "slstm"
-                    layer[kind] = mixer(blk[kind], r, xlstm.F32_PARAMS)
-                else:
-                    layer["attn"] = attn(blk["attn"], r)
-                if "moe" in blk:
-                    layer["moe"] = moe(blk["moe"], r)
-                elif "mlp" in blk:
-                    layer["mlp"] = mlp(blk["mlp"], r)
-                layers.append(layer)
-    return {"embed": t(tree["embed"]["table"]),
-            "unembed": t(tree["unembed"]["table"]),
-            "final_norm": t(tree["final_norm"]),
-            "layers": layers}
+    def layers(segments, plans, n_layers):
+        if (len(segments) != len(plans)
+                or [len(s) for s in segments]
+                != [len(p.block) for p in plans]):
+            raise ValueError(
+                f"expected segments of {[len(p.block) for p in plans]} "
+                f"block positions for {cfg.name}, got "
+                f"{[len(s) for s in segments]}")
+        out = []
+        for seg, plan in zip(segments, plans):
+            n = np.asarray(seg[0]["ln1"]).shape[0]
+            if n != plan.reps:
+                raise ValueError(f"tree holds {n} repeats of a segment, "
+                                 f"config {n_layers} layers ({plan.reps})")
+            for r in range(n):
+                for blk in seg:
+                    out.append(layer(blk, r))
+        return out
+
+    def layer(blk, r):
+        out = {name: t(blk[name][r]) for name in norms if name in blk}
+        if "mamba" in blk:
+            out["mamba"] = mixer(blk["mamba"], r, ssm.F32_PARAMS)
+        elif "mlstm" in blk or "slstm" in blk:
+            kind = "mlstm" if "mlstm" in blk else "slstm"
+            out[kind] = mixer(blk[kind], r, xlstm.F32_PARAMS)
+        else:
+            out["attn"] = attn(blk["attn"], r)
+        if "cross_attn" in blk:
+            out["cross_attn"] = attn(blk["cross_attn"], r)
+        if "moe" in blk:
+            out["moe"] = moe(blk["moe"], r)
+        elif "mlp" in blk:
+            out["mlp"] = mlp(blk["mlp"], r)
+        return out
+
+    params = {"embed": t(tree["embed"]["table"]),
+              "unembed": t(tree["unembed"]["table"]),
+              "final_norm": t(tree["final_norm"]),
+              "layers": layers(tree["segments"], plan_segments(cfg),
+                               cfg.num_layers)}
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": layers(enc["segments"],
+                             plan_segments(cfg, encoder=True),
+                             cfg.encoder_layers),
+            "final_norm": t(enc["final_norm"])}
+    return params

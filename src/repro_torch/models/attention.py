@@ -4,7 +4,9 @@ GQA (global and sliding-window local layers, with the attention
 softcap and, where the config sets ``use_qk_norm``, q and k normed per
 head before RoPE): prefill, one-token decode over dense caches, dense
 rings, paged pools and ring-table window pools (each bf16 or
-quantized), and the speculative K1-token verify over paged pools.
+quantized), and the speculative K1-token verify over paged pools;
+cross-attention over an encoder's K/V (``project_kv``), non-causal,
+through the same prefill kernel at prefill and at decode.
 
 DeepSeek MLA: prefill, one-token decode over a dense cache or paged
 pools (bf16 or quantized), and the speculative K1-token verify over
@@ -129,18 +131,42 @@ def _qkv(p, x: torch.Tensor, cfg: ModelConfig, rope, plain: bool):
 
 
 def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, rope, *,
-               kind: str = "global", plain: bool = False):
-    """Causal full-sequence attention.  x: (B, S, d); ``rope`` is
-    ``L.rope_cache`` of positions 0..S-1; a ``local`` layer sees the
-    config's window.  Returns (y, k, v) with the rope'd K/V (B, Hkv, S,
-    hd) for the prefill cache."""
+               kind: str = "global", causal: bool = True,
+               kv_override=None, plain: bool = False):
+    """Full-sequence attention (``repro`` attention.py:116).  x: (B, S,
+    d); ``rope`` is ``L.rope_cache`` of the query's positions (0..S-1
+    in every call the reference makes: a cross-attention query at
+    decode sits at position 0); a ``local`` layer sees the config's
+    window.  ``kv_override`` (k, v), an encoder's K/V from
+    ``project_kv``, makes it cross-attention: only q is projected (and
+    normed under qk-norm, and rotated).  Returns (y, k, v) with the
+    rope'd K/V (B, Hkv, S, hd) for the prefill cache."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, rope, plain)
+    if kv_override is None:
+        q, k, v = _qkv(p, x, cfg, rope, plain)
+    else:
+        q = _heads(x @ p["wq"].to(x.dtype), cfg.num_heads)
+        if cfg.use_qk_norm:
+            q = L.apply_norm(p["q_norm"], q, plain=plain)
+        q = L.apply_rope(q, *rope)
+        k, v = kv_override
     fn = flash_ref.flash_attention_ref if plain else flash_attention
-    out = fn(q, k, v, causal=True, window=_window(cfg, kind),
+    out = fn(q, k, v, causal=causal, window=_window(cfg, kind),
              softcap=cfg.attn_softcap)
     y = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].to(x.dtype)
     return y, k, v
+
+
+def project_kv(p, x_enc: torch.Tensor, cfg: ModelConfig, rope, *,
+               plain: bool = False):
+    """The encoder side of cross-attention (``repro`` attention.py:150):
+    K and V (B, Hkv, S_enc, hd) of the encoder's output, K normed under
+    qk-norm and rotated at the encoder's positions (``rope``)."""
+    k = _heads(x_enc @ p["wk"].to(x_enc.dtype), cfg.num_kv_heads)
+    v = _heads(x_enc @ p["wv"].to(x_enc.dtype), cfg.num_kv_heads)
+    if cfg.use_qk_norm:
+        k = L.apply_norm(p["k_norm"], k, plain=plain)
+    return L.apply_rope(k, *rope), v
 
 
 def _window(cfg: ModelConfig, kind: str):

@@ -1,5 +1,6 @@
 """Shared building blocks (``repro.models.layers``): init laws, the
-norm, RoPE, the gated MLP (SiLU or tanh-GELU), embeddings."""
+norm, RoPE, the MLP (gated SiLU or tanh-GELU, or whisper's ungated
+tanh-GELU), embeddings and the encoder's sinusoidal positions."""
 from __future__ import annotations
 
 import math
@@ -70,19 +71,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 # -------------------------------------------------------------- MLP -----
 
-def init_mlp(gen: torch.Generator, d: int, ff: int, *, dtype):
-    return {"w_gate": dense_init(gen, (d, ff), dtype=dtype),
-            "w_up": dense_init(gen, (d, ff), dtype=dtype),
-            "w_down": dense_init(gen, (ff, d), dtype=dtype,
-                                 in_axis_size=ff)}
+def init_mlp(gen: torch.Generator, d: int, ff: int, *, dtype,
+             activation: str = "silu"):
+    """``w_gate`` (drawn first), ``w_up`` and ``w_down``; no ``w_gate``
+    for ``activation="gelu_ungated"`` (``repro`` layers.py:71)."""
+    p = {}
+    if activation != "gelu_ungated":
+        p["w_gate"] = dense_init(gen, (d, ff), dtype=dtype)
+    p["w_up"] = dense_init(gen, (d, ff), dtype=dtype)
+    p["w_down"] = dense_init(gen, (ff, d), dtype=dtype, in_axis_size=ff)
+    return p
 
 
 def apply_mlp(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     """Gated MLP: (act(x W_gate) * x W_up) W_down, act SiLU or, for
     ``activation="gelu"``, tanh-approximated GELU (``repro`` layers.py:
-    80-90, ``jax.nn.gelu(approximate=True)``)."""
+    80-90, ``jax.nn.gelu(approximate=True)``); for ``"gelu_ungated"``
+    (whisper) gelu(x W_up) W_down, tanh-approximated too: ``jax.nn.gelu``
+    defaults to ``approximate=True``, torch's ``F.gelu`` to erf."""
     xd = x.dtype
     up = x @ p["w_up"].to(xd)
+    if activation == "gelu_ungated":
+        return F.gelu(up, approximate="tanh") @ p["w_down"].to(xd)
     gate = x @ p["w_gate"].to(xd)
     act = F.gelu(gate, approximate="tanh") if activation == "gelu" \
         else F.silu(gate)
@@ -124,3 +134,13 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
     return x
+
+
+def sinusoidal_positions(s: int, d: int, dtype, device) -> torch.Tensor:
+    """(s, d) positions of the encoder's frames, [sin | cos] of pos /
+    10000^(2i/d), computed in f32 and then cast (``repro`` layers.py:
+    110)."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

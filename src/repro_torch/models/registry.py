@@ -33,9 +33,13 @@ class Model:
                              f"asked on {dev}")
         return T.init_params(generator, self.cfg)
 
-    def prefill(self, params, tokens, cache_len: int, *,
+    def prefill(self, params, tokens, cache_len: int, extras=None, *,
                 plain: bool = False):
-        return T.prefill(params, self.cfg, tokens, cache_len, plain=plain)
+        """(last-position logits, caches); ``extras`` the batch's stub
+        inputs ("vision_embeds", "encoder_embeds"), as the reference's
+        ``Model.prefill`` takes them."""
+        return T.prefill(params, self.cfg, tokens, cache_len, extras,
+                         plain=plain)
 
     def forward_logits(self, params, tokens, *, plain: bool = False,
                        start: int = 0):
@@ -43,10 +47,12 @@ class Model:
                                 start=start)
 
     def loss(self, params, batch, *, plain: bool = False):
-        """(loss, metrics) of a batch {"tokens", "labels"} (B, S): the
-        training forward and its loss, without a backward (that arrives
-        with training, ROADMAP.md queue A); metrics "loss", "ce",
-        "z_loss", "load_balance" and "router_z", as the reference's."""
+        """(loss, metrics) of a batch {"tokens", "labels"} (B, S) and
+        the config's stub inputs ("vision_embeds", "encoder_embeds"):
+        the training forward and its loss, without a backward (that
+        arrives with training, ROADMAP.md queue A); metrics "loss",
+        "ce", "z_loss", "load_balance" and "router_z", as the
+        reference's."""
         with torch.no_grad():
             return T.forward_train(params, self.cfg, batch, plain=plain)
 
@@ -61,11 +67,14 @@ class Model:
                                   block_tables, plain=plain)
 
     def init_decode_caches(self, batch: int, cache_len: int,
-                           device: DeviceLike = None) -> List[Dict]:
+                           device: DeviceLike = None, *,
+                           enc_len: int = 0) -> List[Dict]:
         """Dense caches per layer kind: (B, Hkv, cache_len, hd), or the
-        window's ring for a local layer whose window is shorter."""
+        window's ring for a local layer whose window is shorter; an
+        encoder-decoder's also hold the encoder's K/V of ``enc_len``
+        rows."""
         return T.init_decode_caches(self.cfg, batch, cache_len,
-                                    resolve_device(device))
+                                    resolve_device(device), enc_len=enc_len)
 
 
 def build_model(arch_or_cfg) -> Model:

@@ -78,6 +78,13 @@ the bf16 one only in the spec it reports and the page size it resolves,
 as the reference's does.  Speculation is refused as for every recurrent
 layer: a batched verify cannot roll the state back.
 
+An encoder-decoder (whisper-base) is refused at construction: a request
+carries no encoder input, and the reference's engine, which prefills
+with no extras, fails at its first admission for want of the encoder's
+K/V.  A vision model (internvl2-26b) is served as the reference serves
+it, on text prompts alone; the patch splice is reached through
+``Model.prefill``'s and ``Model.loss``'s extras.
+
 Self-speculative decoding (paged, greedy): ``spec_mode="ngram"`` drafts
 ``spec_k`` tokens per slot from the slot's own token history
 (``tok_hist``: prompt lookup, no draft model), verifies the committed
@@ -252,6 +259,14 @@ class Engine:
         if sc.spec_mode not in SPEC_MODES:
             raise ValueError(f"spec_mode must be one of {SPEC_MODES}, "
                              f"got {sc.spec_mode!r}")
+        if model.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{model.cfg.name}: the engine serves decoders; an "
+                f"encoder-decoder needs each request's encoder input, "
+                f"which neither this engine nor the reference's takes "
+                f"(its prefill passes no extras, so its first admission "
+                f"finds no encoder K/V): drive Model.prefill(tokens, "
+                f"cache_len, {{'encoder_embeds': ...}}) and decode_step")
         self.spec = sc.spec_mode != "off"
         kinds = model.cfg.layer_kinds()
         recurrent = [i for i, k in enumerate(kinds) if k in RECURRENT_KINDS]

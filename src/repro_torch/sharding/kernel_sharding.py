@@ -35,6 +35,32 @@ from repro_torch.quant.blockwise import quantize_absmax
 from repro_torch.serve.paging import raw_bytes
 
 
+def last_writes(keys: torch.Tensor) -> torch.Tensor:
+    """For the flat targets ``keys`` (N,) of one indexed write, the index
+    of the last write to each one's target.  Dead slots' rows all land
+    in the null page, often at one (page, row); on the card an
+    ``index_put_`` with repeated targets keeps any one of their rows, and
+    a dead slot's attention reads the null page, so which one would move
+    its hidden state and, through MoE capacity, the live slots' routes.
+    Giving every repeat the last one's row stores what a write in index
+    order stores, whatever order the device writes in."""
+    idx = torch.arange(keys.shape[0], device=keys.device)
+    same = keys[:, None] == keys[None, :]
+    return torch.where(same, idx[None, :], -1).amax(1)
+
+
+def pool_write(page: torch.Tensor, off: torch.Tensor, *writes) -> None:
+    """``pool[:, page, off] = rows`` in place for each (pool, rows) of
+    ``writes`` (the K and V pools of one page size), repeated targets
+    resolved as ``last_writes`` does: pools (H, P, ps, D); page, off
+    (...) of any one shape; rows (H, ..., D) over the same shape."""
+    page, off = page.reshape(-1).long(), off.reshape(-1).long()
+    src = last_writes(page * writes[0][0].shape[2] + off)
+    for pool, rows in writes:
+        rows = rows.reshape(rows.shape[0], -1, rows.shape[-1])
+        pool[:, page, off] = rows[:, src].to(pool.dtype)
+
+
 def decode_update_attend(q, k_new, v_new, k_cache, v_cache, write_pos,
                          eff_len, *, window: Optional[int] = None,
                          softcap: Optional[float] = None,
@@ -66,11 +92,10 @@ def paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
                                plain: bool = False) -> torch.Tensor:
     """Write each slot's new K/V row into ``pools[:, write_page,
     write_off]`` in place, then paged decode.  Pools (Hkv, P, ps,
-    Dk|Dv); freed slots write into the null page 0 (trash, never
-    read)."""
-    page, off = write_page.long(), write_off.long()
-    k_pages[:, page, off] = k_new.transpose(0, 1).to(k_pages.dtype)
-    v_pages[:, page, off] = v_new.transpose(0, 1).to(v_pages.dtype)
+    Dk|Dv); freed slots write into the null page 0 (trash that only
+    their own discarded rows read; ``pool_write``)."""
+    pool_write(write_page, write_off, (k_pages, k_new.transpose(0, 1)),
+               (v_pages, v_new.transpose(0, 1)))
     if plain:
         return dec_ref.paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, eff_len, window=window,
@@ -91,9 +116,8 @@ def window_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
     ring tables (``repro`` kernel_sharding.py:402): the caller resolved
     the write page from the ring, so the write is the same in-place row
     write; then the sliding-window kernel."""
-    page, off = write_page.long(), write_off.long()
-    k_pages[:, page, off] = k_new.transpose(0, 1).to(k_pages.dtype)
-    v_pages[:, page, off] = v_new.transpose(0, 1).to(v_pages.dtype)
+    pool_write(write_page, write_off, (k_pages, k_new.transpose(0, 1)),
+               (v_pages, v_new.transpose(0, 1)))
     return window_paged_decode_attention(
         q, k_pages, v_pages, block_tables, eff_len, window=window,
         softcap=softcap, scale=scale, page_size=page_size)
@@ -122,8 +146,9 @@ def requant_page_write(pool: torch.Tensor, scales: torch.Tensor,
     pgf = torch.where(rows == offb, new[:, :, None, :],
                       torch.where(rows < offb, pgf, torch.zeros_like(pgf)))
     q_pg, sc_new = quantize_absmax(pgf, dtype=pool.dtype, axis=(-2, -1))
-    raw_bytes(pool)[:, page] = raw_bytes(q_pg)
-    scales[:, page] = sc_new.to(scales.dtype)
+    src = last_writes(page)           # dead slots share the null page
+    raw_bytes(pool)[:, page] = raw_bytes(q_pg[:, src])
+    scales[:, page] = sc_new[:, src].to(scales.dtype)
 
 
 def quant_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
@@ -184,9 +209,8 @@ def spec_paged_decode_update_attend(q, k_new, v_new, k_pages, v_pages,
     (B, K1), redirected to the null page past the table's reach;
     base_len (B,) the PRE-speculation prefix.  Returns (B, K1, Hq,
     Dv)."""
-    pages, offs = write_pages.long(), write_offs.long()
-    k_pages[:, pages, offs] = k_new.transpose(0, 1).to(k_pages.dtype)
-    v_pages[:, pages, offs] = v_new.transpose(0, 1).to(v_pages.dtype)
+    pool_write(write_pages, write_offs, (k_pages, k_new.transpose(0, 1)),
+               (v_pages, v_new.transpose(0, 1)))
     if plain:
         return dec_ref.spec_paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, base_len, window=window,

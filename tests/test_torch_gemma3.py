@@ -145,12 +145,17 @@ def test_segments_match_reference(arch, num_layers):
 
 
 def test_check_supported_names_only_encoders_and_frontends():
+    """An encoder and the vision and audio frontends are admitted beside
+    gemma3's own fields; an unknown frontend is refused by name, and
+    the message lists qk-norm among what the port serves."""
     cfg = port_smoke_config(ARCH)
     PT.check_supported(cfg)
-    for change in (dict(encoder_layers=2), dict(frontend="vision")):
-        with pytest.raises(NotImplementedError, match="encoders") as e:
-            PT.check_supported(dataclasses.replace(cfg, **change))
-        assert "qk" not in str(e.value).split("still to port")[1]
+    for change in (dict(encoder_layers=2), dict(frontend="vision"),
+                   dict(frontend="audio")):
+        PT.check_supported(dataclasses.replace(cfg, **change))
+    with pytest.raises(NotImplementedError, match="'video'") as e:
+        PT.check_supported(dataclasses.replace(cfg, frontend="video"))
+    assert "qk-norm" in str(e.value).split("the port serves")[1]
 
 
 def test_convert_carries_q_norm_and_k_norm():

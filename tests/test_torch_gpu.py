@@ -27,6 +27,7 @@ from repro_torch.core import selftest
 from repro_torch.core.context import target
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention import ref as dec_ref
+from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.kernels.flash_attention import native as fa_native
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -1792,3 +1793,176 @@ def test_deepseek_quant_and_spec_engines_on_card(cuda, mode):
     assert outs[("cuda", True)] == outs[("cpu", True)]
     if "spec_mode" in mode:
         assert outs[("cuda", True)] == outs[("cuda", False)]
+
+
+# ----------------------- whisper: the encoder, cross-attention; internvl2 --
+
+#: (Sq, Skv) of B2 non-causal at whisper's head dim 64 and group 1: the
+#: encoder's self-attention, cross-attention from a prompt and from one
+#: decode query, over a short encoder and over 1,500 frames
+CROSS_CASES = [(300, 300), (77, 300), (1, 300), (1, 1500)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv", CROSS_CASES)
+def test_flash_kernel_non_causal_at_head_dim_64(cuda, dtype, sq, skv):
+    """B2 non-causal with Sq != Skv at 8/8 heads of 64, against its plain
+    version; the bf16 body also against its rounding model."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(2, 8, sq, 64, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 8, skv, 64, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, 8, skv, 64, device=cuda, generator=g).to(dtype)
+    before = fa_kern.KERNEL.launches
+    got = fa_ops.flash_attention(q, k, v, causal=False)
+    assert fa_kern.KERNEL.launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=False)
+    assert got.shape == (2, 8, sq, 64)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == torch.bfloat16:
+        model = fa_ref.flash_attention_bf16_operands(q, k, v, causal=False)
+        torch.testing.assert_close(got.float(), model.float(), **TOL_OPERANDS)
+        assert fa_ref.model_mismatch(got, model) <= fa_ref.MODEL_MISMATCH
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_internvl2_group_6(cuda, dtype):
+    """B2 causal at internvl2's 48 query heads over 8 of 128."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q = torch.randn(2, 48, 200, 128, device=cuda, generator=g).to(dtype)
+    k = torch.randn(2, 8, 200, 128, device=cuda, generator=g).to(dtype)
+    v = torch.randn(2, 8, 200, 128, device=cuda, generator=g).to(dtype)
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+
+
+#: (label, Hq, Hkv, D, cache rows, lengths): whisper's dense caches
+#: (group 1 at head dim 64) and internvl2's (group 6 at 128)
+WH_IV_DECODE = [
+    ("whisper", 8, 8, 64, 448, (1, 17, 64, 100, 200, 300, 416, 448)),
+    ("internvl2", 48, 8, 128, 1024, (1, 64, 200, 333, 511, 700, 900, 1024))]
+
+
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("case", WH_IV_DECODE,
+                         ids=[c[0] for c in WH_IV_DECODE])
+def test_decode_kernels_at_whisper_and_internvl2_heads(cuda, case, splits):
+    """B3 at one split and at its served count against its split plain
+    version and the unsplit one, then B4 over the same rows in
+    scrambled pages, at each model's group."""
+    label, hq, hkv, d, s, lengths = case
+    g = torch.Generator(device=cuda).manual_seed(15)
+    b = len(lengths)
+    q = torch.randn(b, hq, d, device=cuda, generator=g).bfloat16()
+    kc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    vc = torch.randn(b, hkv, s, d, device=cuda, generator=g).bfloat16()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n = splits or dec_kern.decode_splits(s)
+    got = dec_ops.decode_attention(q, kc, vc, ln, return_residuals=True,
+                                   splits=splits)
+    want = dec_ref.decode_attention_ref(q, kc, vc, ln, return_residuals=True)
+    split_want = dec_ref.decode_attention_ref(
+        q, kc, vc, ln, return_residuals=True,
+        chunk=dec_kern.split_chunk(s, n))
+    for a, w, sw in zip(got, want, split_want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a, sw, atol=1e-4, rtol=1e-4)
+    (kp, vp), bt = _pools_from_caches(kc, vc, 64,
+                                      torch.Generator().manual_seed(2))
+    got = dec_ops.paged_decode_attention(q, kp, vp, bt, ln, splits=splits,
+                                         return_residuals=True)
+    want = dec_ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
+                                              return_residuals=True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(3000, 512), (1022, 6144)],
+                         ids=["whisper", "internvl2"])
+def test_rmsnorm_kernel_at_whisper_and_internvl2_rows(cuda, dtype, rows, d):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(rows, d, device=cuda, generator=g).to(dtype)
+    w = (0.1 * torch.randn(d, device=cuda, generator=g)).to(dtype)
+    got = rms_ops.rmsnorm(x, w, eps=1e-6, weight_offset=1.0)
+    want = rms_ref.rmsnorm_ref(x, w, eps=1e-6, weight_offset=1.0)
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    twin = rms_native.rmsnorm_native(x, w, eps=1e-6, weight_offset=1.0)
+    assert torch.equal(got, twin)
+
+
+def _greedy(model, params, tokens, extras, dev, steps=6, cache_len=32):
+    """Prefill with the stub inputs, then ``steps`` greedy decode steps
+    over the prefill's dense caches: the tokens and every call's
+    logits."""
+    params = _to(params, dev)
+    extras = {k: v.to(dev) for k, v in extras.items()}
+    logits, caches = model.prefill(params, tokens.to(dev), cache_len, extras)
+    seen, out = [logits.cpu()], [logits.argmax(-1)]
+    lengths = torch.full((tokens.shape[0],), tokens.shape[1],
+                         dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        logits = model.decode_step(params, caches, out[-1], lengths)
+        lengths += 1
+        seen.append(logits.cpu())
+        out.append(logits.argmax(-1))
+    return torch.stack([t.cpu() for t in out], 1), seen
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-26b"])
+def test_stub_inputs_on_card_match_cpu(cuda, arch):
+    """whisper's encoder and cross-attention (B2 non-causal at head dim
+    64, the decode step's one-token cross query) and internvl2's splice,
+    float32 at head dim 64: the same greedy tokens on the card (kernels)
+    and on the CPU (plain versions), every call's logits within 1e-3."""
+    cfg = dataclasses.replace(smoke_config(arch), d_model=256, num_heads=4,
+                              num_kv_heads=4 if arch == "whisper-base"
+                              else 2, head_dim=64, d_ff=512,
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 11), generator=g)
+    extras = ({"encoder_embeds": torch.randn(2, 40, 256, generator=g)}
+              if arch == "whisper-base" else
+              {"vision_embeds": torch.randn(2, cfg.frontend_tokens, 256,
+                                            generator=g)})
+    cpu, cpu_logits = _greedy(model, params, tokens, extras, "cpu")
+    card, card_logits = _greedy(model, params, tokens, extras, "cuda")
+    assert torch.equal(card, cpu)
+    for a, b in zip(card_logits, cpu_logits):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_repeated_null_page_targets_on_card_match_cpu(cuda, kv_dtype):
+    """Dead slots' speculative rows all in the null page, at rows that
+    overlap: the card's pools end as the CPU's (every row written in
+    index order), on every one of 10 repeats."""
+    from repro_torch.sharding.kernel_sharding import (pool_write,
+                                                      requant_page_write)
+    b, k1, h, d, p, ps = 64, 5, 8, 192, 4, 16
+    g = torch.Generator().manual_seed(5)
+    base = torch.randint(0, 1024, (b,), generator=g)
+    pos = base[:, None] + torch.arange(k1)[None, :]
+    page, off = torch.zeros_like(pos), pos % ps
+    rows = torch.randn(h, b, k1, d, generator=g).bfloat16()
+    if kv_dtype is None:
+        pool = torch.randn(h, p, ps, d, generator=g).bfloat16()
+        want = pool.clone()
+        pool_write(page, off, (want, rows))
+        for _ in range(10):
+            got = pool.to(cuda)
+            pool_write(page.to(cuda), off.to(cuda), (got, rows.to(cuda)))
+            assert torch.equal(got.cpu(), want)
+        return
+    pool = torch.zeros((h, p, ps, d), dtype=torch.int8)
+    want = (pool.clone(), torch.ones((h, p)))
+    requant_page_write(*want, rows[:, :, 0].transpose(0, 1).float(),
+                       page[:, 0], off[:, 0])
+    for _ in range(10):
+        got = (pool.to(cuda), torch.ones((h, p), device=cuda))
+        requant_page_write(*got, rows[:, :, 0].transpose(0, 1).float().to(
+            cuda), page[:, 0].to(cuda), off[:, 0].to(cuda))
+        for a, w in zip(got, want):
+            assert torch.equal(a.cpu(), w)

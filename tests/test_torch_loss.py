@@ -123,11 +123,31 @@ def test_moe_aux_losses_match_reference(t, e, k):
 
 
 def test_loss_refuses_the_vision_splice_and_the_encoder():
-    _, _, pmodel, pparams = _pair("granite-8b")
-    batch = {k: torch.from_numpy(v).long() for k, v in _batch(256).items()}
-    for extra in ("vision_embeds", "encoder_embeds"):
-        with pytest.raises(NotImplementedError, match=extra):
-            pmodel.loss(pparams, dict(batch, **{extra: torch.zeros(2, 4, 64)}))
-    with pytest.raises(NotImplementedError):
+    """granite takes neither stub input: with ``vision_embeds`` or
+    ``encoder_embeds`` in its batch, the loss and every metric are the
+    reference's, which ignores them (no splice, no label mask, no
+    encoder); a frontend with no stub is refused by name."""
+    model, params, pmodel, pparams = _pair("granite-8b")
+    batch = _batch(256)
+    extra = np.random.default_rng(7).standard_normal((2, 4, 64)).astype(
+        np.float32)
+    with ctx.target("generic"):
+        want, _ = model.loss(params, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+    pbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    plain, _ = pmodel.loss(pparams, pbatch)
+    for name in ("vision_embeds", "encoder_embeds"):
+        with ctx.target("generic"):
+            jloss, jmetrics = model.loss(params, dict(
+                {k: jnp.asarray(v) for k, v in batch.items()},
+                **{name: jnp.asarray(extra)}))
+        ploss, pmetrics = pmodel.loss(pparams, dict(
+            pbatch, **{name: torch.from_numpy(extra)}))
+        assert float(jloss) == float(want)
+        assert torch.equal(ploss, plain), name
+        for m in METRICS:
+            np.testing.assert_allclose(float(pmetrics[m]),
+                                       float(jmetrics[m]), **TOL)
+    with pytest.raises(NotImplementedError, match="'video'"):
         PT.check_supported(dataclasses.replace(
-            port_smoke_config("granite-8b"), frontend="vision"))
+            port_smoke_config("granite-8b"), frontend="video"))

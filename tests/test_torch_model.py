@@ -76,30 +76,35 @@ def _prefill_both(dtype, toks):
 
 def test_config_matches_reference():
     """The port's config copy keeps every field of the reference's (the
-    MoE and MLA sub-configs field by field), at full and smoke size."""
-    ds = "deepseek-v2-lite-16b"
+    MoE and MLA sub-configs field by field), at full and smoke size;
+    whisper-base's too (its encoder, audio frontend and ungated GELU)."""
+    ds, wb = "deepseek-v2-lite-16b", "whisper-base"
     for want, got in ((get_config("granite-8b"),
                        port_configs.get_config("granite-8b")),
                       (smoke_config("granite-8b", num_layers=2),
                        port_smoke_config("granite-8b", num_layers=2)),
                       (get_config(ds), port_configs.get_config(ds)),
-                      (smoke_config(ds), port_smoke_config(ds))):
+                      (smoke_config(ds), port_smoke_config(ds)),
+                      (get_config(wb), port_configs.get_config(wb)),
+                      (smoke_config(wb), port_smoke_config(wb))):
         for f in dataclasses.fields(got):
             a, b = getattr(got, f.name), getattr(want, f.name)
             if dataclasses.is_dataclass(a):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_configs.get_config("whisper-base")
+    whisper = port_configs.get_config(wb)
+    assert whisper.encoder_layers == 6 and whisper.frontend == "audio"
+    assert whisper.mlp_activation == "gelu_ungated"
+    assert port_smoke_config(wb).encoder_layers == 2
     with pytest.raises(KeyError):
         port_configs.get_config("no-such-arch")
 
 
 def test_unported_layer_kinds_raise():
     cfg = port_smoke_config("granite-8b", num_layers=2)
-    for change in (dict(encoder_layers=2), dict(frontend="vision"),
+    for change in (dict(encoder_layers=-1), dict(frontend="video"),
                    dict(layer_pattern=("mlstm", "global")),
-                   dict(mlp_activation="gelu_ungated"),
+                   dict(mlp_activation="relu"),
                    dict(dtype="float16")):
         with pytest.raises(NotImplementedError):
             port_build_model(dataclasses.replace(cfg, **change))

@@ -34,7 +34,8 @@ from repro_torch.models import attention as attn
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve import paging
 from repro_torch.sharding.kernel_sharding import (
-    quant_spec_paged_decode_update_attend, spec_paged_decode_update_attend)
+    pool_write, quant_spec_paged_decode_update_attend, requant_page_write,
+    spec_paged_decode_update_attend)
 
 _JAX_DTYPE = {"int8": jnp.int8, "fp8_e4m3": jnp.float8_e4m3fn}
 
@@ -288,6 +289,46 @@ def test_quant_spec_window_write_matches_reference(kv_dtype):
     _close((out,), (j_out,), dec_ops.TOL)
     # slot 0 writes rows 6..10: page 5 holds rows 8..10, stale after 10
     assert not _bytes(t[3][:, 5, 3:]).any()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_repeated_null_page_targets_keep_the_last_row(kv_dtype):
+    """Dead slots' rows (stale lengths over all-null tables) land in the
+    null page at overlapping rows: the pool ends as a write of every row
+    in index order leaves it, whatever order the device writes in."""
+    b, k1, h, d, p, ps = 4, 5, 2, 16, 3, 8
+    base = torch.tensor([3, 6, 5, 9])
+    pos = base[:, None] + torch.arange(k1)[None, :]
+    page = torch.where(torch.tensor([True, False, False, True])[:, None],
+                       torch.zeros_like(pos), torch.full_like(pos, 2))
+    off = pos % ps
+    rows = torch.from_numpy(_rand((h, b, k1, d), 11))
+    if kv_dtype is None:
+        got = torch.from_numpy(_rand((h, p, ps, d), 12))
+        want = got.clone()
+        pool_write(page, off, (got, rows))
+        for i in range(b):
+            for j in range(k1):
+                want[:, page[i, j], off[i, j]] = rows[:, i, j]
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        return
+    pool = torch.zeros((h, p, ps, d), dtype=torch.int8)
+    got = (pool, torch.ones((h, p)))
+    want = (pool.clone(), torch.ones((h, p)))
+    for j in range(k1):
+        requant_page_write(*got, rows[:, :, j].transpose(0, 1), page[:, j],
+                           off[:, j])
+        # each slot re-quantizes its page as the write found it; the
+        # pages are stored in slot order
+        snap = [t.clone() for t in want]
+        for i in range(b):
+            one = [t.clone() for t in snap]
+            requant_page_write(*one, rows[:, i:i + 1, j].transpose(0, 1),
+                               page[i:i + 1, j], off[i:i + 1, j])
+            for w, o in zip(want, one):
+                w[:, page[i, j]] = o[:, page[i, j]]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 # -------------------------------------------------------------- engines ----

@@ -425,15 +425,19 @@ def test_convert_reads_the_gemma2_tree(num_layers):
 
 
 def test_check_supported_admits_gemma2_and_names_what_is_left():
-    """gemma2 with gemma3's qk-norm and local RoPE base is admitted;
-    what is left to port (encoders, frontends) is refused by name."""
+    """gemma2 with gemma3's qk-norm and local RoPE base is admitted, and
+    so are an encoder and the vision and audio frontends (whisper's and
+    internvl2's fields); a frontend the reference has no stub for is
+    refused by name."""
     cfg = port_smoke_config("gemma2-2b")
     PT.check_supported(cfg)
     PT.check_supported(dataclasses.replace(cfg, use_qk_norm=True,
                                            rope_theta_local=1e4))
-    for change in (dict(encoder_layers=2), dict(frontend="vision")):
-        with pytest.raises(NotImplementedError, match="encoders"):
-            PT.check_supported(dataclasses.replace(cfg, **change))
+    for change in (dict(encoder_layers=2), dict(frontend="vision"),
+                   dict(frontend="audio")):
+        PT.check_supported(dataclasses.replace(cfg, **change))
+    with pytest.raises(NotImplementedError, match="'video'"):
+        PT.check_supported(dataclasses.replace(cfg, frontend="video"))
 
 
 CACHE_LEN, PAGE = 40, 4

@@ -289,8 +289,7 @@ def test_check_supported_takes_xlstm_and_refuses_what_is_left():
     cfg = port_smoke_config(ARCH)
     PT.check_supported(cfg)
     for change in (dict(xlstm=None),
-                   dict(layer_pattern=("mlstm", "global")),
-                   dict(frontend="vision")):
+                   dict(layer_pattern=("mlstm", "global"))):
         with pytest.raises(NotImplementedError):
             PT.check_supported(dataclasses.replace(cfg, **change))
 
